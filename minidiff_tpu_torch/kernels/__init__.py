@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version.  A wrapper given a CPU tensor runs the plain version; given
+a CUDA tensor it launches its kernel or raises.  The kernels are built from
+``csrc/`` with nvcc at first launch (see ``_build``)."""
+
+from __future__ import annotations
+
+from minidiff_tpu_torch.kernels import attention, layernorm
+
+__all__ = ["attention", "launch_counts", "layernorm", "reset_launch_counts"]
+
+_COUNTERS = (layernorm.LAUNCHES, attention.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    out = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for name in c:
+            c[name] = 0
