@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -9,8 +9,9 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
 
 1. device: the card's name and power limit; TF32 off for f32 products;
 2. kernels: each hand-written kernel against its plain PyTorch version at
-   the serving path's shapes, in bf16 and f32, with times for the kernel,
-   the plain version and the library call, and the card's lower bound;
+   the serving and train paths' shapes, in bf16 and f32, with times for the
+   kernel, the plain version and the library call, and the card's lower
+   bound;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -18,8 +19,15 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    ``generate_compiled`` decode token for token, and the f32 logits of the
    kernel path must match the plain path run on the CPU; then bf16
    throughput and agreement;
-5. the kernels line: every kernel must have launched on the path (counts
-   are reset just before phases 3 and 4 and read just after each).
+5. the train step at full width (V512 d1024 h8 L4, S 1024, batch 8, bf16,
+   ``make_train_step(model, SGD(1e-3), lm_loss)`` on the identity task, as
+   the JAX repo's ``bench.py`` headline): finite losses, ms/step, tokens/s,
+   model TFLOP/s, the launches per step of every kernel, one profiled step;
+   then the f32 gradient gate: loss and every parameter's gradient of the
+   kernel path on the card against the plain path on the CPU (batch 1 x
+   256 tokens);
+6. the kernels line: every kernel must have launched on its paths (counts
+   are reset just before phases 3, 4 and 5 and read just after each).
 
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -65,9 +73,48 @@ REQUESTS = [(16, 64), (130, 48), (300, 32), (16, 96), (200, 40), (40, 80),
 #   against the running max, the plain version the normalised ones against
 #   the global max, then both round o: up to ~2 ulp (2^-6 relative).
 #  lse is f32 on both sides: 1e-4 absolute on values of order 1-10.
+#  LN dg/db: f32 sums over up to 8192 rows in another order (~1e-5 relative
+#   of values up to ~100), then one rounding to bf16.
+#  add+LN dx rounds twice in bf16: a one-ulp difference of dx_ln before g0
+#   is added stays absolute: 2^-6 on values of order 1.
+#  xent: f32 row statistics in another order; the loss (order 1-10) is f32,
+#   dz (order 1/V) rounds once to the logits' dtype.
+#  flash backward: P and dS round to bf16 at the same points on both sides;
+#   a score summed in another order can flip one of those roundings, and
+#   the products then sum up to S of them: 2^-6 of the output's largest
+#   value (atol is scaled by max |plain|), 2^-6 relative.  f32: 1e-4
+#   relative, 1e-5 of the largest value.
 TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
+       ("lnsum", "float32"): (1e-4, 1e-3), ("lnsum", "bfloat16"): (2 ** -7, 1e-2),
+       ("addln_dx", "float32"): (1e-5, 1e-5),
+       ("addln_dx", "bfloat16"): (2 ** -7, 2 ** -6),
        ("attn", "float32"): (1e-5, 1e-5), ("attn", "bfloat16"): (2 ** -6, 2 ** -7),
-       ("lse", "float32"): (0.0, 1e-4), ("lse", "bfloat16"): (0.0, 1e-4)}
+       ("lse", "float32"): (0.0, 1e-4), ("lse", "bfloat16"): (0.0, 1e-4),
+       ("xent_loss", "float32"): (1e-5, 1e-4), ("xent_loss", "bfloat16"): (1e-5, 1e-4),
+       ("xent_dz", "float32"): (1e-5, 1e-7), ("xent_dz", "bfloat16"): (2 ** -7, 1e-6),
+       ("attn_bwd", "float32"): (1e-4, 1e-5), ("attn_bwd", "bfloat16"): (2 ** -6, 2 ** -6)}
+# the kinds whose atol is a share of the plain output's largest magnitude
+SCALED = {"attn_bwd"}
+
+# the full-width train step: the JAX repo's headline (bench.py:636-661,
+# TransformerLM V512 d1024 h8 L4, S 1024, batch 8, bf16, SGD(1e-3), lm_loss
+# on the identity task); the f32 gradient gate runs one 256-token sequence
+TRAIN_MODEL = dict(vocab_size=512, dim=1024, num_heads=8, num_layers=4,
+                   max_seq_len=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 8, 1024, 2, 10
+GATE_SEQ = 256
+# launches per train step: ln1 x4 + ln_f, ln2 (add+LN) x4, attention x4, the
+# loss once; each backward once per forward
+TRAIN_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4, "flash_fwd": 4, "xent_fwd": 1,
+                  "ln_bwd": 5, "addln_bwd": 4, "flash_bwd_dkv": 4,
+                  "flash_bwd_dq": 4, "xent_bwd": 1}
+# the device symbols of the port's kernels, as the profiler names them
+PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
+                  "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                  "xent_fwd_kernel", "xent_bwd_kernel")
+# the kernels that only the train path runs
+TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+              "xent_fwd", "xent_bwd"}
 
 
 class SmokeFailure(RuntimeError):
@@ -115,17 +162,21 @@ def main() -> int:
     kernels = phase_kernels(torch, report)
     phase_generate(torch, args.seed, report)
     phase_server(torch, args.seed, report)
+    phase_train(torch, args.seed, report)
 
     from minidiff_tpu_torch import kernels as K
 
     for k in kernels:
         gen = report["launches_generate"][k["name"]]
         srv = report["launches_server"][k["name"]]
-        k["launches"] = gen + srv
+        train = report["launches_train"][k["name"]]
+        k["launches"] = gen + srv + train
         k["launches_generate"], k["launches_server"] = gen, srv
-        check(gen > 0 and srv > 0,
-              f"kernel {k['name']} did not launch on the main path "
-              f"(generate {gen}, server {srv})")
+        k["launches_train"] = train
+        serving = k["name"] not in TRAIN_ONLY
+        check(train > 0 and (not serving or (gen > 0 and srv > 0)),
+              f"kernel {k['name']} did not launch on its paths "
+              f"(generate {gen}, server {srv}, train {train})")
     check(set(K.launch_counts()) == {k["name"] for k in kernels},
           "the kernels line must list every ported kernel")
     report["kernels"] = kernels
@@ -137,7 +188,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-        "launches_generate", "launches_server")} for k in kernels]}))
+        "launches_generate", "launches_server", "launches_train")}
+        for k in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -175,6 +227,8 @@ def device_ms(torch, fn, iters: int = 50) -> float:
 def max_err(torch, out, ref, kind, dtype_name):
     rtol, atol = TOL[(kind, dtype_name)]
     out, ref = out.float(), ref.float()
+    if kind in SCALED:
+        atol *= ref.abs().max().item()
     err = (out - ref).abs()
     check(bool(torch.isfinite(out).all()), f"{kind}: non-finite output")
     check(bool((err <= atol + rtol * ref.abs()).all()),
@@ -183,34 +237,108 @@ def max_err(torch, out, ref, kind, dtype_name):
     return err.max().item()
 
 
-def phase_kernels(torch, report):
-    import torch.nn.functional as TF
+def ptxas_report(text: str) -> list:
+    """One line for each kernel in nvcc's ``-Xptxas -v`` output: its name
+    (demangled where c++filt exists), registers, and spills if any."""
+    try:
+        text = subprocess.run(["c++filt"], input=text, capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        pass  # the mangled names name the instantiations too
+    lines, name, spills = [], None, ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+            name, spills = name.removeprefix("void "), ""
+        elif "spill" in line and not line.strip().startswith("0 bytes"):
+            spills = "; " + line.strip()
+        elif "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}{spills}")
+            name = None
+    return lines
 
+
+def phase_kernels(torch, report):
     from minidiff_tpu_torch.kernels import _build
-    from minidiff_tpu_torch.kernels import attention as A
-    from minidiff_tpu_torch.kernels import layernorm as L
 
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            spills = "spill" in line and not line.strip().startswith("0 bytes")
-            if "registers" in line or spills:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(_build.build_log(name)):
+            log(f"[build] {name}: {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    cases = []
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    cases = (norm_cases(torch, randn) + flash_cases(torch, randn)
+             + xent_cases(torch, gen, randn))
+    torch.cuda.synchronize()
+    for c in cases:
+        lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
+        log(f"[kernel] {c['name']:13s} {c['dtype']:8s} {str(c['shape']):16s}"
+            f"{' causal' if c.get('causal') else '':7s}"
+            f"{' w' + str(c['window']) if c.get('window') else '':5s} "
+            f"err {c['max_abs_err']:.3g} "
+            f"| kernel {c['ms'] * 1e3:9.2f} us | plain {c['plain_ms'] * 1e3:9.2f} us "
+            f"| library {lib} us | bound {c['bound_ms'] * 1e3:7.2f} us "
+            f"({c['bound_by']})")
+    report["kernel_cases"] = cases
+
+    # the kernels line reports the serving kernels at the shape the bf16
+    # serving path gives them most often (the norms at a decode step's 8
+    # rows, flash at generate_compiled's prefill of 8 sequences x 8 heads of
+    # 16 tokens) and the train path's kernels at the train step's shapes
+    d, rows = TRAIN_MODEL["dim"], TRAIN_BATCH * TRAIN_SEQ
+    bhs = [TRAIN_BATCH * TRAIN_MODEL["num_heads"], TRAIN_SEQ, 128]
+    ln_src = "minidiff_tpu_torch/kernels/csrc/layernorm.cu"
+    meta = {
+        "ln_fwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:84", [8, d]),
+        "addln_fwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:123", [8, d]),
+        "flash_fwd": ("minidiff_tpu_torch/kernels/csrc/flash_fwd.cu",
+                      "minidiff_tpu/kernels/attention.py:171", [64, 16, 128]),
+        "ln_bwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:181", [rows, d]),
+        "addln_bwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:149", [rows, d]),
+        "flash_bwd_dkv": ("minidiff_tpu_torch/kernels/csrc/flash_bwd.cu",
+                          "minidiff_tpu/kernels/attention.py:339", bhs),
+        "flash_bwd_dq": ("minidiff_tpu_torch/kernels/csrc/flash_bwd.cu",
+                         "minidiff_tpu/kernels/attention.py:390", bhs),
+        "xent_fwd": ("minidiff_tpu_torch/kernels/csrc/xent.cu",
+                     "minidiff_tpu/kernels/xent.py:64",
+                     [rows, TRAIN_MODEL["vocab_size"]]),
+        "xent_bwd": ("minidiff_tpu_torch/kernels/csrc/xent.cu",
+                     "minidiff_tpu/kernels/xent.py:74",
+                     [rows, TRAIN_MODEL["vocab_size"]]),
+    }
+    line = []
+    for name, (src, replaces, shape) in meta.items():
+        c = next(c for c in cases if c["name"] == name and c["dtype"] == "bfloat16"
+                 and c["shape"] == shape and not c.get("window")
+                 and c.get("causal", True))
+        line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                         shape=shape, **{key: c[key] for key in (
+                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}))
+    return line
+
+
+def norm_cases(torch, randn):
+    """ln_fwd / addln_fwd and ln_bwd / addln_bwd at the decode step's 8 rows,
+    prefill-sized rows and the train step's 8192 rows of d = 1024."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    cases = []
     d = MODEL["dim"]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
-        for rows in (8, 128, 1024):
+        for rows in (8, 128, 1024, TRAIN_BATCH * TRAIN_SEQ):
             x = randn(rows, d, dtype=dtype) * 3 + 1
             a = randn(rows, d, dtype=dtype)
             g = 1 + 0.1 * randn(d, dtype=dtype)
@@ -235,27 +363,81 @@ def phase_kernels(torch, report):
                 plain_ms=device_ms(torch, lambda: L._plain_add_layernorm(x, a, g, b)),
                 library_ms=None,
                 **bound((4 * rows * d + 2 * d) * size, flops_ln + rows * d, dn)))
-        # the path's prefill shapes, one full (non-causal) case, and one
-        # sliding-window case that sdpa's window option reaches
-        for bh, s, causal, window in ((64, 16, True, None), (8, 128, True, None),
-                                      (8, 384, True, None), (8, 384, False, None),
-                                      (8, 384, True, 100)):
-            q, k, v = (randn(bh, s, 128, dtype=dtype) for _ in range(3))
-            scale = 128 ** -0.5
-            o, lse = A.flash_fwd(q, k, v, scale, causal, window)
+            if rows == 128:
+                continue  # the backward runs at the train step's and two others
+            dy = randn(rows, d, dtype=dtype)
+            g0 = randn(rows, d, dtype=dtype)
+            # about 12 operations per element: statistics, xhat, w, the two
+            # row sums, dx, and the dg/db sums
+            flops_bwd = 12 * rows * d
+            got, ref = L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy)
+            err = max(max_err(torch, got[0], ref[0], "ln", dn),
+                      max_err(torch, got[1], ref[1], "lnsum", dn),
+                      max_err(torch, got[2], ref[2], "lnsum", dn))
+            mean, rstd = (t for t in torch.ops.aten.native_layer_norm(
+                x, (d,), g, b, 1e-5)[1:])
+            cases.append(dict(
+                name="ln_bwd", dtype=dn, shape=[rows, d], max_abs_err=err,
+                ms=device_ms(torch, lambda: L.ln_grads(x, g, dy)),
+                plain_ms=device_ms(torch, lambda: L._plain_ln_grads(x, g, dy)),
+                library_ms=device_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, (d,), mean, rstd, g, b, [True, True, True])),
+                **bound((3 * rows * d + 3 * d) * size, flops_bwd, dn)))
+            # against dx_ln + g0 with the same two roundings
+            got = L.addln_grads(x, g, dy, g0)
+            ref = L._plain_addln_grads(x, g, dy, g0)
+            err = max(max_err(torch, got[0], ref[0], "addln_dx", dn),
+                      max_err(torch, got[1], ref[1], "lnsum", dn),
+                      max_err(torch, got[2], ref[2], "lnsum", dn))
+            cases.append(dict(
+                name="addln_bwd", dtype=dn, shape=[rows, d], max_abs_err=err,
+                ms=device_ms(torch, lambda: L.addln_grads(x, g, dy, g0)),
+                plain_ms=device_ms(torch, lambda: L._plain_addln_grads(x, g, dy, g0)),
+                library_ms=None,
+                **bound((4 * rows * d + 3 * d) * size, flops_bwd + rows * d, dn)))
+    return cases
+
+
+def flash_cases(torch, randn):
+    """flash_fwd at the serving path's prefill shapes and the train step's
+    (64, 1024, 128); flash_bwd_dkv / flash_bwd_dq at the train step's shape
+    and smaller ones, full, causal and windowed."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import attention as A
+
+    cases = []
+    scale = 128 ** -0.5
+    bh_train = TRAIN_BATCH * TRAIN_MODEL["num_heads"]
+    fwd = [(torch.bfloat16, 64, 16, True, None), (torch.bfloat16, 8, 128, True, None),
+           (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
+           (torch.bfloat16, 8, 384, True, 100),
+           (torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
+           (torch.float32, 64, 16, True, None), (torch.float32, 8, 384, True, None),
+           (torch.float32, 8, 384, True, 100)]
+    bwd = [(torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
+           (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
+           (torch.bfloat16, 8, 384, True, 100), (torch.float32, 8, 256, True, None)]
+    for kind, (dtype, bh, s, causal, window) in (
+            [("fwd", c) for c in fwd] + [("bwd", c) for c in bwd]):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        q, k, v = (randn(bh, s, 128, dtype=dtype) for _ in range(3))
+        q4, k4, v4 = (t.reshape(1, bh, s, 128) for t in (q, k, v))
+        # visible (query, key) pairs: the work this run's mask leaves
+        pairs = (int(A._keep_mask(s, s, window, "cpu").sum()) if causal
+                 else s * s)
+        shape = dict(dtype=dn, shape=[bh, s, 128], causal=causal, window=window)
+        o, lse = A.flash_fwd(q, k, v, scale, causal, window)
+        if kind == "fwd":
             op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
             err = max(max_err(torch, o, op, "attn", dn),
                       max_err(torch, lse, lp, "lse", dn))
-            q4, k4, v4 = (t.reshape(1, bh, s, 128) for t in (q, k, v))
-            # visible (query, key) pairs: the work this run's mask leaves
-            pairs = (int(A._keep_mask(s, s, window, "cpu").sum()) if causal
-                     else s * s)
             library = None if window is not None else device_ms(
                 torch, lambda: TF.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal))
             cases.append(dict(
-                name="flash_fwd", dtype=dn, shape=[bh, s, 128], causal=causal,
-                window=window, max_abs_err=err,
+                name="flash_fwd", max_abs_err=err, **shape,
                 ms=device_ms(torch, lambda: A.flash_fwd(q, k, v, scale, causal,
                                                         window)),
                 plain_ms=device_ms(torch, lambda: A._plain_flash_fwd(
@@ -263,38 +445,80 @@ def phase_kernels(torch, report):
                 library_ms=library,
                 **bound((4 * bh * s * 128) * size + bh * s * 4,
                         4 * bh * pairs * 128, dn)))
-    torch.cuda.synchronize()
-    for c in cases:
-        lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
-        log(f"[kernel] {c['name']:9s} {c['dtype']:8s} {str(c['shape']):15s}"
-            f"{' causal' if c.get('causal') else '':7s}"
-            f"{' w' + str(c['window']) if c.get('window') else '':5s} "
-            f"err {c['max_abs_err']:.3g} "
-            f"| kernel {c['ms'] * 1e3:8.2f} us | plain {c['plain_ms'] * 1e3:8.2f} us "
-            f"| library {lib} us | bound {c['bound_ms'] * 1e3:6.2f} us "
-            f"({c['bound_by']})")
-    report["kernel_cases"] = cases
+            continue
+        do = randn(bh, s, 128, dtype=dtype)
+        ops, dims, flags = A._bwd_operands(q, k, v, o, lse, do, window, causal)
+        dk, dv = A.flash_bwd_dkv(ops, dims, scale, flags)
+        dq = A.flash_bwd_dq(ops, dims, scale, flags)
+        pq, pk, pv = A._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window)
+        plain_ms = device_ms(torch, lambda: A._plain_flash_bwd(
+            q, k, v, o, lse, do, scale, causal, window), iters=10)
+        library = None
+        if window is None:
+            # autograd of SDPA, the backward only: dq, dk and dv in one call
+            ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
+            ol = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            do4 = do.reshape(1, bh, s, 128)
+            library = device_ms(torch, lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), do4, retain_graph=True), iters=10)
+        io = bh * s * 128 * size
+        stats = 2 * bh * s * 4  # lse and delta, f32
+        cases.append(dict(
+            name="flash_bwd_dkv", **shape,
+            max_abs_err=max(max_err(torch, dk, pk, "attn_bwd", dn),
+                            max_err(torch, dv, pv, "attn_bwd", dn)),
+            ms=device_ms(torch, lambda: A.flash_bwd_dkv(ops, dims, scale, flags)),
+            plain_ms=plain_ms, library_ms=library,
+            # S^T, dP^T, P^T dO, dS^T Q over the visible pairs
+            **bound(6 * io + stats, 8 * bh * pairs * 128, dn)))
+        cases.append(dict(
+            name="flash_bwd_dq", **shape,
+            max_abs_err=max_err(torch, dq, pq, "attn_bwd", dn),
+            ms=device_ms(torch, lambda: A.flash_bwd_dq(ops, dims, scale, flags)),
+            plain_ms=plain_ms, library_ms=library,
+            # S, dP, dS K
+            **bound(5 * io + stats, 6 * bh * pairs * 128, dn)))
+    return cases
 
-    # the kernels line reports each kernel at the shape the bf16 serving path
-    # gives it most often: the norms at a decode step's 8 rows, flash at
-    # generate_compiled's prefill (8 sequences x 8 heads of 16 tokens)
-    meta = {
-        "ln_fwd": ("minidiff_tpu_torch/kernels/csrc/layernorm.cu",
-                   "minidiff_tpu/kernels/layernorm.py:84", [8, d]),
-        "addln_fwd": ("minidiff_tpu_torch/kernels/csrc/layernorm.cu",
-                      "minidiff_tpu/kernels/layernorm.py:123", [8, d]),
-        "flash_fwd": ("minidiff_tpu_torch/kernels/csrc/flash_fwd.cu",
-                      "minidiff_tpu/kernels/attention.py:171", [64, 16, 128]),
-    }
-    line = []
-    for name, (src, replaces, shape) in meta.items():
-        c = next(c for c in cases if c["name"] == name and c["dtype"] == "bfloat16"
-                 and c["shape"] == shape and not c.get("window"))
-        line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         shape=shape, **{key: c[key] for key in (
-                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms")}))
-    return line
+
+def xent_cases(torch, gen, randn):
+    """xent_fwd / xent_bwd at the train step's (8192, 512) and (1024, 512)."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import xent as X
+
+    cases = []
+    v = TRAIN_MODEL["vocab_size"]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        for rows in (TRAIN_BATCH * TRAIN_SEQ, 1024):
+            z = randn(rows, v, dtype=dtype) * 3
+            lab = torch.randint(0, v, (rows,), generator=gen, device=DEVICE)
+            g = randn(rows, dtype=torch.float32)
+            zl = z.clone().requires_grad_()
+            loss_lib = TF.cross_entropy(zl, lab, reduction="none")
+            cases.append(dict(
+                name="xent_fwd", dtype=dn, shape=[rows, v],
+                max_abs_err=max_err(torch, X.xent_fwd(z, lab),
+                                    X._plain_xent(z, lab), "xent_loss", dn),
+                ms=device_ms(torch, lambda: X.xent_fwd(z, lab)),
+                plain_ms=device_ms(torch, lambda: X._plain_xent(z, lab)),
+                library_ms=device_ms(torch, lambda: TF.cross_entropy(
+                    z, lab, reduction="none")),
+                # max, subtract, exp, add per element
+                **bound(rows * v * size + rows * (8 + 4), 4 * rows * v, dn)))
+            cases.append(dict(
+                name="xent_bwd", dtype=dn, shape=[rows, v],
+                max_abs_err=max_err(torch, X.xent_grad(z, lab, g),
+                                    X._plain_xent_grad(z, lab, g), "xent_dz", dn),
+                ms=device_ms(torch, lambda: X.xent_grad(z, lab, g)),
+                plain_ms=device_ms(torch, lambda: X._plain_xent_grad(z, lab, g)),
+                library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                    loss_lib, zl, g.to(loss_lib.dtype), retain_graph=True)),
+                # the statistics again, then p, the one-hot and the scale
+                **bound(2 * rows * v * size + rows * (8 + 4), 8 * rows * v, dn)))
+    return cases
 
 
 def bound(nbytes: int, flops: int, dtype_name: str) -> dict:
@@ -336,36 +560,58 @@ def phase_generate(torch, seed: int, report):
         f"L{MODEL['num_layers']} batch {BATCH} prompt {PROMPT} new {NEW}: "
         f"{dt:.3f} s, {tok_s:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step | "
         f"launches {report['launches_generate']}")
-    report["generate_profile"] = profile_generate(
-        torch, lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+    report["generate_profile"] = profile_run(
+        torch, "generate_compiled 32 new tokens",
+        lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
 
-def profile_generate(torch, run):
-    """Device-busy share and device time by kernel over one decode run,
-    from torch.profiler (kernels on one stream never overlap, so the sum of
-    their device times is the busy time)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_run(torch, label, run):
+    """Device-busy share and device time by kernel over one run, from
+    torch.profiler (kernels on one stream never overlap, so the sum of their
+    device times is the busy time).  A first run warms the tracer up and is
+    discarded: a window that opens cold loses the device events of its
+    first milliseconds."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
     # device-side kernel events only: operator events carry their kernels'
-    # time too, and counting both would count it twice
+    # time too, and counting both would count it twice; the schedule's step
+    # annotation spans the whole window and is no kernel
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     busy_us = sum(r[1] for r in rows)
+    calls = sum(r[2] for r in rows)
+    by_kind: dict = {}
+    for k, t, _ in rows:
+        kind = ("ported kernels" if any(n in k for n in PORTED_SYMBOLS)
+                else "cuBLAS" if k.startswith("nvjet") or "gemm" in k.lower()
+                else "other PyTorch kernels and copies")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t
     rows.sort(key=lambda r: -r[1])
-    top = [dict(kernel=k[:90], device_us=t, calls=n) for k, t, n in rows[:10]]
-    log(f"[profile] generate_compiled 32 new tokens: wall {wall_us / 1e3:.2f} ms, "
-        f"device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%})"
+    top = [dict(kernel=k[:90], device_us=t, calls=n) for k, t, n in rows[:12]]
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}) in "
+        f"{calls} device calls"
         + ("" if rows else " -- the profiler saw no device time"))
+    log("[profile]   by kind: " + ", ".join(
+        f"{kind} {t / 1e3:.2f} ms" for kind, t in sorted(by_kind.items())))
     for r in top:
         log(f"[profile]   {r['device_us']:9.1f} us {r['calls']:5d} calls  {r['kernel']}")
-    return dict(wall_us=wall_us, device_busy_us=busy_us, top=top)
+    return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
+                device_us_by_kind=by_kind, top=top)
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +705,94 @@ def phase_server(torch, seed: int, report):
     log(f"[server] bf16: {n_tokens} tokens in {dt16:.3f} s "
         f"({n_tokens / dt16:.0f} tok/s); agreement with solo decode "
         f"{same}/{n_tokens} = {same / n_tokens:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the train step at full width, and the f32 gradient gate
+# ---------------------------------------------------------------------------
+
+
+def phase_train(torch, seed: int, report):
+    import numpy as np
+
+    from minidiff_tpu_torch import SGD, TransformerLM, lm_loss, make_train_step
+    from minidiff_tpu_torch import kernels as K
+
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
+                          **TRAIN_MODEL)
+    toks = torch.from_numpy(np.random.RandomState(seed + 3).randint(
+        0, TRAIN_MODEL["vocab_size"], size=(TRAIN_BATCH, TRAIN_SEQ))).to(DEVICE)
+    step = make_train_step(model, SGD(1e-3), loss_fn=lm_loss, device=DEVICE)
+    losses = [step(toks, toks) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses += [step(toks, toks) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = K.launch_counts()
+    report["launches_train"] = counts
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    per_step = {k: n / TRAIN_STEPS for k, n in counts.items()}
+    check(per_step == TRAIN_LAUNCHES,
+          f"launches per train step {per_step}, expected {TRAIN_LAUNCHES}")
+
+    # bench.py:683-690: 6*P*T for the parameters' products, forward and
+    # backward, plus 3.5 x the causal attention forward's 4*b*h*s^2*hd / 2
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    hd = TRAIN_MODEL["dim"] // TRAIN_MODEL["num_heads"]
+    flops = (6 * n_params * tokens + 3.5 * 4 * TRAIN_BATCH * TRAIN_MODEL["num_heads"]
+             * TRAIN_SEQ * TRAIN_SEQ * hd / 2)
+    report["train"] = dict(
+        ms_per_step=dt * 1e3, tok_s=tokens / dt, model_tflop_s=flops / dt / 1e12,
+        n_params=n_params, flops_per_step=flops, losses=losses,
+        launches_per_step=per_step)
+    log(f"[train] bf16 V{TRAIN_MODEL['vocab_size']} d{TRAIN_MODEL['dim']} "
+        f"h{TRAIN_MODEL['num_heads']} L{TRAIN_MODEL['num_layers']} batch "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ}, SGD(1e-3), lm_loss: {dt * 1e3:.2f} ms/step "
+        f"over {TRAIN_STEPS} steps, {tokens / dt:.0f} tok/s, "
+        f"{flops / dt / 1e12:.1f} model TFLOP/s ({n_params / 1e6:.1f}M params)")
+    log(f"[train] losses (2 warm-up steps first): "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"[train] launches per step {per_step}")
+    report["train_profile"] = profile_run(
+        torch, "one train step", lambda: step(toks, toks))
+    del model, step
+
+    # f32 gradient gate: the kernel path on the card against the plain path
+    # on the CPU, the same weights (drawn from the seed on the CPU)
+    gpu = TransformerLM(dtype=torch.float32, device=DEVICE, seed=seed, **TRAIN_MODEL)
+    cpu = TransformerLM(dtype=torch.float32, device="cpu", seed=seed, **TRAIN_MODEL)
+    t = torch.from_numpy(np.random.RandomState(seed + 4).randint(
+        0, TRAIN_MODEL["vocab_size"], size=(1, GATE_SEQ)))
+    loss_gpu = lm_loss(gpu(t.to(DEVICE)), t.to(DEVICE))
+    loss_gpu.backward()
+    loss_cpu = lm_loss(cpu(t), t)
+    loss_cpu.backward()
+    loss_err = abs(loss_gpu.item() - loss_cpu.item())
+    # f32 through 4 layers forward and backward in other summation orders
+    # (cuBLAS without TF32 against the CPU): ~1e-6 relative, so 1e-4 holds
+    # it with margin; TF32 rounding (~1e-3) or a wrong kernel or a cut
+    # gradient (O(1) of the largest value) fails it
+    check(loss_err <= 1e-5 * abs(loss_cpu.item()),
+          f"f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        ref = cpu_params[name].grad
+        check(p.grad is not None and ref is not None, f"no gradient for {name}")
+        rel = ((p.grad.cpu() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"f32 gradient of {worst_name} GPU vs CPU: max |err| "
+          f"{worst:.3g} of its largest value")
+    report["train_gate"] = dict(loss_gpu=loss_gpu.item(), loss_cpu=loss_cpu.item(),
+                                worst_grad_rel_err=worst, worst_param=worst_name)
+    log(f"[train] f32 gate, batch 1 x {GATE_SEQ}: loss GPU {loss_gpu.item():.6f} "
+        f"CPU {loss_cpu.item():.6f}; every gradient within {worst:.3g} of its "
+        f"largest value (worst {worst_name})")
 
 
 if __name__ == "__main__":

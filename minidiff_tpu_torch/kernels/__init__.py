@@ -1,15 +1,18 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version.  A wrapper given a CPU tensor runs the plain version; given
-a CUDA tensor it launches its kernel or raises.  The kernels are built from
+a CUDA tensor it launches its kernel or raises.  Each op with a gradient is
+a ``torch.autograd.Function`` whose backward is a kernel too, with the same
+wiring on both devices.  The kernels are built from
 ``csrc/`` with nvcc at first launch (see ``_build``)."""
 
 from __future__ import annotations
 
-from minidiff_tpu_torch.kernels import attention, layernorm
+from minidiff_tpu_torch.kernels import attention, layernorm, xent
 
-__all__ = ["attention", "launch_counts", "layernorm", "reset_launch_counts"]
+__all__ = ["attention", "launch_counts", "layernorm", "reset_launch_counts",
+           "xent"]
 
-_COUNTERS = (layernorm.LAUNCHES, attention.LAUNCHES)
+_COUNTERS = (layernorm.LAUNCHES, attention.LAUNCHES, xent.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -6,9 +6,10 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source rebuilds
-and a stale library is never loaded.  ``build_all()`` starts one nvcc per
-source at once and waits for all of them.  The compiler's output (with
+The library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source rebuilds and a stale library is never
+loaded.  ``build_all()`` starts one nvcc per source at once and waits for
+all of them.  The compiler's output (with
 ptxas's register and shared-memory report) is kept beside each library as
 ``<name>-<hash>.log``.  Nothing here runs at import time.
 """
@@ -22,11 +23,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("layernorm", "flash_fwd")
+SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the dtypes the kernels take, as their C entries' `dtype` argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # C signatures: name -> (source, argtypes).  Every entry returns the
 # cudaError_t of its launch as an int.
@@ -35,8 +41,18 @@ SIGNATURES = {
     "ln_fwd": ("layernorm", (_P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "addln_fwd": ("layernorm", (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "max_row_width": ("layernorm", (_I,)),
+    "ln_bwd_blocks": ("layernorm", (_I, _I)),
+    "ln_bwd": ("layernorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "addln_bwd": ("layernorm",
+                  (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "flash_fwd": ("flash_fwd",
                   (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
+    "flash_bwd_dkv": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _F, _I, _I, _I, _P)),
+    "flash_bwd_dq": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _F, _I, _I, _I, _P)),
+    "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
+    "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}
@@ -62,6 +78,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -115,6 +133,23 @@ def _lib(source: str) -> ctypes.CDLL:
 def function(name: str):
     """The C entry ``name``, building and loading its library if needed."""
     return getattr(_lib(SIGNATURES[name][0]), name)
+
+
+def ptrs(*tensors) -> list:
+    """Each tensor's data pointer; the kernels take 16-byte aligned
+    operands and raise on anything else."""
+    out = []
+    for t in tensors:
+        p = t.data_ptr()
+        if p % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+        out.append(p)
+    return out
+
+
+def stream() -> int:
+    """The current CUDA stream, as the kernels' launch argument."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def check(err: int, name: str) -> None:

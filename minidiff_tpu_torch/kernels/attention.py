@@ -1,11 +1,13 @@
-"""Scaled dot-product attention: the flash-attention forward kernel.
+"""Scaled dot-product attention: the flash-attention forward and backward.
 
-Port of ``minidiff_tpu/kernels/attention.py`` (``sdpa`` and ``_flash_fwd``).
-``sdpa`` takes (B, H, S, D) operands.  A CUDA tensor goes to the
-hand-written kernel of ``csrc/flash_fwd.cu``, which returns ``o`` and the
-per-row logsumexp ``lse`` as ``_flash_fwd`` does (the backward of the next
-slice reads ``lse``).  A CPU tensor goes to ``_plain_sdpa``, the port of
-``_composed_sdpa``.  A CUDA tensor the kernel does not take raises: nothing
+Port of ``minidiff_tpu/kernels/attention.py`` (``sdpa``, ``_flash_fwd``,
+``_flash_bwd``).  ``sdpa`` takes (B, H, S, D) operands and is differentiable
+through ``SdpaFn``, which saves the forward's ``o`` and per-row logsumexp
+``lse`` for the backward, as the JAX custom VJP does.  A CUDA tensor goes to
+the hand-written kernels: ``csrc/flash_fwd.cu`` for the forward,
+``csrc/flash_bwd.cu`` (``flash_bwd_dkv``, then ``flash_bwd_dq``) for the
+backward.  A CPU tensor goes to the plain versions, ``_plain_flash_fwd`` and
+``_plain_flash_bwd``.  A CUDA tensor the kernels do not take raises: nothing
 falls back.
 
 Masked scores are -1e30, not -inf, in both versions, as on the TPU.
@@ -14,15 +16,15 @@ Masked scores are -1e30, not -inf, in both versions, as on the TPU.
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from minidiff_tpu_torch.kernels import _build
 
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 128
 
-# launches of the kernel since the last reset (kernels.reset_launch_counts)
-LAUNCHES = {"flash_fwd": 0}
+# launches of each kernel since the last reset (kernels.reset_launch_counts)
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 def _normalize_window(window, sq: int, sk: int, causal: bool):
@@ -60,19 +62,57 @@ def _masked_scores(q, k, scale: float, causal: bool, window):
     return s
 
 
-def _plain_sdpa(q, k, v, scale: float, causal: bool, window=None):
-    """Composed softmax attention: the port of ``_composed_sdpa``."""
-    s = _masked_scores(q, k, scale, causal, window)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("...qk,...kd->...qd", p, v)
-
-
 def _plain_flash_fwd(q, k, v, scale: float, causal: bool, window=None):
-    """(o, lse) of the flash forward, composed: the kernel's plain version."""
+    """(o, lse) of the flash forward, composed: the kernel's plain version.
+    lse is f32 (f64 for f64 inputs)."""
     s = _masked_scores(q, k, scale, causal, window)
-    lse = torch.logsumexp(s, dim=-1).to(torch.float32)
+    lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("...qk,...kd->...qd", p, v), lse
+
+
+def _plain_flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool,
+                     window=None):
+    """(dq, dk, dv) of the flash backward, composed: P from the saved lse,
+    dP, dS, then the three products in f32 (f64 for f64 inputs), with P and
+    dS rounded to the operand dtype where the kernels round them."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = _masked_scores(q, k, scale, causal, window)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    doa = do.to(acc)
+    dp = torch.einsum("...qd,...kd->...qk", doa, v.to(acc))
+    delta = (doa * o.to(acc)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    p = p.to(q.dtype).to(acc)
+    ds = ds.to(q.dtype).to(acc)
+    dv = torch.einsum("...qk,...qd->...kd", p, doa)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.to(acc))
+    dq = torch.einsum("...qk,...kd->...qd", ds, k.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_cuda(name: str, q, k, v, *others):
+    """Validate what the kernels take; raise on anything else.  Returns
+    (bh, sq, sk, d)."""
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {q.dtype}")
+    for t in (k, v, *others):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise TypeError(f"{name}: operands must share q's device and dtype")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if d != _HEAD_DIM:
+        raise ValueError(f"{name}: kernel is specialised on head dim "
+                         f"{_HEAD_DIM}, got {d}")
+    if k.shape != (bh, sk, d) or v.shape != (bh, sk, d):
+        raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
+    for t in others:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} must match q's "
+                             f"{tuple(q.shape)}")
+    if sk == 0 and bh * sq > 0:
+        raise ValueError(f"{name}: no keys")
+    return bh, sq, sk, d
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool, window=None):
@@ -80,38 +120,91 @@ def flash_fwd(q, k, v, scale: float, causal: bool, window=None):
     window = _normalize_window(window, q.shape[1], k.shape[1], causal)
     if q.device.type == "cpu":
         return _plain_flash_fwd(q, k, v, scale, causal, window)
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_fwd: kernel takes float32 or bfloat16, got {q.dtype}")
-    for t in (k, v):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError("flash_fwd: q, k and v must share device and dtype")
-    bh, sq, d = q.shape
-    sk = k.shape[1]
-    if d != _HEAD_DIM:
-        raise ValueError(f"flash_fwd: kernel is specialised on head dim "
-                         f"{_HEAD_DIM}, got {d}")
-    if k.shape != (bh, sk, d) or v.shape != (bh, sk, d):
-        raise ValueError(f"flash_fwd: shapes {q.shape} {k.shape} {v.shape}")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(qc)
+    bh, sq, sk, d = _check_cuda("flash_fwd", q, k, v)
+    ops = (q.contiguous(), k.contiguous(), v.contiguous())
+    o = torch.empty_like(ops[0])
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh == 0 or sq == 0:
         return o, lse
-    if sk == 0:
-        raise ValueError("flash_fwd: no keys")
-    ptrs = []
-    for t in (qc, kc, vc, o, lse):
-        if t.data_ptr() % 16:
-            raise ValueError("flash_fwd: operands must be 16-byte aligned")
-        ptrs.append(t.data_ptr())
-    with torch.cuda.device(q.device):
-        err = _build.function("flash_fwd")(
-            *ptrs, bh, sq, sk, d, float(scale), int(bool(causal)),
-            0 if window is None else window, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch("flash_fwd", ops, (o, lse), (bh, sq, sk, d), scale,
+            (int(bool(causal)), 0 if window is None else window,
+             _build.DTYPE_CODES[q.dtype]))
     return o, lse
+
+
+def _bwd_operands(q, k, v, o, lse, do, window, causal):
+    """Check and prepare the CUDA backward's operands: contiguous (q, k, v,
+    do, lse), delta = rowsum(do * o) in f32 (computed in plain torch, as
+    ``_flash_bwd`` computes it outside its kernels), and the launch's
+    scalar arguments after the scale."""
+    bh, sq, sk, d = _check_cuda("flash_bwd", q, k, v, o, do)
+    if lse.dtype != torch.float32 or lse.shape != (bh, sq):
+        raise ValueError(f"flash_bwd: lse must be ({bh}, {sq}) float32")
+    doc = do.contiguous()
+    delta = (doc.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    ops = (q.contiguous(), k.contiguous(), v.contiguous(), doc,
+           lse.contiguous(), delta)
+    dims = (bh, sq, sk, d)
+    flags = (int(bool(causal)), 0 if window is None else window,
+             _build.DTYPE_CODES[q.dtype])
+    return ops, dims, flags
+
+
+def _launch(name: str, ops, outs, dims, scale: float, flags) -> None:
+    with torch.cuda.device(ops[0].device):
+        err = _build.function(name)(
+            *_build.ptrs(*ops, *outs), *dims, float(scale), *flags,
+            _build.stream())
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+
+
+def flash_bwd_dkv(ops, dims, scale: float, flags):
+    """(dk, dv) by the ``flash_bwd_dkv`` kernel from ``_bwd_operands``."""
+    k, v = ops[1], ops[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", ops, (dk, dv), dims, scale, flags)
+    return dk, dv
+
+
+def flash_bwd_dq(ops, dims, scale: float, flags):
+    """dq by the ``flash_bwd_dq`` kernel from ``_bwd_operands``."""
+    dq = torch.empty_like(ops[0])
+    _launch("flash_bwd_dq", ops, (dq,), dims, scale, flags)
+    return dq
+
+
+def flash_bwd(q, k, v, o, lse, do, scale: float, causal: bool, window=None):
+    """(dq, dk, dv) over (BH, S, D) operands from the forward's o and lse and
+    the cotangent do.  On CUDA: delta in plain torch, then the
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` kernels."""
+    window = _normalize_window(window, q.shape[1], k.shape[1], causal)
+    if q.device.type == "cpu":
+        return _plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window)
+    ops, dims, flags = _bwd_operands(q, k, v, o, lse, do, window, causal)
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = flash_bwd_dkv(ops, dims, scale, flags)
+    return flash_bwd_dq(ops, dims, scale, flags), dk, dv
+
+
+class SdpaFn(torch.autograd.Function):
+    """Attention over (BH, S, D) operands; saves (q, k, v, o, lse) for the
+    flash backward, as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        o, lse = flash_fwd(q, k, v, scale, causal, window)
+        ctx.args = (scale, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def sdpa(q, k, v, causal: bool = False, scale=None, window=None):
@@ -120,12 +213,8 @@ def sdpa(q, k, v, causal: bool = False, scale=None, window=None):
         raise ValueError(f"sdpa takes (B, H, S, D) operands, got {tuple(q.shape)}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    scale = float(scale)
-    if q.device.type == "cpu":
-        window = _normalize_window(window, q.shape[-2], k.shape[-2], causal)
-        return _plain_sdpa(q, k, v, scale, bool(causal), window)
     b, h, s, d = q.shape
     sk = k.shape[2]
-    o, _ = flash_fwd(q.reshape(b * h, s, d), k.reshape(b * h, sk, d),
-                     v.reshape(b * h, sk, d), scale, bool(causal), window)
+    o = SdpaFn.apply(q.reshape(b * h, s, d), k.reshape(b * h, sk, d),
+                     v.reshape(b * h, sk, d), bool(causal), float(scale), window)
     return o.reshape(b, h, s, d)

@@ -1,8 +1,11 @@
-// LayerNorm forward and fused residual-add + LayerNorm forward for sm_90a.
+// LayerNorm and fused residual-add + LayerNorm, forward and backward, for
+// sm_90a.
 //
 // Replaces minidiff_tpu/kernels/layernorm.py:
 //   ln_fwd    <- _fwd_kernel       (:84,  pallas_call in _pallas_ln_fwd)
 //   addln_fwd <- _addln_fwd_kernel (:123, pallas_call in _pallas_addln_fwd)
+//   ln_bwd    <- _bwd_kernel       (:181, pallas_call in _pallas_ln_bwd)
+//   addln_bwd <- _addln_bwd_kernel (:149, pallas_call in _pallas_addln_bwd)
 //
 // Semantics (the JAX module's contract): statistics in f32 for bf16 inputs,
 // biased variance of the centred row, y = (x-mu)*rsqrt(var+eps)*g + b cast
@@ -19,64 +22,31 @@
 // centred-variance pass and the output pass, so x crosses HBM exactly once.
 // At the decode path's 8 rows the launch is latency-bound; fusing it into
 // its neighbours is later work.
+//
+// Backward, with xhat = (x-mu)*rsig and w = dy*g (statistics recomputed in
+// f32 from x, as _bwd_kernel calls _stats):
+//   dx = (w - mean(w) - xhat*mean(w*xhat)) * rsig      cast to x's dtype
+//   dg = sum_rows(dy*xhat),  db = sum_rows(dy)
+// addln_bwd rounds that dx to the model dtype and then adds the residual
+// cotangent g0 in the model dtype (two roundings, as :162-163).  Bound:
+// bytes again (x, dy, dx, and g0 for addln, once each).  Design: one warp
+// per row as in the forward; a lane owns the same columns in every row, so
+// it keeps its dg/db sums in registers while its warp walks a run of rows;
+// the block's warps then add theirs through shared memory and write one f32
+// partial row per block.  The caller sums the partials (as _pallas_ln_bwd
+// sums its strips outside the kernel): no atomics, so the result is the
+// same on every run.  The register arrays are sized per launch (NV vectors
+// per lane) so that d = 1024 does not pay for the widest row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rowwise.cuh"
 
 namespace {
 
+using rowwise::Vec;
+using rowwise::warp_sum;
+
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxVecsPerLane = 8;  // d <= 32 * 8 * VEC (2048 bf16, 1024 f32)
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-  // the add in the model dtype: f32 + f32 is already f32
-  __device__ static float round(float v) { return v; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-  // bf16 + bf16 rounded once to bf16 (the sum of two bf16 is exact in f32)
-  __device__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // One warp per row.  ADD: x <- round_T(x + a), written to t, then normalised.
 template <typename T, bool ADD>
@@ -152,6 +122,163 @@ int launch(const void* x, const void* a, const void* g, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kBwdWarps = 8;
+
+// Block b takes rows [b*rows_per_block, (b+1)*rows_per_block); its warps
+// take every kBwdWarps-th row of that run.  ADD: dx = round_T(dx) + g0.
+// dgp/dbp: (gridDim.x, d) f32 partials.  Shared memory: kBwdWarps * d f32.
+template <typename T, int NV, bool ADD>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+              const T* __restrict__ dy, const T* __restrict__ g0,
+              T* __restrict__ dx, float* __restrict__ dgp,
+              float* __restrict__ dbp, int rows, int d, int rows_per_block,
+              float eps) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ float red[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nvec = d / V;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  float dg_acc[NV][V], db_acc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < V; ++j) dg_acc[i][j] = db_acc[i][j] = 0.f;
+
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  for (int row = r0 + warp; row < r1; row += kBwdWarps) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float xv[NV][V], dv[NV][V];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        Vec<T>::load(x + base + c * V, xv[i]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum += xv[i][j];
+      }
+    }
+    const float mu = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          xv[i][j] -= mu;
+          sq += xv[i][j] * xv[i][j];
+        }
+      }
+    }
+    const float rsig = rsqrtf(warp_sum(sq) * inv_d + eps);
+
+    // xv becomes xhat; sums of w and w*xhat; this lane's dg, db columns
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float gv[V];
+        Vec<T>::load(dy + base + c * V, dv[i]);
+        Vec<T>::load(g + c * V, gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = xv[i][j] * rsig;
+          const float w = dv[i][j] * gv[j];
+          xv[i][j] = xh;
+          s1 += w;
+          s2 += w * xh;
+          dg_acc[i][j] += dv[i][j] * xh;
+          db_acc[i][j] += dv[i][j];
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) * inv_d;
+    const float m2 = warp_sum(s2) * inv_d;
+
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float gv[V], o[V];
+        Vec<T>::load(g + c * V, gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          o[j] = (dv[i][j] * gv[j] - m1 - xv[i][j] * m2) * rsig;
+        if (ADD) {
+          float g0v[V];
+          Vec<T>::load(g0 + base + c * V, g0v);
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = Vec<T>::round(o[j]) + g0v[j];
+        }
+        Vec<T>::store(dx + base + c * V, o);
+      }
+    }
+  }
+
+  // this block's partial dg, then db: every warp's columns through shared
+  // memory, summed over the warps in a fixed order
+  float* outs[2] = {dgp, dbp};
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          red[warp * d + c * V + j] = which == 0 ? dg_acc[i][j] : db_acc[i][j];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < d; c += kBwdWarps * 32) {
+      float s = 0.f;
+      for (int w = 0; w < kBwdWarps; ++w) s += red[w * d + c];
+      outs[which][static_cast<size_t>(blockIdx.x) * d + c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int NV, bool ADD>
+int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
+               void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
+               float eps, void* stream) {
+  const int smem = kBwdWarps * d * static_cast<int>(sizeof(float));
+  auto kernel = ln_bwd_kernel<T, NV, ADD>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rows_per_block = (rows + blocks - 1) / blocks;
+  kernel<<<blocks, kBwdWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(dy), static_cast<const T*>(g0),
+      static_cast<T*>(dx), static_cast<float*>(dgp), static_cast<float*>(dbp),
+      rows, d, rows_per_block, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the smallest register width (vectors per lane) that holds a row
+template <typename T, bool ADD>
+int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
+                 void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
+                 float eps, void* stream) {
+  const int per_lane = (d / Vec<T>::N + 31) / 32;
+  if (per_lane <= 1)
+    return launch_bwd<T, 1, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
+  if (per_lane <= 2)
+    return launch_bwd<T, 2, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
+  if (per_lane <= 4)
+    return launch_bwd<T, 4, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
+  return launch_bwd<T, 8, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller has checked that every
@@ -179,4 +306,37 @@ extern "C" int addln_fwd(const void* x, const void* a, const void* g,
 
 extern "C" int max_row_width(int dtype) {
   return 32 * kMaxVecsPerLane * (dtype == 1 ? 8 : 4);
+}
+
+// The number of blocks (and so of partial rows) ln_bwd / addln_bwd use for
+// `rows` rows on a card with `sms` multiprocessors: two blocks per SM, or
+// fewer when there are fewer rows than warps to give them.
+extern "C" int ln_bwd_blocks(int rows, int sms) {
+  const int by_rows = (rows + kBwdWarps - 1) / kBwdWarps;
+  const int cap = 2 * sms;
+  return by_rows < cap ? (by_rows > 0 ? by_rows : 1) : cap;
+}
+
+// dx like x; dgp and dbp (blocks, d) f32 partials, blocks from
+// ln_bwd_blocks.  Same pointer, dtype and width conditions as ln_fwd.
+extern "C" int ln_bwd(const void* x, const void* g, const void* dy, void* dx,
+                      void* dgp, void* dbp, int rows, int d, int blocks,
+                      float eps, int dtype, void* stream) {
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16, false>(x, g, dy, nullptr, dx, dgp, dbp,
+                                              rows, d, blocks, eps, stream);
+  return dispatch_bwd<float, false>(x, g, dy, nullptr, dx, dgp, dbp, rows, d,
+                                    blocks, eps, stream);
+}
+
+// t = x + a as addln_fwd wrote it; g0 the cotangent of t; dx = LN_dx + g0.
+extern "C" int addln_bwd(const void* t, const void* g, const void* dy,
+                         const void* g0, void* dx, void* dgp, void* dbp,
+                         int rows, int d, int blocks, float eps, int dtype,
+                         void* stream) {
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16, true>(t, g, dy, g0, dx, dgp, dbp, rows,
+                                             d, blocks, eps, stream);
+  return dispatch_bwd<float, true>(t, g, dy, g0, dx, dgp, dbp, rows, d, blocks,
+                                   eps, stream);
 }

@@ -1,31 +1,40 @@
-"""LayerNorm forward and fused residual-add + LayerNorm forward.
+"""LayerNorm and fused residual-add + LayerNorm, forward and backward.
 
-Port of ``minidiff_tpu/kernels/layernorm.py`` (``layernorm`` and
-``add_layernorm``).  Semantics, shared by the CUDA kernels and the plain
-versions here:
+Port of ``minidiff_tpu/kernels/layernorm.py`` (``layernorm``, ``ln_grads``,
+``add_layernorm``, ``addln_grads``).  Semantics, shared by the CUDA kernels
+and the plain versions here:
 
     acc = f32 if x is sub-f32 (bf16/f16) else x.dtype
     mu  = mean(x, -1);  var = mean((x-mu)^2, -1)      # biased, in acc
     y   = (x-mu) * rsqrt(var+eps) * g + b             # cast back to x.dtype
 
-``add_layernorm`` returns the stacked pair ``(x + a, LN(x + a))`` with
-``x + a`` rounded to the model dtype before the statistics.
+    xhat = (x-mu) * rsig;  w = dy * g
+    dx = (w - mean(w) - xhat * mean(w * xhat)) * rsig  # cast to x.dtype
+    dg = sum_rows(dy * xhat);  db = sum_rows(dy)       # cast to g.dtype
 
-A CUDA tensor goes to the hand-written kernels of ``csrc/layernorm.cu``
-(``ln_fwd``, ``addln_fwd``); a CPU tensor goes to the plain versions.  A CUDA
+``add_layernorm`` returns the stacked pair ``(x + a, LN(x + a))`` with
+``x + a`` rounded to the model dtype before the statistics; its backward
+adds the cotangent of ``x + a`` to the rounded ``dx`` in the model dtype and
+routes that one ``dx`` to both ``x`` and ``a``.
+
+``layernorm`` and ``add_layernorm`` are differentiable through
+``LayerNormFn`` and ``AddLayerNormFn``.  A CUDA tensor goes to the
+hand-written kernels of ``csrc/layernorm.cu`` (``ln_fwd``, ``addln_fwd``,
+``ln_bwd``, ``addln_bwd``); a CPU tensor goes to the plain versions.  A CUDA
 tensor the kernels do not take raises: nothing falls back.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from minidiff_tpu_torch.kernels import _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
-LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0}
+LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0}
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
@@ -47,9 +56,36 @@ def _plain_add_layernorm(x, a, g, b, eps: float = 1e-5):
     return torch.stack([t, _plain_layernorm(t, g, b, eps)])
 
 
+def _plain_ln_grads(x, g, dy, eps: float = 1e-5):
+    """(dx, dg, db): the port of ``_jnp_ln_grads``."""
+    acc = _acc_dtype(x.dtype)
+    xa = x.to(acc)
+    mu = xa.mean(dim=-1, keepdim=True)
+    xc = xa - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rsig = torch.rsqrt(var + eps)
+    xhat = xc * rsig
+    dya = dy.to(acc)
+    w = dya * g.to(acc)
+    m1 = w.mean(dim=-1, keepdim=True)
+    m2 = (w * xhat).mean(dim=-1, keepdim=True)
+    dx = ((w - m1 - xhat * m2) * rsig).to(x.dtype)
+    red = tuple(range(x.dim() - 1))
+    dg = (dya * xhat).sum(dim=red).to(g.dtype)
+    db = dya.sum(dim=red).to(g.dtype)
+    return dx, dg, db
+
+
+def _plain_addln_grads(t, g, dy, g0, eps: float = 1e-5):
+    """``_plain_ln_grads`` with the cotangent ``g0`` of ``t`` added to the
+    rounded dx in the model dtype (``addln_grads``' plain path)."""
+    dx, dg, db = _plain_ln_grads(t, g, dy, eps)
+    return dx + g0, dg, db
+
+
 def _check_cuda(name: str, x, *others):
     """Validate what the kernels take; raise on anything else."""
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {x.dtype}")
     for t in others:
         if t.device != x.device or t.dtype != x.dtype:
@@ -57,21 +93,20 @@ def _check_cuda(name: str, x, *others):
                             f"{x.device}, got {t.dtype} on {t.device}")
     d = x.shape[-1]
     vec = 8 if x.dtype == torch.bfloat16 else 4
-    width = _build.function("max_row_width")(_DTYPE_CODES[x.dtype])
+    width = _build.function("max_row_width")(_build.DTYPE_CODES[x.dtype])
     if d % vec or d > width:
         raise ValueError(f"{name}: last dim {d} must be a multiple of {vec} "
                          f"and at most {width} for {x.dtype}")
 
 
-def _ptr(t: torch.Tensor) -> int:
-    p = t.data_ptr()
-    if p % 16:
-        raise ValueError("kernel operands must be 16-byte aligned")
-    return p
+def _same_shape(name: str, x, *others):
+    for t in others:
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: shapes differ, {tuple(x.shape)} vs "
+                             f"{tuple(t.shape)}")
 
 
-def layernorm(x, g, b, eps: float = 1e-5):
-    """Last-axis LayerNorm of ``x`` with gain ``g`` and bias ``b``."""
+def _layernorm_fwd(x, g, b, eps: float):
     if x.device.type == "cpu":
         return _plain_layernorm(x, g, b, eps)
     _check_cuda("ln_fwd", x, g, b)
@@ -83,20 +118,18 @@ def layernorm(x, g, b, eps: float = 1e-5):
         return y
     with torch.cuda.device(x.device):
         err = _build.function("ln_fwd")(
-            _ptr(xc), _ptr(gc), _ptr(bc), _ptr(y), rows, d, float(eps),
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+            *_build.ptrs(xc, gc, bc, y), rows, d, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.stream())
     _build.check(err, "ln_fwd")
     LAUNCHES["ln_fwd"] += 1
     return y
 
 
-def add_layernorm(x, a, g, b, eps: float = 1e-5):
-    """Stacked ``(2, *x.shape)``: ``[0] = x + a``, ``[1] = LN(x + a)``."""
+def _add_layernorm_fwd(x, a, g, b, eps: float):
     if x.device.type == "cpu":
         return _plain_add_layernorm(x, a, g, b, eps)
     _check_cuda("addln_fwd", x, a, g, b)
-    if a.shape != x.shape:
-        raise ValueError(f"addln_fwd: shapes differ, {x.shape} vs {a.shape}")
+    _same_shape("addln_fwd", x, a)
     d = x.shape[-1]
     xc, ac, gc, bc = x.contiguous(), a.contiguous(), g.contiguous(), b.contiguous()
     out = torch.empty((2,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -105,9 +138,100 @@ def add_layernorm(x, a, g, b, eps: float = 1e-5):
         return out
     with torch.cuda.device(x.device):
         err = _build.function("addln_fwd")(
-            _ptr(xc), _ptr(ac), _ptr(gc), _ptr(bc), _ptr(out), rows, d,
-            float(eps), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            *_build.ptrs(xc, ac, gc, bc, out), rows, d, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.stream())
     _build.check(err, "addln_fwd")
     LAUNCHES["addln_fwd"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_kernel(name: str, x, g, dy, g0, eps: float):
+    """Launch ``ln_bwd`` (g0 None) or ``addln_bwd``; the f32 dg/db partials
+    of its blocks are summed here, then cast to g's dtype."""
+    operands = (x, g, dy) if g0 is None else (x, g, dy, g0)
+    _check_cuda(name, *operands)
+    _same_shape(name, *((x, dy) if g0 is None else (x, dy, g0)))
+    d = x.shape[-1]
+    rows = x.numel() // d
+    xc, gc, dyc = x.contiguous(), g.contiguous(), dy.contiguous()
+    dx = torch.empty_like(xc)
+    if rows == 0:
+        return dx, torch.zeros_like(g), torch.zeros_like(g)
+    blocks = _build.function("ln_bwd_blocks")(rows, _sm_count(x.device.index))
+    parts = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
+    ins = (xc, gc, dyc) if g0 is None else (xc, gc, dyc, g0.contiguous())
+    with torch.cuda.device(x.device):
+        err = _build.function(name)(
+            *_build.ptrs(*ins, dx, parts[0], parts[1]), rows, d, blocks,
+            float(eps), _build.DTYPE_CODES[x.dtype], _build.stream())
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    dg, db = parts.sum(dim=1).to(g.dtype)
+    return dx, dg, db
+
+
+def ln_grads(x, g, dy, eps: float = 1e-5):
+    """(dx, dg, db) of ``layernorm(x, g, b, eps)`` for the cotangent dy."""
+    if x.device.type == "cpu":
+        return _plain_ln_grads(x, g, dy, eps)
+    return _bwd_kernel("ln_bwd", x, g, dy, None, eps)
+
+
+def addln_grads(t, g, dy, g0, eps: float = 1e-5):
+    """(dx, dg, db) of ``add_layernorm`` for the cotangents g0 of ``t =
+    x + a`` and dy of ``LN(t)``; dx is the gradient of both x and a."""
+    if t.device.type == "cpu":
+        return _plain_addln_grads(t, g, dy, g0, eps)
+    return _bwd_kernel("addln_bwd", t, g, dy, g0, eps)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """LayerNorm with its kernel backward; the statistics are recomputed
+    from the saved x, as the TPU backward kernel does."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, g)
+        return _layernorm_fwd(x, g, b, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        dx, dg, db = ln_grads(x, g, dy, ctx.eps)
+        return dx, dg, db, None
+
+
+class AddLayerNormFn(torch.autograd.Function):
+    """The stacked ``(x + a, LN(x + a))``; the backward reads the cotangent
+    of each half and returns one dx for both x and a."""
+
+    @staticmethod
+    def forward(ctx, x, a, g, b, eps):
+        ctx.eps = eps
+        pair = _add_layernorm_fwd(x, a, g, b, eps)
+        ctx.save_for_backward(pair, g)
+        return pair
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        pair, g = ctx.saved_tensors
+        dx, dg, db = addln_grads(pair[0], g, grad[1], grad[0], ctx.eps)
+        return dx, dx, dg, db, None
+
+
+def layernorm(x, g, b, eps: float = 1e-5):
+    """Last-axis LayerNorm of ``x`` with gain ``g`` and bias ``b``."""
+    return LayerNormFn.apply(x, g, b, float(eps))
+
+
+def add_layernorm(x, a, g, b, eps: float = 1e-5):
+    """Stacked ``(2, *x.shape)``: ``[0] = x + a``, ``[1] = LN(x + a)``."""
+    return AddLayerNormFn.apply(x, a, g, b, float(eps))

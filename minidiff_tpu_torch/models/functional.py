@@ -1,10 +1,11 @@
 """Functional pieces of the transformer and the sampler.
 
-Port of the serving path's part of ``minidiff_tpu/models/functional.py``:
-``gelu`` (the tanh form), ``softmax``, ``truncate_logits``, ``block_qkv``,
-``residual_norm`` and ``block_finish``, plus the next-token choice the JAX
-decode scan and server each inline (argmax, or Gumbel-max over truncated
-logits).
+Port of the serving and training paths' part of
+``minidiff_tpu/models/functional.py``: ``gelu`` (the tanh form),
+``softmax``, ``logsumexp``, ``log_softmax``, ``cross_entropy``,
+``truncate_logits``, ``block_qkv``, ``residual_norm`` and ``block_finish``,
+plus the next-token choice the JAX decode scan and server each inline
+(argmax, or Gumbel-max over truncated logits).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from minidiff_tpu_torch.kernels.layernorm import add_layernorm
+from minidiff_tpu_torch.kernels.xent import softmax_xent
 
 _NEG = -1e30
 
@@ -27,6 +29,30 @@ def softmax(z, dim: int = -1):
     m = z.max(dim=dim, keepdim=True).values
     e = torch.exp(z - m)
     return e / e.sum(dim=dim, keepdim=True)
+
+
+def logsumexp(z, dim: int = -1, keepdim: bool = False):
+    m = z.max(dim=dim, keepdim=True).values
+    out = torch.log(torch.exp(z - m).sum(dim=dim, keepdim=True)) + m
+    return out if keepdim else out.squeeze(dim)
+
+
+def log_softmax(z, dim: int = -1):
+    return z - logsumexp(z, dim=dim, keepdim=True)
+
+
+def cross_entropy(logits, labels, reduce: bool = True):
+    """Mean softmax cross-entropy (``reduce=False``: per-example losses).
+
+    Integer class ids go through ``softmax_xent`` (the loss kernels on the
+    card); one-hot or soft labels of the logits' shape take the composed
+    log-softmax path.
+    """
+    if labels.dim() == logits.dim():
+        per = -(labels * log_softmax(logits, dim=-1)).sum(dim=-1)
+    else:
+        per = softmax_xent(logits, labels)
+    return per.mean() if reduce else per
 
 
 def truncate_logits(logits, top_k=None, top_p=None, min_p=None):

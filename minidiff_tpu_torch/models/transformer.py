@@ -3,10 +3,12 @@
 Port of ``minidiff_tpu/models/transformer.py`` for the flagship options:
 learned ``pos_emb``, ``num_kv_heads == num_heads`` with the fused head-major
 QKV projection, ``norm="layer"``, ``mlp="gelu"`` (tanh form) and an untied
-head.  ``TransformerLM.forward`` is the JAX ``TransformerLM.apply``.  The
-norms go through the LayerNorm and fused add+LayerNorm kernels and the
-attention core through the flash forward kernel (``kernels/``); the
-projections are plain matrix products.
+head.  ``TransformerLM.forward`` is the JAX ``TransformerLM.apply``, and
+``lm_loss`` its training loss.  The norms go through the LayerNorm and fused
+add+LayerNorm kernels, the attention core through the flash kernels and the
+loss through the cross-entropy kernels (``kernels/``), each differentiable
+through its ``torch.autograd.Function``; the projections are plain matrix
+products.
 """
 
 from __future__ import annotations
@@ -156,3 +158,20 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.lm_head(self.ln_f(x))
+
+
+def lm_loss(logits, targets, mask=None):
+    """Mean SAME-POSITION cross-entropy over (B, S, V) logits / (B, S) ids.
+
+    For next-token training, shift at the call site:
+    ``lm_loss(logits[:, :-1], tokens[:, 1:])``.  ``mask`` ((B, S), nonzero =
+    scored) gives the masked mean over the scored positions.
+    """
+    b, s, v = logits.shape
+    if mask is None:
+        return F.cross_entropy(logits.reshape(b * s, v), targets.reshape(b * s))
+    per_tok = F.cross_entropy(logits.reshape(b * s, v), targets.reshape(b * s),
+                              reduce=False)
+    m = mask.reshape(b * s).to(per_tok.dtype)
+    return (per_tok * m).sum() / torch.maximum(
+        m.sum(), torch.ones((), dtype=per_tok.dtype, device=m.device))

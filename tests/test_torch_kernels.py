@@ -20,8 +20,22 @@ import torch
 
 from minidiff_tpu.kernels import attention as A
 from minidiff_tpu.kernels import layernorm as LN
+from minidiff_tpu.kernels import xent as XE
 from minidiff_tpu_torch.kernels import attention as TA
 from minidiff_tpu_torch.kernels import layernorm as TLN
+from minidiff_tpu_torch.kernels import xent as TXE
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs several workers
+    on a few cores, and torch's thread pool would spin against them (a
+    float64 gradcheck took 450 s that way instead of 2 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # f32: both sides compute the same f32 statistics; only the summation order
 # differs (~1e-7 relative), so 1e-5 is far above the noise.  bf16: the
@@ -145,14 +159,158 @@ def test_sdpa_window_matches_composed():
         TA.sdpa(*(torch.from_numpy(t) for t in (q, k, v)), window=64)
 
 
+def _ln_bwd_inputs(dtype: str, seed: int):
+    """x, g, dy, g0 as JAX and torch operands of the same values."""
+    (x, a, g, _), (tx, ta, tg, _) = _ln_inputs(dtype, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    dy = rng.standard_normal(x.shape)
+    jdy = jnp.asarray(dy, x.dtype)
+    tdy = torch.tensor(np.asarray(jdy, np.float32)).to(_TORCH[dtype])
+    return (x, g, jdy, a), (tx, tg, tdy, ta)
+
+
+# dx as the forward's bf16 rule (one rounding of f32 values summed in
+# another order); dg and db are f32 sums over 16 rows cast once to g's dtype
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_grads_match_jax_kernel(dtype):
+    (x, g, dy, _), (tx, tg, tdy, _) = _ln_bwd_inputs(dtype, seed=4)
+    got = TLN.ln_grads(tx, tg, tdy, 1e-5)
+    kernel = LN._pallas_ln_bwd(x, g, dy, 1e-5, 8, interpret=True)
+    ref = LN._jnp_ln_grads(x, g, dy, 1e-5)
+    for out, k, r in zip(got, kernel, ref):
+        assert out.dtype == _TORCH[dtype]
+        np.testing.assert_allclose(_to_np(out), _np32(k), **_TOL[dtype])
+        np.testing.assert_allclose(_to_np(out), _np32(r), **_TOL[dtype])
+
+
+# dx = round(dx_ln) + g0 rounds twice in bf16: the first rounding may differ
+# by one ulp of dx_ln (values of order 1) before g0 is added, so bf16 takes
+# an absolute 2^-6 beside the relative ulp
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_addln_grads_match_jax_kernel(dtype):
+    (x, g, dy, g0), (tx, tg, tdy, tg0) = _ln_bwd_inputs(dtype, seed=5)
+    got = TLN.addln_grads(tx, tg, tdy, tg0, 1e-5)
+    kernel = LN._pallas_addln_bwd(x, g, dy, g0, 1e-5, 8, interpret=True)
+    tol = dict(_TOL[dtype], atol=2 ** -6) if dtype == "bfloat16" else _TOL[dtype]
+    for out, k in zip(got, kernel):
+        np.testing.assert_allclose(_to_np(out), _np32(k), **tol)
+    dx, dg, db = LN._jnp_ln_grads(x, g, dy, 1e-5)
+    np.testing.assert_allclose(_to_np(got[0]), _np32(dx + g0), **tol)
+
+
+def _xent_inputs(dtype: str, rows: int = 128, v: int = 256, seed: int = 6):
+    rng = np.random.RandomState(seed)
+    z = jnp.asarray(rng.standard_normal((rows, v)) * 3, dtype)
+    lab = rng.randint(0, v, rows)
+    g = rng.standard_normal(rows).astype(np.float32)
+    tz = torch.tensor(np.asarray(z, np.float32)).to(_TORCH[dtype])
+    return (z, jnp.asarray(lab), jnp.asarray(g)), (
+        tz, torch.from_numpy(lab), torch.from_numpy(g))
+
+
+# the loss is f32 on both sides from the same f32 row statistics: 1e-5.  dz
+# rounds to the logits' dtype once from those values (bf16: one ulp)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xent_matches_jax_kernels(dtype):
+    (z, lab, g), (tz, tlab, tg) = _xent_inputs(dtype)
+    loss = TXE.xent_fwd(tz, tlab)
+    assert loss.dtype == torch.float32 and loss.shape == (128,)
+    np.testing.assert_allclose(
+        loss.numpy(), _np32(XE._pallas_xent_fwd(z, lab, 128, interpret=True)),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(loss.numpy(), _np32(XE._jnp_xent(z, lab)),
+                               rtol=1e-5, atol=1e-5)
+    dz = TXE.xent_grad(tz, tlab, tg)
+    assert dz.dtype == tz.dtype
+    np.testing.assert_allclose(
+        _to_np(dz), _np32(XE._pallas_xent_bwd(z, lab, g, 128, interpret=True)),
+        **_TOL[dtype])
+    np.testing.assert_allclose(_to_np(dz), _np32(XE._jnp_xent_grad(z, lab, g)),
+                               **_TOL[dtype])
+
+
+# both sides take the same q, k, v, do and the same o and lse (the port's
+# plain forward's: the forward is held to the JAX kernel above), so only the
+# order of f32 sums differs (2 key or query tiles of 128): 2e-5 in f32.
+# bf16: P and dS round to bf16 at the same points, so the three products
+# differ by accumulation order plus an occasional ulp of P or dS flipped by
+# it; the outputs round once more: 2 ulp (2^-6) relative, and 2^-6 absolute
+# on gradients of order 1.
+@pytest.mark.parametrize("s,causal,window,dtype", [
+    (256, True, None, "float32"), (128, False, None, "float32"),
+    (256, True, 100, "float32"), (256, True, None, "bfloat16")])
+def test_flash_bwd_matches_jax_kernels(_interpret, s, causal, window, dtype):
+    rng = np.random.RandomState(7)
+    q, k, v, do = (jnp.asarray(rng.standard_normal((2, s, 128)), dtype)
+                   for _ in range(4))
+    scale = 1.0 / 128 ** 0.5
+
+    def tt(a):
+        return torch.tensor(np.asarray(a, np.float32)).to(_TORCH[dtype])
+
+    o, lse = TA._plain_flash_fwd(tt(q), tt(k), tt(v), scale, causal, window)
+    ref = A._flash_bwd(q, k, v, jnp.asarray(_to_np(o), dtype),
+                       jnp.asarray(lse.numpy()), do, scale, causal, bq=128,
+                       bk=128, window=window)
+    got = TA.flash_bwd(tt(q), tt(k), tt(v), o, lse, tt(do), scale, causal,
+                       window)
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "float32"
+           else dict(rtol=2 ** -6, atol=2 ** -6))
+    for name, out, r in zip("qkv", got, ref):
+        assert out.shape == (2, s, 128) and out.dtype == _TORCH[dtype]
+        np.testing.assert_allclose(_to_np(out), _np32(r), err_msg=f"d{name}",
+                                   **tol)
+
+
+def test_plain_flash_bwd_matches_autograd_of_composed_attention():
+    # the composed f64 attention differentiated by autograd: an independent
+    # check of the closed-form backward, with a window
+    rng = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 40, 16)))
+                   for _ in range(4))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = TA._plain_flash_fwd(*qkv, 0.3, True, 7)
+    o.backward(do)
+    got = TA.flash_bwd(q, k, v, o.detach(), lse.detach(), do, 0.3, True, 7)
+    for out, t in zip(got, qkv):
+        np.testing.assert_allclose(out.numpy(), t.grad.numpy(), rtol=1e-10,
+                                   atol=1e-10)
+
+
+def test_functions_pass_gradcheck_in_float64():
+    rng = np.random.RandomState(9)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+
+    x, a, g, b = leaf(2, 3, 8), leaf(2, 3, 8), leaf(8), leaf(8)
+    assert torch.autograd.gradcheck(TLN.layernorm, (x, g, b))
+    assert torch.autograd.gradcheck(TLN.add_layernorm, (x, a, g, b))
+    q, k, v = leaf(1, 1, 8, 4), leaf(1, 1, 8, 4), leaf(1, 1, 8, 4)
+    for causal, window in ((True, None), (False, None), (True, 3)):
+        assert torch.autograd.gradcheck(
+            lambda q, k, v: TA.sdpa(q, k, v, causal=causal, scale=0.4,
+                                    window=window), (q, k, v))
+    lab = torch.from_numpy(rng.randint(0, 10, (2, 3)))
+    assert torch.autograd.gradcheck(lambda z: TXE.softmax_xent(z, lab),
+                                    (leaf(2, 3, 10),))
+
+
 def test_cpu_wrappers_launch_nothing():
     from minidiff_tpu_torch import kernels
 
     kernels.reset_launch_counts()
     (_, _, _, _), (tx, ta, tg, tb) = _ln_inputs("float32")
-    TLN.layernorm(tx, tg, tb)
-    TLN.add_layernorm(tx, ta, tg, tb)
-    q, k, v = (torch.from_numpy(t).reshape(1, 1, 16, 128) for t in _qkv(1, 16))
-    TA.sdpa(q, k, v, causal=True)
-    assert kernels.launch_counts() == {"ln_fwd": 0, "addln_fwd": 0,
-                                       "flash_fwd": 0}
+    for t in (tx, ta, tg, tb):
+        t.requires_grad_()
+    out = TLN.layernorm(tx, tg, tb).sum() + TLN.add_layernorm(tx, ta, tg, tb).sum()
+    q, k, v = (torch.from_numpy(t).reshape(1, 1, 16, 128).requires_grad_()
+               for t in _qkv(1, 16))
+    out = out + TA.sdpa(q, k, v, causal=True).sum()
+    z = torch.from_numpy(_qkv(1, 16)[0][0]).requires_grad_()
+    out = out + TXE.softmax_xent(z, torch.arange(16)).sum()
+    out.backward()
+    assert kernels.launch_counts() == {
+        "ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
+        "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+        "xent_fwd": 0, "xent_bwd": 0}

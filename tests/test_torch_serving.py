@@ -30,6 +30,18 @@ from minidiff_tpu_torch import (
 )
 from minidiff_tpu_torch.models import functional as F
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs several workers
+    on a few cores, and torch's thread pool would spin against them (a
+    float64 gradcheck took 450 s that way instead of 2 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(vocab_size=64, dim=256, num_heads=2, num_layers=2, max_seq_len=256)
 
 

@@ -20,6 +20,18 @@ import minidiff_tpu as md
 from minidiff_tpu.models import TransformerLM as JaxLM
 from minidiff_tpu_torch import TransformerLM, params_from_jax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs several workers
+    on a few cores, and torch's thread pool would spin against them (a
+    float64 gradcheck took 450 s that way instead of 2 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # small sizes with the flagship's head dim (d 256, 2 heads -> hd 128)
 CFG = dict(vocab_size=64, dim=256, num_heads=2, num_layers=2, max_seq_len=256)
 _JAX_DT = {torch.float32: md.float32, torch.float64: md.float64}
