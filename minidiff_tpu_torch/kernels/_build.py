@@ -27,7 +27,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent")
+SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent", "matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +53,7 @@ SIGNATURES = {
                                    _I, _F, _I, _I, _I, _P)),
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}

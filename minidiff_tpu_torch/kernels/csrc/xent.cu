@@ -20,7 +20,8 @@
 // per row, lanes on neighbouring 16-byte vectors.  The passes over the row
 // (max, sum of exps, and for the backward the output) re-read it from L1:
 // a row of the train step's V = 512 is 1 KB in bf16, so device memory sees
-// it once.  Any V that is a multiple of the vector width works.
+// it once.  A row that is no whole number of aligned vectors (V = 10 in
+// the tape's MLP) is read one element per lane instead, so any V works.
 
 #include "rowwise.cuh"
 
@@ -32,31 +33,54 @@ using rowwise::warp_sum;
 
 constexpr int kWarpsPerBlock = 4;
 
-// m and sum(exp(z - m)) of one row, every lane holding both.
+// W consecutive columns of a row as f32: one 16-byte vector (W = Vec::N)
+// when every row is a whole number of aligned vectors, else one element.
+template <typename T, bool kVec>
+struct Chunk;
+
 template <typename T>
-__device__ __forceinline__ void row_stats(const T* zr, int nvec, int lane,
+struct Chunk<T, true> {
+  static constexpr int W = Vec<T>::N;
+  __device__ static void load(const T* p, float* out) { Vec<T>::load(p, out); }
+  __device__ static void store(T* p, const float* in) { Vec<T>::store(p, in); }
+};
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
+struct Chunk<T, false> {
+  static constexpr int W = 1;
+  __device__ static void load(const T* p, float* out) { out[0] = rowwise::to_f32(*p); }
+  __device__ static void store(T* p, const float* in) { put(p, in[0]); }
+};
+
+// m and sum(exp(z - m)) of one row, every lane holding both.
+template <typename T, bool kVec>
+__device__ __forceinline__ void row_stats(const T* zr, int v, int lane,
                                           float* m_out, float* s_out) {
-  constexpr int V = Vec<T>::N;
+  using C = Chunk<T, kVec>;
+  const int nchunk = v / C::W;
   float m = -3.402823466e38f;
-  for (int c = lane; c < nvec; c += 32) {
-    float zv[V];
-    Vec<T>::load(zr + c * V, zv);
+  for (int c = lane; c < nchunk; c += 32) {
+    float zv[C::W];
+    C::load(zr + c * C::W, zv);
 #pragma unroll
-    for (int j = 0; j < V; ++j) m = fmaxf(m, zv[j]);
+    for (int j = 0; j < C::W; ++j) m = fmaxf(m, zv[j]);
   }
   m = warp_max(m);
   float s = 0.f;
-  for (int c = lane; c < nvec; c += 32) {
-    float zv[V];
-    Vec<T>::load(zr + c * V, zv);
+  for (int c = lane; c < nchunk; c += 32) {
+    float zv[C::W];
+    C::load(zr + c * C::W, zv);
 #pragma unroll
-    for (int j = 0; j < V; ++j) s += expf(zv[j] - m);
+    for (int j = 0; j < C::W; ++j) s += expf(zv[j] - m);
   }
   *m_out = m;
   *s_out = warp_sum(s);
 }
 
-template <typename T>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 xent_fwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
                 float* __restrict__ loss, int rows, int v) {
@@ -65,7 +89,7 @@ xent_fwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
   if (row >= rows) return;
   const T* zr = z + static_cast<size_t>(row) * v;
   float m, s;
-  row_stats(zr, v / Vec<T>::N, lane, &m, &s);
+  row_stats<T, kVec>(zr, v, lane, &m, &s);
   if (lane == 0) {
     const int l = lab[row];
     const float zl = (l >= 0 && l < v) ? rowwise::to_f32(zr[l]) : 0.f;
@@ -73,30 +97,30 @@ xent_fwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
   }
 }
 
-template <typename T>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 xent_bwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
                 const float* __restrict__ g, T* __restrict__ dz, int rows,
                 int v) {
-  constexpr int V = Vec<T>::N;
+  using C = Chunk<T, kVec>;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;
   const size_t base = static_cast<size_t>(row) * v;
-  const int nvec = v / V;
+  const int nchunk = v / C::W;
   float m, s;
-  row_stats(z + base, nvec, lane, &m, &s);
+  row_stats<T, kVec>(z + base, v, lane, &m, &s);
   const int l = lab[row];
   const float gr = g[row];
-  for (int c = lane; c < nvec; c += 32) {
-    float zv[V];
-    Vec<T>::load(z + base + c * V, zv);
+  for (int c = lane; c < nchunk; c += 32) {
+    float zv[C::W];
+    C::load(z + base + c * C::W, zv);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < C::W; ++j) {
       const float p = expf(zv[j] - m) / s;
-      zv[j] = (p - (c * V + j == l ? 1.f : 0.f)) * gr;
+      zv[j] = (p - (c * C::W + j == l ? 1.f : 0.f)) * gr;
     }
-    Vec<T>::store(dz + base + c * V, zv);
+    C::store(dz + base + c * C::W, zv);
   }
 }
 
@@ -104,22 +128,51 @@ inline int blocks_for(int rows) {
   return (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
+// every row a whole number of 16-byte vectors, from 16-byte aligned bases
+template <typename T>
+bool vector_rows(int v, const void* a, const void* b) {
+  return v % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
+
+template <typename T>
+void launch_fwd(const void* z, const int* lab, float* loss, int rows, int v,
+                cudaStream_t st) {
+  const T* zt = static_cast<const T*>(z);
+  if (vector_rows<T>(v, z, z))
+    xent_fwd_kernel<T, true><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
+        zt, lab, loss, rows, v);
+  else
+    xent_fwd_kernel<T, false><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
+        zt, lab, loss, rows, v);
+}
+
+template <typename T>
+void launch_bwd(const void* z, const int* lab, const float* g, void* dz,
+                int rows, int v, cudaStream_t st) {
+  const T* zt = static_cast<const T*>(z);
+  T* dzt = static_cast<T*>(dz);
+  if (vector_rows<T>(v, z, dz))
+    xent_bwd_kernel<T, true><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
+        zt, lab, g, dzt, rows, v);
+  else
+    xent_bwd_kernel<T, false><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
+        zt, lab, g, dzt, rows, v);
+}
+
 }  // namespace
 
-// z (rows, v) contiguous and 16-byte aligned, v a multiple of 8 (bf16) or 4
-// (f32); lab (rows,) int32; loss (rows,) f32.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns cudaGetLastError().
+// z (rows, v) contiguous, any v; lab (rows,) int32; loss (rows,) f32.
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
 extern "C" int xent_fwd(const void* z, const void* lab, void* loss, int rows,
                         int v, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lb = static_cast<const int*>(lab);
   float* out = static_cast<float*>(loss);
   if (dtype == 1)
-    xent_fwd_kernel<__nv_bfloat16><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(z), lb, out, rows, v);
+    launch_fwd<__nv_bfloat16>(z, lb, out, rows, v, st);
   else
-    xent_fwd_kernel<float><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
-        static_cast<const float*>(z), lb, out, rows, v);
+    launch_fwd<float>(z, lb, out, rows, v, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,11 +183,8 @@ extern "C" int xent_bwd(const void* z, const void* lab, const void* g,
   const int* lb = static_cast<const int*>(lab);
   const float* gr = static_cast<const float*>(g);
   if (dtype == 1)
-    xent_bwd_kernel<__nv_bfloat16><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(z), lb, gr,
-        static_cast<__nv_bfloat16*>(dz), rows, v);
+    launch_bwd<__nv_bfloat16>(z, lb, gr, dz, rows, v, st);
   else
-    xent_bwd_kernel<float><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
-        static_cast<const float*>(z), lb, gr, static_cast<float*>(dz), rows, v);
+    launch_bwd<float>(z, lb, gr, dz, rows, v, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ The kernels write the loss in f32, which is acc for the two dtypes they take.
 ``softmax_xent`` is differentiable through ``SoftmaxXentFn``.  A CUDA tensor
 goes to the hand-written kernels of ``csrc/xent.cu`` (``xent_fwd``,
 ``xent_bwd``); a CPU tensor goes to the plain versions.  A CUDA tensor the
-kernels do not take raises: nothing falls back.
+kernels do not take raises: nothing falls back.  The kernels take any row
+width V.  The tape's ``softmax_xent`` enters through ``loss`` and
+``loss_grad``, which send f32 and bf16 logits to the kernels (their plain
+versions on the CPU) and other dtypes to the plain versions.
 """
 
 from __future__ import annotations
@@ -58,10 +61,6 @@ def _check_cuda(name: str, z, lab, *others):
     for t in (lab, *others):
         if t.device != z.device:
             raise TypeError(f"{name}: every operand must be on {z.device}")
-    vec = 8 if z.dtype == torch.bfloat16 else 4
-    if z.shape[1] % vec:
-        raise ValueError(f"{name}: V = {z.shape[1]} must be a multiple of {vec} "
-                         f"for {z.dtype}")
 
 
 def xent_fwd(z, lab):
@@ -129,3 +128,20 @@ def softmax_xent(z, lab):
     v = z.shape[-1]
     loss = SoftmaxXentFn.apply(z.reshape(-1, v), lab.reshape(-1))
     return loss.reshape(lab.shape)
+
+
+def loss(z, lab):
+    """Per-row loss (labels' shape) of ``z`` (..., V) logits and ``lab``
+    (...) class ids, with no autograd: the kernel for f32 and bf16 logits,
+    the plain version for other dtypes."""
+    v = z.shape[-1]
+    fn = xent_fwd if z.dtype in _build.DTYPE_CODES else _plain_xent
+    return fn(z.reshape(-1, v), lab.reshape(-1)).reshape(lab.shape)
+
+
+def loss_grad(z, lab, g):
+    """dz (z's shape) of ``loss`` for the cotangent ``g`` (labels' shape),
+    chosen as ``loss`` chooses."""
+    v = z.shape[-1]
+    fn = xent_grad if z.dtype in _build.DTYPE_CODES else _plain_xent_grad
+    return fn(z.reshape(-1, v), lab.reshape(-1), g.reshape(-1)).reshape(z.shape)

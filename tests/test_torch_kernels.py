@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +21,11 @@ import torch
 
 from minidiff_tpu.kernels import attention as A
 from minidiff_tpu.kernels import layernorm as LN
+from minidiff_tpu.kernels import matmul as MM
 from minidiff_tpu.kernels import xent as XE
 from minidiff_tpu_torch.kernels import attention as TA
 from minidiff_tpu_torch.kernels import layernorm as TLN
+from minidiff_tpu_torch.kernels import matmul as TMM
 from minidiff_tpu_torch.kernels import xent as TXE
 
 
@@ -64,7 +67,28 @@ def _ln_inputs(dtype: str, rows: int = 16, d: int = 256, seed: int = 0):
 
 
 def _np32(a) -> np.ndarray:
-    return np.asarray(jnp.asarray(a, jnp.float32))
+    return np.asarray(a).astype(np.float32)
+
+
+# The jnp references, each jitted: run eagerly, every jnp operation compiles
+# on its own, which made the references most of this file's time.
+_ref_layernorm = jax.jit(LN._jnp_layernorm, static_argnums=3)
+_ref_ln_grads = jax.jit(LN._jnp_ln_grads, static_argnums=3)
+_ref_sdpa = jax.jit(A._composed_sdpa, static_argnums=(3, 4),
+                    static_argnames=("window",))
+_ref_xent = jax.jit(XE._jnp_xent)
+_ref_xent_grad = jax.jit(XE._jnp_xent_grad)
+
+
+@jax.jit
+def _ref_add_layernorm(x, a, g, b):
+    t = x + a
+    return jnp.stack([t, LN._jnp_layernorm(t, g, b, 1e-5)])
+
+
+@jax.jit
+def _ref_addln_dx(x, g, dy, g0):
+    return LN._jnp_ln_grads(x, g, dy, 1e-5)[0] + g0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -73,7 +97,7 @@ def test_layernorm_matches_jax_kernel(dtype):
     y = _to_np(TLN.layernorm(tx, tg, tb, 1e-5))
     kernel = LN._pallas_ln_fwd(x, g, b, 1e-5, 8, interpret=True)
     np.testing.assert_allclose(y, _np32(kernel), **_TOL[dtype])
-    np.testing.assert_allclose(y, _np32(LN._jnp_layernorm(x, g, b, 1e-5)),
+    np.testing.assert_allclose(y, _np32(_ref_layernorm(x, g, b, 1e-5)),
                                **_TOL[dtype])
 
 
@@ -86,8 +110,7 @@ def test_add_layernorm_matches_jax_kernel(dtype):
     # t = x + a is one rounding of the same sum on both sides: exact
     np.testing.assert_array_equal(_to_np(pair[0]), _np32(kernel[0]))
     np.testing.assert_allclose(_to_np(pair[1]), _np32(kernel[1]), **_TOL[dtype])
-    t = x + a
-    ref = jnp.stack([t, LN._jnp_layernorm(t, g, b, 1e-5)])
+    ref = _ref_add_layernorm(x, a, g, b)
     np.testing.assert_allclose(_to_np(pair), _np32(ref), **_TOL[dtype])
 
 
@@ -97,8 +120,8 @@ def test_layernorm_keeps_float64():
     x64, g64, b64 = (np.asarray(v, np.float64) for v in (x, g, b))
     y = TLN.layernorm(*(torch.from_numpy(v) for v in (x64, g64, b64)), 1e-5)
     assert y.dtype == torch.float64
-    ref = LN._jnp_layernorm(jnp.asarray(x64), jnp.asarray(g64),
-                            jnp.asarray(b64), 1e-5)
+    ref = _ref_layernorm(jnp.asarray(x64), jnp.asarray(g64), jnp.asarray(b64),
+                         1e-5)
     np.testing.assert_allclose(y.numpy(), np.asarray(ref), rtol=1e-12, atol=1e-12)
 
 
@@ -140,7 +163,7 @@ def test_flash_fwd_matches_jax_kernel(_interpret, causal):
 @pytest.mark.parametrize("s,causal", [(16, True), (200, True), (200, False)])
 def test_sdpa_matches_composed_ragged(s, causal):
     q, k, v = (t.reshape(2, 2, s, 128) for t in _qkv(4, s, seed=s))
-    ref = A._composed_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    ref = _ref_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            1.0 / 128 ** 0.5, causal)
     out = TA.sdpa(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal)
     assert out.shape == (2, 2, s, 128)
@@ -150,7 +173,7 @@ def test_sdpa_matches_composed_ragged(s, causal):
 
 def test_sdpa_window_matches_composed():
     q, k, v = (t.reshape(1, 2, 200, 128) for t in _qkv(2, 200, seed=3))
-    ref = A._composed_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    ref = _ref_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            0.1, True, window=64)
     out = TA.sdpa(*(torch.from_numpy(t) for t in (q, k, v)), causal=True,
                   scale=0.1, window=64)
@@ -176,7 +199,7 @@ def test_ln_grads_match_jax_kernel(dtype):
     (x, g, dy, _), (tx, tg, tdy, _) = _ln_bwd_inputs(dtype, seed=4)
     got = TLN.ln_grads(tx, tg, tdy, 1e-5)
     kernel = LN._pallas_ln_bwd(x, g, dy, 1e-5, 8, interpret=True)
-    ref = LN._jnp_ln_grads(x, g, dy, 1e-5)
+    ref = _ref_ln_grads(x, g, dy, 1e-5)
     for out, k, r in zip(got, kernel, ref):
         assert out.dtype == _TORCH[dtype]
         np.testing.assert_allclose(_to_np(out), _np32(k), **_TOL[dtype])
@@ -194,8 +217,8 @@ def test_addln_grads_match_jax_kernel(dtype):
     tol = dict(_TOL[dtype], atol=2 ** -6) if dtype == "bfloat16" else _TOL[dtype]
     for out, k in zip(got, kernel):
         np.testing.assert_allclose(_to_np(out), _np32(k), **tol)
-    dx, dg, db = LN._jnp_ln_grads(x, g, dy, 1e-5)
-    np.testing.assert_allclose(_to_np(got[0]), _np32(dx + g0), **tol)
+    np.testing.assert_allclose(_to_np(got[0]), _np32(_ref_addln_dx(x, g, dy, g0)),
+                               **tol)
 
 
 def _xent_inputs(dtype: str, rows: int = 128, v: int = 256, seed: int = 6):
@@ -218,15 +241,44 @@ def test_xent_matches_jax_kernels(dtype):
     np.testing.assert_allclose(
         loss.numpy(), _np32(XE._pallas_xent_fwd(z, lab, 128, interpret=True)),
         rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(loss.numpy(), _np32(XE._jnp_xent(z, lab)),
+    np.testing.assert_allclose(loss.numpy(), _np32(_ref_xent(z, lab)),
                                rtol=1e-5, atol=1e-5)
     dz = TXE.xent_grad(tz, tlab, tg)
     assert dz.dtype == tz.dtype
     np.testing.assert_allclose(
         _to_np(dz), _np32(XE._pallas_xent_bwd(z, lab, g, 128, interpret=True)),
         **_TOL[dtype])
-    np.testing.assert_allclose(_to_np(dz), _np32(XE._jnp_xent_grad(z, lab, g)),
+    np.testing.assert_allclose(_to_np(dz), _np32(_ref_xent_grad(z, lab, g)),
                                **_TOL[dtype])
+
+
+# the tape's entries, kernels.xent.loss / loss_grad, on (..., V) logits with
+# V = 10: the tape MLP's rows, which are no whole number of the CUDA kernels'
+# 16-byte vectors.  float64 takes the plain version on every device.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_xent_tape_entries_match_jax(dtype):
+    rng = np.random.RandomState(7)
+    z = jnp.asarray(rng.standard_normal((24, 10)) * 3, dtype)
+    lab = rng.randint(0, 10, 24)
+    g = rng.standard_normal(24).astype(np.float64 if dtype == "float64"
+                                       else np.float32)
+    # the torch operands are the JAX operands' exact values
+    tz = torch.from_numpy(np.array(z, np.float64)).to(
+        _TORCH.get(dtype, torch.float64)).reshape(4, 6, 10)
+    tlab, tg = torch.from_numpy(lab).reshape(4, 6), torch.from_numpy(g).reshape(4, 6)
+    f64 = dtype == "float64"
+    as_np = (lambda a: np.asarray(a)) if f64 else _np32
+    loss = TXE.loss(tz, tlab)
+    assert loss.shape == (4, 6)
+    assert loss.dtype == (torch.float64 if f64 else torch.float32)
+    np.testing.assert_allclose(loss.reshape(-1).numpy(), as_np(_ref_xent(z, lab)),
+                               rtol=1e-12 if f64 else 1e-5,
+                               atol=1e-12 if f64 else 1e-5)
+    dz = TXE.loss_grad(tz, tlab, tg)
+    assert dz.shape == (4, 6, 10) and dz.dtype == tz.dtype
+    np.testing.assert_allclose(
+        _to_np(dz).reshape(24, 10), as_np(_ref_xent_grad(z, lab, jnp.asarray(g))),
+        **(dict(rtol=1e-12, atol=1e-12) if f64 else _TOL[dtype]))
 
 
 # both sides take the same q, k, v, do and the same o and lse (the port's
@@ -313,4 +365,75 @@ def test_cpu_wrappers_launch_nothing():
     assert kernels.launch_counts() == {
         "ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-        "xent_fwd": 0, "xent_bwd": 0}
+        "xent_fwd": 0, "xent_bwd": 0,
+        "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0}
+
+
+@pytest.fixture
+def _interpret_matmul(monkeypatch):
+    """Run the JAX matmul kernels' pallas_call in interpret mode."""
+    import jax.experimental.pallas as realpl
+
+    patched = types.SimpleNamespace(
+        **{n: getattr(realpl, n) for n in dir(realpl) if not n.startswith("_")})
+    patched.pallas_call = functools.partial(realpl.pallas_call, interpret=True)
+    monkeypatch.setattr(MM, "pl", patched)
+    yield MM
+
+
+# the plain versions (an f32 accumulator, one cast) against the Pallas
+# kernels at 128-tiles.  f32: the same f32 products summed in another order
+# over K = 256: 1e-5.  bf16: both round the f32 sums to bf16 once; a sum
+# near a rounding edge may round the other way: one bf16 ulp, 1e-2 relative.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["nn", "nt", "tn"])
+def test_plain_matmul_matches_jax_kernel(_interpret_matmul, variant, dtype):
+    m, n, k = 256, 128, 256
+    rng = np.random.RandomState(11)
+    xs = {"nn": (m, k), "nt": (m, k), "tn": (k, m)}[variant]
+    ys = {"nn": (k, n), "nt": (n, k), "tn": (k, n)}[variant]
+    x = jnp.asarray(rng.standard_normal(xs), dtype)
+    y = jnp.asarray(rng.standard_normal(ys), dtype)
+    kernel = {"nn": MM._pallas_matmul_2d, "nt": MM._pallas_matmul_nt_2d,
+              "tn": MM._pallas_matmul_tn_2d}[variant]
+    ref = kernel(x, y, bm=128, bn=128, bk=128)
+
+    def tt(a):
+        return torch.tensor(np.asarray(a, np.float32)).to(_TORCH[dtype])
+
+    got = TMM._plain(variant, tt(x), tt(y))
+    assert got.shape == (m, n) and got.dtype == _TORCH[dtype]
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_to_np(got), _np32(ref), rtol=tol, atol=tol)
+
+
+def test_matmul_dispatch_rule(monkeypatch):
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    rule = TMM.uses_kernel
+    # 2-D, one dtype of f32 / bf16, at least 2^31 flops
+    assert rule("nn", (4096, 4096), (4096, 4096), bf16, bf16)
+    assert rule("nn", (1024, 1024), (1024, 1024), f32, f32)  # 2 * 2^30
+    assert not rule("nn", (1024, 1024), (1024, 1023), f32, f32)
+    assert rule("tn", (8192, 784), (8192, 4096), f32, f32)  # the MLP's dW1
+    assert not rule("nt", (8192, 10), (4096, 10), f32, f32)  # its dh: 0.67 GF
+    assert not rule("nn", (4096, 4096), (4096, 4096), f64, f64)
+    assert not rule("nn", (4096, 4096), (4096, 4096), f32, bf16)
+    assert not rule("nn", (2, 4096, 4096), (4096, 4096), f32, f32)
+    assert not rule("nt", (4096, 4096), (4096, 4095), f32, f32)  # k differs
+    assert rule("nt", (4096, 4096), (4096, 4096), f32, f32)
+    # a product that meets the rule runs the plain version on the CPU and
+    # launches nothing; one that does not goes to torch.matmul
+    from minidiff_tpu_torch import kernels
+
+    monkeypatch.setattr(TMM, "_MIN_FLOPS", 2 * 8 * 8 * 8)
+    rng = np.random.RandomState(12)
+    x, y = (torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+            for _ in range(2))
+    plain = []
+    monkeypatch.setattr(TMM, "_plain", lambda *a: plain.append(a[0]) or x)
+    kernels.reset_launch_counts()
+    TMM.matmul(x, y), TMM.matmul_nt(x, y), TMM.matmul_tn(x, y)
+    assert plain == ["nn", "nt", "tn"]
+    TMM.matmul(x[:4], y[:, :4].double())  # mixed dtypes: numpy promotion
+    assert plain == ["nn", "nt", "tn"]
+    assert set(kernels.launch_counts().values()) == {0}

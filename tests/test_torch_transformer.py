@@ -45,17 +45,21 @@ def _np_tree(params):
 def _pair(dtype, seed=0):
     np.random.seed(seed)
     jm = JaxLM(dtype=_JAX_DT[dtype], **CFG)
-    jp = jm.init()
+    with md.use_backend("numpy"):  # numpy-seeded init, no XLA compiles
+        jp = jm.init()
     tm = TransformerLM(dtype=dtype, device="cpu", **CFG)
     tm.load_state_dict(params_from_jax(_np_tree(jp)))
     return jm, jp, tm
 
 
 def _logits_pair(dtype, s):
-    jm, jp, tm = _pair(dtype)
-    toks = np.random.RandomState(1).randint(0, CFG["vocab_size"], size=(2, s))
-    with md.no_grad():
-        ref = np.asarray(jm.apply(jp, md.Tensor(toks))._data)
+    # the reference runs on the JAX package's numpy backend: the same model
+    # code over numpy arrays, without an XLA compile of every operation
+    with md.use_backend("numpy"):
+        jm, jp, tm = _pair(dtype)
+        toks = np.random.RandomState(1).randint(0, CFG["vocab_size"], size=(2, s))
+        with md.no_grad():
+            ref = np.asarray(jm.apply(jp, md.Tensor(toks))._data)
     with torch.no_grad():
         out = tm(torch.from_numpy(toks)).numpy()
     return out, ref
