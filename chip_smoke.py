@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and tape paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, tape, quantized and paged
+serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -35,9 +36,22 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    gradients and an hvp of ``sum(tanh(x @ w))`` at 2048² on the card against
    the same tape on the CPU), and the README demo and the 64-dim Rosenbrock
    ``md.hessian`` against their closed forms;
-7. the kernels line: every kernel must have launched on its paths (counts
-   are reset just before phases 3, 4, 5 and each timed part of 6 and read
-   just after each).
+7. quantized decode (``bench.py:350-443``): ``generate_compiled`` at full
+   width over int8 weights, int4 weights and int8 weights with an int8 KV
+   cache (bf16, batch 8, prompt 16, 128 new tokens), and the int8 KV cache
+   at long context (max_seq_len 4096, batch 4, prompt 3,968, 64 new
+   tokens): tok/s, ms/step, exact launches per decode step, the weight
+   bytes; an f32 gate of the quantized model's logits on the card against
+   the same codes' plain path on the CPU; one profiled run;
+8. ``PagedDecodeServer`` (``benchmarks/serving_bench.py:76-145``): in f32
+   the staggered requests of phase 4 must each equal their solo decode
+   token for token (slot reuse, page-boundary crossings; the smallest top-2
+   logit gap is reported); then bf16 paged against dense tok/s at equal
+   batch (8 slots, window 1024), the dense-equivalent and the oversubscribed
+   pools' ``kv_bytes``, pages in use, and pool exhaustion raising;
+9. the kernels line: every kernel must have launched on its paths (counts
+   are reset just before phases 3, 4, 5, each timed part of 6, each run of
+   7 and phase 8, and read just after each).
 
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -103,12 +117,23 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
        ("xent_loss", "float32"): (1e-5, 1e-4), ("xent_loss", "bfloat16"): (1e-5, 1e-4),
        ("xent_dz", "float32"): (1e-5, 1e-7), ("xent_dz", "bfloat16"): (2 ** -7, 1e-6),
        ("attn_bwd", "float32"): (1e-4, 1e-5), ("attn_bwd", "bfloat16"): (2 ** -6, 2 ** -6),
-       ("matmul", "float32"): (0.0, 1e-5), ("matmul", "bfloat16"): (0.0, 1e-2)}
+       ("matmul", "float32"): (0.0, 1e-5), ("matmul", "bfloat16"): (0.0, 1e-2),
+       ("dq", "float32"): (1e-5, 1e-6), ("dq", "bfloat16"): (2 ** -7, 1e-6)}
 # the kinds whose atol is a share of the plain output's largest magnitude.
 #  matmul: both sides accumulate in f32; bf16 rounds the output once (one
 #   bf16 ulp, under 2^-8 of the largest value), f32 sums up to K = 8192
 #   products in another order: 1e-2 and 1e-5 of the largest value.
-SCALED = {"attn_bwd", "matmul"}
+#  dq (dq_mm, dq4_mm): products of int8 codes and bf16 or f32 values are
+#   exact in f32 and both sides sum them in f32 in another order (int4's
+#   weights round to bf16 at the same point on both sides): f32 1e-5
+#   relative and 1e-6 of the largest value (an output that cancels keeps
+#   its terms' absolute error), bf16 one ulp of the output (2^-7 relative).
+#  sdpa_int8 and paged_attn take the "attn" tolerances: sdpa_int8 rounds
+#   p * vs to bf16 at the same point as its plain version, and a p that
+#   differs in its last f32 bit can move that rounding; paged_attn rounds
+#   the unnormalised p against the running max where the plain version
+#   rounds the normalised one, as flash_fwd does.
+SCALED = {"attn_bwd", "matmul", "dq"}
 
 # the full-width train step: the JAX repo's headline (bench.py:636-661,
 # TransformerLM V512 d1024 h8 L4, S 1024, batch 8, bf16, SGD(1e-3), lm_loss
@@ -126,12 +151,32 @@ TRAIN_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4, "flash_fwd": 4, "xent_fwd": 1,
 PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
                   "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
-                  "mm_f32_kernel")
+                  "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
+                  "sdpa_int8_kernel", "paged_attn_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
 # the kernels that only the tape path runs
 TAPE_ONLY = {"matmul_nn", "matmul_nt", "matmul_tn"}
+# the kernels that only quantized decoding runs, and only the paged server
+QUANT_ONLY = {"dq_mm", "dq4_mm", "sdpa_int8"}
+PAGED_ONLY = {"paged_attn"}
+PATHS = ("generate", "server", "train", "tape", "quant", "paged")
+
+# quantized decode (bench.py:350-443): the serving model above at its bench
+# size, and the int8 KV cache at long context (bench.py:413-443)
+LC_SEQ, LC_BATCH, LC_PROMPT, LC_NEW = 4096, 4, 3968, 64
+# per decode step: 16 projections and the head, and with kv_quant the
+# attention of each of the 4 layers
+DQ_PER_STEP = 4 * MODEL["num_layers"] + 1
+SDPA8_PER_STEP = MODEL["num_layers"]
+# the paged server against the dense one (serving_bench.paged_vs_dense):
+# 8 slots, window 1024, bf16, prompts of 16 tokens, timed in turns
+PAGED_SEQ, PAGED_SLOTS, PAGED_PROMPT, PAGED_STEPS, PAGED_ROUNDS = 1024, 8, 16, 32, 3
+# launches per server step: ln1 of each block and ln_f, add+LN of each
+# block; the paged step adds one paged_attn per layer
+DENSE_STEP_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4}
+PAGED_STEP_LAUNCHES = {**DENSE_STEP_LAUNCHES, "paged_attn": MODEL["num_layers"]}
 
 # the tape path.  bench.py:196-234's matmul step: 4096^2 bf16, lr 1e-6, 2
 # warm-up and 10 timed steps; each step's forward is one nn product and its
@@ -199,24 +244,20 @@ def main() -> int:
     phase_server(torch, args.seed, report)
     phase_train(torch, args.seed, report)
     phase_tape(torch, args.seed, report)
+    phase_quant(torch, args.seed, report)
+    phase_paged(torch, args.seed, report)
 
     from minidiff_tpu_torch import kernels as K
 
     for k in kernels:
-        gen = report["launches_generate"][k["name"]]
-        srv = report["launches_server"][k["name"]]
-        train = report["launches_train"][k["name"]]
-        tape = report["launches_tape"][k["name"]]
-        k["launches"] = gen + srv + train + tape
-        k["launches_generate"], k["launches_server"] = gen, srv
-        k["launches_train"], k["launches_tape"] = train, tape
-        if k["name"] in TAPE_ONLY:
-            ok = tape > 0
-        else:
-            serving = k["name"] not in TRAIN_ONLY
-            ok = train > 0 and (not serving or (gen > 0 and srv > 0))
-        check(ok, f"kernel {k['name']} did not launch on its paths (generate "
-                  f"{gen}, server {srv}, train {train}, tape {tape})")
+        counts = {path: report[f"launches_{path}"][k["name"]] for path in PATHS}
+        k["launches"] = sum(counts.values())
+        for path, n in counts.items():
+            k[f"launches_{path}"] = n
+        required = required_paths(k["name"])
+        check(all(counts[p] > 0 for p in required),
+              f"kernel {k['name']} did not launch on its paths {required}: "
+              f"{counts}")
     check(set(K.launch_counts()) == {k["name"] for k in kernels},
           "the kernels line must list every ported kernel")
     report["kernels"] = kernels
@@ -228,14 +269,24 @@ def main() -> int:
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-        "launches_generate", "launches_server", "launches_train",
-        "launches_tape")}
+        *(f"launches_{path}" for path in PATHS))}
         for k in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def required_paths(name: str) -> tuple:
+    """The paths on which kernel ``name`` must launch: the serving kernels
+    (the forward norms and flash) on every path that runs the model forward,
+    the others on the paths that only they serve."""
+    for only, paths in ((TAPE_ONLY, ("tape",)), (QUANT_ONLY, ("quant",)),
+                        (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",))):
+        if name in only:
+            return paths
+    return ("generate", "server", "train", "quant", "paged")
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +370,8 @@ def phase_kernels(torch, report):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     cases = (norm_cases(torch, randn) + flash_cases(torch, randn)
-             + xent_cases(torch, gen, randn) + matmul_cases(torch, randn))
+             + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
+             + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn))
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
@@ -335,12 +387,16 @@ def phase_kernels(torch, report):
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
     # rows, flash at generate_compiled's prefill of 8 sequences x 8 heads of
-    # 16 tokens), the train path's kernels at the train step's shapes and
-    # the matmul kernels at the tape's matmul step ([m, n, k])
+    # 16 tokens), the train path's kernels at the train step's shapes, the
+    # matmul kernels at the tape's matmul step ([m, n, k]), the dequant
+    # kernels at a decode step's QKV projection ([m, K, N]), sdpa_int8 at
+    # the bench decode's last step ([B, kv, g*c, hd, L]) and paged_attn at
+    # the paged server's steps ([B, kv, g, hd, pages per slot])
     d, rows = TRAIN_MODEL["dim"], TRAIN_BATCH * TRAIN_SEQ
     bhs = [TRAIN_BATCH * TRAIN_MODEL["num_heads"], TRAIN_SEQ, 128]
     ln_src = "minidiff_tpu_torch/kernels/csrc/layernorm.cu"
     mm_src = "minidiff_tpu_torch/kernels/csrc/matmul.cu"
+    q_src = "minidiff_tpu_torch/kernels/csrc/quant.cu"
     meta = {
         "ln_fwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:84", [8, d]),
         "addln_fwd": (ln_src, "minidiff_tpu/kernels/layernorm.py:123", [8, d]),
@@ -361,6 +417,13 @@ def phase_kernels(torch, report):
         "matmul_nn": (mm_src, "minidiff_tpu/kernels/matmul.py:106", [MM_N] * 3),
         "matmul_nt": (mm_src, "minidiff_tpu/kernels/matmul.py:190", [MM_N] * 3),
         "matmul_tn": (mm_src, "minidiff_tpu/kernels/matmul.py:207", [MM_N] * 3),
+        "dq_mm": (q_src, "minidiff_tpu/kernels/quant.py:58", [BATCH, d, 3 * d]),
+        "dq4_mm": (q_src, "minidiff_tpu/kernels/quant.py:412", [BATCH, d, 3 * d]),
+        "sdpa_int8": (q_src, "minidiff_tpu/kernels/quant.py:138",
+                      [BATCH, MODEL["num_heads"], 1, 128, 256]),
+        "paged_attn": ("minidiff_tpu_torch/kernels/csrc/paged.cu",
+                       "minidiff_tpu/kernels/paged.py:64",
+                       [PAGED_SLOTS, MODEL["num_heads"], 1, 128, 1]),
     }
     line = []
     for name, (src, replaces, shape) in meta.items():
@@ -606,6 +669,115 @@ def matmul_cases(torch, randn):
             plain_ms=device_ms(torch, lambda: M._plain(variant, x, y), iters=20),
             library_ms=device_ms(torch, library, iters=20),
             **bound((m * k + k * n + m * n) * size, 2 * m * n * k, dn)))
+    return cases
+
+
+def quant_cases(torch, gen, randn):
+    """dq_mm / dq4_mm at a decode step's projections (m = 8: QKV [1024,
+    3072], out [1024, 1024], fc1 [1024, 4096], fc2 [4096, 1024], the head
+    [1024, 512]) and at m = 128 (the bench prefill of 8 x 16 tokens), against
+    torch.matmul on the dequantized weight; sdpa_int8 at the bench decode's
+    last step (B 8, kv 8, hd 128, L 256, pos 143) and the long-context one
+    (B 4, L 4096, pos 4031), against SDPA over the dequantized cache."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    cases = []
+    d = MODEL["dim"]
+    shapes = [(d, 3 * d), (d, d), (d, 4 * d), (4 * d, d), (d, MODEL["vocab_size"])]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        for m in (BATCH, 128):
+            for k, n in shapes:
+                x = randn(m, k, dtype=dtype)
+                w = randn(k, n, dtype=torch.float32) * k ** -0.5
+                q8, s8 = Q.quantize_int8(w)
+                p4, s4 = Q.quantize_int4(w)
+                for name, fn, plain, wq, sq, wbytes in (
+                        ("dq_mm", Q.dequant_matmul, Q._plain_dequant_matmul, q8, s8,
+                         k * n + 4 * n),
+                        ("dq4_mm", Q.dequant_matmul4, Q._plain_dequant_matmul4, p4, s4,
+                         k * n // 2 + 4 * (k // 128) * n)):
+                    wd = (Q._dequantized4(p4, s4, dtype) if name == "dq4_mm"
+                          else (q8.float() * s8).to(dtype))
+                    cases.append(dict(
+                        name=name, dtype=dn, shape=[m, k, n],
+                        max_abs_err=max_err(torch, fn(x, wq, sq), plain(x, wq, sq),
+                                            "dq", dn),
+                        ms=device_ms(torch, lambda: fn(x, wq, sq)),
+                        plain_ms=device_ms(torch, lambda: plain(x, wq, sq)),
+                        library_ms=device_ms(torch, lambda: x @ wd),
+                        **bound((m * k + m * n) * size + wbytes, 2 * m * n * k, dn)))
+        h, hd = MODEL["num_heads"], 128
+        for b, L, pos in ((BATCH, 256, PROMPT + NEW - 1),
+                          (LC_BATCH, LC_SEQ, LC_PROMPT + LC_NEW - 1)):
+            q = randn(b, h, 1, hd, dtype=dtype)
+            k8, ks = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
+            v8, vs = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
+            posv = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
+            args = (q, k8, ks, v8, vs, posv)
+            kd = (k8.float() * ks[..., None]).to(dtype)
+            vd = (v8.float() * vs[..., None]).to(dtype)
+            mask = (torch.arange(L, device=DEVICE) <= pos).reshape(1, L)
+            live = pos + 1  # keys this step reads: the rest are masked
+            cases.append(dict(
+                name="sdpa_int8", dtype=dn, shape=[b, h, 1, hd, L], pos=pos,
+                max_abs_err=max_err(torch, Q.sdpa_int8_cache(*args),
+                                    Q._plain_sdpa_int8_cache(*args), "attn", dn),
+                ms=device_ms(torch, lambda: Q.sdpa_int8_cache(*args)),
+                plain_ms=device_ms(torch, lambda: Q._plain_sdpa_int8_cache(*args)),
+                library_ms=device_ms(torch, lambda: TF.scaled_dot_product_attention(
+                    q, kd, vd, attn_mask=mask)),
+                # K and V lines with their scales, q and o; QK^T and PV
+                **bound(2 * b * h * live * (hd + 4) + 2 * b * h * hd * size + 4 * b,
+                        4 * b * h * live * hd, dn)))
+    return cases
+
+
+def paged_cases(torch, gen, randn):
+    """paged_attn at the paged server's decode step (8 slots, 8 heads, hd
+    128, window 1024) with 1 and 8 pages used per slot, against SDPA over
+    the gathered logical view."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import paged as P
+
+    cases = []
+    b, h, hd = PAGED_SLOTS, MODEL["num_heads"], 128
+    maxp = PAGED_SEQ // P.PAGE
+    npages = b * maxp + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        pk = randn(npages, h, P.PAGE, hd, dtype=dtype)
+        pv = randn(npages, h, P.PAGE, hd, dtype=dtype)
+        table = (1 + torch.randperm(npages - 1, generator=gen, device=DEVICE)).reshape(
+            b, maxp).to(torch.int32)
+        q = randn(b, h, 1, hd, dtype=dtype)
+        for used in (1, maxp):
+            live = used * P.PAGE - 20
+            pos = torch.full((b,), live - 1, device=DEVICE, dtype=torch.int32)
+            args = (q, pk, pv, table, pos)
+            view = table[:, :used].long()
+            kd = pk[view].transpose(1, 2).reshape(b, h, used * P.PAGE, hd)
+            vd = pv[view].transpose(1, 2).reshape(b, h, used * P.PAGE, hd)
+            mask = (torch.arange(used * P.PAGE, device=DEVICE) < live).reshape(1, -1)
+            cases.append(dict(
+                name="paged_attn", dtype=dn, shape=[b, h, 1, hd, used],
+                max_abs_err=max_err(torch, P.paged_attention(*args),
+                                    P.paged_attention_reference(*args, hd ** -0.5),
+                                    "attn", dn),
+                ms=device_ms(torch, lambda: P.paged_attention(*args)),
+                plain_ms=device_ms(torch, lambda: P.paged_attention_reference(
+                    *args, hd ** -0.5)),
+                library_ms=device_ms(torch, lambda: TF.scaled_dot_product_attention(
+                    q, kd, vd, attn_mask=mask)),
+                # the live K and V rows (l <= pos), q, o and the table rows
+                # and positions; QK^T and PV over the live rows
+                **bound(2 * b * h * live * hd * size + 2 * b * h * hd * size
+                        + 4 * b * (used + 1), 4 * b * h * live * hd, dn)))
     return cases
 
 
@@ -1079,6 +1251,270 @@ def tape_closed_forms(torch, md, report):
         log(f"[tape] {name} f64 on the card: max |err| {err:.3g} against the "
             f"closed form; {wall_ms:.2f} ms wall")
     report["tape_closed_forms"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: quantized decode
+# ---------------------------------------------------------------------------
+
+
+def _counted(torch, K, run):
+    """(result, seconds, nonzero launch counts) of ``run()`` from reset
+    counters, synchronised."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: n for k, n in K.launch_counts().items() if n}
+
+
+def decode_launches(dq: str, new: int, prefill_dq: int, kv_quant: bool) -> dict:
+    """The launches of one generate_compiled of ``new`` tokens: the prefill
+    (4 ln1 + ln_f, 4 add+LN, 4 flash, ``prefill_dq`` projections through the
+    kernel), then per decode step 5 LN, 4 add+LN, DQ_PER_STEP dequant
+    products and, with kv_quant, SDPA8_PER_STEP int8-cache attentions."""
+    steps = new - 1
+    want = {"ln_fwd": 5 * new, "addln_fwd": 4 * new, "flash_fwd": 4,
+            dq: prefill_dq + DQ_PER_STEP * steps}
+    if kv_quant:
+        want["sdpa_int8"] = SDPA8_PER_STEP * steps
+    return want
+
+
+def phase_quant(torch, seed: int, report):
+    import copy
+
+    import numpy as np
+
+    from minidiff_tpu_torch import (TransformerLM, generate_compiled,
+                                    quantize_for_serving, quantized_bytes)
+    from minidiff_tpu_torch import kernels as K
+
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **MODEL)
+    q8 = quantize_for_serving(model)
+    q4 = quantize_for_serving(model, bits=4)
+    weight_bytes = {"bf16": quantized_bytes(model), "int8": quantized_bytes(q8),
+                    "int4": quantized_bytes(q4)}
+    del model
+    prompt = torch.from_numpy(np.random.RandomState(seed + 1).randint(
+        1, MODEL["vocab_size"], size=(BATCH, PROMPT)))
+    out = {"weight_bytes": weight_bytes}
+    launches: dict = {}
+    toks = {}
+    # the bench prefill's 8 x 16 rows take the kernel (<= 256 rows)
+    for label, qm, dq, kv_quant in (("int8", q8, "dq_mm", False),
+                                    ("int4", q4, "dq4_mm", False),
+                                    ("int8_kv", q8, "dq_mm", True)):
+        generate_compiled(qm, prompt, 4, device=DEVICE, kv_quant=kv_quant)  # warm-up
+        toks[label], dt, counts = _counted(torch, K, lambda: generate_compiled(
+            qm, prompt, NEW, device=DEVICE, kv_quant=kv_quant))
+        want = decode_launches(dq, NEW, DQ_PER_STEP, kv_quant)
+        check(counts == want, f"quant {label}: launches {counts}, expected {want}")
+        check(tuple(toks[label].shape) == (BATCH, PROMPT + NEW)
+              and bool(((toks[label] >= 0) & (toks[label] < MODEL["vocab_size"])).all()),
+              f"quant {label}: tokens {tuple(toks[label].shape)} out of range")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        out[label] = dict(seconds=dt, tok_s=BATCH * NEW / dt, ms_per_step=dt / NEW * 1e3,
+                          launches=counts, launches_per_step={
+                              dq: DQ_PER_STEP, **({"sdpa_int8": SDPA8_PER_STEP}
+                                                  if kv_quant else {})})
+        log(f"[quant] {label} bf16 batch {BATCH} prompt {PROMPT} new {NEW}: "
+            f"{dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step "
+            f"| per step {out[label]['launches_per_step']} | launches {counts}")
+    # an int8 cache is deterministic per seed; its agreement with the bf16
+    # cache is reported, not gated (quantization can flip a near-tie)
+    again = generate_compiled(q8, prompt, NEW, device=DEVICE, kv_quant=True)
+    check(torch.equal(again, toks["int8_kv"]), "kv_quant decode is not deterministic")
+    agree = (toks["int8_kv"][:, PROMPT:] == toks["int8"][:, PROMPT:]).float().mean().item()
+    out["int8_kv_agreement_with_int8"] = agree
+    log(f"[quant] weight bytes bf16 {weight_bytes['bf16']:,} int8 "
+        f"{weight_bytes['int8']:,} ({weight_bytes['int8'] / weight_bytes['bf16']:.3f}x) "
+        f"int4 {weight_bytes['int4']:,} ({weight_bytes['int4'] / weight_bytes['bf16']:.3f}x); "
+        f"int8-cache tokens equal to the bf16 cache's: {agree:.4f}")
+    out["profile"] = profile_run(
+        torch, "int8 generate_compiled 32 new tokens",
+        lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
+    del q8, q4
+
+    # the int8 KV cache at long context (bench.py:413-443): the prefill's
+    # 15,872 rows take the plain product on the dequantized weight, its
+    # head (4 rows) the kernel
+    lc = quantize_for_serving(TransformerLM(
+        dtype=torch.bfloat16, device=DEVICE, seed=seed + 4,
+        **dict(MODEL, max_seq_len=LC_SEQ)))
+    prompt_lc = torch.from_numpy(np.random.RandomState(seed + 5).randint(
+        1, MODEL["vocab_size"], size=(LC_BATCH, LC_PROMPT)))
+    lc_out = {}
+    for label, kv_quant in (("int8", False), ("int8_kv", True)):
+        lc_out[label], dt, counts = _counted(torch, K, lambda: generate_compiled(
+            lc, prompt_lc, LC_NEW, device=DEVICE, kv_quant=kv_quant))
+        want = decode_launches("dq_mm", LC_NEW, 1, kv_quant)
+        check(counts == want, f"quant 4k {label}: launches {counts}, expected {want}")
+        out[f"4k_{label}"] = dict(seconds=dt, tok_s=LC_BATCH * LC_NEW / dt,
+                                  ms_per_token=dt / LC_NEW * 1e3, launches=counts)
+        log(f"[quant] 4k {label}: batch {LC_BATCH} prompt {LC_PROMPT} new {LC_NEW}: "
+            f"{dt:.3f} s with the prefill, {LC_BATCH * LC_NEW / dt:.0f} tok/s")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    out["4k_int8_kv_agreement_with_int8"] = (
+        lc_out["int8_kv"][:, LC_PROMPT:] == lc_out["int8"][:, LC_PROMPT:]).float().mean().item()
+    del lc
+
+    # f32 gate: the same codes on the card and on the CPU (quantized once,
+    # then moved), the kernels against the plain path, full width
+    cpu = TransformerLM(dtype=torch.float32, device="cpu", seed=seed, **MODEL)
+    gate_toks = torch.from_numpy(np.random.RandomState(seed + 6).randint(
+        1, MODEL["vocab_size"], size=(2, 16)))
+    errs = {}
+    for bits in (8, 4):
+        qcpu = quantize_for_serving(cpu, bits=bits)
+        qgpu = copy.deepcopy(qcpu).to(DEVICE)
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            lg = qgpu(gate_toks.to(DEVICE)).float().cpu()
+            ref = qcpu(gate_toks).float()
+        used = {k: n for k, n in K.launch_counts().items() if n}
+        check(used.get("dq_mm" if bits == 8 else "dq4_mm", 0) == DQ_PER_STEP,
+              f"quant gate int{bits}: launches {used}")
+        errs[f"int{bits}"] = (lg - ref).abs().max().item()
+        # f32 through 4 layers in other summation orders: ~1e-5; a wrong
+        # kernel is off by O(1)
+        check(errs[f"int{bits}"] < 1e-3, f"f32 int{bits} logits GPU vs CPU: max "
+              f"|err| {errs[f'int{bits}']:.3g}")
+    out["f32_logits_max_err_vs_cpu"] = errs
+    log(f"[quant] f32 logits of the quantized model, kernels on the GPU vs plain "
+        f"path on the CPU (same codes): max |err| int8 {errs['int8']:.3g}, "
+        f"int4 {errs['int4']:.3g}")
+    report["quant"] = out
+    report["launches_quant"] = {k: launches.get(k, 0) for k in K.launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the paged server
+# ---------------------------------------------------------------------------
+
+
+def phase_paged(torch, seed: int, report):
+    import numpy as np
+
+    from minidiff_tpu_torch import (DecodeServer, PagedDecodeServer, TransformerLM,
+                                    generate_compiled)
+    from minidiff_tpu_torch import kernels as K
+
+    rng = np.random.RandomState(seed + 2)
+    prompts = [([int(t) for t in rng.randint(1, MODEL["vocab_size"], n)], new)
+               for n, new in REQUESTS]
+    n_tokens = sum(new for _, new in REQUESTS)
+    # requests whose decode crosses into a page their bucketed prompt did
+    # not take
+    crossings = sum(-(-(n + new - 1) // 128) > -(-n // 128) for n, new in REQUESTS)
+    check(crossings > 0, "no request crosses a page boundary")
+
+    # f32: every request token-identical to its solo decode
+    model = TransformerLM(dtype=torch.float32, device=DEVICE, seed=seed, **MODEL)
+    srv = PagedDecodeServer(model, max_batch=8, window=512, device=DEVICE)
+    gaps = []
+    step_logits = srv._step_logits
+
+    def spy(toks, pos):
+        # the smallest top-2 logit gap of the live slots at every step
+        logits = step_logits(toks, pos)
+        live = [s for s in range(srv.max_batch)
+                if s not in srv._free and srv._budget[s] > 0]
+        top = logits[live, 0].float().topk(2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return logits
+
+    srv._step_logits = spy
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, steps, slots = run_schedule(srv, prompts)
+    torch.cuda.synchronize()
+    dt32 = time.perf_counter() - t0
+    report["launches_paged"] = K.launch_counts()
+    check(slots < len(prompts), "no slot was reused")
+    check(srv.pages_in_use() == 0, f"{srv.pages_in_use()} pages not released")
+    solo = [generate_compiled(model, [p], n, device=DEVICE)[0, len(p):].tolist()
+            for p, n in prompts]
+    for i, (g, s) in enumerate(zip(got, solo)):
+        check(len(g) == REQUESTS[i][1], f"paged request {i}: {len(g)} tokens")
+        if g != s:
+            first = next(j for j, (a, b) in enumerate(zip(g, s)) if a != b)
+            raise SmokeFailure(f"f32 paged request {i} (prompt {REQUESTS[i][0]}) "
+                               f"differs from its solo decode at token {first}")
+    min_gap = torch.cat(gaps).min().item()
+    log(f"[paged] f32: {len(REQUESTS)} requests over 8 slots, {steps} steps, "
+        f"{crossings} page-boundary crossings, {n_tokens} tokens in {dt32:.3f} s: "
+        f"every request token-identical to its solo generate_compiled; smallest "
+        f"top-2 logit gap {min_gap:.3g} | launches {report['launches_paged']}")
+    del model, srv
+
+    # bf16: paged against dense at equal batch (serving_bench.paged_vs_dense)
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
+                          **dict(MODEL, max_seq_len=PAGED_SEQ))
+    rng = np.random.RandomState(0)
+    bench_prompts = [[int(t) for t in rng.randint(1, MODEL["vocab_size"], PAGED_PROMPT)]
+                     for _ in range(PAGED_SLOTS)]
+
+    def setup(cls, **kw):
+        srv = cls(model, max_batch=PAGED_SLOTS, window=PAGED_SEQ, device=DEVICE, **kw)
+        for p in bench_prompts:
+            srv.submit(p, max_new_tokens=PAGED_SEQ - PAGED_PROMPT - 2)
+        return srv
+
+    servers = {"dense": setup(DecodeServer), "paged": setup(PagedDecodeServer),
+               "paged_oversub": setup(PagedDecodeServer, num_pages=max(
+                   PAGED_SLOTS + 1, PAGED_SLOTS * (PAGED_SEQ // 128) // 4))}
+    times = {name: [] for name in servers}
+    for name, srv in servers.items():
+        srv.step()  # warm-up
+    for _ in range(PAGED_ROUNDS):  # in turns, so that drift cancels
+        for name, srv in servers.items():
+            _, dt, counts = _timed_steps(
+                torch, K, lambda _: srv.step(), None, 0, PAGED_STEPS,
+                DENSE_STEP_LAUNCHES if name == "dense" else PAGED_STEP_LAUNCHES,
+                f"{name} server step")
+            times[name].append(dt)
+    tok_s = {name: PAGED_SLOTS / min(ts) for name, ts in times.items()}
+    step_profile = profile_run(torch, "8 paged server steps",
+                               lambda: [servers["paged"].step() for _ in range(8)])
+    kv = {name: (srv.kv_bytes() if name != "dense" else sum(
+        t.numel() * t.element_size() for c in srv._caches for t in c.values()))
+        for name, srv in servers.items()}
+    pages = {name: srv.pages_in_use() for name, srv in servers.items() if name != "dense"}
+
+    # pool exhaustion: at submit, and mid-decode when a step crosses a page
+    errors = []
+    for num_pages, prompt_len, run in ((2, 130, "submit"), (1, 126, "step")):
+        srv = PagedDecodeServer(model, max_batch=2, window=PAGED_SEQ,
+                                num_pages=num_pages, device=DEVICE)
+        srv.submit((bench_prompts[0] * 9)[:prompt_len], max_new_tokens=8)
+        try:
+            if run == "submit":
+                srv.submit(bench_prompts[1], max_new_tokens=8)
+            else:
+                while srv.active():
+                    srv.step()
+        except RuntimeError as e:
+            errors.append(str(e))
+            continue
+        raise SmokeFailure(f"an exhausted page pool did not raise at {run}")
+    check(all("page pool exhausted" in e for e in errors), f"exhaustion: {errors}")
+    report["paged"] = dict(
+        requests=len(REQUESTS), tokens=n_tokens, steps=steps, crossings=crossings,
+        f32_seconds=dt32, f32_min_top2_gap=min_gap, bf16_step_ms={
+            name: [t * 1e3 for t in ts] for name, ts in times.items()},
+        bf16_tok_s=tok_s, paged_vs_dense=tok_s["paged"] / tok_s["dense"],
+        kv_bytes=kv, pages_in_use=pages, exhaustion=errors, profile=step_profile)
+    log(f"[paged] bf16 {PAGED_SLOTS} slots window {PAGED_SEQ}, {PAGED_STEPS} steps x "
+        f"{PAGED_ROUNDS} rounds in turns: dense {tok_s['dense']:.0f} tok/s, paged "
+        f"{tok_s['paged']:.0f} tok/s ({tok_s['paged'] / tok_s['dense']:.3f}x), "
+        f"oversubscribed {tok_s['paged_oversub']:.0f} tok/s | kv bytes dense "
+        f"{kv['dense']:,} paged {kv['paged']:,} oversubscribed {kv['paged_oversub']:,} "
+        f"({kv['paged_oversub'] / kv['dense']:.3f}x) | pages in use {pages} | pool "
+        f"exhaustion raised at submit and mid-decode")
 
 
 if __name__ == "__main__":

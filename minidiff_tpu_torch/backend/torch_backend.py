@@ -20,8 +20,9 @@ torch and numpy promote differently (an integer array with a Python float,
 or divided by an integer), the result is numpy's float64.
 
 ``matmul`` / ``matmul_nt`` / ``matmul_tn`` go to ``kernels.matmul`` (the
-hand-written CUDA kernels for large 2-D f32/bf16 products) and
-``softmax_xent`` to ``kernels.xent``.  Autograd is the tape's: torch tensors
+hand-written CUDA kernels for large 2-D f32/bf16 products),
+``softmax_xent`` to ``kernels.xent``, and ``dequant_matmul``,
+``dequant_matmul4`` and ``sdpa_int8_cache`` to ``kernels.quant``.  Autograd is the tape's: torch tensors
 here never require grad.
 """
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from minidiff_tpu_torch.kernels import matmul as _mm
+from minidiff_tpu_torch.kernels import quant as _quant
 from minidiff_tpu_torch.kernels import xent as _xent
 
 if TYPE_CHECKING:
@@ -439,6 +441,13 @@ class TorchBackend:
 
     # per-row loss of (..., V) logits: the xent_fwd kernel or its plain version
     softmax_xent = staticmethod(_xent.loss)
+
+    # quantized serving: the dq_mm / dq4_mm / sdpa_int8 kernels or their
+    # plain versions (kernels/quant.py)
+    dequant_matmul = staticmethod(_quant.for_tape("dequant_matmul"))
+    dequant_matmul4 = staticmethod(_quant.for_tape("dequant_matmul4"))
+    sdpa_int8_cache = staticmethod(_quant.for_tape("sdpa_int8_cache"))
+    unpack_int4 = staticmethod(_quant.unpack_int4)
 
     # ---- ternary ----
     @staticmethod

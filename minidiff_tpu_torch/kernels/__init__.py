@@ -8,13 +8,14 @@ built from ``csrc/`` with nvcc at first launch (see ``_build``)."""
 
 from __future__ import annotations
 
-from minidiff_tpu_torch.kernels import attention, layernorm, matmul, xent
+from minidiff_tpu_torch.kernels import (attention, layernorm, matmul, paged,
+                                        quant, xent)
 
-__all__ = ["attention", "launch_counts", "layernorm", "matmul",
-           "reset_launch_counts", "xent"]
+__all__ = ["attention", "launch_counts", "layernorm", "matmul", "paged",
+           "quant", "reset_launch_counts", "xent"]
 
 _COUNTERS = (layernorm.LAUNCHES, attention.LAUNCHES, xent.LAUNCHES,
-             matmul.LAUNCHES)
+             matmul.LAUNCHES, quant.LAUNCHES, paged.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -27,7 +27,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent", "matmul")
+SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent", "matmul", "quant",
+           "paged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +55,12 @@ SIGNATURES = {
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "sdpa_int8": ("quant", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _P)),
+    "paged_attn": ("paged", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _I, _I, _I, _P)),
 }
 
 _libs: dict = {}
@@ -134,6 +141,13 @@ def _lib(source: str) -> ctypes.CDLL:
 def function(name: str):
     """The C entry ``name``, building and loading its library if needed."""
     return getattr(_lib(SIGNATURES[name][0]), name)
+
+
+def operand(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels load it (a
+    misaligned view is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptrs(*tensors) -> list:

@@ -80,17 +80,11 @@ def _library(variant: str, x, y):
     return torch.matmul(a, b)
 
 
-def _operand(t):
-    """Contiguous and 16-byte aligned, as the kernels load it."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(variant: str, x, y):
     if y.device != x.device:
         raise TypeError(f"matmul_{variant}: operands on {x.device} and {y.device}")
     m, n, k = _mnk(variant, tuple(x.shape), tuple(y.shape))
-    xc, yc = _operand(x), _operand(y)
+    xc, yc = _build.operand(x), _build.operand(y)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.function("matmul")(

@@ -1,0 +1,121 @@
+"""Paged decode attention: one query token over a shared pool of KV pages.
+
+Port of ``minidiff_tpu/kernels/paged.py`` (``paged_attention``,
+``paged_attention_reference``, ``append_kv``).  Layouts as there: q
+(B, kv, g, hd) with query head h in kv head h // g; pools (P, kv, PAGE, hd);
+table (B, maxp) int32 page ids; pos (B,) int32, the position of the incoming
+token (cache rows l <= pos are live).  The mask is the dense server's,
+``l <= pos``, with the optional sliding-window band ``l > pos - window`` and
+``sinks`` always-visible head rows.
+
+A CUDA tensor goes to the hand-written ``paged_attn`` kernel of
+``csrc/paged.cu``, which walks the slot's pages through its table up to
+page ``max(pos, 0) // PAGE`` with an online softmax, rounding the
+unnormalised probabilities to the pool dtype before the PV product as the
+TPU kernel does; pages past that one are never read.  A CPU tensor goes to
+the plain version, ``paged_attention_reference`` over the gathered logical
+view, which rounds the normalised probabilities instead.  A CUDA tensor the
+kernel does not take raises: nothing falls back.
+
+``append_kv`` is a scatter (``index_put_``) in place, as the JAX package's is
+an XLA scatter and no Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from minidiff_tpu_torch.kernels import _build
+
+PAGE = 128
+# launches of the kernel since the last reset (kernels.reset_launch_counts)
+LAUNCHES = {"paged_attn": 0}
+# the head dims the kernel is built for
+HEAD_DIMS = (64, 128)
+_NEG_INF = -1e30
+
+
+def _mask(l_global, pos_b, window, sinks: int):
+    visible = l_global <= pos_b
+    if window is not None:
+        band = l_global > pos_b - int(window)
+        if sinks:
+            band = band | (l_global < int(sinks))
+        visible = visible & band
+    return visible
+
+
+def paged_attention_reference(q, pool_k, pool_v, table, pos, scale: float,
+                              window=None, sinks: int = 0):
+    """The same attention over the gathered logical view (the plain
+    version): q (B, kv, g, hd); pools (P, kv, PAGE, hd); table (B, maxp);
+    pos (B,)."""
+    b, kv, g, hd = q.shape
+    maxp = table.shape[1]
+    tab = table.to(torch.int64)
+    view_k = pool_k[tab].transpose(1, 2).reshape(b, kv, maxp * PAGE, hd)
+    view_v = pool_v[tab].transpose(1, 2).reshape(b, kv, maxp * PAGE, hd)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bkgd,bkld->bkgl", q.to(acc), view_k.to(acc)) * scale
+    l_global = torch.arange(maxp * PAGE, device=q.device).reshape(1, 1, 1, -1)
+    pos_b = pos.to(torch.int64).reshape(b, 1, 1, 1)
+    s = torch.where(_mask(l_global, pos_b, window, sinks), s,
+                    torch.full_like(s, _NEG_INF))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(view_v.dtype)
+    return torch.einsum("bkgl,bkld->bkgd", p.to(acc),
+                        view_v.to(acc)).to(q.dtype)
+
+
+def _check_cuda(q, pool_k, pool_v, table, pos):
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"paged_attn: kernel takes float32 or bfloat16, got {q.dtype}")
+    for t in (pool_k, pool_v, table, pos):
+        if t.device != q.device:
+            raise TypeError(f"paged_attn: every operand must be on {q.device}")
+    if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise TypeError("paged_attn: q must be cast to the pools' dtype")
+    b, kv, g, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_attn: kernel takes head dims {HEAD_DIMS}, got {hd}")
+    if (pool_k.dim() != 4 or pool_k.shape[1:] != (kv, PAGE, hd)
+            or pool_v.shape != pool_k.shape or table.dim() != 2
+            or table.shape[0] != b or pos.shape != (b,)):
+        raise ValueError(f"paged_attn: q {tuple(q.shape)}, pools "
+                         f"{tuple(pool_k.shape)}, table {tuple(table.shape)}, "
+                         f"pos {tuple(pos.shape)}")
+
+
+def paged_attention(q, pool_k, pool_v, table, pos, scale=None, window=None,
+                    sinks: int = 0):
+    """One decode token per slot over its pages -> (B, kv, g, hd) in
+    q.dtype."""
+    hd = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, pool_k, pool_v, table, pos, scale,
+                                         window, int(sinks))
+    _check_cuda(q, pool_k, pool_v, table, pos)
+    b, kv, g, _ = q.shape
+    out = torch.empty((b, kv, g, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    args = [_build.operand(t) for t in (q, pool_k, pool_v, table.to(torch.int32),
+                                        pos.to(torch.int32))] + [out]
+    with torch.cuda.device(q.device):
+        err = _build.function("paged_attn")(
+            *_build.ptrs(*args), b, kv, g, hd, table.shape[1], scale,
+            0 if window is None else int(window), int(sinks),
+            _build.DTYPE_CODES[q.dtype], _build.stream())
+    _build.check(err, "paged_attn")
+    LAUNCHES["paged_attn"] += 1
+    return out
+
+
+def append_kv(pool, rows, page_ids, offsets):
+    """Write one decode step's KV lines into their pages, in place: row b
+    (B, kv, hd) lands at pool[page_ids[b], :, offsets[b]].  Live slots hold
+    distinct pages; dead slots all write the garbage page 0, where any order
+    is fine."""
+    pool[page_ids.to(torch.int64), :, offsets.to(torch.int64)] = rows.to(pool.dtype)
+    return pool

@@ -1,0 +1,291 @@
+"""Weight-only int8 / int4 dequant-matmuls and attention over an int8 KV
+cache, for quantized serving.
+
+Port of ``minidiff_tpu/kernels/quant.py``: the quantizers
+(``quantize_int8``, ``quantize_int8_rows``, ``quantize_int4``,
+``unpack_int4``, plain torch in both packages, bit-identical codes and
+scales), ``dequant_matmul``, ``dequant_matmul4`` and ``sdpa_int8_cache``.
+Semantics, shared by the CUDA kernels and the plain versions (acc = f32 for
+sub-f32 inputs, else the input dtype):
+
+    dequant_matmul(x, q, s)  = ((x @ q) in acc * s)             -> x.dtype
+    dequant_matmul4(x, p, s) = x @ (unpack(p) * s[group]).to(x.dtype),
+                               summed in acc                    -> x.dtype
+    sdpa_int8_cache: scores (q . k8) * (ks * scale) in f32, masked to
+        l <= pos + (row % c), softmax in f32, (p * vs) rounded to q.dtype
+        before the PV product, summed in f32                    -> q.dtype
+
+int8 scales the f32 accumulator after the product; int4 rounds each scaled
+weight to x.dtype before it.  int4 packs split-half: ``packed[i]`` holds row
+i in its low nibble and row i + K/2 in its high nibble.
+
+A CUDA tensor goes to the hand-written kernels of ``csrc/quant.cu``
+(``dq_mm``, ``dq4_mm``, ``sdpa_int8``); a CPU tensor to the plain versions
+(``_plain_dequant_matmul``, ``_plain_dequant_matmul4``, ``_plain_sdpa_int8``,
+the ports of the JAX ``_jnp_*`` functions).  As in the JAX dispatcher
+(``quant.py:102-114``), a product of more than 256 rows (a prefill) is not
+weight-streaming: ``uses_kernel`` sends it to the plain version on the
+dequantized weight, a ``torch.matmul``, on either device.  A CUDA tensor the
+kernels do not take raises: nothing falls back.  These ops serve decoding
+only and have no autograd; the tape's ops supply the VJPs.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from minidiff_tpu_torch.kernels import _build
+
+# launches of each kernel since the last reset (kernels.reset_launch_counts)
+LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0}
+# the most activation rows a dequant-matmul kernel takes (quant.py:111)
+MAX_KERNEL_ROWS = 256
+# the head dims the attention kernel is built for
+HEAD_DIMS = (64, 128)
+_NEG_INF = -1e30
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dt, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# quantizers: plain torch, as in the JAX package
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8(w):
+    """(K, N) float -> (q int8 (K, N), s f32 (N,)), symmetric per column:
+    s = max|w[:, n]| / 127 (1 for an all-zero column), q = round(w / s)."""
+    if w.dim() != 2:
+        raise ValueError("quantize_int8 expects a 2-D weight matrix")
+    return _quantize_rows(w, 0, 127.0)
+
+
+def quantize_int8_rows(x):
+    """(..., hd) float -> (q int8 same shape, s f32 (...,)), per row."""
+    return _quantize_rows(x, -1, 127.0)
+
+
+def _quantize_rows(w, dim: int, qmax: float):
+    w32 = w.to(torch.float32)
+    amax = w32.abs().amax(dim=dim, keepdim=True)
+    s = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / s), -qmax, qmax).to(torch.int8)
+    return q, s.squeeze(dim)
+
+
+def quantize_int4(w, group: int = 128):
+    """(K, N) float -> (packed int8 (K/2, N), s f32 (K/group, N)): 4-bit
+    symmetric codes in [-7, 7] with one scale per (group of K rows, column),
+    packed split-half."""
+    if w.dim() != 2:
+        raise ValueError("quantize_int4 expects a 2-D weight matrix")
+    k, n = w.shape
+    if k % 2 or k % group:
+        raise ValueError(f"K={k} must be even and divisible by group={group}")
+    w32 = w.to(torch.float32)
+    amax = w32.reshape(k // group, group, n).abs().amax(dim=1)
+    s = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / torch.repeat_interleave(s, group, dim=0)),
+                    -7, 7).to(torch.int32)
+    lo, hi = q[: k // 2], q[k // 2:]
+    packed = (((hi << 4) | (lo & 0xF)) & 0xFF).to(torch.uint8)
+    return packed.view(torch.int8), s
+
+
+def unpack_int4(packed):
+    """(K/2, N) packed int8 -> (K, N) int8 in [-7, 7] (split-half)."""
+    pi = packed.to(torch.int32)
+    lo = (pi << 28) >> 28
+    hi = (pi << 24) >> 28
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the ports of the JAX _jnp_* functions
+# ---------------------------------------------------------------------------
+
+
+def _plain_dequant_matmul(x, q, s):
+    """(x @ q) in acc, times s, cast to x.dtype (``_jnp_dequant_matmul``)."""
+    acc = _acc_dtype(x.dtype)
+    return (torch.matmul(x.to(acc), q.to(acc)) * s.to(acc)).to(x.dtype)
+
+
+def _dequantized4(p, s, dtype):
+    """The int4 weight (K, N): each code times its group's scale in at least
+    f32, rounded to ``dtype``."""
+    k, n = 2 * p.shape[0], p.shape[1]
+    groups = s.shape[0]
+    acc = _acc_dtype(dtype)
+    q = unpack_int4(p).reshape(groups, k // groups, n).to(acc)
+    return (q * s.to(acc)[:, None, :]).reshape(k, n).to(dtype)
+
+
+def _plain_dequant_matmul4(x, p, s):
+    """x @ the rounded int4 weight, summed in acc (``_jnp_dequant_matmul4``)."""
+    acc = _acc_dtype(x.dtype)
+    w = _dequantized4(p, s, x.dtype)
+    return torch.matmul(x.to(acc), w.to(acc)).to(x.dtype)
+
+
+def _visible(pos, gc: int, c: int, L: int, device):
+    """(B, 1, gc, L) mask: key l is visible to row r iff l <= pos + r % c."""
+    row_i = (torch.arange(gc, device=device) % c).reshape(1, 1, gc, 1)
+    col_l = torch.arange(L, device=device).reshape(1, 1, 1, L)
+    return col_l <= pos.to(torch.int64).reshape(-1, 1, 1, 1) + row_i
+
+
+def _plain_sdpa_int8(q, k8, ks, v8, vs, pos, c: int, scale: float):
+    """q (B, kv, g*c, hd) over the int8 cache (``_jnp_sdpa_int8``)."""
+    acc = _acc_dtype(q.dtype)
+    gc, L = q.shape[2], k8.shape[2]
+    scores = torch.einsum("bkqd,bkld->bkql", q.to(acc), k8.to(acc)) * (
+        ks.to(acc)[:, :, None, :] * scale)
+    scores = torch.where(_visible(pos, gc, c, L, q.device), scores,
+                         torch.full_like(scores, _NEG_INF))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    pv = (p * vs.to(acc)[:, :, None, :]).to(q.dtype)
+    return torch.einsum("bkql,bkld->bkqd", pv.to(acc), v8.to(acc)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dispatch and launch
+# ---------------------------------------------------------------------------
+
+
+def uses_kernel(rows: int) -> bool:
+    """True when a dequant-matmul of ``rows`` activation rows is weight
+    streaming and goes to its kernel; more rows go to the plain version on
+    the dequantized weight (``torch.matmul``), as the JAX dispatcher leaves
+    them to XLA."""
+    return rows <= MAX_KERNEL_ROWS
+
+
+def _check_cuda(name: str, x, *others, dtypes):
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {x.dtype}")
+    for t, dt in zip(others, dtypes):
+        if t.device != x.device:
+            raise TypeError(f"{name}: every operand must be on {x.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: operand of {t.dtype} where {dt} is taken")
+
+
+def _launch(name: str, x, args, dims) -> None:
+    with torch.cuda.device(x.device):
+        err = _build.function(name)(*_build.ptrs(*args), *dims,
+                                    _build.DTYPE_CODES[x.dtype], _build.stream())
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+
+
+def dequant_matmul(x, q, s):
+    """x (..., K) float @ q (K, N) int8 scaled by s (N,) -> (..., N)."""
+    if q.dim() != 2:
+        raise ValueError("dequant_matmul expects a 2-D int8 weight")
+    k, n = q.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"dequant_matmul: x contracts {x.shape[-1]}, weight "
+                         f"has {k} rows")
+    m = math.prod(x.shape[:-1])
+    if x.device.type == "cpu" or not uses_kernel(m):
+        return _plain_dequant_matmul(x, q, s)
+    _check_cuda("dq_mm", x, q, s, dtypes=(torch.int8, torch.float32))
+    if s.shape != (n,):
+        raise ValueError(f"dq_mm: scales {tuple(s.shape)}, expected ({n},)")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m:
+        ops = [_build.operand(t) for t in (x.reshape(m, k), q, s)]
+        _launch("dq_mm", x, (*ops, out), (m, n, k))
+    return out.reshape(*x.shape[:-1], n)
+
+
+def dequant_matmul4(x, p, s):
+    """x (..., K) @ (unpack_int4(p (K/2, N)) * s (K/G, N)) -> (..., N)."""
+    if p.dim() != 2 or s.dim() != 2:
+        raise ValueError("dequant_matmul4 expects a 2-D packed weight and "
+                         "2-D group scales")
+    k, n = 2 * p.shape[0], p.shape[1]
+    if x.shape[-1] != k:
+        raise ValueError(f"dequant_matmul4: x contracts {x.shape[-1]}, "
+                         f"weight has {k} rows")
+    groups = s.shape[0]
+    if groups < 1 or k % groups or s.shape[1] != n:
+        raise ValueError(f"dequant_matmul4: scales {tuple(s.shape)} do not "
+                         f"group {k} rows of {n} columns")
+    m = math.prod(x.shape[:-1])
+    if x.device.type == "cpu" or not uses_kernel(m):
+        return _plain_dequant_matmul4(x, p, s)
+    _check_cuda("dq4_mm", x, p, s, dtypes=(torch.int8, torch.float32))
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m:
+        ops = [_build.operand(t) for t in (x.reshape(m, k), p, s)]
+        _launch("dq4_mm", x, (*ops, out), (m, n, k, k // groups))
+    return out.reshape(*x.shape[:-1], n)
+
+
+def _grouped(q, k8, scale):
+    """q (B, h, c, hd) as (B, kv, g*c, hd) rows (head-in-group, chunk
+    position), its chunk size and the scale."""
+    bq, h, c, hd = q.shape
+    kv = k8.shape[1]
+    scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
+    return q.reshape(bq, kv, (h // kv) * c, hd), c, scale
+
+
+def _plain_sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale=None):
+    """``sdpa_int8_cache`` by its plain version, on any device."""
+    qg, c, scale = _grouped(q, k8, scale)
+    return _plain_sdpa_int8(qg, k8, ks, v8, vs, pos, c, scale).reshape(q.shape)
+
+
+def sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale=None):
+    """Masked attention over an int8 KV cache (serving).
+
+    q (B, h, c, hd) with h a multiple of the cache's kv heads; k8/v8
+    (B, kv, L, hd) int8; ks/vs (B, kv, L) f32 per-row scales; pos (B,) int:
+    key l is visible to chunk position i iff l <= pos + i.  Returns
+    (B, h, c, hd) in q.dtype.
+    """
+    if q.device.type == "cpu":
+        return _plain_sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale)
+    _check_cuda("sdpa_int8", q, k8, ks, v8, vs,
+                dtypes=(torch.int8, torch.float32, torch.int8, torch.float32))
+    qg, c, scale = _grouped(q, k8, scale)
+    bq, kv, gc, hd = qg.shape
+    L = k8.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"sdpa_int8: kernel takes head dims {HEAD_DIMS}, got {hd}")
+    if (k8.shape != (bq, kv, L, hd) or v8.shape != k8.shape
+            or ks.shape != (bq, kv, L) or vs.shape != ks.shape
+            or gc * kv != q.shape[1] * c):
+        raise ValueError(f"sdpa_int8: q {tuple(q.shape)}, cache "
+                         f"{tuple(k8.shape)}, scales {tuple(ks.shape)}")
+    out = torch.empty_like(qg)
+    if q.numel():
+        posc = pos.to(device=q.device, dtype=torch.int32)
+        ops = [_build.operand(t) for t in (qg, k8, ks, v8, vs, posc)]
+        _launch("sdpa_int8", q, (*ops, out), (bq, kv, gc, c, hd, L, scale))
+    return out.reshape(q.shape)
+
+
+def for_tape(name: str):
+    """The tape's forward of the op ``name``: the kernel's wrapper for f32
+    and bf16 activations, its plain version for other dtypes (the f64 of the
+    tape's oracle), as ``xent.loss`` chooses."""
+    kernel, plain = {
+        "dequant_matmul": (dequant_matmul, _plain_dequant_matmul),
+        "dequant_matmul4": (dequant_matmul4, _plain_dequant_matmul4),
+        "sdpa_int8_cache": (sdpa_int8_cache, _plain_sdpa_int8_cache)}[name]
+
+    def forward(x, *args, **kwargs):
+        fn = kernel if x.dtype in _build.DTYPE_CODES else plain
+        return fn(x, *args, **kwargs)
+
+    forward.__name__ = name
+    return forward

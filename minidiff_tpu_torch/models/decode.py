@@ -10,7 +10,9 @@ later work.
 The one-token step is ``_chunk_step`` with c = 1, the same code the decode
 server runs, so a request decodes through the same arithmetic alone or
 batched.  (The JAX package keeps a scalar-position twin of it in
-``_block_decode_step``; the masks and results are the same.)
+``_block_decode_step``; the masks and results are the same.)  ``kv_quant``
+keeps the cache as int8 lines with per-row f32 scales, read through the
+``sdpa_int8`` kernel (``decode.py:111-143, 303-327``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ _DECODE_BLOCK = 128
 
 def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
                       temperature: float = 1.0, top_k=None, top_p=None,
-                      min_p=None, seed: int = 0, device="cuda"):
+                      min_p=None, seed: int = 0, device="cuda",
+                      kv_quant: bool = False):
     """prompt (B, S0) int -> (B, S0 + max_new_tokens) int64 on the model's
     device.
 
@@ -34,6 +37,9 @@ def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
     sample at ``temperature`` (truncated by ``top_k`` / ``top_p`` /
     ``min_p``) with noise keyed by (seed, position): deterministic per seed.
     ``device`` must be where the model lives; "cuda" without a GPU raises.
+    ``kv_quant=True`` stores the KV cache as int8 lines with per-row f32
+    scales (tokens may differ from the full-precision cache's near logit
+    ties).
     """
     dev = check_device(model, device)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
@@ -44,6 +50,10 @@ def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
     total = s0 + max_new_tokens - 1
     if total > model.max_seq_len:
         raise ValueError("prompt + new tokens exceed max_seq_len")
+    if kv_quant and getattr(model, "window", None) is not None:
+        raise NotImplementedError(
+            "kv_quant decode does not support sliding-window models "
+            "(sdpa_int8_cache masks by position only)")
     L = min(model.max_seq_len,
             -(-(total + 1) // _DECODE_BLOCK) * _DECODE_BLOCK)
     seed = int(seed) & 0xFFFFFFFF
@@ -54,7 +64,7 @@ def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
                              min_p, noise)
 
     with torch.inference_mode():
-        caches, logits = _prefill(model, prompt, L)
+        caches, logits = _prefill(model, prompt, L, kv_quant=kv_quant)
         tok = select(logits, s0 - 1)
         out = [tok]
         pos = torch.full((b,), s0, dtype=torch.long, device=dev)

@@ -2,7 +2,11 @@
 
 Port of ``minidiff_tpu/models/layers.py``.  Weights keep the JAX package's
 (in, out) layout, so ``y = x @ w + b`` and a JAX checkpoint loads unchanged
-(``models/convert.py``).
+(``models/convert.py``).  A Linear quantized for serving
+(``models/quant.py``) holds the buffers ``w_q`` (int8) and ``w_s`` (f32),
+or ``w_q4`` (packed int4) and ``w_s4`` (group scales), in place of ``w``,
+under the JAX tree's names, and multiplies through the dequant-matmul
+kernels.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from minidiff_tpu_torch.kernels import quant
 
 
 def resolve_device(device) -> torch.device:
@@ -52,9 +58,17 @@ class Linear(nn.Module):
                                       generator, dtype, device))
         self.b = (nn.Parameter(uniform((out_features,), bound, generator,
                                        dtype, device)) if bias else None)
+        # the quantized forms (models/quant.py), empty until quantized
+        for name in ("w_q", "w_s", "w_q4", "w_s4"):
+            self.register_buffer(name, None)
 
     def forward(self, x):
-        out = x @ self.w
+        if self.w_q is not None:
+            out = quant.dequant_matmul(x, self.w_q, self.w_s)
+        elif self.w_q4 is not None:
+            out = quant.dequant_matmul4(x, self.w_q4, self.w_s4)
+        else:
+            out = x @ self.w
         if self.b is not None:
             out = out + self.b
         return out

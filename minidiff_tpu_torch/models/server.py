@@ -12,7 +12,9 @@ keep decoding garbage into their own rows, which is ignored.
 
 Greedy outputs are token-for-token identical to decoding each request alone
 through ``generate_compiled``.  Prefix caching, chunked prefill and the
-speculative and SSM servers come with a later slice.
+speculative and SSM servers come with a later slice.  ``PagedDecodeServer``
+(``models/paged.py``) keeps the host API and replaces the cache through the
+``_alloc_caches`` / ``_prefill_slot`` / ``_step_logits`` hooks.
 """
 
 from __future__ import annotations
@@ -61,12 +63,7 @@ class DecodeServer:
             raise ValueError(f"window {w} exceeds model.max_seq_len "
                              f"{model.max_seq_len}")
         self.window = w
-        blk = model.blocks[0].attn
-        shape = (max_batch, blk.num_heads, w, blk.head_dim)
-        self._caches = [
-            {"k": torch.zeros(shape, dtype=model.dtype, device=self.device),
-             "v": torch.zeros(shape, dtype=model.dtype, device=self.device)}
-            for _ in model.blocks]
+        self._caches = self._alloc_caches()
         # host-side slot state
         self._pos = np.zeros(max_batch, np.int64)      # position of last token
         self._tok = np.zeros(max_batch, np.int64)      # last emitted token
@@ -75,6 +72,14 @@ class DecodeServer:
         self._out: "dict[int, list]" = {}
         self._seed = [0] * max_batch
         self._steps = np.zeros(max_batch, np.int64)    # slot-local step count
+
+    def _alloc_caches(self):
+        """One dense (max_batch, h, window, hd) K and V cache per layer."""
+        blk = self.model.blocks[0].attn
+        shape = (self.max_batch, blk.num_heads, self.window, blk.head_dim)
+        return [{"k": torch.zeros(shape, dtype=self.model.dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=self.model.dtype, device=self.device)}
+                for _ in self.model.blocks]
 
     def _select(self, logits, slots):
         """Next tokens from (n, V) logits, one row per slot in ``slots``."""
@@ -96,16 +101,8 @@ class DecodeServer:
     def submit(self, prompt, max_new_tokens: int, seed: int = 0) -> int:
         """Admit a request into a free slot (raises when the pool is full);
         runs its bucketed prefill and emits the first token."""
-        if not self._free:
-            raise RuntimeError(
-                "no free slots — step() until a request finishes and "
-                "collect() it (collect releases the slot)")
-        prompt = [int(t) for t in prompt]
+        prompt = self._check_request(prompt, max_new_tokens)
         s0 = len(prompt)
-        if s0 < 1 or max_new_tokens < 1:
-            raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
-        if s0 + max_new_tokens > self.window:
-            raise ValueError(f"prompt + new tokens exceed the window {self.window}")
         slot = self._free.pop(0)
         sb = -(-s0 // _BUCKET) * _BUCKET
         padded = torch.zeros((1, sb), dtype=torch.long)
@@ -113,11 +110,7 @@ class DecodeServer:
         self._seed[slot] = int(seed) & 0xFFFFFFFF
         self._steps[slot] = 0
         with torch.inference_mode():
-            rows, logits = _prefill(self.model, padded.to(self.device),
-                                    self.window, last=s0 - 1)
-            for cache, row in zip(self._caches, rows):
-                cache["k"][slot] = row["k"][0]
-                cache["v"][slot] = row["v"][0]
+            logits = self._prefill_slot(slot, padded.to(self.device), s0)
             tok = self._select(logits, [slot])[0]
         self._pos[slot] = s0          # position the new token will occupy
         self._tok[slot] = tok
@@ -125,6 +118,33 @@ class DecodeServer:
         self._out[slot] = [tok]
         self._steps[slot] = 1
         return slot
+
+    def _check_request(self, prompt, max_new_tokens: int) -> "list[int]":
+        """The prompt as ints; raises when no slot is free or the request
+        does not fit the window."""
+        if not self._free:
+            raise RuntimeError(
+                "no free slots — step() until a request finishes and "
+                "collect() it (collect releases the slot)")
+        prompt = [int(t) for t in prompt]
+        if len(prompt) < 1 or max_new_tokens < 1:
+            raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
+        if len(prompt) + max_new_tokens > self.window:
+            raise ValueError(f"prompt + new tokens exceed the window {self.window}")
+        return prompt
+
+    def _prefill_slot(self, slot: int, padded, s0: int):
+        """One-row prefill of the bucketed prompt into ``slot``'s cache rows;
+        returns the logits (1, V) at position s0 - 1."""
+        rows, logits = _prefill(self.model, padded, self.window, last=s0 - 1)
+        for cache, row in zip(self._caches, rows):
+            cache["k"][slot] = row["k"][0]
+            cache["v"][slot] = row["v"][0]
+        return logits
+
+    def _step_logits(self, toks, pos):
+        """Logits (B, 1, V) of one batched step of every slot."""
+        return _chunk_step(self.model, self._caches, toks, pos, self.window)
 
     def step(self) -> "dict[int, int]":
         """One batched decode step for every live slot; returns {slot:
@@ -136,8 +156,7 @@ class DecodeServer:
         with torch.inference_mode():
             toks = torch.as_tensor(self._tok, device=self.device)
             pos = torch.as_tensor(self._pos, device=self.device)
-            logits = _chunk_step(self.model, self._caches,
-                                 toks.reshape(-1, 1), pos, self.window)
+            logits = self._step_logits(toks.reshape(-1, 1), pos)
             nxt = self._select(logits[:, 0], range(self.max_batch))
         emitted: "dict[int, int]" = {}
         for s in live:

@@ -3,7 +3,11 @@
 Port of ``_chunk_step`` and ``_prefill`` from
 ``minidiff_tpu/models/speculative.py``; the speculative decoder itself comes
 with a later slice.  Caches are per-layer ``{"k", "v"}`` tensors of shape
-(B, H, L, hd) in the parameter dtype, updated IN PLACE.
+(B, H, L, hd) in the parameter dtype, updated IN PLACE; an int8 cache
+(``kv_quant``, ``minidiff_tpu/models/decode.py:75-97, 189-205``) is
+``{"k8", "ks", "v8", "vs"}``: int8 lines (B, H, L, hd), quantized per
+(batch, head, position) over hd, with their f32 scales (B, H, L), read
+through the ``sdpa_int8`` kernel.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from minidiff_tpu_torch.kernels.attention import sdpa
+from minidiff_tpu_torch.kernels.quant import quantize_int8_rows, sdpa_int8_cache
 from minidiff_tpu_torch.models import functional as F
 
 _NEG = -1e30
@@ -32,25 +37,43 @@ def _chunk_step(model, caches, chunk, pos, L: int):
     rows = torch.arange(b, device=dev).reshape(b, 1)
     for blk, cache in zip(model.blocks, caches):
         q, kk, vv = F.block_qkv(blk, x)
-        # rows written by index, in place: the same cache the JAX package
-        # builds with its one-hot contraction (_write_rows)
-        cache["k"][rows, :, pos2d] = kk.transpose(1, 2).to(cache["k"].dtype)
-        cache["v"][rows, :, pos2d] = vv.transpose(1, 2).to(cache["v"].dtype)
-        keys = cache["k"].to(q.dtype)
-        vals = cache["v"].to(q.dtype)
-        scores = (q @ keys.transpose(-1, -2)) * (1.0 / (blk.attn.head_dim ** 0.5))
-        # scores and softmax in f32 whatever the model dtype, as the JAX step
-        scores = scores.to(torch.float32)
-        scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
-        o = F.softmax(scores, dim=-1).to(q.dtype) @ vals
+        if "k8" in cache:
+            # (B, c, h) rows by index, in place
+            _write_int8_rows(cache, (rows, slice(None), pos2d),
+                             kk.transpose(1, 2), vv.transpose(1, 2))
+            o = sdpa_int8_cache(q, cache["k8"], cache["ks"], cache["v8"],
+                                cache["vs"], pos)
+        else:
+            # rows written by index, in place: the same cache the JAX
+            # package builds with its one-hot contraction (_write_rows)
+            cache["k"][rows, :, pos2d] = kk.transpose(1, 2).to(cache["k"].dtype)
+            cache["v"][rows, :, pos2d] = vv.transpose(1, 2).to(cache["v"].dtype)
+            keys = cache["k"].to(q.dtype)
+            vals = cache["v"].to(q.dtype)
+            scores = (q @ keys.transpose(-1, -2)) * (1.0 / (blk.attn.head_dim ** 0.5))
+            # scores and softmax in f32 whatever the model dtype, as the JAX step
+            scores = scores.to(torch.float32)
+            scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
+            o = F.softmax(scores, dim=-1).to(q.dtype) @ vals
         x = F.block_finish(blk, x, o)
     x = model.ln_f(x)
     return model.lm_head(x)
 
 
-def _prefill(model, toks, L: int, last=None):
+def _write_int8_rows(cache, index, kk, vv):
+    """Quantize fresh k/v rows per row over hd and store them at ``index``
+    of the int8 cache; kk/vv come in the shape that ``index`` selects."""
+    for name, rows in (("k", kk), ("v", vv)):
+        q8, sc = quantize_int8_rows(rows)
+        cache[name + "8"][index] = q8
+        cache[name + "s"][index] = sc
+
+
+def _prefill(model, toks, L: int, last=None, kv_quant: bool = False):
     """Whole-prompt parallel forward of toks (B, s) -> (caches of window L
     holding positions < s, logits (B, V) at position ``last``, default s-1).
+    ``kv_quant`` stores int8 caches; attention still runs on the full
+    precision k/v, as in the JAX prefill (``decode.py:189-205``).
     """
     b, s = toks.shape
     last = s - 1 if last is None else int(last)
@@ -59,12 +82,23 @@ def _prefill(model, toks, L: int, last=None):
     for blk in model.blocks:
         attn = blk.attn
         q, kk, vv = F.block_qkv(blk, x)
-        ck = torch.zeros((b, attn.num_heads, L, attn.head_dim),
-                         dtype=model.dtype, device=toks.device)
-        cv = torch.zeros_like(ck)
-        ck[:, :, :s] = kk
-        cv[:, :, :s] = vv
-        caches.append({"k": ck, "v": cv})
+        shape = (b, attn.num_heads, L, attn.head_dim)
+        if kv_quant:
+            # unwritten scale rows are 1, as in the JAX cache
+            cache = {"k8": torch.zeros(shape, dtype=torch.int8, device=toks.device),
+                     "ks": torch.ones(shape[:3], dtype=torch.float32,
+                                      device=toks.device)}
+            cache["v8"], cache["vs"] = (torch.zeros_like(cache["k8"]),
+                                        torch.ones_like(cache["ks"]))
+            _write_int8_rows(cache, (slice(None), slice(None), slice(0, s)),
+                             kk, vv)
+            caches.append(cache)
+        else:
+            ck = torch.zeros(shape, dtype=model.dtype, device=toks.device)
+            cv = torch.zeros_like(ck)
+            ck[:, :, :s] = kk
+            cv[:, :, :s] = vv
+            caches.append({"k": ck, "v": cv})
         o = sdpa(q, kk, vv, causal=True)
         x = F.block_finish(blk, x, o)
     x = model.ln_f(x)

@@ -15,10 +15,13 @@ resolves its backend function at call time (``backend/torch_backend.py``).
   except where x % y == 0.
 * softmax_xent's first-order VJP is the ``xent_bwd`` kernel; under grad
   mode it takes the composed form, so second order works.
+* the quantized serving ops (``dequant_matmul``, ``dequant_matmul4``,
+  ``sdpa_int8_cache``) run the ``kernels/quant.py`` kernels for f32 and
+  bf16; their gradient flows to x only.
 
 Not ported yet (each waits for the slice that needs it): ``linear_scan``,
-the collectives, the quantized matmuls and ``sdpa_int8_cache``, ``sdpa`` and
-the norms as tape ops, and the conv2d family.
+the collectives, ``dequant_matmul_bmm``, ``sdpa`` and the norms as tape ops,
+and the conv2d family.
 """
 
 from __future__ import annotations
@@ -1049,6 +1052,55 @@ where = wrapping.create_ternary_op_func(
     grad_z=lambda condition, y, z, grad: md.where(condition, 0, grad),
 )
 
+
+# ---------------------------------------------------------------------------
+# quantized serving ops (kernels/quant.py): differentiable in x only, as in
+# the JAX package (definitions.py:1065-1116); q, p and s are quantization
+# constants with no cotangent.  The VJPs dequantize the weight and contract
+# through matmul_nt, so they re-tape for higher order.
+# ---------------------------------------------------------------------------
+
+
+def _dequant_matmul_grad_x(x, q, s, grad):
+    # the contraction in the promoted (grad * s) dtype (f32 for bf16
+    # grads), the cotangent back in x's dtype
+    gs = grad * s
+    return matmul_nt(gs, q.astype(gs.dtype)).astype(x.dtype)
+
+
+dequant_matmul = wrapping.create_ternary_op_func(
+    forward_func=as_tensor_func(backend_fn("dequant_matmul")),
+    grad_x=_dequant_matmul_grad_x,
+    tensor_only=True,
+)
+
+
+def _dequant_matmul4_grad_x(x, p, s, grad):
+    import minidiff_tpu_torch.backend as _backend
+
+    with md.no_grad():
+        q = md.Tensor(_backend.get_backend().unpack_int4(p._data))
+        group = q.shape[0] // s.shape[0]
+        wdt = (s.reshape((-1,))[:1] * grad.reshape((-1,))[:1]).dtype
+        w = q.astype(wdt) * md.repeat(s.astype(wdt), group, axis=0)
+    return matmul_nt(grad.astype(wdt), w).astype(x.dtype)
+
+
+dequant_matmul4 = wrapping.create_ternary_op_func(
+    forward_func=as_tensor_func(backend_fn("dequant_matmul4")),
+    grad_x=_dequant_matmul4_grad_x,
+    tensor_only=True,
+)
+
+# attention over an int8 KV cache (q, k8, ks, v8, vs, pos; kwarg scale):
+# serving only, non-differentiable by design, as in the JAX package
+sdpa_int8_cache = wrapping.create_op_func(
+    forward_func=as_tensor_func(backend_fn("sdpa_int8_cache")),
+    grad_funcs=[None] * 6,
+    is_differentiable=False,
+    tensor_only=True,
+)
+
 __all__ = [
     "absolute",
     "abs",
@@ -1130,4 +1182,7 @@ __all__ = [
     "clip",
     "swapaxes",
     "where",
+    "dequant_matmul",
+    "dequant_matmul4",
+    "sdpa_int8_cache",
 ]

@@ -362,11 +362,24 @@ def test_cpu_wrappers_launch_nothing():
     z = torch.from_numpy(_qkv(1, 16)[0][0]).requires_grad_()
     out = out + TXE.softmax_xent(z, torch.arange(16)).sum()
     out.backward()
+    from minidiff_tpu_torch.kernels import paged as TPG
+    from minidiff_tpu_torch.kernels import quant as TQ
+
+    x = torch.randn(8, 256)
+    TQ.dequant_matmul(x, *TQ.quantize_int8(torch.randn(256, 64)))
+    TQ.dequant_matmul4(x, *TQ.quantize_int4(torch.randn(256, 64)))
+    k8, ks = TQ.quantize_int8_rows(torch.randn(1, 2, 128, 64))
+    TQ.sdpa_int8_cache(torch.randn(1, 2, 1, 64), k8, ks, k8, ks, torch.tensor([5]))
+    pool = torch.randn(2, 2, 128, 64)
+    TPG.paged_attention(torch.randn(1, 2, 1, 64), pool, pool,
+                        torch.tensor([[1]], dtype=torch.int32),
+                        torch.tensor([5], dtype=torch.int32))
     assert kernels.launch_counts() == {
         "ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "xent_fwd": 0, "xent_bwd": 0,
-        "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0}
+        "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0,
+        "dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0, "paged_attn": 0}
 
 
 @pytest.fixture

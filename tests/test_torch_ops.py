@@ -26,8 +26,7 @@ TOL = dict(rtol=1e-10, atol=1e-10)
 LATER = {
     "linear_scan",  # SSM
     "psum", "ppermute", "pmean", "all_gather", "psum_scatter", "all_to_all",
-    "dequant_matmul", "dequant_matmul4", "dequant_matmul_bmm",
-    "sdpa_int8_cache",  # quantized serving
+    "dequant_matmul_bmm",  # the MoE expert bank
     "sdpa", "layernorm", "add_layernorm", "rmsnorm", "add_rmsnorm",  # models
     "conv2d", "conv2d_input_grad", "conv2d_kernel_grad",  # CNN
 }
@@ -60,6 +59,9 @@ def _i(*shape, seed=0, high=5):
 
 A34, B34, C4 = _r(3, 4), _r(3, 4, seed=1), _r(4, seed=2)
 POS34 = _r(3, 4, seed=3, lo=0.5)
+# int8 codes (8, 5), and packed int4 codes for K = 8 in two groups of 4
+Q8 = np.random.RandomState(6).randint(-127, 128, (8, 5)).astype(np.int8)
+P4 = np.random.RandomState(7).randint(-128, 128, (4, 5)).astype(np.int8)
 
 # (id, fn(package, *tensors), inputs, indices of differentiable inputs)
 DIFF = [
@@ -138,6 +140,11 @@ DIFF = [
     ("clip", lambda m, a: m.clip(a, -0.5, 0.5), [A34], [0]),
     ("swapaxes", lambda m, a: m.swapaxes(a, 0, 2), [_r(2, 3, 4)], [0]),
     ("where", lambda m, c, a, b: m.where(c, a, b), [A34 > 0, A34, C4], [1, 2]),
+    # quantized serving: the gradient flows to x only
+    ("dequant_matmul", lambda m, x, q, s: m.dequant_matmul(x, q, s),
+     [_r(2, 3, 8), Q8, _r(5, seed=4, lo=0.1)], [0]),
+    ("dequant_matmul4", lambda m, x, p, s: m.dequant_matmul4(x, p, s),
+     [_r(3, 8), P4, _r(2, 5, seed=5, lo=0.1)], [0]),
 ]
 
 NON_DIFF = [
@@ -231,6 +238,24 @@ def test_second_order_through_softmax_xent_takes_the_composed_form():
         m.sum(g * g).backward()
         out.append(_np(zt.grad))
     np.testing.assert_allclose(out[1], out[0], **TOL)
+
+
+def test_sdpa_int8_cache_matches_jax_and_takes_no_gradient():
+    # f32 q over an int8 cache: the JAX numpy backend sums in f32 and keeps
+    # p * vs in f32 where the port rounds it to q's dtype (f32 here): the
+    # same f32 algebra in another order, 1e-6
+    rng = np.random.RandomState(8)
+    q = rng.standard_normal((2, 4, 1, 16)).astype(np.float32)
+    k8, v8 = (rng.randint(-127, 128, (2, 2, 32, 16)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.02, (2, 2, 32)).astype(np.float32) for _ in range(2))
+    pos = np.array([3, 31])
+    outs = []
+    for m in (jmd, md):
+        qt = m.Tensor(q, allow_grad=True)
+        out = m.sdpa_int8_cache(qt, *(m.Tensor(a) for a in (k8, ks, v8, vs, pos)))
+        assert out.op_node is None and out.shape == (2, 4, 1, 16)
+        outs.append(_np(out))
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-6, atol=1e-6)
 
 
 # a few ops through the port's own finite-difference oracle (f64: central
