@@ -49,9 +49,21 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    logit gap is reported); then bf16 paged against dense tok/s at equal
    batch (8 slots, window 1024), the dense-equivalent and the oversubscribed
    pools' ``kv_bytes``, pages in use, and pool exhaustion raising;
-9. the kernels line: every kernel must have launched on its paths (counts
+9. the LLaMA-style options at Mistral-7B-v0.3's widths (RMSNorm, RoPE,
+   32 heads over 8 KV heads, SwiGLU 14336, vocabulary 32768; bf16, 4 of
+   32 layers, max_seq_len 1024): ``generate_compiled`` (batch 8, prompt
+   16, 128 new tokens) with exact launches, ``DecodeServer`` (the
+   staggered requests of phase 4 on 8 slots, window 1024) with its KV
+   bytes against the multi-head equivalent, one profiled decode, and the
+   train step (batch 8 x 1024, ``make_train_step(model, SGD(1e-3),
+   lm_loss)``) with the exact RMSNorm, flash and cross-entropy launches
+   per step derived from the model, and one profiled step; then f32 gates
+   at full width and one layer against the plain path on the CPU: the
+   logits of a prefill and 8 cached decode steps, the loss and every
+   parameter's gradient;
+10. the kernels line: every kernel must have launched on its paths (counts
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
-   7 and phase 8, and read just after each).
+   7, phase 8 and each run of 9, and read just after each).
 
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -102,7 +114,11 @@ REQUESTS = [(16, 64), (130, 48), (300, 32), (16, 96), (200, 40), (40, 80),
 #  add+LN dx rounds twice in bf16: a one-ulp difference of dx_ln before g0
 #   is added stays absolute: 2^-6 on values of order 1.
 #  xent: f32 row statistics in another order; the loss (order 1-10) is f32,
-#   dz (order 1/V) rounds once to the logits' dtype.
+#   dz (order 1/V) rounds once to the logits' dtype.  dz = (p - onehot) * g:
+#   where p is near 1, p - 1 is exact and keeps p's absolute error, a few
+#   f32 ulps of 1 (2^-23 each), which g then scales: 4 ulps of 1 times
+#   max |g| (atol is scaled by max |g|, see G_SCALED), and the bf16
+#   rounding of dz is relative.
 #  flash backward: P and dS round to bf16 at the same points on both sides;
 #   a score summed in another order can flip one of those roundings, and
 #   the products then sum up to S of them: 2^-6 of the output's largest
@@ -115,7 +131,7 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
        ("attn", "float32"): (1e-5, 1e-5), ("attn", "bfloat16"): (2 ** -6, 2 ** -7),
        ("lse", "float32"): (0.0, 1e-4), ("lse", "bfloat16"): (0.0, 1e-4),
        ("xent_loss", "float32"): (1e-5, 1e-4), ("xent_loss", "bfloat16"): (1e-5, 1e-4),
-       ("xent_dz", "float32"): (1e-5, 1e-7), ("xent_dz", "bfloat16"): (2 ** -7, 1e-6),
+       ("xent_dz", "float32"): (1e-5, 2 ** -21), ("xent_dz", "bfloat16"): (2 ** -7, 2 ** -21),
        ("attn_bwd", "float32"): (1e-4, 1e-5), ("attn_bwd", "bfloat16"): (2 ** -6, 2 ** -6),
        ("matmul", "float32"): (0.0, 1e-5), ("matmul", "bfloat16"): (0.0, 1e-2),
        ("dq", "float32"): (1e-5, 1e-6), ("dq", "bfloat16"): (2 ** -7, 1e-6)}
@@ -134,6 +150,8 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
 #   the unnormalised p against the running max where the plain version
 #   rounds the normalised one, as flash_fwd does.
 SCALED = {"attn_bwd", "matmul", "dq"}
+# the kinds whose atol is a share of the largest cotangent the caller passes
+G_SCALED = {"xent_dz"}
 
 # the full-width train step: the JAX repo's headline (bench.py:636-661,
 # TransformerLM V512 d1024 h8 L4, S 1024, batch 8, bf16, SGD(1e-3), lm_loss
@@ -148,7 +166,8 @@ TRAIN_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4, "flash_fwd": 4, "xent_fwd": 1,
                   "ln_bwd": 5, "addln_bwd": 4, "flash_bwd_dkv": 4,
                   "flash_bwd_dq": 4, "xent_bwd": 1}
 # the device symbols of the port's kernels, as the profiler names them
-PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "flash_fwd_kernel",
+PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
+                  "norm_bwd_kernel", "flash_fwd_kernel",
                   "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
@@ -161,7 +180,7 @@ TAPE_ONLY = {"matmul_nn", "matmul_nt", "matmul_tn"}
 # the kernels that only quantized decoding runs, and only the paged server
 QUANT_ONLY = {"dq_mm", "dq4_mm", "sdpa_int8"}
 PAGED_ONLY = {"paged_attn"}
-PATHS = ("generate", "server", "train", "tape", "quant", "paged")
+PATHS = ("generate", "server", "train", "tape", "quant", "paged", "options")
 
 # quantized decode (bench.py:350-443): the serving model above at its bench
 # size, and the int8 KV cache at long context (bench.py:413-443)
@@ -177,6 +196,23 @@ PAGED_SEQ, PAGED_SLOTS, PAGED_PROMPT, PAGED_STEPS, PAGED_ROUNDS = 1024, 8, 16, 3
 # block; the paged step adds one paged_attn per layer
 DENSE_STEP_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4}
 PAGED_STEP_LAUNCHES = {**DENSE_STEP_LAUNCHES, "paged_attn": MODEL["num_layers"]}
+
+# the LLaMA-style options at Mistral-7B-v0.3's widths
+# (https://huggingface.co/mistralai/Mistral-7B-v0.3/blob/main/config.json:
+# hidden 4096, 32 heads over 8 KV heads, intermediate 14336 with SwiGLU,
+# vocabulary 32768, rope_theta 1e6, rms_norm_eps 1e-5, untied head, no
+# biases), bf16, random weights from --seed.  Cut: 4 of its 32 identical
+# layers, and 1,024 positions (the train length and the server window;
+# under RoPE nothing reads more)
+OPT_MODEL = dict(vocab_size=32768, dim=4096, num_heads=32, num_kv_heads=8,
+                 num_layers=4, max_seq_len=1024, norm="rms", norm_eps=1e-5,
+                 rope=True, rope_base=1e6, mlp="swiglu", mlp_hidden=14336,
+                 mlp_bias=False)
+# train at bench.py:636-661's shape; the f32 gates take one layer, a prompt
+# of 16 and 8 cached steps, and one sequence of 128 tokens for the gradients
+OPT_TRAIN_BATCH, OPT_TRAIN_SEQ, OPT_TRAIN_STEPS = 8, 1024, 10
+OPT_GATE_LAYERS, OPT_GATE_PROMPT, OPT_GATE_STEPS, OPT_GATE_SEQ = 1, 16, 8, 128
+OPTIONS_ONLY = {"rms_fwd", "addrms_fwd", "rms_bwd", "addrms_bwd"}
 
 # the tape path.  bench.py:196-234's matmul step: 4096^2 bf16, lr 1e-6, 2
 # warm-up and 10 timed steps; each step's forward is one nn product and its
@@ -239,13 +275,20 @@ def main() -> int:
 
     report = {"device": smi, "seed": args.seed, "torch": torch.__version__,
               "cuda": torch.version.cuda}
-    kernels = phase_kernels(torch, report)
-    phase_generate(torch, args.seed, report)
-    phase_server(torch, args.seed, report)
-    phase_train(torch, args.seed, report)
-    phase_tape(torch, args.seed, report)
-    phase_quant(torch, args.seed, report)
-    phase_paged(torch, args.seed, report)
+    report["phase_seconds"] = {}
+
+    def timed(name, phase, *a):
+        t0 = time.perf_counter()
+        out = phase(torch, *a, report)
+        report["phase_seconds"][name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("kernels", phase_kernels)
+    for name, phase in (("generate", phase_generate), ("server", phase_server),
+                        ("train", phase_train), ("tape", phase_tape),
+                        ("quant", phase_quant), ("paged", phase_paged),
+                        ("options", phase_options)):
+        timed(name, phase, args.seed)
 
     from minidiff_tpu_torch import kernels as K
 
@@ -265,7 +308,8 @@ def main() -> int:
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(report, indent=1))
-    log(f"[done] {report['seconds']:.1f} s")
+    log(f"[done] {report['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in report["phase_seconds"].items()))
     print(json.dumps({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -283,7 +327,8 @@ def required_paths(name: str) -> tuple:
     (the forward norms and flash) on every path that runs the model forward,
     the others on the paths that only they serve."""
     for only, paths in ((TAPE_ONLY, ("tape",)), (QUANT_ONLY, ("quant",)),
-                        (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",))):
+                        (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",)),
+                        (OPTIONS_ONLY, ("options",))):
         if name in only:
             return paths
     return ("generate", "server", "train", "quant", "paged")
@@ -316,11 +361,13 @@ def device_ms(torch, fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(torch, out, ref, kind, dtype_name):
+def max_err(torch, out, ref, kind, dtype_name, g=None):
     rtol, atol = TOL[(kind, dtype_name)]
     out, ref = out.float(), ref.float()
     if kind in SCALED:
         atol *= ref.abs().max().item()
+    if kind in G_SCALED:
+        atol *= g.abs().max().item()
     err = (out - ref).abs()
     check(bool(torch.isfinite(out).all()), f"{kind}: non-finite output")
     check(bool((err <= atol + rtol * ref.abs()).all()),
@@ -355,8 +402,18 @@ def phase_kernels(torch, report):
     from minidiff_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+    # layernorm.cu with every row on the block-per-row route, built beside
+    # the libraries
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    block_lib = _build.BUILD_DIR / "layernorm-block-per-row.so"
+    block_build = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DNORM_BLOCK_PER_ROW", "-o",
+         str(block_lib), str(_build._CSRC / "layernorm.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build_all()
-    log(f"[build] {len(_build.SOURCES)} sources in "
+    block_log = block_build.communicate()[0]
+    check(block_build.returncode == 0, f"nvcc -DNORM_BLOCK_PER_ROW:\n{block_log}")
+    log(f"[build] {len(_build.SOURCES) + 1} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -369,7 +426,10 @@ def phase_kernels(torch, report):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    cases = (norm_cases(torch, randn) + flash_cases(torch, randn)
+    cases = (norm_cases(torch, randn)
+             + norm_cases(torch, randn, OPT_MODEL["dim"],
+                          (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ,))
+             + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
              + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn))
     torch.cuda.synchronize()
@@ -377,12 +437,15 @@ def phase_kernels(torch, report):
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
         log(f"[kernel] {c['name']:13s} {c['dtype']:8s} {str(c['shape']):18s}"
             f"{' causal' if c.get('causal') else '':7s}"
-            f"{' w' + str(c['window']) if c.get('window') else '':5s} "
+            f"{' w' + str(c['window']) if c.get('window') else '':5s}"
+            f"{' g' + str(c['groups']) if c.get('groups', 1) > 1 else '':4s} "
             f"err {c['max_abs_err']:.3g} "
             f"| kernel {c['ms'] * 1e3:9.2f} us | plain {c['plain_ms'] * 1e3:9.2f} us "
             f"| library {lib} us | bound {c['bound_ms'] * 1e3:7.2f} us "
             f"({c['bound_by']})")
     report["kernel_cases"] = cases
+    report["norm_width_sweep"] = norm_width_sweep(torch, randn)
+    report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
 
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
@@ -390,11 +453,15 @@ def phase_kernels(torch, report):
     # 16 tokens), the train path's kernels at the train step's shapes, the
     # matmul kernels at the tape's matmul step ([m, n, k]), the dequant
     # kernels at a decode step's QKV projection ([m, K, N]), sdpa_int8 at
-    # the bench decode's last step ([B, kv, g*c, hd, L]) and paged_attn at
-    # the paged server's steps ([B, kv, g, hd, pages per slot])
+    # the bench decode's last step ([B, kv, g*c, hd, L]), paged_attn at the
+    # paged server's steps ([B, kv, g, hd, pages per slot]), and the RMSNorm
+    # forwards at the options model's decode step and their backwards at its
+    # train step
     d, rows = TRAIN_MODEL["dim"], TRAIN_BATCH * TRAIN_SEQ
     bhs = [TRAIN_BATCH * TRAIN_MODEL["num_heads"], TRAIN_SEQ, 128]
     ln_src = "minidiff_tpu_torch/kernels/csrc/layernorm.cu"
+    rms_src = "minidiff_tpu_torch/kernels/csrc/rmsnorm.cu"
+    od, orows = OPT_MODEL["dim"], OPT_TRAIN_BATCH * OPT_TRAIN_SEQ
     mm_src = "minidiff_tpu_torch/kernels/csrc/matmul.cu"
     q_src = "minidiff_tpu_torch/kernels/csrc/quant.cu"
     meta = {
@@ -424,6 +491,11 @@ def phase_kernels(torch, report):
         "paged_attn": ("minidiff_tpu_torch/kernels/csrc/paged.cu",
                        "minidiff_tpu/kernels/paged.py:64",
                        [PAGED_SLOTS, MODEL["num_heads"], 1, 128, 1]),
+        "rms_fwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:91", [8, od]),
+        "addrms_fwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:141", [8, od]),
+        "rms_bwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:112", [orows, od]),
+        "addrms_bwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:168",
+                       [orows, od]),
     }
     line = []
     for name, (src, replaces, shape) in meta.items():
@@ -437,19 +509,22 @@ def phase_kernels(torch, report):
     return line
 
 
-def norm_cases(torch, randn):
+def norm_cases(torch, randn, d=None, row_counts=None):
     """ln_fwd / addln_fwd and ln_bwd / addln_bwd at the decode step's 8 rows,
-    prefill-sized rows and the train step's 8192 rows of d = 1024."""
+    prefill-sized rows and the train step's 8192 rows of d = 1024 (or at
+    ``row_counts`` rows of ``d``: 8192 rows of 4096, wider than one warp's
+    registers, take the block-per-row kernels)."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import layernorm as L
 
     cases = []
-    d = MODEL["dim"]
+    d = d or MODEL["dim"]
+    row_counts = row_counts or (8, 128, 1024, TRAIN_BATCH * TRAIN_SEQ)
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
-        for rows in (8, 128, 1024, TRAIN_BATCH * TRAIN_SEQ):
+        for rows in row_counts:
             x = randn(rows, d, dtype=dtype) * 3 + 1
             a = randn(rows, d, dtype=dtype)
             g = 1 + 0.1 * randn(d, dtype=dtype)
@@ -509,17 +584,198 @@ def norm_cases(torch, randn):
     return cases
 
 
+def rms_cases(torch, randn):
+    """rms_fwd / addrms_fwd at a decode step's 8 rows and at the options
+    train step's 8192 rows of d = 4096, and rms_bwd / addrms_bwd at the
+    latter, against their plain versions and F.rms_norm (forward, and its
+    autograd backward)."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    cases = []
+    d, eps = OPT_MODEL["dim"], OPT_MODEL["norm_eps"]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        for rows in (8, OPT_TRAIN_BATCH * OPT_TRAIN_SEQ):
+            x = randn(rows, d, dtype=dtype) * 3 + 1
+            a = randn(rows, d, dtype=dtype)
+            g = 1 + 0.1 * randn(d, dtype=dtype)
+            # x*x, the row sum, x * rsig * g: about 4 operations per element
+            flops = 4 * rows * d
+            err = max_err(torch, L.rmsnorm(x, g, eps), L._plain_rmsnorm(x, g, eps),
+                          "ln", dn)
+            cases.append(dict(
+                name="rms_fwd", dtype=dn, shape=[rows, d], max_abs_err=err,
+                ms=device_ms(torch, lambda: L.rmsnorm(x, g, eps)),
+                plain_ms=device_ms(torch, lambda: L._plain_rmsnorm(x, g, eps)),
+                library_ms=device_ms(torch, lambda: TF.rms_norm(x, (d,), g, eps)),
+                **bound((2 * rows * d + d) * size, flops, dn)))
+            pair = L.add_rmsnorm(x, a, g, eps)
+            plain = L._plain_add_rmsnorm(x, a, g, eps)
+            check(torch.equal(pair[0], plain[0]), "addrms: t = x + a must be exact")
+            cases.append(dict(
+                name="addrms_fwd", dtype=dn, shape=[rows, d],
+                max_abs_err=max_err(torch, pair, plain, "ln", dn),
+                ms=device_ms(torch, lambda: L.add_rmsnorm(x, a, g, eps)),
+                plain_ms=device_ms(torch, lambda: L._plain_add_rmsnorm(x, a, g, eps)),
+                library_ms=None,
+                **bound((4 * rows * d + d) * size, flops + rows * d, dn)))
+            if rows == 8:
+                continue  # the backward runs at the train step's rows
+            dy = randn(rows, d, dtype=dtype)
+            g0 = randn(rows, d, dtype=dtype)
+            # rsig, xhat, w, the row sum of w * xhat, dx, and the dg sums
+            flops_bwd = 9 * rows * d
+            got, ref = L.rms_grads(x, g, dy, eps), L._plain_rms_grads(x, g, dy, eps)
+            err = max(max_err(torch, got[0], ref[0], "ln", dn),
+                      max_err(torch, got[1], ref[1], "lnsum", dn))
+            xl, gl = (t.clone().requires_grad_() for t in (x, g))
+            yl = TF.rms_norm(xl, (d,), gl, eps)
+            cases.append(dict(
+                name="rms_bwd", dtype=dn, shape=[rows, d], max_abs_err=err,
+                ms=device_ms(torch, lambda: L.rms_grads(x, g, dy, eps)),
+                plain_ms=device_ms(torch, lambda: L._plain_rms_grads(x, g, dy, eps)),
+                library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                    yl, (xl, gl), dy, retain_graph=True)),
+                **bound((3 * rows * d + 2 * d) * size, flops_bwd, dn)))
+            # against dx_rms + g0 with the same two roundings
+            got = L.addrms_grads(x, g, dy, g0, eps)
+            ref = L._plain_addrms_grads(x, g, dy, g0, eps)
+            err = max(max_err(torch, got[0], ref[0], "addln_dx", dn),
+                      max_err(torch, got[1], ref[1], "lnsum", dn))
+            cases.append(dict(
+                name="addrms_bwd", dtype=dn, shape=[rows, d], max_abs_err=err,
+                ms=device_ms(torch, lambda: L.addrms_grads(x, g, dy, g0, eps)),
+                plain_ms=device_ms(torch, lambda: L._plain_addrms_grads(
+                    x, g, dy, g0, eps)),
+                library_ms=None,
+                **bound((4 * rows * d + 2 * d) * size, flops_bwd + rows * d, dn)))
+    # the tape's entries choose by x's dtype alone: a gain of another dtype
+    # reaches the kernels' checks and raises, as the model's path does
+    g16 = g.bfloat16()  # x, a, dy and g0 are f32 from the last round
+    for name, args in (("rmsnorm", (g16,)), ("add_rmsnorm", (a, g16)),
+                       ("rms_grads", (g16, dy)), ("addrms_grads", (g16, dy, g0))):
+        try:
+            L.for_tape(name)(x, *args, eps)
+        except TypeError:
+            continue
+        check(False, f"tape {name}: an f32 x with a bf16 gain did not raise")
+    return cases
+
+
+def norm_width_sweep(torch, randn) -> dict:
+    """Every norm kernel at every width d <= 8192 that is a multiple of 128,
+    37 rows, in bf16 and f32, against its plain version (correctness only:
+    the narrow rows take layernorm.cu's warp-per-row kernels, the wide ones
+    and every RMSNorm the block-per-row kernels).  Returns the largest
+    error of each kernel."""
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    worst: dict = {}
+
+    def hold(name, got, ref, kind, dn):
+        worst[name] = max(worst.get(name, 0.0), max_err(torch, got, ref, kind, dn))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for d in range(128, L.MAX_WIDTH + 1, 128):
+            x, a, dy, g0 = (randn(37, d, dtype=dtype) for _ in range(4))
+            g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+            hold("ln_fwd", L.layernorm(x, g, b), L._plain_layernorm(x, g, b), "ln", dn)
+            hold("addln_fwd", L.add_layernorm(x, a, g, b),
+                 L._plain_add_layernorm(x, a, g, b), "ln", dn)
+            hold("rms_fwd", L.rmsnorm(x, g), L._plain_rmsnorm(x, g), "ln", dn)
+            hold("addrms_fwd", L.add_rmsnorm(x, a, g), L._plain_add_rmsnorm(x, a, g),
+                 "ln", dn)
+            for name, got, ref in (
+                    ("ln_bwd", L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy)),
+                    ("addln_bwd", L.addln_grads(x, g, dy, g0),
+                     L._plain_addln_grads(x, g, dy, g0)),
+                    ("rms_bwd", L.rms_grads(x, g, dy), L._plain_rms_grads(x, g, dy)),
+                    ("addrms_bwd", L.addrms_grads(x, g, dy, g0),
+                     L._plain_addrms_grads(x, g, dy, g0))):
+                hold(name, got[0], ref[0], "addln_dx" if "add" in name else "ln", dn)
+                for i in range(1, len(got)):
+                    hold(name, got[i], ref[i], "lnsum", dn)
+    log(f"[kernel] norms at every d in 128..{L.MAX_WIDTH} step 128, 37 rows, "
+        "bf16 and f32, within tolerance of their plain versions; largest "
+        "errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def norm_route_ab(torch, randn, block_lib) -> list:
+    """The four LayerNorm kernels at the flagship's widths (d = 1024 at a
+    decode step's 8 rows and the train step's 8192), bf16 and f32: device
+    time of layernorm.cu's warp-per-row route against the block-per-row
+    route of rowblock.cuh (``block_lib``, built with -DNORM_BLOCK_PER_ROW),
+    each within tolerance of the plain version."""
+    import ctypes
+
+    from minidiff_tpu_torch.kernels import _build
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    block = ctypes.CDLL(str(block_lib))
+    for fn, (src, argtypes) in _build.SIGNATURES.items():
+        if src == "layernorm":
+            getattr(block, fn).argtypes = argtypes
+            getattr(block, fn).restype = ctypes.c_int
+    warp = _build._lib("layernorm")
+    rows_out = []
+    d = MODEL["dim"]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for rows in (8, TRAIN_BATCH * TRAIN_SEQ):
+            x, a, dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(4))
+            g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+            runs = {
+                "ln_fwd": (lambda: (L.layernorm(x, g, b),),
+                           (L._plain_layernorm(x, g, b),), ("ln",)),
+                "addln_fwd": (lambda: (L.add_layernorm(x, a, g, b),),
+                              (L._plain_add_layernorm(x, a, g, b),), ("ln",)),
+                "ln_bwd": (lambda: L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy),
+                           ("ln", "lnsum", "lnsum")),
+                "addln_bwd": (lambda: L.addln_grads(x, g, dy, g0),
+                              L._plain_addln_grads(x, g, dy, g0),
+                              ("addln_dx", "lnsum", "lnsum"))}
+            for name, (run, ref, kinds) in runs.items():
+                us = {}
+                for route, lib in (("warp", warp), ("block", block), ("warp2", warp)):
+                    _build._libs["layernorm"] = lib
+                    try:
+                        for got, want, kind in zip(run(), ref, kinds):
+                            max_err(torch, got, want, kind, dn)
+                        us[route] = device_ms(torch, run) * 1e3
+                    finally:
+                        _build._libs["layernorm"] = warp
+                rows_out.append(dict(name=name, dtype=dn, shape=[rows, d],
+                                     warp_us=[us["warp"], us["warp2"]],
+                                     block_us=us["block"]))
+                log(f"[route] {name:9s} {dn:8s} {str([rows, d]):12s} warp per row "
+                    f"{us['warp']:8.2f} / {us['warp2']:8.2f} us | block per row "
+                    f"{us['block']:8.2f} us")
+    return rows_out
+
+
 def flash_cases(torch, randn):
     """flash_fwd at the serving path's prefill shapes and the train step's
     (64, 1024, 128); flash_bwd_dkv / flash_bwd_dq at the train step's shape
-    and smaller ones, full, causal and windowed."""
+    and smaller ones, full, causal and windowed; all three at the options
+    train step's (256, 1024, 128), whose K and V come from ``expand_kv``
+    (each of 8 KV heads repeated over its 4 query heads)."""
+    import types
+
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import attention as A
+    from minidiff_tpu_torch.models.transformer import MultiHeadAttention
 
     cases = []
     scale = 128 ** -0.5
     bh_train = TRAIN_BATCH * TRAIN_MODEL["num_heads"]
+    bh_opt = OPT_TRAIN_BATCH * OPT_MODEL["num_heads"]
+    groups = OPT_MODEL["num_heads"] // OPT_MODEL["num_kv_heads"]
     fwd = [(torch.bfloat16, 64, 16, True, None), (torch.bfloat16, 8, 128, True, None),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
            (torch.bfloat16, 8, 384, True, 100),
@@ -529,16 +785,22 @@ def flash_cases(torch, randn):
     bwd = [(torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
            (torch.bfloat16, 8, 384, True, 100), (torch.float32, 8, 256, True, None)]
-    for kind, (dtype, bh, s, causal, window) in (
-            [("fwd", c) for c in fwd] + [("bwd", c) for c in bwd]):
+    gqa = (torch.bfloat16, bh_opt, OPT_TRAIN_SEQ, True, None, groups)
+    for kind, (dtype, bh, s, causal, window, *g) in (
+            [("fwd", c) for c in fwd + [gqa]] + [("bwd", c) for c in bwd + [gqa]]):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         q, k, v = (randn(bh, s, 128, dtype=dtype) for _ in range(3))
+        if g:
+            attn = types.SimpleNamespace(num_heads=bh, num_kv_heads=bh // g[0])
+            k, v = (MultiHeadAttention.expand_kv(attn, t[None, ::g[0]])[0]
+                    for t in (k, v))
         q4, k4, v4 = (t.reshape(1, bh, s, 128) for t in (q, k, v))
         # visible (query, key) pairs: the work this run's mask leaves
         pairs = (int(A._keep_mask(s, s, window, "cpu").sum()) if causal
                  else s * s)
-        shape = dict(dtype=dn, shape=[bh, s, 128], causal=causal, window=window)
+        shape = dict(dtype=dn, shape=[bh, s, 128], causal=causal, window=window,
+                     groups=g[0] if g else 1)
         o, lse = A.flash_fwd(q, k, v, scale, causal, window)
         if kind == "fwd":
             op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
@@ -594,15 +856,18 @@ def flash_cases(torch, randn):
 
 def xent_cases(torch, gen, randn):
     """xent_fwd / xent_bwd at the train step's (8192, 512) and (1024, 512),
-    and at the tape MLP's (8192, 10), whose rows are no whole number of
-    16-byte vectors (the kernels' one-element-per-lane route)."""
+    at the options train step's (8192, 32768), and at the tape MLP's
+    (8192, 10), whose rows are no whole number of 16-byte vectors (the
+    kernels' one-element-per-lane route)."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import xent as X
 
     cases = []
     shapes = [(TRAIN_BATCH * TRAIN_SEQ, TRAIN_MODEL["vocab_size"]),
-              (1024, TRAIN_MODEL["vocab_size"]), (MLP_BATCH, MLP_OUT)]
+              (1024, TRAIN_MODEL["vocab_size"]),
+              (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["vocab_size"]),
+              (MLP_BATCH, MLP_OUT)]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
@@ -625,7 +890,8 @@ def xent_cases(torch, gen, randn):
             cases.append(dict(
                 name="xent_bwd", dtype=dn, shape=[rows, v],
                 max_abs_err=max_err(torch, X.xent_grad(z, lab, g),
-                                    X._plain_xent_grad(z, lab, g), "xent_dz", dn),
+                                    X._plain_xent_grad(z, lab, g), "xent_dz", dn,
+                                    g=g),
                 ms=device_ms(torch, lambda: X.xent_grad(z, lab, g)),
                 plain_ms=device_ms(torch, lambda: X._plain_xent_grad(z, lab, g)),
                 library_ms=device_ms(torch, lambda: torch.autograd.grad(
@@ -1515,6 +1781,207 @@ def phase_paged(torch, seed: int, report):
         f"{kv['dense']:,} paged {kv['paged']:,} oversubscribed {kv['paged_oversub']:,} "
         f"({kv['paged_oversub'] / kv['dense']:.3f}x) | pages in use {pages} | pool "
         f"exhaustion raised at submit and mid-decode")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the LLaMA-style options at Mistral-7B-v0.3's widths
+# ---------------------------------------------------------------------------
+
+
+def options_forward_launches(model) -> dict:
+    """The kernel launches of one forward of ``model``, read off its
+    modules: an RMSNorm forward for each RMSNorm used alone (ln1 of each
+    block, ln_f), a fused add+RMSNorm for each block's ln2 (residual_norm),
+    a flash forward for each attention."""
+    from minidiff_tpu_torch.models.transformer import MultiHeadAttention, RMSNorm
+
+    names = [n for n, m in model.named_modules() if isinstance(m, RMSNorm)]
+    fused = sum(n.endswith(".ln2") for n in names)
+    attn = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
+    return {"rms_fwd": len(names) - fused, "addrms_fwd": fused, "flash_fwd": attn}
+
+
+def options_train_launches(model) -> dict:
+    """The launches of one train step: the forward's, the loss, and one
+    backward kernel for each forward kernel."""
+    fwd = options_forward_launches(model)
+    return {**fwd, "xent_fwd": 1, "rms_bwd": fwd["rms_fwd"],
+            "addrms_bwd": fwd["addrms_fwd"], "flash_bwd_dkv": fwd["flash_fwd"],
+            "flash_bwd_dq": fwd["flash_fwd"], "xent_bwd": 1}
+
+
+def _f32_prefix(torch, model, layers: int):
+    """A float32 copy of ``model`` cut to its first ``layers`` blocks."""
+    import copy
+
+    out = copy.deepcopy(model)
+    del out.blocks[layers:]
+    out.dtype = torch.float32
+    return out.float()
+
+
+def phase_options(torch, seed: int, report):
+    import numpy as np
+
+    from minidiff_tpu_torch import (SGD, DecodeServer, TransformerLM,
+                                    generate_compiled, lm_loss, make_train_step)
+    from minidiff_tpu_torch import kernels as K
+    from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
+
+    cfg = OPT_MODEL
+    t0 = time.perf_counter()
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **cfg)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[options] Mistral-7B-v0.3 widths, {cfg['num_layers']} layers, bf16: "
+        f"{n_params / 1e6:.1f}M parameters drawn in {init_s:.1f} s")
+    out = {"n_params": n_params, "init_seconds": init_s}
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # generate_compiled at bench.py:311-323's shape
+    fwd = options_forward_launches(model)
+    prompt = torch.from_numpy(np.random.RandomState(seed + 7).randint(
+        1, cfg["vocab_size"], size=(BATCH, PROMPT)))
+    generate_compiled(model, prompt, 4, device=DEVICE)  # warm-up
+    toks, dt, counts = _counted(torch, K, lambda: generate_compiled(
+        model, prompt, NEW, device=DEVICE))
+    # the prefill runs every forward kernel once, each decode step all but flash
+    want = {k: n * (NEW if k != "flash_fwd" else 1) for k, n in fwd.items()}
+    check(counts == want, f"options generate: launches {counts}, expected {want}")
+    check(tuple(toks.shape) == (BATCH, PROMPT + NEW)
+          and bool(((toks >= 0) & (toks < cfg["vocab_size"])).all()),
+          f"options generate: tokens {tuple(toks.shape)} out of range")
+    add(counts)
+    out["generate"] = dict(seconds=dt, tok_s=BATCH * NEW / dt,
+                           ms_per_step=dt / NEW * 1e3, launches=counts)
+    log(f"[options] generate_compiled batch {BATCH} prompt {PROMPT} new {NEW}: "
+        f"{dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step "
+        f"| launches {counts}")
+    out["generate_profile"] = profile_run(
+        torch, "options generate_compiled 32 new tokens",
+        lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+
+    # the server: phase 4's staggered schedule on 8 slots, window 1024
+    rng = np.random.RandomState(seed + 8)
+    prompts = [([int(t) for t in rng.randint(1, cfg["vocab_size"], n)], new)
+               for n, new in REQUESTS]
+    n_tokens = sum(new for _, new in REQUESTS)
+    srv = DecodeServer(model, max_batch=8, window=cfg["max_seq_len"], device=DEVICE)
+    run_schedule(srv, prompts[:2])  # warm-up
+    srv = DecodeServer(model, max_batch=8, window=cfg["max_seq_len"], device=DEVICE)
+    (got, steps, slots), dt, counts = _counted(torch, K, lambda: run_schedule(
+        srv, prompts))
+    check(slots < len(prompts), "options server: no slot was reused")
+    # every request's prefill runs each forward kernel once, and every step
+    # (each finds a live slot: run_schedule submits whenever none is) the
+    # norms again
+    want = {k: n * (len(REQUESTS) + (steps if k != "flash_fwd" else 0))
+            for k, n in fwd.items()}
+    check(counts == want, f"options server: launches {counts}, expected {want}")
+    add(counts)
+    kv_bytes = sum(t.numel() * t.element_size() for c in srv._caches
+                   for t in c.values())
+    mha_bytes = kv_bytes * cfg["num_heads"] // cfg["num_kv_heads"]
+    solo = [generate_compiled(model, [p], n, device=DEVICE)[0, len(p):].tolist()
+            for p, n in prompts]
+    same = sum(a == b for g, s_ in zip(got, solo) for a, b in zip(g, s_))
+    check(all(len(g) == n for g, (_, n) in zip(got, prompts)),
+          "options server: wrong token counts")
+    out["server"] = dict(requests=len(REQUESTS), tokens=n_tokens, steps=steps,
+                         seconds=dt, tok_s=n_tokens / dt, ms_per_step=dt / steps * 1e3,
+                         kv_bytes=kv_bytes, mha_kv_bytes=mha_bytes,
+                         bf16_agreement=same / n_tokens, launches=counts)
+    log(f"[options] server bf16: {len(REQUESTS)} requests over 8 slots, {steps} "
+        f"steps, {n_tokens} tokens in {dt:.3f} s ({n_tokens / dt:.0f} tok/s, "
+        f"{dt / steps * 1e3:.2f} ms/step); KV bytes {kv_bytes:,} "
+        f"(multi-head {mha_bytes:,}, {kv_bytes / mha_bytes:.3f}x); agreement "
+        f"with solo decode {same}/{n_tokens} | launches {counts}")
+    del srv
+
+    # the f32 gates take the first layer of these weights in f32
+    gate = _f32_prefix(torch, model, OPT_GATE_LAYERS)
+
+    # the train step at bench.py:636-661's shape
+    train_toks = torch.from_numpy(np.random.RandomState(seed + 9).randint(
+        0, cfg["vocab_size"], size=(OPT_TRAIN_BATCH, OPT_TRAIN_SEQ))).to(DEVICE)
+    step = make_train_step(model, SGD(1e-3), loss_fn=lm_loss, device=DEVICE)
+    want = options_train_launches(model)
+    losses, dt, counts = _timed_steps(
+        torch, K, lambda losses: losses + [step(train_toks, train_toks)], [],
+        TRAIN_WARMUP, OPT_TRAIN_STEPS, want, "options train step")
+    add(counts)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"options: non-finite train loss {losses}")
+    tokens = OPT_TRAIN_BATCH * OPT_TRAIN_SEQ
+    hd = cfg["dim"] // cfg["num_heads"]
+    # bench.py:683-690's count: 6*P*T, plus 3.5 x the causal attention
+    # forward's 4*b*h*s^2*hd / 2
+    flops = (6 * n_params * tokens + 3.5 * 4 * OPT_TRAIN_BATCH * cfg["num_heads"]
+             * OPT_TRAIN_SEQ ** 2 * hd / 2)
+    out["train"] = dict(ms_per_step=dt * 1e3, tok_s=tokens / dt,
+                        model_tflop_s=flops / dt / 1e12, flops_per_step=flops,
+                        losses=losses, launches_per_step=want)
+    log(f"[options] train bf16 batch {OPT_TRAIN_BATCH} x S {OPT_TRAIN_SEQ}, "
+        f"SGD(1e-3), lm_loss: {dt * 1e3:.2f} ms/step over {OPT_TRAIN_STEPS} steps, "
+        f"{tokens / dt:.0f} tok/s, {flops / dt / 1e12:.1f} model TFLOP/s | launches "
+        f"per step {want} | losses " + " ".join(f"{x:.4f}" for x in losses))
+    out["train_profile"] = profile_run(
+        torch, "one options train step", lambda: step(train_toks, train_toks))
+    del model, step
+
+    # f32 gates, full width and one layer: the kernel path on the card
+    # against the plain path on the CPU, the same weights.  f32 through one
+    # layer in other summation orders leaves ~1e-6 relative; TF32 rounding
+    # (~1e-3) or a wrong kernel fails 1e-4
+    cpu = _f32_prefix(torch, gate, OPT_GATE_LAYERS).to("cpu")
+    n = OPT_GATE_PROMPT + OPT_GATE_STEPS
+    gt = torch.from_numpy(np.random.RandomState(seed + 10).randint(
+        0, cfg["vocab_size"], size=(2, n)))
+    L = 128
+    with torch.inference_mode():
+        caches, last = _prefill(gate, gt[:, :OPT_GATE_PROMPT].to(DEVICE), L)
+        cached = [last]
+        for j in range(OPT_GATE_PROMPT, n):
+            pos = torch.full((2,), j, dtype=torch.long, device=DEVICE)
+            cached.append(_chunk_step(gate, caches, gt[:, j:j + 1].to(DEVICE),
+                                      pos, L)[:, 0])
+        cached = torch.stack(cached, dim=1).cpu()
+        ref = cpu(gt)[:, OPT_GATE_PROMPT - 1:]
+    logit_err = ((cached - ref).abs().max() / ref.abs().max()).item()
+    check(logit_err <= 1e-4, f"options f32 cached logits GPU vs CPU full forward: "
+          f"max |err| {logit_err:.3g} of the largest logit")
+    st = torch.from_numpy(np.random.RandomState(seed + 11).randint(
+        0, cfg["vocab_size"], size=(1, OPT_GATE_SEQ)))
+    loss_gpu = lm_loss(gate(st.to(DEVICE)), st.to(DEVICE))
+    loss_gpu.backward()
+    loss_cpu = lm_loss(cpu(st), st)
+    loss_cpu.backward()
+    check(abs(loss_gpu.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item()),
+          f"options f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gate.named_parameters():
+        r = cpu_params[name].grad
+        check(p.grad is not None and r is not None, f"options: no gradient for {name}")
+        rel = ((p.grad.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"options f32 gradient of {worst_name} GPU vs CPU: max "
+          f"|err| {worst:.3g} of its largest value")
+    out["gate"] = dict(layers=OPT_GATE_LAYERS, logits_rel_err=logit_err,
+                       loss_gpu=loss_gpu.item(), loss_cpu=loss_cpu.item(),
+                       worst_grad_rel_err=worst, worst_param=worst_name)
+    log(f"[options] f32 gates, 1 layer at full width: prefill + {OPT_GATE_STEPS} "
+        f"cached steps within {logit_err:.3g} of the largest logit of the CPU "
+        f"full forward; loss GPU {loss_gpu.item():.6f} CPU {loss_cpu.item():.6f}; "
+        f"every gradient within {worst:.3g} of its largest value (worst "
+        f"{worst_name}), {OPT_GATE_SEQ} tokens")
+    report["options"] = out
+    report["launches_options"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """minidiff_tpu_torch: the PyTorch and CUDA port of minidiff_tpu for the H100.
 
-Four slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
+Five slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
 its three cleanup modes, higher-order sweeps and ``reuse_graph``, the op
 registry and its VJPs, ``value_and_grad`` / ``grad`` / ``vjp`` / ``jvp`` /
 ``hvp`` / ``hessian`` and the gradcheck oracle (``minidiff_tpu_torch.utils``),
@@ -8,12 +8,14 @@ over two array backends, ``"cuda"`` (the default) and ``"cpu"``
 (``md.use_backend("cpu")``).  Serving: ``TransformerLM``,
 ``generate_compiled`` (with an int8 KV cache, ``kv_quant=True``), the
 continuous-batching ``DecodeServer`` and the paged ``PagedDecodeServer``, and
-int8 / int4 weight-only serving (``quantize_for_serving``).
+int8 / int4 weight-only serving (``quantize_for_serving``), for the
+flagship options and the LLaMA-style ones (RMSNorm, RoPE, grouped-query
+attention, gated MLPs, parallel blocks, biases, tied embeddings).
 Training: ``make_train_step`` with ``SGD``, ``Adam`` and ``AdamW``,
 ``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd.
 Hand-written sm_90a CUDA kernels (``minidiff_tpu_torch.kernels``) carry the
-tape's large 2-D matrix products, LayerNorm, fused add+LayerNorm, flash
-attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,
+tape's large 2-D matrix products, LayerNorm, RMSNorm and their fused
+residual-add forms, flash attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,
 attention over an int8 KV cache and paged decode attention.  Entry points
 run on the GPU unless the caller asks for the CPU, where every kernel runs
 its plain PyTorch version.

@@ -21,8 +21,9 @@ or divided by an integer), the result is numpy's float64.
 
 ``matmul`` / ``matmul_nt`` / ``matmul_tn`` go to ``kernels.matmul`` (the
 hand-written CUDA kernels for large 2-D f32/bf16 products),
-``softmax_xent`` to ``kernels.xent``, and ``dequant_matmul``,
-``dequant_matmul4`` and ``sdpa_int8_cache`` to ``kernels.quant``.  Autograd is the tape's: torch tensors
+``softmax_xent`` to ``kernels.xent``, ``rmsnorm`` and ``add_rmsnorm`` to
+``kernels.layernorm``, and ``dequant_matmul``, ``dequant_matmul4`` and
+``sdpa_int8_cache`` to ``kernels.quant``.  Autograd is the tape's: torch tensors
 here never require grad.
 """
 
@@ -35,6 +36,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from minidiff_tpu_torch.kernels import layernorm as _ln
 from minidiff_tpu_torch.kernels import matmul as _mm
 from minidiff_tpu_torch.kernels import quant as _quant
 from minidiff_tpu_torch.kernels import xent as _xent
@@ -441,6 +443,11 @@ class TorchBackend:
 
     # per-row loss of (..., V) logits: the xent_fwd kernel or its plain version
     softmax_xent = staticmethod(_xent.loss)
+
+    # RMSNorm and the stacked (x + a, RMSNorm(x + a)): the rms_fwd /
+    # addrms_fwd kernels or their plain versions (kernels/layernorm.py)
+    rmsnorm = staticmethod(_ln.for_tape("rmsnorm"))
+    add_rmsnorm = staticmethod(_ln.for_tape("add_rmsnorm"))
 
     # quantized serving: the dq_mm / dq4_mm / sdpa_int8 kernels or their
     # plain versions (kernels/quant.py)

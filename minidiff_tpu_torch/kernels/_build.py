@@ -27,8 +27,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("layernorm", "flash_fwd", "flash_bwd", "xent", "matmul", "quant",
-           "paged")
+SOURCES = ("layernorm", "rmsnorm", "flash_fwd", "flash_bwd", "xent", "matmul",
+           "quant", "paged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,11 +41,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ln_fwd": ("layernorm", (_P, _P, _P, _P, _I, _I, _F, _I, _P)),
     "addln_fwd": ("layernorm", (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
-    "max_row_width": ("layernorm", (_I,)),
-    "ln_bwd_blocks": ("layernorm", (_I, _I)),
     "ln_bwd": ("layernorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "addln_bwd": ("layernorm",
                   (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "rms_fwd": ("rmsnorm", (_P, _P, _P, _I, _I, _F, _I, _P)),
+    "addrms_fwd": ("rmsnorm", (_P, _P, _P, _P, _I, _I, _F, _I, _P)),
+    "rms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "addrms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "flash_fwd": ("flash_fwd",
                   (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
     "flash_bwd_dkv": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -141,6 +143,19 @@ def _lib(source: str) -> ctypes.CDLL:
 def function(name: str):
     """The C entry ``name``, building and loading its library if needed."""
     return getattr(_lib(SIGNATURES[name][0]), name)
+
+
+def tape_entry(name: str, kernel, plain):
+    """The tape's entry ``name``, with no autograd: ``kernel`` (whose wrapper
+    runs its plain version on a CPU tensor and raises on a CUDA operand it
+    does not take) when the leading operand is f32 or bf16, ``plain`` for
+    other dtypes (the f64 of the tape's oracle)."""
+    def entry(x, *args, **kwargs):
+        fn = kernel if x.dtype in DTYPE_CODES else plain
+        return fn(x, *args, **kwargs)
+
+    entry.__name__ = name
+    return entry
 
 
 def operand(t):

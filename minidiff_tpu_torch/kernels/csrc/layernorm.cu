@@ -37,16 +37,32 @@
 // sums its strips outside the kernel): no atomics, so the result is the
 // same on every run.  The register arrays are sized per launch (NV vectors
 // per lane) so that d = 1024 does not pay for the widest row.
+//
+// Rows wider than one warp's registers hold (kWarpRowWidth: 2,048 bf16 or
+// 1,024 f32 values) go to the block-per-row kernels of rowblock.cuh, which
+// rmsnorm.cu shares, up to the JAX kernels' d <= 8192.  A build with
+// -DNORM_BLOCK_PER_ROW sends every row there (chip_smoke.py times the two
+// routes against each other at the flagship's widths).
 
-#include "rowwise.cuh"
+#include "rowblock.cuh"
 
 namespace {
 
 using rowwise::Vec;
 using rowwise::warp_sum;
 
+#ifdef NORM_BLOCK_PER_ROW
+constexpr bool kBlockPerRow = true;
+#else
+constexpr bool kBlockPerRow = false;
+#endif
+
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxVecsPerLane = 8;  // d <= 32 * 8 * VEC (2048 bf16, 1024 f32)
+
+// the widest row of the warp-per-row kernels
+template <typename T>
+constexpr int kWarpRowWidth = 32 * kMaxVecsPerLane * Vec<T>::N;
 
 // One warp per row.  ADD: x <- round_T(x + a), written to t, then normalised.
 template <typename T, bool ADD>
@@ -113,6 +129,9 @@ ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ a,
 template <typename T, bool ADD>
 int launch(const void* x, const void* a, const void* g, const void* b,
            void* t_out, void* y, int rows, int d, float eps, void* stream) {
+  if (kBlockPerRow || d > kWarpRowWidth<T>)
+    return rowblock::launch_fwd<T, false, ADD>(x, a, g, b, t_out, y, rows, d,
+                                               eps, stream);
   const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   ln_rows_kernel<T, ADD><<<blocks, kWarpsPerBlock * 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -264,11 +283,15 @@ int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the smallest register width (vectors per lane) that holds a row
+// the smallest register width (vectors per lane) that holds a row; wider
+// rows go to the block-per-row kernel
 template <typename T, bool ADD>
 int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
                  void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
                  float eps, void* stream) {
+  if (kBlockPerRow || d > kWarpRowWidth<T>)
+    return rowblock::launch_bwd<T, false, ADD>(x, g, dy, g0, dx, dgp, dbp, rows,
+                                               d, blocks, eps, stream);
   const int per_lane = (d / Vec<T>::N + 31) / 32;
   if (per_lane <= 1)
     return launch_bwd<T, 1, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
@@ -282,8 +305,8 @@ int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller has checked that every
-// pointer is 16-byte aligned, d is a multiple of the vector width and
-// d <= 32 * kMaxVecsPerLane * vector width.  Returns cudaGetLastError().
+// pointer is 16-byte aligned, d is a multiple of the vector width (8 bf16,
+// 4 f32) and d <= 8192, and rows >= 1.  Returns cudaGetLastError().
 extern "C" int ln_fwd(const void* x, const void* g, const void* b, void* y,
                       int rows, int d, float eps, int dtype, void* stream) {
   if (dtype == 1)
@@ -304,21 +327,9 @@ extern "C" int addln_fwd(const void* x, const void* a, const void* g,
   return launch<float, true>(x, a, g, b, o, o + n, rows, d, eps, stream);
 }
 
-extern "C" int max_row_width(int dtype) {
-  return 32 * kMaxVecsPerLane * (dtype == 1 ? 8 : 4);
-}
-
-// The number of blocks (and so of partial rows) ln_bwd / addln_bwd use for
-// `rows` rows on a card with `sms` multiprocessors: two blocks per SM, or
-// fewer when there are fewer rows than warps to give them.
-extern "C" int ln_bwd_blocks(int rows, int sms) {
-  const int by_rows = (rows + kBwdWarps - 1) / kBwdWarps;
-  const int cap = 2 * sms;
-  return by_rows < cap ? (by_rows > 0 ? by_rows : 1) : cap;
-}
-
-// dx like x; dgp and dbp (blocks, d) f32 partials, blocks from
-// ln_bwd_blocks.  Same pointer, dtype and width conditions as ln_fwd.
+// dx like x; dgp and dbp (blocks, d) f32 partials, blocks >= 1 (the
+// caller's choice: two per SM, or fewer when there are fewer than 8 rows a
+// block).  Same pointer, dtype and width conditions as ln_fwd.
 extern "C" int ln_bwd(const void* x, const void* g, const void* dy, void* dx,
                       void* dgp, void* dbp, int rows, int d, int blocks,
                       float eps, int dtype, void* stream) {

@@ -1,0 +1,83 @@
+// RMSNorm and fused residual-add + RMSNorm, forward and backward, for
+// sm_90a.
+//
+// Replaces minidiff_tpu/kernels/layernorm.py:
+//   rms_fwd    <- _rms_fwd_kernel    (:91,  pallas_call in _pallas_rms_fwd)
+//   addrms_fwd <- _addrms_fwd_kernel (:141, pallas_call in _pallas_addrms_fwd)
+//   rms_bwd    <- _rms_bwd_kernel    (:112, pallas_call in _pallas_rms_bwd)
+//   addrms_bwd <- _addrms_bwd_kernel (:168, pallas_call in _pallas_addrms_bwd)
+//
+// Semantics (the JAX module's contract): statistics in f32 for bf16 inputs,
+// y = x * rsqrt(mean(x^2) + eps) * g cast back to x's dtype.  addrms_fwd
+// forms t = x + a in the MODEL dtype (bf16 rounding) before the f32
+// statistics and writes both t and RMSNorm(t), so its outputs equal an
+// unfused add followed by rms_fwd bit for bit.  Backward, with xhat =
+// x * rsig and w = dy * g (rsig recomputed in f32 from x):
+//   dx = (w - xhat * mean(w * xhat)) * rsig           cast to x's dtype
+//   dg = sum_rows(dy * xhat)
+// addrms_bwd rounds that dx to the model dtype and then adds the residual
+// cotangent g0 in the model dtype (two roundings, as :176-177).
+//
+// Bound on the H100: bytes.  Each row is read once and written once (x and
+// y; x, a, t and y for the add; x, dy, dx and g0 for the backward) against
+// about 5-12 flops per element.  Design: one thread block per row
+// (rowblock.cuh), because the model's rows (d = 4096 at Mistral-7B width,
+// up to 8192) do not fit one warp's registers: a 4096-wide f32 row would
+// need 128 registers a lane for x alone.  A block of up to 256 threads
+// holds the row in registers instead, so x still crosses device memory
+// once; a row statistic costs one block reduction (two shared-memory
+// barriers).  The backward writes per-block f32 dg partial rows that the
+// caller sums, as ln_bwd does.  At a decode step's 8 rows the launch is
+// latency-bound.
+
+#include "rowblock.cuh"
+
+// dtype: 0 = float32, 1 = bfloat16.  The caller has checked that every
+// pointer is 16-byte aligned, d is a multiple of the vector width (8 bf16,
+// 4 f32) and d <= 8192, and rows >= 1.  Returns cudaGetLastError().
+extern "C" int rms_fwd(const void* x, const void* g, void* y, int rows, int d,
+                       float eps, int dtype, void* stream) {
+  if (dtype == 1)
+    return rowblock::launch_fwd<__nv_bfloat16, true, false>(
+        x, nullptr, g, nullptr, nullptr, y, rows, d, eps, stream);
+  return rowblock::launch_fwd<float, true, false>(
+      x, nullptr, g, nullptr, nullptr, y, rows, d, eps, stream);
+}
+
+// out holds (2, rows, d): out[0] = x + a, out[1] = RMSNorm(x + a).
+extern "C" int addrms_fwd(const void* x, const void* a, const void* g,
+                          void* out, int rows, int d, float eps, int dtype,
+                          void* stream) {
+  const size_t n = static_cast<size_t>(rows) * d;
+  if (dtype == 1) {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    return rowblock::launch_fwd<__nv_bfloat16, true, true>(
+        x, a, g, nullptr, o, o + n, rows, d, eps, stream);
+  }
+  float* o = static_cast<float*>(out);
+  return rowblock::launch_fwd<float, true, true>(x, a, g, nullptr, o, o + n,
+                                                 rows, d, eps, stream);
+}
+
+// dx like x; dgp (blocks, d) f32 partial rows, blocks >= 1.
+extern "C" int rms_bwd(const void* x, const void* g, const void* dy, void* dx,
+                       void* dgp, int rows, int d, int blocks, float eps,
+                       int dtype, void* stream) {
+  if (dtype == 1)
+    return rowblock::launch_bwd<__nv_bfloat16, true, false>(
+        x, g, dy, nullptr, dx, dgp, nullptr, rows, d, blocks, eps, stream);
+  return rowblock::launch_bwd<float, true, false>(
+      x, g, dy, nullptr, dx, dgp, nullptr, rows, d, blocks, eps, stream);
+}
+
+// t = x + a as addrms_fwd wrote it; g0 the cotangent of t;
+// dx = round(RMS_dx) + g0.
+extern "C" int addrms_bwd(const void* t, const void* g, const void* dy,
+                          const void* g0, void* dx, void* dgp, int rows, int d,
+                          int blocks, float eps, int dtype, void* stream) {
+  if (dtype == 1)
+    return rowblock::launch_bwd<__nv_bfloat16, true, true>(
+        t, g, dy, g0, dx, dgp, nullptr, rows, d, blocks, eps, stream);
+  return rowblock::launch_bwd<float, true, true>(
+      t, g, dy, g0, dx, dgp, nullptr, rows, d, blocks, eps, stream);
+}

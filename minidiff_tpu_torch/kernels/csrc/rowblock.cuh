@@ -1,0 +1,292 @@
+// Block-per-row LayerNorm and RMSNorm, forward and backward, for rows too
+// wide for one warp's registers: rmsnorm.cu runs every row through these,
+// layernorm.cu the rows wider than its warp-per-row kernels take (2,048
+// bf16 or 1,024 f32 values).
+//
+// Design: one thread block owns one row.  Thread t holds the 16-byte
+// vectors t, t + blockDim.x, ... of the row in registers (NV of them, a
+// power of two chosen per launch), so x still crosses device memory once
+// per pass, as in the warp-per-row kernels; a row of d <= kMaxWidth needs
+// at most 8 f32 or 4 bf16 vectors a thread at kMaxThreads threads.  Each
+// row statistic is a warp shuffle sum, then the warps' partial sums through
+// shared memory, added by every thread in the same order (so every thread
+// holds the same value and the result does not depend on scheduling).
+//
+// The backward's block walks a run of rows one after the other; a thread
+// owns the same columns in every row, so it keeps its dg (and db) sums in
+// registers and writes them once as its block's f32 partial row.  The
+// caller sums the partial rows: no atomics, the same result on every run.
+#pragma once
+
+#include "rowwise.cuh"
+
+namespace rowblock {
+
+using rowwise::Vec;
+using rowwise::warp_sum;
+
+constexpr int kMaxThreads = 256;
+constexpr int kMaxWidth = 8192;  // the JAX kernels' widest row
+
+// vectors a thread holds at most for type T: 4 for bf16, 8 for f32
+template <typename T>
+constexpr int max_nv() {
+  return kMaxWidth / (kMaxThreads * Vec<T>::N);
+}
+
+// The K values summed over the block; every thread gets the K sums.
+// red: shared scratch of K * 32 floats.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[k * 32 + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += red[k * 32 + w];
+    v[k] = s;
+  }
+  __syncthreads();  // red is written again by the next call
+}
+
+// Statistics of the row held in xv (a thread's vectors; c < nvec valid):
+// RMS: xv unchanged, returns rsqrt(mean(x^2) + eps).  LN: xv becomes
+// x - mean, returns rsqrt(mean((x - mean)^2) + eps).
+template <typename T, int NV, bool RMS>
+__device__ __forceinline__ float row_rsig(float (&xv)[NV][Vec<T>::N], int nvec,
+                                          float inv_d, float eps, float* red) {
+  constexpr int V = Vec<T>::N;
+  float s[1] = {0.f};
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + i * blockDim.x < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[0] += RMS ? xv[i][j] * xv[i][j] : xv[i][j];
+    }
+  }
+  block_sum<1>(s, red);
+  if (RMS) return rsqrtf(s[0] * inv_d + eps);
+  const float mu = s[0] * inv_d;
+  s[0] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + i * blockDim.x < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        xv[i][j] -= mu;
+        s[0] += xv[i][j] * xv[i][j];
+      }
+    }
+  }
+  block_sum<1>(s, red);
+  return rsqrtf(s[0] * inv_d + eps);
+}
+
+// One block per row.  ADD: x <- round_T(x + a), written to t_out, then
+// normalised.  RMS: y = x * rsig * g; LN: y = (x - mu) * rsig * g + b.
+template <typename T, int NV, bool RMS, bool ADD>
+__global__ void __launch_bounds__(kMaxThreads)
+norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
+                const T* __restrict__ g, const T* __restrict__ b,
+                T* __restrict__ t_out, T* __restrict__ y, int d, float eps) {
+  constexpr int V = Vec<T>::N;
+  __shared__ float red[32];
+  const int nvec = d / V;
+  const size_t base = static_cast<size_t>(blockIdx.x) * d;
+
+  float v[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      Vec<T>::load(x + base + c * V, v[i]);
+      if (ADD) {
+        float av[V];
+        Vec<T>::load(a + base + c * V, av);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[i][j] = Vec<T>::round(v[i][j] + av[j]);
+        Vec<T>::store(t_out + base + c * V, v[i]);
+      }
+    }
+  }
+  const float rsig = row_rsig<T, NV, RMS>(v, nvec, 1.f / static_cast<float>(d),
+                                          eps, red);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      float gv[V], bv[V];
+      Vec<T>::load(g + c * V, gv);
+      if (!RMS) Vec<T>::load(b + c * V, bv);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        v[i][j] = RMS ? v[i][j] * rsig * gv[j] : v[i][j] * rsig * gv[j] + bv[j];
+      Vec<T>::store(y + base + c * V, v[i]);
+    }
+  }
+}
+
+// Block b takes rows [b*rows_per_block, (b+1)*rows_per_block), one at a
+// time.  With xhat the normalised row and w = dy * g:
+//   RMS: dx = (w - xhat * mean(w * xhat)) * rsig
+//   LN:  dx = (w - mean(w) - xhat * mean(w * xhat)) * rsig
+// ADD: dx = round_T(dx) + g0.  dgp (and dbp for LN): (gridDim.x, d) f32
+// partial sums of dy * xhat (and dy) over the block's rows.
+template <typename T, int NV, bool RMS, bool ADD>
+__global__ void __launch_bounds__(kMaxThreads)
+norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                const T* __restrict__ dy, const T* __restrict__ g0,
+                T* __restrict__ dx, float* __restrict__ dgp,
+                float* __restrict__ dbp, int rows, int d, int rows_per_block,
+                float eps) {
+  constexpr int V = Vec<T>::N;
+  __shared__ float red[2 * 32];
+  const int nvec = d / V;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  float dg_acc[NV][V], db_acc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < V; ++j) dg_acc[i][j] = db_acc[i][j] = 0.f;
+
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  for (int row = r0; row < r1; ++row) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float xv[NV][V], dv[NV][V];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < nvec) Vec<T>::load(x + base + c * V, xv[i]);
+    }
+    const float rsig = row_rsig<T, NV, RMS>(xv, nvec, inv_d, eps, red);
+
+    // xv becomes xhat; sums of w (LN) and w * xhat; this thread's dg, db
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < nvec) {
+        float gv[V];
+        Vec<T>::load(dy + base + c * V, dv[i]);
+        Vec<T>::load(g + c * V, gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = xv[i][j] * rsig;
+          const float w = dv[i][j] * gv[j];
+          xv[i][j] = xh;
+          s[0] += w;
+          s[1] += w * xh;
+          dg_acc[i][j] += dv[i][j] * xh;
+          if (!RMS) db_acc[i][j] += dv[i][j];
+        }
+      }
+    }
+    block_sum<2>(s, red);
+    const float m1 = s[0] * inv_d;
+    const float m2 = s[1] * inv_d;
+
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < nvec) {
+        float gv[V], o[V];
+        Vec<T>::load(g + c * V, gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float w = dv[i][j] * gv[j];
+          o[j] = RMS ? (w - xv[i][j] * m2) * rsig
+                     : (w - m1 - xv[i][j] * m2) * rsig;
+        }
+        if (ADD) {
+          float g0v[V];
+          Vec<T>::load(g0 + base + c * V, g0v);
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = Vec<T>::round(o[j]) + g0v[j];
+        }
+        Vec<T>::store(dx + base + c * V, o);
+      }
+    }
+  }
+
+  // this block's partial rows: each column has one owner thread
+  const size_t pbase = static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        Vec<float>::store(dgp + pbase + c * V + j, &dg_acc[i][j]);
+        if (!RMS) Vec<float>::store(dbp + pbase + c * V + j, &db_acc[i][j]);
+      }
+    }
+  }
+}
+
+// The vectors per thread (a power of two) and the threads per block (a
+// multiple of 32, at most kMaxThreads) for a row of nvec vectors.
+inline void row_shape(int nvec, int* nv, int* threads) {
+  int n = 1;
+  while (n * kMaxThreads < nvec) n *= 2;
+  *nv = n;
+  *threads = ((nvec + n - 1) / n + 31) / 32 * 32;
+}
+
+// Launch the forward for rows of d values (d a multiple of the vector
+// width, at most kMaxWidth); t_out is written only with ADD.
+template <typename T, bool RMS, bool ADD, int NV = 1>
+int launch_fwd(const void* x, const void* a, const void* g, const void* b,
+               void* t_out, void* y, int rows, int d, float eps,
+               void* stream) {
+  if constexpr (NV > max_nv<T>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    int nv, threads;
+    row_shape(d / Vec<T>::N, &nv, &threads);
+    if (nv > NV)
+      return launch_fwd<T, RMS, ADD, 2 * NV>(x, a, g, b, t_out, y, rows, d,
+                                              eps, stream);
+    norm_fwd_kernel<T, NV, RMS, ADD><<<rows, threads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(a),
+        static_cast<const T*>(g), static_cast<const T*>(b),
+        static_cast<T*>(t_out), static_cast<T*>(y), d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// Launch the backward over `blocks` blocks; dbp is written only for LN.
+template <typename T, bool RMS, bool ADD, int NV = 1>
+int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
+               void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
+               float eps, void* stream) {
+  if constexpr (NV > max_nv<T>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    int nv, threads;
+    row_shape(d / Vec<T>::N, &nv, &threads);
+    if (nv > NV)
+      return launch_bwd<T, RMS, ADD, 2 * NV>(x, g, dy, g0, dx, dgp, dbp, rows,
+                                              d, blocks, eps, stream);
+    const int rows_per_block = (rows + blocks - 1) / blocks;
+    norm_bwd_kernel<T, NV, RMS, ADD><<<blocks, threads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<const T*>(dy), static_cast<const T*>(g0),
+        static_cast<T*>(dx), static_cast<float*>(dgp),
+        static_cast<float*>(dbp), rows, d, rows_per_block, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+}  // namespace rowblock

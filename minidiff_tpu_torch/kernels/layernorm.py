@@ -1,8 +1,10 @@
-"""LayerNorm and fused residual-add + LayerNorm, forward and backward.
+"""LayerNorm and RMSNorm, each plain and fused with a residual add, forward
+and backward.
 
 Port of ``minidiff_tpu/kernels/layernorm.py`` (``layernorm``, ``ln_grads``,
-``add_layernorm``, ``addln_grads``).  Semantics, shared by the CUDA kernels
-and the plain versions here:
+``add_layernorm``, ``addln_grads``, ``rmsnorm``, ``rms_grads``,
+``add_rmsnorm``, ``addrms_grads``).  LayerNorm's semantics, shared by the
+CUDA kernels and the plain versions here:
 
     acc = f32 if x is sub-f32 (bf16/f16) else x.dtype
     mu  = mean(x, -1);  var = mean((x-mu)^2, -1)      # biased, in acc
@@ -17,11 +19,22 @@ and the plain versions here:
 adds the cotangent of ``x + a`` to the rounded ``dx`` in the model dtype and
 routes that one ``dx`` to both ``x`` and ``a``.
 
-``layernorm`` and ``add_layernorm`` are differentiable through
-``LayerNormFn`` and ``AddLayerNormFn``.  A CUDA tensor goes to the
-hand-written kernels of ``csrc/layernorm.cu`` (``ln_fwd``, ``addln_fwd``,
-``ln_bwd``, ``addln_bwd``); a CPU tensor goes to the plain versions.  A CUDA
-tensor the kernels do not take raises: nothing falls back.
+RMSNorm drops the centring and the bias:
+
+    rsig = rsqrt(mean(x*x, -1) + eps);  y = x * rsig * g
+    xhat = x * rsig;  w = dy * g
+    dx = (w - xhat * mean(w * xhat)) * rsig;  dg = sum_rows(dy * xhat)
+
+``add_rmsnorm`` / ``addrms_grads`` pair up as the LayerNorm ones do.
+
+``layernorm``, ``add_layernorm``, ``rmsnorm`` and ``add_rmsnorm`` are
+differentiable through ``LayerNormFn``, ``AddLayerNormFn``, ``RMSNormFn`` and
+``AddRMSNormFn``.  A CUDA tensor goes to the hand-written kernels of
+``csrc/layernorm.cu`` (``ln_fwd``, ``addln_fwd``, ``ln_bwd``, ``addln_bwd``)
+and ``csrc/rmsnorm.cu`` (``rms_fwd``, ``addrms_fwd``, ``rms_bwd``,
+``addrms_bwd``), which take rows of up to ``MAX_WIDTH`` values; a CPU tensor
+goes to the plain versions.  A CUDA tensor the kernels do not take raises:
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,7 +47,11 @@ from torch.autograd.function import once_differentiable
 from minidiff_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
-LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0}
+LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
+            "rms_fwd": 0, "addrms_fwd": 0, "rms_bwd": 0, "addrms_bwd": 0}
+
+# the widest row the kernels take (the JAX kernels' limit)
+MAX_WIDTH = 8192
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
@@ -83,6 +100,40 @@ def _plain_addln_grads(t, g, dy, g0, eps: float = 1e-5):
     return dx + g0, dg, db
 
 
+def _plain_rmsnorm(x, g, eps: float = 1e-6):
+    """The port of ``_jnp_rmsnorm``."""
+    acc = _acc_dtype(x.dtype)
+    xa = x.to(acc)
+    rsig = torch.rsqrt((xa * xa).mean(dim=-1, keepdim=True) + eps)
+    return (xa * rsig * g.to(acc)).to(x.dtype)
+
+
+def _plain_add_rmsnorm(x, a, g, eps: float = 1e-6):
+    t = x + a
+    return torch.stack([t, _plain_rmsnorm(t, g, eps)])
+
+
+def _plain_rms_grads(x, g, dy, eps: float = 1e-6):
+    """(dx, dg): the port of ``_jnp_rms_grads``."""
+    acc = _acc_dtype(x.dtype)
+    xa = x.to(acc)
+    rsig = torch.rsqrt((xa * xa).mean(dim=-1, keepdim=True) + eps)
+    xhat = xa * rsig
+    dya = dy.to(acc)
+    w = dya * g.to(acc)
+    m = (w * xhat).mean(dim=-1, keepdim=True)
+    dx = ((w - xhat * m) * rsig).to(x.dtype)
+    dg = (dya * xhat).sum(dim=tuple(range(x.dim() - 1))).to(g.dtype)
+    return dx, dg
+
+
+def _plain_addrms_grads(t, g, dy, g0, eps: float = 1e-6):
+    """``_plain_rms_grads`` with the cotangent ``g0`` of ``t`` added to the
+    rounded dx in the model dtype (``addrms_grads``' plain path)."""
+    dx, dg = _plain_rms_grads(t, g, dy, eps)
+    return dx + g0, dg
+
+
 def _check_cuda(name: str, x, *others):
     """Validate what the kernels take; raise on anything else."""
     if x.dtype not in _build.DTYPE_CODES:
@@ -93,10 +144,9 @@ def _check_cuda(name: str, x, *others):
                             f"{x.device}, got {t.dtype} on {t.device}")
     d = x.shape[-1]
     vec = 8 if x.dtype == torch.bfloat16 else 4
-    width = _build.function("max_row_width")(_build.DTYPE_CODES[x.dtype])
-    if d % vec or d > width:
+    if d % vec or d > MAX_WIDTH:
         raise ValueError(f"{name}: last dim {d} must be a multiple of {vec} "
-                         f"and at most {width} for {x.dtype}")
+                         f"and at most {MAX_WIDTH} for {x.dtype}")
 
 
 def _same_shape(name: str, x, *others):
@@ -106,43 +156,50 @@ def _same_shape(name: str, x, *others):
                              f"{tuple(t.shape)}")
 
 
+def _fwd_kernel(name: str, x, operands, eps: float, out_shape):
+    """Launch the forward ``name`` on x and its other operands (same dtype
+    and device; the residual, if any, of x's shape) into a new tensor of
+    ``out_shape``."""
+    _check_cuda(name, x, *operands)
+    if name.startswith("add"):
+        _same_shape(name, x, operands[0])
+    d = x.shape[-1]
+    ins = [t.contiguous() for t in (x, *operands)]
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    rows = x.numel() // d
+    if rows == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _build.function(name)(
+            *_build.ptrs(*ins, out), rows, d, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.stream())
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def _layernorm_fwd(x, g, b, eps: float):
     if x.device.type == "cpu":
         return _plain_layernorm(x, g, b, eps)
-    _check_cuda("ln_fwd", x, g, b)
-    d = x.shape[-1]
-    xc, gc, bc = x.contiguous(), g.contiguous(), b.contiguous()
-    y = torch.empty_like(xc)
-    rows = xc.numel() // d
-    if rows == 0:
-        return y
-    with torch.cuda.device(x.device):
-        err = _build.function("ln_fwd")(
-            *_build.ptrs(xc, gc, bc, y), rows, d, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream())
-    _build.check(err, "ln_fwd")
-    LAUNCHES["ln_fwd"] += 1
-    return y
+    return _fwd_kernel("ln_fwd", x, (g, b), eps, x.shape)
 
 
 def _add_layernorm_fwd(x, a, g, b, eps: float):
     if x.device.type == "cpu":
         return _plain_add_layernorm(x, a, g, b, eps)
-    _check_cuda("addln_fwd", x, a, g, b)
-    _same_shape("addln_fwd", x, a)
-    d = x.shape[-1]
-    xc, ac, gc, bc = x.contiguous(), a.contiguous(), g.contiguous(), b.contiguous()
-    out = torch.empty((2,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    rows = xc.numel() // d
-    if rows == 0:
-        return out
-    with torch.cuda.device(x.device):
-        err = _build.function("addln_fwd")(
-            *_build.ptrs(xc, ac, gc, bc, out), rows, d, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream())
-    _build.check(err, "addln_fwd")
-    LAUNCHES["addln_fwd"] += 1
-    return out
+    return _fwd_kernel("addln_fwd", x, (a, g, b), eps, (2,) + tuple(x.shape))
+
+
+def _rmsnorm_fwd(x, g, eps: float):
+    if x.device.type == "cpu":
+        return _plain_rmsnorm(x, g, eps)
+    return _fwd_kernel("rms_fwd", x, (g,), eps, x.shape)
+
+
+def _add_rmsnorm_fwd(x, a, g, eps: float):
+    if x.device.type == "cpu":
+        return _plain_add_rmsnorm(x, a, g, eps)
+    return _fwd_kernel("addrms_fwd", x, (a, g), eps, (2,) + tuple(x.shape))
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,28 +208,29 @@ def _sm_count(index) -> int:
 
 
 def _bwd_kernel(name: str, x, g, dy, g0, eps: float):
-    """Launch ``ln_bwd`` (g0 None) or ``addln_bwd``; the f32 dg/db partials
-    of its blocks are summed here, then cast to g's dtype."""
+    """Launch a backward (g0 None for ``ln_bwd`` / ``rms_bwd``); the f32
+    partial rows of its blocks (dg, and db for LayerNorm) are summed here,
+    then cast to g's dtype.  Returns (dx, dg[, db])."""
     operands = (x, g, dy) if g0 is None else (x, g, dy, g0)
     _check_cuda(name, *operands)
     _same_shape(name, *((x, dy) if g0 is None else (x, dy, g0)))
     d = x.shape[-1]
     rows = x.numel() // d
-    xc, gc, dyc = x.contiguous(), g.contiguous(), dy.contiguous()
-    dx = torch.empty_like(xc)
+    sums = 1 if "rms" in name else 2
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if rows == 0:
-        return dx, torch.zeros_like(g), torch.zeros_like(g)
-    blocks = _build.function("ln_bwd_blocks")(rows, _sm_count(x.device.index))
-    parts = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
-    ins = (xc, gc, dyc) if g0 is None else (xc, gc, dyc, g0.contiguous())
+        return (dx,) + (torch.zeros_like(g),) * sums
+    # two blocks per SM, or fewer when there are fewer than 8 rows a block
+    blocks = max(1, min(-(-rows // 8), 2 * _sm_count(x.device.index)))
+    parts = torch.empty((sums, blocks, d), dtype=torch.float32, device=x.device)
+    ins = [t.contiguous() for t in operands]
     with torch.cuda.device(x.device):
         err = _build.function(name)(
-            *_build.ptrs(*ins, dx, parts[0], parts[1]), rows, d, blocks,
-            float(eps), _build.DTYPE_CODES[x.dtype], _build.stream())
+            *_build.ptrs(*ins, dx, *parts), rows, d, blocks, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.stream())
     _build.check(err, name)
     LAUNCHES[name] += 1
-    dg, db = parts.sum(dim=1).to(g.dtype)
-    return dx, dg, db
+    return (dx, *parts.sum(dim=1).to(g.dtype))
 
 
 def ln_grads(x, g, dy, eps: float = 1e-5):
@@ -227,6 +285,58 @@ class AddLayerNormFn(torch.autograd.Function):
         return dx, dx, dg, db, None
 
 
+def rms_grads(x, g, dy, eps: float = 1e-6):
+    """(dx, dg) of ``rmsnorm(x, g, eps)`` for the cotangent dy."""
+    if x.device.type == "cpu":
+        return _plain_rms_grads(x, g, dy, eps)
+    return _bwd_kernel("rms_bwd", x, g, dy, None, eps)
+
+
+def addrms_grads(t, g, dy, g0, eps: float = 1e-6):
+    """(dx, dg) of ``add_rmsnorm`` for the cotangents g0 of ``t = x + a``
+    and dy of ``RMSNorm(t)``; dx is the gradient of both x and a."""
+    if t.device.type == "cpu":
+        return _plain_addrms_grads(t, g, dy, g0, eps)
+    return _bwd_kernel("addrms_bwd", t, g, dy, g0, eps)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm with its kernel backward; rsig is recomputed from the saved
+    x, as the TPU backward kernel does."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, g)
+        return _rmsnorm_fwd(x, g, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        dx, dg = rms_grads(x, g, dy, ctx.eps)
+        return dx, dg, None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """The stacked ``(x + a, RMSNorm(x + a))``; the backward returns one dx
+    for both x and a."""
+
+    @staticmethod
+    def forward(ctx, x, a, g, eps):
+        ctx.eps = eps
+        pair = _add_rmsnorm_fwd(x, a, g, eps)
+        ctx.save_for_backward(pair, g)
+        return pair
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        pair, g = ctx.saved_tensors
+        dx, dg = addrms_grads(pair[0], g, grad[1], grad[0], ctx.eps)
+        return dx, dx, dg, None
+
+
 def layernorm(x, g, b, eps: float = 1e-5):
     """Last-axis LayerNorm of ``x`` with gain ``g`` and bias ``b``."""
     return LayerNormFn.apply(x, g, b, float(eps))
@@ -235,3 +345,26 @@ def layernorm(x, g, b, eps: float = 1e-5):
 def add_layernorm(x, a, g, b, eps: float = 1e-5):
     """Stacked ``(2, *x.shape)``: ``[0] = x + a``, ``[1] = LN(x + a)``."""
     return AddLayerNormFn.apply(x, a, g, b, float(eps))
+
+
+def rmsnorm(x, g, eps: float = 1e-6):
+    """Last-axis RMSNorm of ``x`` with gain ``g``."""
+    return RMSNormFn.apply(x, g, float(eps))
+
+
+def add_rmsnorm(x, a, g, eps: float = 1e-6):
+    """Stacked ``(2, *x.shape)``: ``[0] = x + a``, ``[1] = RMSNorm(x + a)``."""
+    return AddRMSNormFn.apply(x, a, g, float(eps))
+
+
+_TAPE = {"rmsnorm": (_rmsnorm_fwd, _plain_rmsnorm),
+         "add_rmsnorm": (_add_rmsnorm_fwd, _plain_add_rmsnorm),
+         "rms_grads": (rms_grads, _plain_rms_grads),
+         "addrms_grads": (addrms_grads, _plain_addrms_grads)}
+
+
+def for_tape(name: str):
+    """The tape's entry ``name`` (``rmsnorm``, ``add_rmsnorm``,
+    ``rms_grads``, ``addrms_grads``), chosen by x's dtype as
+    ``_build.tape_entry`` chooses."""
+    return _build.tape_entry(name, *_TAPE[name])

@@ -275,17 +275,9 @@ def sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale=None):
 
 
 def for_tape(name: str):
-    """The tape's forward of the op ``name``: the kernel's wrapper for f32
-    and bf16 activations, its plain version for other dtypes (the f64 of the
-    tape's oracle), as ``xent.loss`` chooses."""
-    kernel, plain = {
+    """The tape's forward of the op ``name``, chosen by the activations'
+    dtype as ``_build.tape_entry`` chooses."""
+    return _build.tape_entry(name, *{
         "dequant_matmul": (dequant_matmul, _plain_dequant_matmul),
         "dequant_matmul4": (dequant_matmul4, _plain_dequant_matmul4),
-        "sdpa_int8_cache": (sdpa_int8_cache, _plain_sdpa_int8_cache)}[name]
-
-    def forward(x, *args, **kwargs):
-        fn = kernel if x.dtype in _build.DTYPE_CODES else plain
-        return fn(x, *args, **kwargs)
-
-    forward.__name__ = name
-    return forward
+        "sdpa_int8_cache": (sdpa_int8_cache, _plain_sdpa_int8_cache)}[name])

@@ -130,18 +130,21 @@ def softmax_xent(z, lab):
     return loss.reshape(lab.shape)
 
 
+_loss_rows = _build.tape_entry("loss", xent_fwd, _plain_xent)
+_loss_grad_rows = _build.tape_entry("loss_grad", xent_grad, _plain_xent_grad)
+
+
 def loss(z, lab):
     """Per-row loss (labels' shape) of ``z`` (..., V) logits and ``lab``
-    (...) class ids, with no autograd: the kernel for f32 and bf16 logits,
-    the plain version for other dtypes."""
+    (...) class ids, with no autograd, chosen by z's dtype as
+    ``_build.tape_entry`` chooses."""
     v = z.shape[-1]
-    fn = xent_fwd if z.dtype in _build.DTYPE_CODES else _plain_xent
-    return fn(z.reshape(-1, v), lab.reshape(-1)).reshape(lab.shape)
+    return _loss_rows(z.reshape(-1, v), lab.reshape(-1)).reshape(lab.shape)
 
 
 def loss_grad(z, lab, g):
     """dz (z's shape) of ``loss`` for the cotangent ``g`` (labels' shape),
     chosen as ``loss`` chooses."""
     v = z.shape[-1]
-    fn = xent_grad if z.dtype in _build.DTYPE_CODES else _plain_xent_grad
-    return fn(z.reshape(-1, v), lab.reshape(-1), g.reshape(-1)).reshape(z.shape)
+    return _loss_grad_rows(z.reshape(-1, v), lab.reshape(-1),
+                           g.reshape(-1)).reshape(z.shape)

@@ -1,4 +1,5 @@
-"""The port's models: TransformerLM with its serving path (compiled decode,
+"""The port's models: TransformerLM (the flagship and the LLaMA-style
+options) with its serving path (compiled decode,
 the continuous-batching decode server, the paged server, int8 / int4
 weight-only quantization and the int8 KV cache) and its training path (the
 train step, optimizers and losses)."""

@@ -1,11 +1,12 @@
 """Functional pieces of the transformer and the sampler.
 
 Port of the serving and training paths' part of
-``minidiff_tpu/models/functional.py``: ``gelu`` (the tanh form),
-``softmax``, ``logsumexp``, ``log_softmax``, ``cross_entropy``,
-``truncate_logits``, ``block_qkv``, ``residual_norm`` and ``block_finish``,
-plus the next-token choice the JAX decode scan and server each inline
-(argmax, or Gumbel-max over truncated logits).
+``minidiff_tpu/models/functional.py``: ``sigmoid``, ``silu``, ``gelu`` (the
+tanh form), ``gelu_erf``, ``softmax``, ``logsumexp``, ``log_softmax``,
+``cross_entropy``, ``apply_rope``, ``truncate_logits``, ``block_qkv``,
+``residual_norm`` and ``block_finish``, plus the next-token choice the JAX
+decode scan and server each inline (argmax, or Gumbel-max over truncated
+logits).
 """
 
 from __future__ import annotations
@@ -13,16 +14,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minidiff_tpu_torch.kernels.layernorm import add_layernorm
+from minidiff_tpu_torch.kernels.layernorm import add_layernorm, add_rmsnorm
 from minidiff_tpu_torch.kernels.xent import softmax_xent
 
 _NEG = -1e30
+
+
+def sigmoid(x):
+    # the tanh form: finite forward and backward for any |x|
+    return 0.5 * (torch.tanh(x * 0.5) + 1.0)
+
+
+def silu(x):
+    """x * sigmoid(x), the SwiGLU gate activation."""
+    return x * sigmoid(x)
 
 
 def gelu(x):
     # tanh approximation (HF "gelu_new"), not torch's default exact GELU
     c = 0.7978845608028654  # sqrt(2/pi)
     return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x**3)))
+
+
+def gelu_erf(x):
+    """Exact GELU 0.5 * x * (1 + erf(x / sqrt(2)))."""
+    return 0.5 * x * (1.0 + torch.erf(x * 0.7071067811865476))
 
 
 def softmax(z, dim: int = -1):
@@ -53,6 +69,39 @@ def cross_entropy(logits, labels, reduce: bool = True):
     else:
         per = softmax_xent(logits, labels)
     return per.mean() if reduce else per
+
+
+def apply_rope(x, positions, base: float = 10000.0, rot_dim=None):
+    """Rotary position embedding over the last axis of x (b, h, s, hd).
+
+    ``positions`` gives each slot's global position: (s,), a scalar for a
+    one-token step, or (b, s) when rows sit at different positions.  The
+    pairs (x[2i], x[2i+1]) rotate by positions * base^(-2i/hd), with the
+    frequencies and angles computed in x's dtype as the JAX package does.
+    ``rot_dim`` rotates only the first ``rot_dim`` channels of each head
+    (frequencies over ``rot_dim``); the rest pass through.
+    """
+    b, h, s, hd = x.shape
+    if rot_dim is not None and rot_dim != hd:
+        if not (0 < rot_dim < hd and rot_dim % 2 == 0):
+            raise ValueError(f"rot_dim {rot_dim} must be even and in (0, {hd})")
+        xr = apply_rope(x[..., :rot_dim], positions, base)
+        return torch.cat([xr, x[..., rot_dim:]], dim=-1)
+    if hd % 2:
+        raise ValueError("RoPE needs an even head dim")
+    half = hd // 2
+    inv_freq = torch.pow(float(base), torch.arange(half, device=x.device).to(x.dtype)
+                         * (-2.0 / hd))
+    pos = torch.as_tensor(positions, device=x.device).to(x.dtype)
+    if pos.dim() == 0:
+        pos = pos.reshape(1)
+    angles = pos[..., None] * inv_freq  # (s, half) or (b, s, half)
+    lead = (b, 1, s, half) if angles.dim() == 3 else (1, 1, s, half)
+    cos, sin = torch.cos(angles).reshape(lead), torch.sin(angles).reshape(lead)
+    xr = x.reshape(b, h, s, half, 2)
+    x1, x2 = xr[..., 0], xr[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(b, h, s, hd)
 
 
 def truncate_logits(logits, top_k=None, top_p=None, min_p=None):
@@ -103,22 +152,38 @@ def select_next(logits, greedy: bool, temperature: float = 1.0, top_k=None,
     return torch.argmax(scaled + noise.to(scaled.dtype), dim=-1)
 
 
-def block_qkv(blk, x):
-    """ln1 -> fused QKV projection: q, k, v (b, h, s, hd)."""
-    return blk.attn.project_qkv(blk.ln1(x))
+def block_qkv(blk, x, positions=None):
+    """ln1 -> QKV projection (+RoPE at ``positions``: None for
+    ``arange(s)``, or whatever ``apply_rope`` takes): q (b, h, s, hd), k, v
+    (b, kv, s, hd)."""
+    attn = blk.attn
+    q, k, v = attn.project_qkv(blk.ln1(x))
+    if attn.rope:
+        pos = (positions if positions is not None
+               else torch.arange(x.shape[1], device=x.device))
+        q = apply_rope(q, pos, attn.rope_base, rot_dim=attn.rope_dim)
+        k = apply_rope(k, pos, attn.rope_base, rot_dim=attn.rope_dim)
+    return q, k, v
 
 
 def residual_norm(norm, x, a):
-    """``(t, z) = (x + a, norm(x + a))`` through the fused add+LN kernel."""
-    pair = add_layernorm(x, a, norm.g, norm.b, norm.eps)
+    """``(t, z) = (x + a, norm(x + a))`` through the fused add+norm kernel
+    of ``norm``'s kind (a LayerNorm or an RMSNorm module)."""
+    if norm.kind == "rms":
+        pair = add_rmsnorm(x, a, norm.g, norm.eps)
+    else:
+        pair = add_layernorm(x, a, norm.g, norm.b, norm.eps)
     return pair[0], pair[1]
 
 
 def block_finish(blk, x, o):
     """Close a block around attention output ``o`` (b, h, s, hd): merge
-    heads, out-projection residual with ln2, then the MLP residual."""
+    heads, out-projection residual with ln2, then the MLP residual.  A
+    parallel block adds both branches to x, its MLP on ln1(x) again."""
     b, h, s, hd = o.shape
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     a = blk.attn.out(o)
+    if blk.parallel:
+        return x + a + blk.apply_mlp_normed(blk.ln1(x))
     t, z = residual_norm(blk.ln2, x, a)
     return t + blk.apply_mlp_normed(z)

@@ -41,8 +41,8 @@ def check_device(model: nn.Module, device) -> torch.device:
 def uniform(shape, bound: float, gen: torch.Generator, dtype, device):
     """U(-bound, bound) drawn on the CPU from ``gen`` (the same numbers on
     every device), then placed."""
-    w = torch.rand(shape, generator=gen, dtype=torch.float64) * (2 * bound) - bound
-    return w.to(device=device, dtype=dtype)
+    w = torch.rand(shape, generator=gen, dtype=torch.float64)
+    return w.mul_(2 * bound).sub_(bound).to(device=device, dtype=dtype)
 
 
 class Linear(nn.Module):

@@ -71,7 +71,7 @@ class PagedDecodeServer(DecodeServer):
         self._slot_pages: "dict[int, list[int]]" = {}
         self._table_np = np.zeros((self.max_batch, self._maxp), np.int32)
         blk = self.model.blocks[0].attn
-        shape = (self._num_pages, blk.num_heads, PAGE, blk.head_dim)
+        shape = (self._num_pages, blk.num_kv_heads, PAGE, blk.head_dim)
         return [{"k": torch.zeros(shape, dtype=self.model.dtype, device=self.device),
                  "v": torch.zeros(shape, dtype=self.model.dtype, device=self.device)}
                 for _ in self.model.blocks]
@@ -158,13 +158,17 @@ class PagedDecodeServer(DecodeServer):
         offsets = torch.as_tensor(pos_np % PAGE, device=self.device)
         table = torch.as_tensor(self._table_np, device=self.device)
         pos32 = pos.to(torch.int32)
-        x = model.tok_emb[toks] + model.pos_emb[pos.reshape(b, 1)]
+        pos2d = pos.reshape(b, 1)
+        x = model.tok_emb[toks]
+        if not model.rope:
+            x = x + model.pos_emb[pos2d]
         for blk, pool in zip(model.blocks, self._caches):
-            h, hd = blk.attn.num_heads, blk.attn.head_dim
-            q, kk, vv = F.block_qkv(blk, x)                 # (B, h, 1, hd)
-            append_kv(pool["k"], kk.reshape(b, h, hd), page_ids, offsets)
-            append_kv(pool["v"], vv.reshape(b, h, hd), page_ids, offsets)
-            q4 = q.reshape(b, h, 1, hd).to(pool["k"].dtype)  # (B, kv, g, hd)
+            h, kv, hd = blk.attn.num_heads, blk.attn.num_kv_heads, blk.attn.head_dim
+            q, kk, vv = F.block_qkv(blk, x, pos2d)      # (B, h | kv, 1, hd)
+            append_kv(pool["k"], kk.reshape(b, kv, hd), page_ids, offsets)
+            append_kv(pool["v"], vv.reshape(b, kv, hd), page_ids, offsets)
+            # each KV head's query group: (B, kv, g, hd)
+            q4 = q.reshape(b, kv, h // kv, hd).to(pool["k"].dtype)
             o = paged_attention(q4, pool["k"], pool["v"], table, pos32)
             x = F.block_finish(blk, x, o.reshape(b, h, 1, hd).to(q.dtype))
         return model.lm_head(model.ln_f(x))

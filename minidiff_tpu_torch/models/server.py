@@ -58,10 +58,12 @@ class DecodeServer:
         w = int(window or model.max_seq_len)
         if w % _BUCKET:
             raise ValueError(f"window {w} must be a multiple of {_BUCKET}")
-        # positions beyond max_seq_len would index past pos_emb
+        # the JAX server's rule for every model; without RoPE, positions
+        # beyond max_seq_len would also index past pos_emb
         if w > model.max_seq_len:
+            why = "" if model.rope else " (positions past pos_emb)"
             raise ValueError(f"window {w} exceeds model.max_seq_len "
-                             f"{model.max_seq_len}")
+                             f"{model.max_seq_len}{why}")
         self.window = w
         self._caches = self._alloc_caches()
         # host-side slot state
@@ -74,9 +76,9 @@ class DecodeServer:
         self._steps = np.zeros(max_batch, np.int64)    # slot-local step count
 
     def _alloc_caches(self):
-        """One dense (max_batch, h, window, hd) K and V cache per layer."""
+        """One dense (max_batch, kv, window, hd) K and V cache per layer."""
         blk = self.model.blocks[0].attn
-        shape = (self.max_batch, blk.num_heads, self.window, blk.head_dim)
+        shape = (self.max_batch, blk.num_kv_heads, self.window, blk.head_dim)
         return [{"k": torch.zeros(shape, dtype=self.model.dtype, device=self.device),
                  "v": torch.zeros(shape, dtype=self.model.dtype, device=self.device)}
                 for _ in self.model.blocks]

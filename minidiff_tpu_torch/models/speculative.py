@@ -3,11 +3,14 @@
 Port of ``_chunk_step`` and ``_prefill`` from
 ``minidiff_tpu/models/speculative.py``; the speculative decoder itself comes
 with a later slice.  Caches are per-layer ``{"k", "v"}`` tensors of shape
-(B, H, L, hd) in the parameter dtype, updated IN PLACE; an int8 cache
-(``kv_quant``, ``minidiff_tpu/models/decode.py:75-97, 189-205``) is
-``{"k8", "ks", "v8", "vs"}``: int8 lines (B, H, L, hd), quantized per
-(batch, head, position) over hd, with their f32 scales (B, H, L), read
-through the ``sdpa_int8`` kernel.
+(B, kv, L, hd) (kv = the model's KV heads) in the parameter dtype, updated
+IN PLACE, and expanded over each head's query group before attention; an
+int8 cache (``kv_quant``, ``minidiff_tpu/models/decode.py:75-97, 189-205``)
+is ``{"k8", "ks", "v8", "vs"}``: int8 lines (B, kv, L, hd), quantized per
+(batch, head, position) over hd, with their f32 scales (B, kv, L), read
+through the ``sdpa_int8`` kernel, which takes the query groups itself.
+RoPE models rotate q and k at the global positions and add no learned
+positions.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ def _chunk_step(model, caches, chunk, pos, L: int):
     b, c = chunk.shape
     dev = chunk.device
     pos2d = pos.reshape(b, 1) + torch.arange(c, device=dev).reshape(1, c)
-    x = model.tok_emb[chunk] + model.pos_emb[pos2d]
+    x = model.tok_emb[chunk]
+    if not model.rope:
+        x = x + model.pos_emb[pos2d]
     lid = torch.arange(L, device=dev).reshape(1, 1, 1, L)
     mask = lid <= pos2d.reshape(b, 1, c, 1)  # (B, 1, c, L)
     rows = torch.arange(b, device=dev).reshape(b, 1)
     for blk, cache in zip(model.blocks, caches):
-        q, kk, vv = F.block_qkv(blk, x)
+        q, kk, vv = F.block_qkv(blk, x, pos2d)
         if "k8" in cache:
             # (B, c, h) rows by index, in place
             _write_int8_rows(cache, (rows, slice(None), pos2d),
@@ -48,8 +53,8 @@ def _chunk_step(model, caches, chunk, pos, L: int):
             # package builds with its one-hot contraction (_write_rows)
             cache["k"][rows, :, pos2d] = kk.transpose(1, 2).to(cache["k"].dtype)
             cache["v"][rows, :, pos2d] = vv.transpose(1, 2).to(cache["v"].dtype)
-            keys = cache["k"].to(q.dtype)
-            vals = cache["v"].to(q.dtype)
+            keys = blk.attn.expand_kv(cache["k"].to(q.dtype))
+            vals = blk.attn.expand_kv(cache["v"].to(q.dtype))
             scores = (q @ keys.transpose(-1, -2)) * (1.0 / (blk.attn.head_dim ** 0.5))
             # scores and softmax in f32 whatever the model dtype, as the JAX step
             scores = scores.to(torch.float32)
@@ -77,12 +82,14 @@ def _prefill(model, toks, L: int, last=None, kv_quant: bool = False):
     """
     b, s = toks.shape
     last = s - 1 if last is None else int(last)
-    x = model.tok_emb[toks] + model.pos_emb[:s]
+    x = model.tok_emb[toks]
+    if not model.rope:
+        x = x + model.pos_emb[:s]
     caches = []
     for blk in model.blocks:
         attn = blk.attn
         q, kk, vv = F.block_qkv(blk, x)
-        shape = (b, attn.num_heads, L, attn.head_dim)
+        shape = (b, attn.num_kv_heads, L, attn.head_dim)
         if kv_quant:
             # unwritten scale rows are 1, as in the JAX cache
             cache = {"k8": torch.zeros(shape, dtype=torch.int8, device=toks.device),
@@ -99,7 +106,7 @@ def _prefill(model, toks, L: int, last=None, kv_quant: bool = False):
             ck[:, :, :s] = kk
             cv[:, :, :s] = vv
             caches.append({"k": ck, "v": cv})
-        o = sdpa(q, kk, vv, causal=True)
+        o = sdpa(q, attn.expand_kv(kk), attn.expand_kv(vv), causal=True)
         x = F.block_finish(blk, x, o)
     x = model.ln_f(x)
     return caches, model.lm_head(x[:, last:last + 1])[:, 0]

@@ -1,14 +1,19 @@
 """Decoder-only transformer LM on PyTorch.
 
-Port of ``minidiff_tpu/models/transformer.py`` for the flagship options:
-learned ``pos_emb``, ``num_kv_heads == num_heads`` with the fused head-major
-QKV projection, ``norm="layer"``, ``mlp="gelu"`` (tanh form) and an untied
-head.  ``TransformerLM.forward`` is the JAX ``TransformerLM.apply``, and
-``lm_loss`` its training loss.  The norms go through the LayerNorm and fused
-add+LayerNorm kernels, the attention core through the flash kernels and the
-loss through the cross-entropy kernels (``kernels/``), each differentiable
-through its ``torch.autograd.Function``; the projections are plain matrix
-products.
+Port of ``minidiff_tpu/models/transformer.py``.  ``TransformerLM.forward``
+is the JAX ``TransformerLM.apply``, and ``lm_loss`` its training loss.  The
+options of the JAX model that are ported: LayerNorm or RMSNorm
+(``norm``, ``norm_eps``), learned positions or RoPE (``rope``,
+``rope_base``, ``rope_dim``), multi-head or grouped-query attention
+(``num_kv_heads``), the MLP kinds ``gelu`` / ``gelu_erf`` / ``swiglu`` /
+``geglu`` / ``geglu_erf`` (``mlp_hidden``, ``mlp_bias``), ``attn_bias``,
+``parallel_block``, ``tie_embeddings`` and ``head_bias``.  Module attribute
+names follow the JAX parameter tree, so ``params_from_jax(model.init())``
+loads into the port for any of them.  The norms go through the LayerNorm /
+RMSNorm kernels and their fused add+norm forms, the attention core through
+the flash kernels and the loss through the cross-entropy kernels
+(``kernels/``), each differentiable through its ``torch.autograd.Function``;
+the projections are plain matrix products.
 """
 
 from __future__ import annotations
@@ -19,13 +24,25 @@ import torch
 from torch import nn
 
 from minidiff_tpu_torch.kernels.attention import sdpa
-from minidiff_tpu_torch.kernels.layernorm import layernorm
+from minidiff_tpu_torch.kernels.layernorm import layernorm, rmsnorm
 from minidiff_tpu_torch.models import functional as F
 from minidiff_tpu_torch.models.layers import Linear, resolve_device
+
+_LATER = "a later slice of the port"
+MLP_KINDS = ("gelu", "gelu_erf", "swiglu", "geglu", "geglu_erf")
+_GATE_ACT = {"swiglu": F.silu, "geglu": F.gelu, "geglu_erf": F.gelu_erf}
+
+
+def _later(option: str):
+    return NotImplementedError(
+        f"TransformerLM option {option!r} is not ported yet: it comes with "
+        f"{_LATER}")
 
 
 class LayerNorm(nn.Module):
     """y = (x - mean) / sqrt(var + eps) * g + b over the last axis."""
+
+    kind = "layer"
 
     def __init__(self, dim: int, eps: float = 1e-5, *, dtype, device):
         super().__init__()
@@ -37,70 +54,164 @@ class LayerNorm(nn.Module):
         return layernorm(x, self.g, self.b, self.eps)
 
 
-class MultiHeadAttention(nn.Module):
-    """Causal self-attention: fused QKV projection, sdpa core, output
-    projection."""
+class RMSNorm(nn.Module):
+    """y = x / sqrt(mean(x^2) + eps) * g over the last axis (no centring,
+    no bias)."""
 
-    def __init__(self, dim: int, num_heads: int, *, dtype, device, generator):
+    kind = "rms"
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return rmsnorm(x, self.g, self.eps)
+
+
+def _make_norm(kind: str, dim: int, eps=None, *, dtype, device):
+    cls = {"layer": LayerNorm, "rms": RMSNorm}.get(kind)
+    if cls is None:
+        raise ValueError(f"unknown norm kind {kind!r} (expected 'layer'/'rms')")
+    kw = {} if eps is None else {"eps": eps}
+    return cls(dim, dtype=dtype, device=device, **kw)
+
+
+class MultiHeadAttention(nn.Module):
+    """Causal self-attention: QKV projection, sdpa core, output projection.
+
+    With ``num_kv_heads == num_heads`` the QKV projection is one fused
+    Linear whose columns are head-major (h, 3, hd); with fewer KV heads
+    (grouped-query attention) q comes from ``wq`` and k, v from ``wkv``,
+    whose columns are (kv, 2, hd), and each KV head serves its group of
+    query heads (``expand_kv``).  ``rope`` rotates q and k at their global
+    positions.
+    """
+
+    def __init__(self, dim: int, num_heads: int, *, dtype, device, generator,
+                 num_kv_heads=None, rope: bool = False,
+                 rope_base: float = 10000.0, rope_dim=None,
+                 bias: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        if num_heads % self.num_kv_heads:
+            raise ValueError(f"num_heads {num_heads} is not a multiple of "
+                             f"num_kv_heads {self.num_kv_heads}")
+        self.rope = rope
+        self.rope_base = rope_base
+        self.rope_dim = rope_dim
         kw = dict(dtype=dtype, device=device, generator=generator)
-        self.qkv = Linear(dim, 3 * dim, bias=False, **kw)
-        self.out = Linear(dim, dim, bias=False, **kw)
+        if self.num_kv_heads == num_heads:
+            self.qkv = Linear(dim, 3 * dim, bias=bias, **kw)
+        else:
+            self.wq = Linear(dim, dim, bias=bias, **kw)
+            self.wkv = Linear(dim, 2 * self.num_kv_heads * self.head_dim,
+                              bias=bias, **kw)
+        self.out = Linear(dim, dim, bias=bias, **kw)
 
     def project_qkv(self, x):
-        """x (b, s, d) -> q, k, v (b, h, s, hd)."""
+        """x (b, s, d) -> q (b, h, s, hd), k, v (b, kv, s, hd)."""
         b, s, _ = x.shape
-        # HEAD-major column layout (h, 3, hd), as the JAX package stores it
-        qkv = self.qkv(x).reshape(b, s, self.num_heads, 3, self.head_dim)
-        qkv = qkv.permute(3, 0, 2, 1, 4)  # (3, b, h, s, hd)
-        return qkv[0], qkv[1], qkv[2]
+        h, hd, kv = self.num_heads, self.head_dim, self.num_kv_heads
+        if kv == h:
+            # HEAD-major column layout (h, 3, hd), as the JAX package stores it
+            qkv = self.qkv(x).reshape(b, s, h, 3, hd)
+            qkv = qkv.permute(3, 0, 2, 1, 4)  # (3, b, h, s, hd)
+            return qkv[0], qkv[1], qkv[2]
+        q = self.wq(x).reshape(b, s, h, hd).transpose(1, 2)
+        kvp = self.wkv(x).reshape(b, s, kv, 2, hd).permute(3, 0, 2, 1, 4)
+        return q, kvp[0], kvp[1]
+
+    def expand_kv(self, t):
+        """(b, kv, s, hd) -> (b, h, s, hd): each KV head repeated over its
+        query group (a copy, since the kernels take contiguous operands)."""
+        if self.num_kv_heads == self.num_heads:
+            return t
+        b, kv, s, hd = t.shape
+        g = self.num_heads // kv
+        return t[:, :, None].expand(b, kv, g, s, hd).reshape(b, kv * g, s, hd)
 
     def forward(self, x):
         b, s, d = x.shape
         q, k, v = self.project_qkv(x)
-        o = sdpa(q, k, v, causal=True)
+        if self.rope:
+            pos = torch.arange(s, device=x.device)
+            q = F.apply_rope(q, pos, self.rope_base, rot_dim=self.rope_dim)
+            k = F.apply_rope(k, pos, self.rope_base, rot_dim=self.rope_dim)
+        o = sdpa(q, self.expand_kv(k), self.expand_kv(v), causal=True)
         return self.out(o.transpose(1, 2).reshape(b, s, d))
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)) with GELU."""
+    """Pre-norm block: x + MHA(norm(x)); x + MLP(norm(x)).  A parallel
+    block (Phi-style) shares one norm: x + MHA(ln1(x)) + MLP(ln1(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4, *,
-                 dtype, device, generator):
+                 dtype, device, generator, num_kv_heads=None,
+                 rope: bool = False, rope_base: float = 10000.0,
+                 rope_dim=None, norm: str = "layer", norm_eps=None,
+                 mlp: str = "gelu", mlp_hidden=None, mlp_bias: bool = True,
+                 attn_bias: bool = False, parallel_block: bool = False):
         super().__init__()
+        if mlp not in MLP_KINDS:
+            raise ValueError(f"unknown mlp kind {mlp!r} (expected one of {MLP_KINDS})")
         kw = dict(dtype=dtype, device=device)
-        self.ln1 = LayerNorm(dim, **kw)
-        self.attn = MultiHeadAttention(dim, num_heads, generator=generator, **kw)
-        self.ln2 = LayerNorm(dim, **kw)
-        hidden = mlp_ratio * dim
-        self.fc1 = Linear(dim, hidden, bias=True, generator=generator, **kw)
-        self.fc2 = Linear(hidden, dim, bias=True, generator=generator, **kw)
+        self.ln1 = _make_norm(norm, dim, norm_eps, **kw)
+        self.attn = MultiHeadAttention(
+            dim, num_heads, generator=generator, num_kv_heads=num_kv_heads,
+            rope=rope, rope_base=rope_base, rope_dim=rope_dim, bias=attn_bias,
+            **kw)
+        self.parallel = bool(parallel_block)
+        self.ln2 = None if self.parallel else _make_norm(norm, dim, norm_eps, **kw)
+        self.mlp = mlp
+        self.hidden = mlp_hidden if mlp_hidden is not None else mlp_ratio * dim
+        # gated kinds: fc1's columns are PAIR-major (hidden, 2), gate and
+        # value of one hidden unit side by side, as the JAX tree stores them
+        gated = mlp in _GATE_ACT
+        self.fc1 = Linear(dim, (2 if gated else 1) * self.hidden, bias=mlp_bias,
+                          generator=generator, **kw)
+        self.fc2 = Linear(self.hidden, dim, bias=mlp_bias, generator=generator,
+                          **kw)
 
     def apply_mlp_normed(self, z):
-        """The MLP branch on an already-normed input (fc1 -> GELU -> fc2)."""
-        return self.fc2(F.gelu(self.fc1(z)))
+        """The MLP branch on an already-normed input: fc1 -> activation (or
+        gate * value) -> fc2."""
+        h = self.fc1(z)
+        act = _GATE_ACT.get(self.mlp)
+        if act is not None:
+            hp = h.reshape(h.shape[:-1] + (self.hidden, 2))
+            h = act(hp[..., 0]) * hp[..., 1]
+        elif self.mlp == "gelu_erf":
+            h = F.gelu_erf(h)
+        else:
+            h = F.gelu(h)
+        return self.fc2(h)
 
     def forward(self, x):
-        a = self.attn(self.ln1(x))
-        # fused residual-add + ln2: t = x + a and LN(t) in one pass
+        xa = self.ln1(x)
+        a = self.attn(xa)
+        if self.parallel:
+            return x + a + self.apply_mlp_normed(xa)
+        # fused residual-add + ln2: t = x + a and norm(t) in one pass
         t, z = F.residual_norm(self.ln2, x, a)
         return t + self.apply_mlp_normed(z)
 
 
-_LATER = "a later slice of the port"
-
-
 class TransformerLM(nn.Module):
-    """Decoder-only LM: token + learned positional embeddings, pre-LN
-    blocks, final LayerNorm, untied linear head to vocab logits.
+    """Decoder-only LM: token embeddings (plus learned positions unless
+    ``rope``), pre-norm blocks, a final norm, and a head to vocab logits
+    (untied, or ``x @ tok_emb.T`` with ``tie_embeddings``).
 
-    Weights are drawn from a CPU ``torch.Generator`` seeded with ``seed``
-    (the same weights on every device), then placed on ``device``.  Load a
-    JAX checkpoint with ``model.load_state_dict(params_from_jax(tree))``.
+    Weights are drawn one tensor at a time from a CPU ``torch.Generator``
+    seeded with ``seed`` (the same weights on every device), then placed on
+    ``device``.  Load a JAX checkpoint with
+    ``model.load_state_dict(params_from_jax(tree))``.  Sliding windows and
+    sinks, dropout, ``remat_blocks`` and packed sequences raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, vocab_size: int = 256, dim: int = 128,
@@ -109,39 +220,49 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.float32, device="cuda",
                  seed: int = 0, num_kv_heads=None, rope: bool = False,
                  tie_embeddings: bool = False, norm: str = "layer",
-                 mlp: str = "gelu", window=None):
+                 mlp: str = "gelu", window=None, sinks: int = 0,
+                 rope_base: float = 10000.0, attn_bias: bool = False,
+                 mlp_bias: bool = True, norm_eps=None, mlp_hidden=None,
+                 rope_dim=None, parallel_block: bool = False,
+                 head_bias: bool = False, dropout: float = 0.0,
+                 remat_blocks: bool = False):
         super().__init__()
-        unsupported = {
-            "num_kv_heads": num_kv_heads not in (None, num_heads),
-            "rope": rope, "tie_embeddings": tie_embeddings,
-            "norm": norm != "layer", "mlp": mlp != "gelu",
-            "window": window is not None,
-        }
-        for name, bad in unsupported.items():
+        for option, bad in (("window", window is not None), ("sinks", sinks),
+                            ("dropout", dropout), ("remat_blocks", remat_blocks)):
             if bad:
-                raise NotImplementedError(
-                    f"TransformerLM option {name!r} is not ported yet: it "
-                    f"comes with {_LATER}")
+                raise _later(option)
+        if tie_embeddings and head_bias:
+            raise ValueError("head_bias requires an untied head "
+                             "(tie_embeddings=False)")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         self.vocab_size = vocab_size
         self.dim = dim
         self.max_seq_len = max_seq_len
         self.dtype = dtype
+        self.rope = rope
+        self.tie_embeddings = tie_embeddings
         scale = 1.0 / math.sqrt(dim)
 
         def normal(shape):
-            w = torch.randn(shape, generator=gen, dtype=torch.float64) * scale
+            w = torch.randn(shape, generator=gen, dtype=torch.float64).mul_(scale)
             return nn.Parameter(w.to(device=dev, dtype=dtype))
 
         self.tok_emb = normal((vocab_size, dim))
         kw = dict(dtype=dtype, device=dev, generator=gen)
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, num_heads, mlp_ratio, **kw)
+            TransformerBlock(dim, num_heads, mlp_ratio, num_kv_heads=num_kv_heads,
+                             rope=rope, rope_base=rope_base, rope_dim=rope_dim,
+                             norm=norm, norm_eps=norm_eps, mlp=mlp,
+                             mlp_hidden=mlp_hidden, mlp_bias=mlp_bias,
+                             attn_bias=attn_bias, parallel_block=parallel_block,
+                             **kw)
             for _ in range(num_layers))
-        self.ln_f = LayerNorm(dim, dtype=dtype, device=dev)
-        self.head = Linear(dim, vocab_size, bias=False, **kw)
-        self.pos_emb = normal((max_seq_len, dim))
+        self.ln_f = _make_norm(norm, dim, norm_eps, dtype=dtype, device=dev)
+        if not tie_embeddings:
+            self.head = Linear(dim, vocab_size, bias=head_bias, **kw)
+        if not rope:
+            self.pos_emb = normal((max_seq_len, dim))
 
     @property
     def device(self) -> torch.device:
@@ -149,12 +270,18 @@ class TransformerLM(nn.Module):
 
     def lm_head(self, x):
         """Hidden states (..., d) -> vocab logits (..., V)."""
+        if self.tie_embeddings:
+            return x @ self.tok_emb.T
         return self.head(x)
 
-    def forward(self, tokens):
+    def forward(self, tokens, segment_ids=None, positions=None):
         """tokens (B, S) int -> logits (B, S, V)."""
+        if segment_ids is not None or positions is not None:
+            raise _later("segment_ids / positions (packed sequences)")
         _, s = tokens.shape
-        x = self.tok_emb[tokens] + self.pos_emb[:s]
+        x = self.tok_emb[tokens]
+        if not self.rope:
+            x = x + self.pos_emb[:s]
         for blk in self.blocks:
             x = blk(x)
         return self.lm_head(self.ln_f(x))

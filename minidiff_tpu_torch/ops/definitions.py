@@ -14,14 +14,16 @@ resolves its backend function at call time (``backend/torch_backend.py``).
 * mod keeps the JAX package's semantics: both grads pass ``grad`` through
   except where x % y == 0.
 * softmax_xent's first-order VJP is the ``xent_bwd`` kernel; under grad
-  mode it takes the composed form, so second order works.
+  mode it takes the composed form, so second order works.  rmsnorm's and
+  add_rmsnorm's first-order VJPs share one ``rms_bwd`` / ``addrms_bwd``
+  launch in the same way.
 * the quantized serving ops (``dequant_matmul``, ``dequant_matmul4``,
   ``sdpa_int8_cache``) run the ``kernels/quant.py`` kernels for f32 and
   bf16; their gradient flows to x only.
 
 Not ported yet (each waits for the slice that needs it): ``linear_scan``,
-the collectives, ``dequant_matmul_bmm``, ``sdpa`` and the norms as tape ops,
-and the conv2d family.
+the collectives, ``dequant_matmul_bmm``, ``sdpa``, ``layernorm`` and
+``add_layernorm`` as tape ops, and the conv2d family.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import TYPE_CHECKING
 
 import minidiff_tpu_torch as md
 import minidiff_tpu_torch.ops.wrapping as wrapping
+from minidiff_tpu_torch.kernels import layernorm as _ln
 from minidiff_tpu_torch.kernels import xent as _xent
 from minidiff_tpu_torch.ops.wrapping import as_tensor_func, backend_fn
 
@@ -985,6 +988,101 @@ softmax_xent = wrapping.create_binary_op_func(
 )
 
 
+# rmsnorm(x, g, eps): last-axis RMSNorm; add_rmsnorm(x, a, g, eps): the
+# stacked pair (2, *x.shape), [0] = t = x + a, [1] = RMSNorm(t).  Forwards:
+# the rms_fwd / addrms_fwd kernels for f32 and bf16 (``kernels.layernorm``,
+# plain versions on the CPU and for other dtypes).  First order: one
+# rms_bwd / addrms_bwd launch serves every input's VJP, kept in a
+# single-entry memo keyed by the operands (the JAX package's
+# ``_rms_fused_memo`` / ``_addnorm_fused_memo``; the memo holds the
+# operands, so their ids stay unique while it does).  Under grad mode (a
+# higher-order sweep): the composed closed form in framework ops.
+
+_rms_memo: dict = {}
+
+
+def _rms_kernel_grads(x, g, grad, eps, output=None):
+    """(dx, dg) arrays of rmsnorm (``output`` None) or add_rmsnorm; each VJP
+    wraps its own Tensor around them, as the JAX memo's callers do."""
+    key = (id(x), id(g), id(grad), id(output), float(eps))
+    if _rms_memo.get("key") != key:
+        if output is None:
+            val = _ln.for_tape("rms_grads")(x._data, g._data, grad._data, eps)
+        else:
+            val = _ln.for_tape("addrms_grads")(output._data[0], g._data,
+                                               grad._data[1], grad._data[0], eps)
+        _rms_memo.update(key=key, refs=(x, g, grad, output), val=val)
+    return _rms_memo["val"]
+
+
+def _rms_xhat(t, eps):
+    acc = t.dtype if t.dtype in (md.float64, md.float32) else md.float32
+    ta = t.astype(acc)
+    rsig = 1.0 / md.sqrt(md.mean(ta * ta, axis=-1, keepdims=True) + eps)
+    return ta * rsig, rsig, acc
+
+
+def _rms_dx(t, g, dy, eps):
+    xhat, rsig, acc = _rms_xhat(t, eps)
+    w = dy.astype(acc) * g.astype(acc)
+    m = md.mean(w * xhat, axis=-1, keepdims=True)
+    return ((w - xhat * m) * rsig).astype(t.dtype)
+
+
+def _rms_dg(t, g, dy, eps):
+    xhat, _, acc = _rms_xhat(t, eps)
+    s = dy.astype(acc) * xhat
+    red = tuple(range(len(t.shape) - 1))
+    if red:
+        s = md.sum(s, axis=red)
+    return s.astype(g.dtype)
+
+
+def rmsnorm_grad_x(x, g, grad, eps=1e-6):
+    if not md.grad_allowed_():
+        return md.Tensor(_rms_kernel_grads(x, g, grad, eps)[0])
+    return _rms_dx(x, g, grad, eps)
+
+
+def rmsnorm_grad_g(x, g, grad, eps=1e-6):
+    if not md.grad_allowed_():
+        return md.Tensor(_rms_kernel_grads(x, g, grad, eps)[1])
+    return _rms_dg(x, g, grad, eps)
+
+
+rmsnorm = wrapping.create_binary_op_func(
+    forward_func=as_tensor_func(backend_fn("rmsnorm")),
+    grad_x=rmsnorm_grad_x,
+    grad_y=rmsnorm_grad_g,
+    kwargs_to_grads=True,
+)
+
+
+def add_rmsnorm_grad_x(x, a, g, grad, eps=1e-6, _output=None):
+    if not md.grad_allowed_() and _output is not None:
+        return md.Tensor(_rms_kernel_grads(x, g, grad, eps, _output)[0])
+    t = _output[0] if _output is not None else x + a
+    return grad[0] + _rms_dx(t, g, grad[1], eps)
+
+
+def add_rmsnorm_grad_g(x, a, g, grad, eps=1e-6, _output=None):
+    if not md.grad_allowed_() and _output is not None:
+        return md.Tensor(_rms_kernel_grads(x, g, grad, eps, _output)[1])
+    t = _output[0] if _output is not None else x + a
+    return _rms_dg(t, g, grad[1], eps)
+
+
+for _f in (add_rmsnorm_grad_x, add_rmsnorm_grad_g):
+    _f.needs_output = True
+
+add_rmsnorm = wrapping.create_op_func(
+    forward_func=as_tensor_func(backend_fn("add_rmsnorm")),
+    grad_funcs=[add_rmsnorm_grad_x, add_rmsnorm_grad_x, add_rmsnorm_grad_g],
+    kwargs_to_grads=True,
+    op_name="add_rmsnorm",
+)
+
+
 # ---------------------------------------------------------------------------
 # concat — differentiable concatenation.  `concatenate` is a graph-free
 # factory (using it inside a model severs gradients); `md.concat` is a real
@@ -1178,6 +1276,8 @@ __all__ = [
     "unbroadcast",
     "scatter_add",
     "softmax_xent",
+    "rmsnorm",
+    "add_rmsnorm",
     "concat",
     "clip",
     "swapaxes",

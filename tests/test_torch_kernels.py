@@ -80,6 +80,21 @@ _ref_xent = jax.jit(XE._jnp_xent)
 _ref_xent_grad = jax.jit(XE._jnp_xent_grad)
 
 
+_ref_rmsnorm = jax.jit(LN._jnp_rmsnorm, static_argnums=2)
+_ref_rms_grads = jax.jit(LN._jnp_rms_grads, static_argnums=3)
+
+
+@jax.jit
+def _ref_add_rmsnorm(x, a, g):
+    t = x + a
+    return jnp.stack([t, LN._jnp_rmsnorm(t, g, 1e-6)])
+
+
+@jax.jit
+def _ref_addrms_dx(x, g, dy, g0):
+    return LN._jnp_rms_grads(x, g, dy, 1e-6)[0] + g0
+
+
 @jax.jit
 def _ref_add_layernorm(x, a, g, b):
     t = x + a
@@ -221,6 +236,80 @@ def test_addln_grads_match_jax_kernel(dtype):
                                **tol)
 
 
+# RMSNorm at d = 256 over 24 rows (no power of two; the Pallas row block
+# is 8).  f32: both sides compute the same f32 statistics in another
+# summation order (~1e-7 relative): 1e-6.  bf16: the outputs round to bf16
+# once from those f32 values: one bf16 ulp (2^-7 relative).  dg is an f32
+# sum over the 24 rows cast once to g's dtype.
+_RMS_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+            "bfloat16": dict(rtol=2 ** -7, atol=2 ** -7)}
+
+
+def _rms_inputs(dtype: str, seed: int):
+    """x, a, g, dy, g0 (24, 256) as JAX and torch operands of the same values."""
+    (x, a, g, _), (tx, ta, tg, _) = _ln_inputs(dtype, rows=24, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    jdy, jg0 = (jnp.asarray(rng.standard_normal(x.shape), x.dtype) for _ in range(2))
+    tdy, tg0 = (torch.tensor(np.asarray(v, np.float32)).to(_TORCH[dtype])
+                for v in (jdy, jg0))
+    return (x, a, g, jdy, jg0), (tx, ta, tg, tdy, tg0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax_kernels(dtype):
+    (x, a, g, _, _), (tx, ta, tg, _, _) = _rms_inputs(dtype, seed=11)
+    y = TLN.rmsnorm(tx, tg, 1e-6)
+    assert y.dtype == tx.dtype
+    kernel = LN._pallas_rms_fwd(x, g, 1e-6, 8, interpret=True)
+    np.testing.assert_allclose(_to_np(y), _np32(kernel), **_RMS_TOL[dtype])
+    np.testing.assert_allclose(_to_np(y), _np32(_ref_rmsnorm(x, g, 1e-6)),
+                               **_RMS_TOL[dtype])
+    pair = TLN.add_rmsnorm(tx, ta, tg, 1e-6)
+    assert pair.shape == (2,) + tuple(tx.shape) and pair.dtype == tx.dtype
+    kernel = LN._pallas_addrms_fwd(x, a, g, 1e-6, 8, interpret=True)
+    # t = x + a is one rounding of the same sum on both sides: exact
+    np.testing.assert_array_equal(_to_np(pair[0]), _np32(kernel[0]))
+    np.testing.assert_allclose(_to_np(pair[1]), _np32(kernel[1]),
+                               **_RMS_TOL[dtype])
+    np.testing.assert_allclose(_to_np(pair), _np32(_ref_add_rmsnorm(x, a, g)),
+                               **_RMS_TOL[dtype])
+
+
+# dx as the forward's rule; the add's dx = round(dx_rms) + g0 rounds twice
+# in bf16, so a one-ulp difference of dx_rms (values of order 1) stays
+# absolute after g0 is added: 2^-6
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_grads_match_jax_kernels(dtype):
+    (x, _, g, dy, g0), (tx, _, tg, tdy, tg0) = _rms_inputs(dtype, seed=12)
+    got = TLN.rms_grads(tx, tg, tdy, 1e-6)
+    kernel = LN._pallas_rms_bwd(x, g, dy, 1e-6, 8, interpret=True)
+    ref = _ref_rms_grads(x, g, dy, 1e-6)
+    for out, k, r in zip(got, kernel, ref):
+        assert out.dtype == _TORCH[dtype]
+        np.testing.assert_allclose(_to_np(out), _np32(k), **_RMS_TOL[dtype])
+        np.testing.assert_allclose(_to_np(out), _np32(r), **_RMS_TOL[dtype])
+    got = TLN.addrms_grads(tx, tg, tdy, tg0, 1e-6)
+    kernel = LN._pallas_addrms_bwd(x, g, dy, g0, 1e-6, 8, interpret=True)
+    tol = (dict(_RMS_TOL[dtype], atol=2 ** -6) if dtype == "bfloat16"
+           else _RMS_TOL[dtype])
+    for out, k in zip(got, kernel):
+        np.testing.assert_allclose(_to_np(out), _np32(k), **tol)
+    np.testing.assert_allclose(_to_np(got[0]),
+                               _np32(_ref_addrms_dx(x, g, dy, g0)), **tol)
+
+
+def test_rms_functions_pass_gradcheck_in_float64():
+    rng = np.random.RandomState(13)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+
+    x, a, g = leaf(2, 3, 8), leaf(2, 3, 8), leaf(8)
+    assert torch.autograd.gradcheck(lambda x, g: TLN.rmsnorm(x, g, 1e-5), (x, g))
+    assert torch.autograd.gradcheck(lambda x, a, g: TLN.add_rmsnorm(x, a, g, 1e-5),
+                                    (x, a, g))
+
+
 def _xent_inputs(dtype: str, rows: int = 128, v: int = 256, seed: int = 6):
     rng = np.random.RandomState(seed)
     z = jnp.asarray(rng.standard_normal((rows, v)) * 3, dtype)
@@ -279,6 +368,33 @@ def test_xent_tape_entries_match_jax(dtype):
     np.testing.assert_allclose(
         _to_np(dz).reshape(24, 10), as_np(_ref_xent_grad(z, lab, jnp.asarray(g))),
         **(dict(rtol=1e-12, atol=1e-12) if f64 else _TOL[dtype]))
+
+
+# every tape entry (the norms', the quantized ops', the loss's) takes the
+# kernel's wrapper by the leading operand's dtype alone: an f32 or bf16 x
+# with an operand of another dtype still reaches the wrapper, whose checks
+# raise on the card; f64 takes the plain version
+@pytest.mark.parametrize("x_dtype,other,route", [
+    (torch.float32, torch.float32, "kernel"),
+    (torch.bfloat16, torch.bfloat16, "kernel"),
+    (torch.float32, torch.bfloat16, "kernel"),
+    (torch.bfloat16, torch.float64, "kernel"),
+    (torch.float64, torch.float64, "plain"),
+    (torch.float64, torch.float32, "plain")])
+def test_tape_entry_chooses_by_leading_dtype(x_dtype, other, route):
+    from minidiff_tpu_torch.kernels import _build
+    from minidiff_tpu_torch.kernels import quant as TQ
+
+    entry = _build.tape_entry("op", lambda x, g: "kernel", lambda x, g: "plain")
+    assert entry.__name__ == "op"
+    assert entry(torch.zeros(2, 8, dtype=x_dtype), torch.ones(8, dtype=other)) == route
+    # the shipped entries take that rule: on the CPU both routes run the
+    # plain version, so an f32 x with a bf16 gain gives the plain value
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal((3, 16))).to(x_dtype)
+    g = torch.linspace(0.5, 1.5, 16, dtype=other)
+    torch.testing.assert_close(TLN.for_tape("rmsnorm")(x, g, 1e-5),
+                               TLN._plain_rmsnorm(x, g, 1e-5), rtol=0, atol=0)
+    assert TQ.for_tape("dequant_matmul").__name__ == "dequant_matmul"
 
 
 # both sides take the same q, k, v, do and the same o and lse (the port's
@@ -374,8 +490,12 @@ def test_cpu_wrappers_launch_nothing():
     TPG.paged_attention(torch.randn(1, 2, 1, 64), pool, pool,
                         torch.tensor([[1]], dtype=torch.int32),
                         torch.tensor([5], dtype=torch.int32))
+    xr, ar, gr = (torch.randn(*shape, requires_grad=True)
+                  for shape in ((4, 256), (4, 256), (256,)))
+    (TLN.rmsnorm(xr, gr).sum() + TLN.add_rmsnorm(xr, ar, gr).sum()).backward()
     assert kernels.launch_counts() == {
         "ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
+        "rms_fwd": 0, "addrms_fwd": 0, "rms_bwd": 0, "addrms_bwd": 0,
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "xent_fwd": 0, "xent_bwd": 0,
         "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0,

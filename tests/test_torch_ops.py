@@ -27,7 +27,7 @@ LATER = {
     "linear_scan",  # SSM
     "psum", "ppermute", "pmean", "all_gather", "psum_scatter", "all_to_all",
     "dequant_matmul_bmm",  # the MoE expert bank
-    "sdpa", "layernorm", "add_layernorm", "rmsnorm", "add_rmsnorm",  # models
+    "sdpa", "layernorm", "add_layernorm",  # models
     "conv2d", "conv2d_input_grad", "conv2d_kernel_grad",  # CNN
 }
 
@@ -140,6 +140,11 @@ DIFF = [
     ("clip", lambda m, a: m.clip(a, -0.5, 0.5), [A34], [0]),
     ("swapaxes", lambda m, a: m.swapaxes(a, 0, 2), [_r(2, 3, 4)], [0]),
     ("where", lambda m, c, a, b: m.where(c, a, b), [A34 > 0, A34, C4], [1, 2]),
+    # RMSNorm: the first-order VJPs share one backward (plain here in f64)
+    ("rmsnorm", lambda m, x, g: m.rmsnorm(x, g, eps=1e-5),
+     [_r(2, 3, 8), _r(8, seed=1)], [0, 1]),
+    ("add_rmsnorm", lambda m, x, a, g: m.add_rmsnorm(x, a, g, eps=1e-5),
+     [_r(2, 3, 8), _r(2, 3, 8, seed=1), _r(8, seed=2)], [0, 1, 2]),
     # quantized serving: the gradient flows to x only
     ("dequant_matmul", lambda m, x, q, s: m.dequant_matmul(x, q, s),
      [_r(2, 3, 8), Q8, _r(5, seed=4, lo=0.1)], [0]),
@@ -238,6 +243,23 @@ def test_second_order_through_softmax_xent_takes_the_composed_form():
         m.sum(g * g).backward()
         out.append(_np(zt.grad))
     np.testing.assert_allclose(out[1], out[0], **TOL)
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "add_rmsnorm"])
+def test_second_order_through_rmsnorm_takes_the_composed_form(op):
+    x, a, g = _r(2, 3, 8), _r(2, 3, 8, seed=1), _r(8, seed=2)
+    out = []
+    for m in (jmd, md):
+        xt, gt = m.Tensor(x, allow_grad=True), m.Tensor(g, allow_grad=True)
+        y = (m.rmsnorm(xt, gt) if op == "rmsnorm"
+             else m.add_rmsnorm(xt, m.Tensor(a), gt))
+        ct = m.Tensor(np.random.RandomState(5).standard_normal(y.shape))
+        m.sum(y * y * ct).backward(allow_higher_order=True)
+        gx = xt.grad
+        m.sum(gx * gx).backward()
+        out.append((_np(xt.grad), _np(gt.grad)))
+    for got, ref in zip(out[1], out[0]):
+        np.testing.assert_allclose(got, ref, **TOL)
 
 
 def test_sdpa_int8_cache_matches_jax_and_takes_no_gradient():

@@ -182,6 +182,36 @@ def test_paged_server_matches_solo_decode_and_jax(models):
     assert port == [[int(t) for t in o] for o in ref]
 
 
+# Mistral-7B-v0.3's options at a tiny size: the pool holds the 2 KV heads,
+# and each step's 8 query heads attend through them in groups of 4
+MISTRAL_CFG = dict(vocab_size=48, dim=256, num_heads=8, num_kv_heads=2,
+                   num_layers=2, max_seq_len=512, norm="rms", norm_eps=1e-5,
+                   rope=True, rope_base=1e6, mlp="swiglu", mlp_hidden=448,
+                   mlp_bias=False)
+
+
+def test_paged_mistral_server_matches_solo_decode_and_jax():
+    np.random.seed(3)
+    jm = JaxLM(dtype=md.float64, **MISTRAL_CFG)
+    with md.use_backend("numpy"):
+        jp = jm.init()
+    tree = jax.tree.map(lambda t: np.asarray(t._data), jp,
+                        is_leaf=lambda t: isinstance(t, md.Tensor))
+    tm = TransformerLM(dtype=torch.float64, device="cpu", **MISTRAL_CFG)
+    tm.load_state_dict(params_from_jax(tree))
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(0, 48, n)] for n in (4, 124, 130)]
+    srv = PagedDecodeServer(tm, max_batch=2, window=256, device="cpu")
+    assert srv._caches[0]["k"].shape[1:] == (2, 128, 32)
+    port = _staggered(srv, prompts)
+    assert srv.pages_in_use() == 0
+    assert port == [_solo(tm, p, n) for p, n in zip(prompts, (3, 10, 5))]
+    with md.use_backend("xla"):
+        ref = _staggered(JaxPaged(jm, jax.tree.map(md.Tensor, tree), max_batch=2,
+                                  window=256), prompts)
+    assert port == [[int(t) for t in o] for o in ref]
+
+
 def test_paged_page_accounting_and_boundary_crossing(models):
     _, _, tm = models
     srv = PagedDecodeServer(tm, max_batch=2, window=512, device="cpu")

@@ -298,6 +298,33 @@ def test_quantized_generate_matches_jax(bits, kv_quant):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+# Mistral-7B-v0.3's options at a tiny size (RMSNorm, RoPE at base 1e6,
+# 8 heads over 2 KV heads, SwiGLU, no biases): wq and wkv quantize like
+# any Linear, and the int8 cache holds the KV heads only
+MISTRAL_CFG = dict(vocab_size=64, dim=256, num_heads=8, num_kv_heads=2,
+                   num_layers=2, max_seq_len=256, norm="rms", norm_eps=1e-5,
+                   rope=True, rope_base=1e6, mlp="swiglu", mlp_hidden=448,
+                   mlp_bias=False)
+
+
+def test_quantized_mistral_generate_matches_jax():
+    jm, jp, tm = _jax_pair(MISTRAL_CFG, torch.float64, seed=4)
+    with md.use_backend("numpy"):
+        jq = jax_quantize(jp)
+    tq = quantize_for_serving(tm)
+    assert set(tq.state_dict()) == set(params_from_jax(_np_tree(jq)))
+    assert {"blocks.0.attn.wq.w_q", "blocks.0.attn.wkv.w_q"} <= set(tq.state_dict())
+    tq.load_state_dict(params_from_jax(_np_tree(jq)))
+    prompt = np.random.RandomState(5).randint(0, 64, size=(2, 9))
+    with md.use_backend("xla"):
+        jq_xla = jax.tree.map(lambda t: md.Tensor(np.asarray(t._data)), jq,
+                              is_leaf=lambda t: isinstance(t, md.Tensor))
+        ref = np.asarray(jax_generate(jm, jq_xla, md.Tensor(prompt), 10,
+                                      kv_quant=True)._data)
+    out = generate_compiled(tq, prompt, 10, device="cpu", kv_quant=True)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 def test_kv_quant_cache_layout_and_determinism():
     _, _, tm = _jax_pair(GEN_CFG, torch.float32, seed=1)
     from minidiff_tpu_torch.models.speculative import _prefill

@@ -99,9 +99,9 @@ def test_params_from_jax_bfloat16_leaves():
 
 
 def test_unported_options_raise():
-    for kw in (dict(rope=True), dict(norm="rms"), dict(mlp="swiglu"),
-               dict(num_kv_heads=1), dict(tie_embeddings=True),
-               dict(window=64)):
+    # the LLaMA-style options are ported (tests/test_torch_options.py)
+    for kw in (dict(window=64), dict(sinks=4), dict(dropout=0.1),
+               dict(remat_blocks=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             TransformerLM(device="cpu", **CFG, **kw)
 
