@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, tape, quantized and paged
-serving paths on one NVIDIA GPU.
+serving paths, the LLaMA-style options and the Mamba family on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -12,7 +13,11 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the serving, train and tape paths' shapes, in bf16 and f32, with times for
    the kernel, the plain version and the library call, and the card's lower
-   bound;
+   bound; the flash kernels at head dim 256, ``sdpa_int8`` and
+   ``paged_attn`` at head dim 256, the scan at the SSM train step's,
+   backward's and server prefill's shapes, an RMSNorm at d 16,384 (wider
+   than the kernels: composed, no launch), and the flash rule at head dims
+   32, 64, 128 and 256 (the route each takes, counted by launches);
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -61,9 +66,28 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    at full width and one layer against the plain path on the CPU: the
    logits of a prefill and 8 cached decode steps, the loss and every
    parameter's gradient;
-10. the kernels line: every kernel must have launched on its paths (counts
+10. the Mamba family at ``bench.py:602-632``'s and
+   ``benchmarks/ssm_bench.py``'s configuration (``MambaLM`` V512 d1024 L4,
+   d_state 16, d_conv 4, expand 2, bf16): ``generate_compiled_ssm`` (batch
+   8, prompt 16, 128 new tokens, and after a 1,024-token prompt with the
+   prefill timed), ``SSMDecodeServer`` over phase 4's requests (in f32
+   every request token-identical to its solo decode, then bf16 tok/s and
+   the state bytes beside the flagship's KV cache), the train step (batch
+   8 x 1024, ``make_train_step(model, SGD(1e-4), lm_loss)``: ms/step,
+   tokens/s, model TFLOP/s, peak memory, one profiled step), exact scan,
+   RMSNorm and cross-entropy launches on each, f32 gates at full width and
+   one layer against the plain path on the CPU (prefill + 8 steps' logits,
+   a ragged prefill's states, the loss and every gradient), and the tape's
+   ``md.value_and_grad`` of a ``linear_scan`` loss (an f32 gate against the
+   CPU tape, then bf16 timed at the train step's scan shape);
+11. head dims: ``TransformerLM()`` at its own defaults (head dim 32: the
+   composed attention, no flash launch) and a head-dim-256 model (dim 512,
+   2 heads, 2 layers, the flash kernels' 256 instantiation), each through
+   ``generate_compiled`` and a train step with exact flash launches, and
+   the head-dim-256 model's f32 loss and gradients against the CPU;
+12. the kernels line: every kernel must have launched on its paths (counts
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
-   7, phase 8 and each run of 9, and read just after each).
+   7, phase 8 and each run of 9, 10 and 11, and read just after each).
 
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -134,7 +158,8 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
        ("xent_dz", "float32"): (1e-5, 2 ** -21), ("xent_dz", "bfloat16"): (2 ** -7, 2 ** -21),
        ("attn_bwd", "float32"): (1e-4, 1e-5), ("attn_bwd", "bfloat16"): (2 ** -6, 2 ** -6),
        ("matmul", "float32"): (0.0, 1e-5), ("matmul", "bfloat16"): (0.0, 1e-2),
-       ("dq", "float32"): (1e-5, 1e-6), ("dq", "bfloat16"): (2 ** -7, 1e-6)}
+       ("dq", "float32"): (1e-5, 1e-6), ("dq", "bfloat16"): (2 ** -7, 1e-6),
+       ("scan", "float32"): (1e-6, 1e-6), ("scan", "bfloat16"): (2 ** -7, 2 ** -7)}
 # the kinds whose atol is a share of the plain output's largest magnitude.
 #  matmul: both sides accumulate in f32; bf16 rounds the output once (one
 #   bf16 ulp, under 2^-8 of the largest value), f32 sums up to K = 8192
@@ -149,7 +174,11 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
 #   differs in its last f32 bit can move that rounding; paged_attn rounds
 #   the unnormalised p against the running max where the plain version
 #   rounds the normalised one, as flash_fwd does.
-SCALED = {"attn_bwd", "matmul", "dq"}
+#  scan: the kernel and its plain version run the same two f32 operations
+#   per step (a rounded multiply, then a rounded add) in the same order, so
+#   they agree bit for bit; 1e-6 (f32) or one bf16 ulp, relative and of the
+#   largest value, holds that with margin, and a wrong carry is off by O(1).
+SCALED = {"attn_bwd", "matmul", "dq", "scan"}
 # the kinds whose atol is a share of the largest cotangent the caller passes
 G_SCALED = {"xent_dz"}
 
@@ -171,7 +200,7 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
-                  "sdpa_int8_kernel", "paged_attn_kernel")
+                  "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -180,7 +209,9 @@ TAPE_ONLY = {"matmul_nn", "matmul_nt", "matmul_tn"}
 # the kernels that only quantized decoding runs, and only the paged server
 QUANT_ONLY = {"dq_mm", "dq4_mm", "sdpa_int8"}
 PAGED_ONLY = {"paged_attn"}
-PATHS = ("generate", "server", "train", "tape", "quant", "paged", "options")
+SSM_ONLY = {"scan"}
+PATHS = ("generate", "server", "train", "tape", "quant", "paged", "options",
+         "ssm", "head_dims")
 
 # quantized decode (bench.py:350-443): the serving model above at its bench
 # size, and the int8 KV cache at long context (bench.py:413-443)
@@ -213,6 +244,32 @@ OPT_MODEL = dict(vocab_size=32768, dim=4096, num_heads=32, num_kv_heads=8,
 OPT_TRAIN_BATCH, OPT_TRAIN_SEQ, OPT_TRAIN_STEPS = 8, 1024, 10
 OPT_GATE_LAYERS, OPT_GATE_PROMPT, OPT_GATE_STEPS, OPT_GATE_SEQ = 1, 16, 8, 128
 OPTIONS_ONLY = {"rms_fwd", "addrms_fwd", "rms_bwd", "addrms_bwd"}
+
+# the head-dim-256 flash cases: 8 sequences x 2 heads of 1,024 tokens, the
+# train shape of phase 11's head-dim-256 model (d 512 over 2 heads)
+HD256_BH, HD256_SEQ = 16, 1024
+HD256_MODEL = dict(vocab_size=512, dim=512, num_heads=2, num_layers=2,
+                   max_seq_len=1024)
+
+# the Mamba family at bench.py:602-632's decode_ssm row and
+# benchmarks/ssm_bench.py's configuration: the flagship's vocabulary, width
+# and depth, d_state 16 (d_conv 4, expand 2, tied head), bf16.  Nothing is
+# cut.  ssm_bench.decode_bench decodes after a 1,024-token prompt;
+# ssm_bench.train_race trains at batch 8 x 1024 with SGD(1e-4) and lm_loss
+SSM_MODEL = dict(vocab_size=512, dim=1024, num_layers=4, d_state=16, d_conv=4,
+                 expand=2)
+SSM_LONG_PROMPT = 1024
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, SSM_LR = 8, 1024, 10, 1e-4
+# the scan's (lead, T, C) at the train step: (batch, seq, d_inner * d_state)
+SSM_SCAN = (SSM_TRAIN_BATCH, SSM_TRAIN_SEQ,
+            SSM_MODEL["expand"] * SSM_MODEL["dim"] * SSM_MODEL["d_state"])
+# the f32 gates at full width and one layer: a prompt of 16 and 8 steps, a
+# ragged prefill of three rows, one sequence of 128 tokens for the gradients;
+# the tape's f32 gate at (2, 256, 4096)
+SSM_GATE_PROMPT, SSM_GATE_STEPS, SSM_GATE_SEQ = 16, 8, 128
+SSM_TAPE_GATE = (2, 256, 4096)
+# per tape step: the forward scan and one reverse scan for both VJPs
+SSM_TAPE_LAUNCHES = {"scan": 2}
 
 # the tape path.  bench.py:196-234's matmul step: 4096^2 bf16, lr 1e-6, 2
 # warm-up and 10 timed steps; each step's forward is one nn product and its
@@ -287,7 +344,8 @@ def main() -> int:
     for name, phase in (("generate", phase_generate), ("server", phase_server),
                         ("train", phase_train), ("tape", phase_tape),
                         ("quant", phase_quant), ("paged", phase_paged),
-                        ("options", phase_options)):
+                        ("options", phase_options), ("ssm", phase_ssm),
+                        ("head_dims", phase_head_dims)):
         timed(name, phase, args.seed)
 
     from minidiff_tpu_torch import kernels as K
@@ -328,7 +386,7 @@ def required_paths(name: str) -> tuple:
     the others on the paths that only they serve."""
     for only, paths in ((TAPE_ONLY, ("tape",)), (QUANT_ONLY, ("quant",)),
                         (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",)),
-                        (OPTIONS_ONLY, ("options",))):
+                        (OPTIONS_ONLY, ("options",)), (SSM_ONLY, ("ssm",))):
         if name in only:
             return paths
     return ("generate", "server", "train", "quant", "paged")
@@ -431,7 +489,8 @@ def phase_kernels(torch, report):
                           (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ,))
              + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
-             + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn))
+             + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn)
+             + scan_cases(torch, gen))
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
@@ -444,6 +503,8 @@ def phase_kernels(torch, report):
             f"| library {lib} us | bound {c['bound_ms'] * 1e3:7.2f} us "
             f"({c['bound_by']})")
     report["kernel_cases"] = cases
+    report["flash_route"] = flash_route_cases(torch, randn)
+    report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
 
@@ -454,9 +515,9 @@ def phase_kernels(torch, report):
     # matmul kernels at the tape's matmul step ([m, n, k]), the dequant
     # kernels at a decode step's QKV projection ([m, K, N]), sdpa_int8 at
     # the bench decode's last step ([B, kv, g*c, hd, L]), paged_attn at the
-    # paged server's steps ([B, kv, g, hd, pages per slot]), and the RMSNorm
+    # paged server's steps ([B, kv, g, hd, pages per slot]), the RMSNorm
     # forwards at the options model's decode step and their backwards at its
-    # train step
+    # train step, and the scan at the SSM train step's (lead, T, C)
     d, rows = TRAIN_MODEL["dim"], TRAIN_BATCH * TRAIN_SEQ
     bhs = [TRAIN_BATCH * TRAIN_MODEL["num_heads"], TRAIN_SEQ, 128]
     ln_src = "minidiff_tpu_torch/kernels/csrc/layernorm.cu"
@@ -496,12 +557,14 @@ def phase_kernels(torch, report):
         "rms_bwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:112", [orows, od]),
         "addrms_bwd": (rms_src, "minidiff_tpu/kernels/layernorm.py:168",
                        [orows, od]),
+        "scan": ("minidiff_tpu_torch/kernels/csrc/scan.cu",
+                 "minidiff_tpu/kernels/scan.py:67", list(SSM_SCAN)),
     }
     line = []
     for name, (src, replaces, shape) in meta.items():
         c = next(c for c in cases if c["name"] == name and c["dtype"] == "bfloat16"
                  and c["shape"] == shape and not c.get("window")
-                 and c.get("causal", True))
+                 and c.get("causal", True) and not c.get("backward"))
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          shape=shape, **{key: c[key] for key in (
                              "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -763,7 +826,9 @@ def flash_cases(torch, randn):
     (64, 1024, 128); flash_bwd_dkv / flash_bwd_dq at the train step's shape
     and smaller ones, full, causal and windowed; all three at the options
     train step's (256, 1024, 128), whose K and V come from ``expand_kv``
-    (each of 8 KV heads repeated over its 4 query heads)."""
+    (each of 8 KV heads repeated over its 4 query heads), and at head dim
+    256 (the kernels' second instantiation: 32-row tiles), (16, 1024, 256)
+    in bf16 and f32."""
     import types
 
     import torch.nn.functional as TF
@@ -772,10 +837,10 @@ def flash_cases(torch, randn):
     from minidiff_tpu_torch.models.transformer import MultiHeadAttention
 
     cases = []
-    scale = 128 ** -0.5
     bh_train = TRAIN_BATCH * TRAIN_MODEL["num_heads"]
     bh_opt = OPT_TRAIN_BATCH * OPT_MODEL["num_heads"]
     groups = OPT_MODEL["num_heads"] // OPT_MODEL["num_kv_heads"]
+    # (dtype, bh, s, causal, window, groups, head dim)
     fwd = [(torch.bfloat16, 64, 16, True, None), (torch.bfloat16, 8, 128, True, None),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
            (torch.bfloat16, 8, 384, True, 100),
@@ -785,22 +850,27 @@ def flash_cases(torch, randn):
     bwd = [(torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
            (torch.bfloat16, 8, 384, True, 100), (torch.float32, 8, 256, True, None)]
-    gqa = (torch.bfloat16, bh_opt, OPT_TRAIN_SEQ, True, None, groups)
-    for kind, (dtype, bh, s, causal, window, *g) in (
-            [("fwd", c) for c in fwd + [gqa]] + [("bwd", c) for c in bwd + [gqa]]):
+    gqa = [(torch.bfloat16, bh_opt, OPT_TRAIN_SEQ, True, None, groups, 128)]
+    hd256 = [(torch.bfloat16, HD256_BH, HD256_SEQ, True, None, 1, 256),
+             (torch.float32, HD256_BH, HD256_SEQ, True, None, 1, 256),
+             (torch.bfloat16, 4, 200, True, 64, 1, 256)]
+    todo = ([("fwd", c + (1, 128)) for c in fwd] + [("fwd", c) for c in gqa + hd256]
+            + [("bwd", c + (1, 128)) for c in bwd] + [("bwd", c) for c in gqa + hd256])
+    for kind, (dtype, bh, s, causal, window, g, hd) in todo:
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
-        q, k, v = (randn(bh, s, 128, dtype=dtype) for _ in range(3))
-        if g:
-            attn = types.SimpleNamespace(num_heads=bh, num_kv_heads=bh // g[0])
-            k, v = (MultiHeadAttention.expand_kv(attn, t[None, ::g[0]])[0]
+        scale = hd ** -0.5
+        q, k, v = (randn(bh, s, hd, dtype=dtype) for _ in range(3))
+        if g > 1:
+            attn = types.SimpleNamespace(num_heads=bh, num_kv_heads=bh // g)
+            k, v = (MultiHeadAttention.expand_kv(attn, t[None, ::g])[0]
                     for t in (k, v))
-        q4, k4, v4 = (t.reshape(1, bh, s, 128) for t in (q, k, v))
+        q4, k4, v4 = (t.reshape(1, bh, s, hd) for t in (q, k, v))
         # visible (query, key) pairs: the work this run's mask leaves
         pairs = (int(A._keep_mask(s, s, window, "cpu").sum()) if causal
                  else s * s)
-        shape = dict(dtype=dn, shape=[bh, s, 128], causal=causal, window=window,
-                     groups=g[0] if g else 1)
+        shape = dict(dtype=dn, shape=[bh, s, hd], causal=causal, window=window,
+                     groups=g)
         o, lse = A.flash_fwd(q, k, v, scale, causal, window)
         if kind == "fwd":
             op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
@@ -816,10 +886,10 @@ def flash_cases(torch, randn):
                 plain_ms=device_ms(torch, lambda: A._plain_flash_fwd(
                     q, k, v, scale, causal, window)),
                 library_ms=library,
-                **bound((4 * bh * s * 128) * size + bh * s * 4,
-                        4 * bh * pairs * 128, dn)))
+                **bound((4 * bh * s * hd) * size + bh * s * 4,
+                        4 * bh * pairs * hd, dn)))
             continue
-        do = randn(bh, s, 128, dtype=dtype)
+        do = randn(bh, s, hd, dtype=dtype)
         ops, dims, flags = A._bwd_operands(q, k, v, o, lse, do, window, causal)
         dk, dv = A.flash_bwd_dkv(ops, dims, scale, flags)
         dq = A.flash_bwd_dq(ops, dims, scale, flags)
@@ -831,10 +901,10 @@ def flash_cases(torch, randn):
             # autograd of SDPA, the backward only: dq, dk and dv in one call
             ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
             ol = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-            do4 = do.reshape(1, bh, s, 128)
+            do4 = do.reshape(1, bh, s, hd)
             library = device_ms(torch, lambda: torch.autograd.grad(
                 ol, (ql, kl, vl), do4, retain_graph=True), iters=10)
-        io = bh * s * 128 * size
+        io = bh * s * hd * size
         stats = 2 * bh * s * 4  # lse and delta, f32
         cases.append(dict(
             name="flash_bwd_dkv", **shape,
@@ -843,15 +913,58 @@ def flash_cases(torch, randn):
             ms=device_ms(torch, lambda: A.flash_bwd_dkv(ops, dims, scale, flags)),
             plain_ms=plain_ms, library_ms=library,
             # S^T, dP^T, P^T dO, dS^T Q over the visible pairs
-            **bound(6 * io + stats, 8 * bh * pairs * 128, dn)))
+            **bound(6 * io + stats, 8 * bh * pairs * hd, dn)))
         cases.append(dict(
             name="flash_bwd_dq", **shape,
             max_abs_err=max_err(torch, dq, pq, "attn_bwd", dn),
             ms=device_ms(torch, lambda: A.flash_bwd_dq(ops, dims, scale, flags)),
             plain_ms=plain_ms, library_ms=library,
             # S, dP, dS K
-            **bound(5 * io + stats, 6 * bh * pairs * 128, dn)))
+            **bound(5 * io + stats, 6 * bh * pairs * hd, dn)))
     return cases
+
+
+def flash_route_cases(torch, randn) -> list:
+    """The flash rule on the card: ``sdpa`` at head dims 32, 64, 128 and 256
+    (bf16, causal, 2 x 4 heads of 200 tokens) launches the flash kernels
+    exactly where ``flash_eligible`` (the JAX ``_flash_eligible``) says,
+    and composes elsewhere; each result, forward and backward, against the
+    plain version of its route (the plain flash forward and backward, or
+    the composed path under autograd)."""
+    from minidiff_tpu_torch import kernels as K
+    from minidiff_tpu_torch.kernels import attention as A
+
+    out = []
+    for hd in (32, 64, 128, 256):
+        q, k, v, do = (randn(2, 4, 200, hd, dtype=torch.bfloat16) for _ in range(4))
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+        K.reset_launch_counts()
+        o = A.sdpa(ql, kl, vl, causal=True)
+        grads = torch.autograd.grad(o, (ql, kl, vl), do)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in K.launch_counts().items() if c}
+        flash = hd in A.HEAD_DIMS
+        want = ({"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+                if flash else {})
+        check(counts == want, f"flash rule at head dim {hd}: launches {counts}, "
+              f"expected {want}")
+        check(A.flash_eligible(q, k, v) == flash, f"flash_eligible at head dim {hd}")
+        if flash:
+            q3, k3, v3, do3 = (t.reshape(8, 200, hd) for t in (q, k, v, do))
+            oc, lse = A._plain_flash_fwd(q3, k3, v3, hd ** -0.5, True)
+            ref = A._plain_flash_bwd(q3, k3, v3, oc, lse, do3, hd ** -0.5, True)
+        else:
+            qc, kc, vc = (t.clone().requires_grad_() for t in (q, k, v))
+            oc = A._plain_flash_fwd(qc, kc, vc, hd ** -0.5, True)[0]
+            ref = torch.autograd.grad(oc, (qc, kc, vc), do)
+        err = max_err(torch, o, oc.reshape(o.shape), "attn", "bfloat16")
+        err = max([err] + [max_err(torch, a, b.reshape(a.shape), "attn_bwd", "bfloat16")
+                           for a, b in zip(grads, ref)])
+        out.append(dict(head_dim=hd, route="flash" if flash else "composed",
+                        launches=counts, max_abs_err=err))
+        log(f"[kernel] flash rule head dim {hd:3d}: {out[-1]['route']:8s} "
+            f"launches {counts} | err vs its plain route {err:.3g}")
+    return out
 
 
 def xent_cases(torch, gen, randn):
@@ -944,7 +1057,8 @@ def quant_cases(torch, gen, randn):
     [1024, 512]) and at m = 128 (the bench prefill of 8 x 16 tokens), against
     torch.matmul on the dequantized weight; sdpa_int8 at the bench decode's
     last step (B 8, kv 8, hd 128, L 256, pos 143) and the long-context one
-    (B 4, L 4096, pos 4031), against SDPA over the dequantized cache."""
+    (B 4, L 4096, pos 4031), and at head dim 256 (B 8, 2 heads, L 256),
+    against SDPA over the dequantized cache."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import quant as Q
@@ -976,9 +1090,12 @@ def quant_cases(torch, gen, randn):
                         plain_ms=device_ms(torch, lambda: plain(x, wq, sq)),
                         library_ms=device_ms(torch, lambda: x @ wd),
                         **bound((m * k + m * n) * size + wbytes, 2 * m * n * k, dn)))
-        h, hd = MODEL["num_heads"], 128
-        for b, L, pos in ((BATCH, 256, PROMPT + NEW - 1),
-                          (LC_BATCH, LC_SEQ, LC_PROMPT + LC_NEW - 1)):
+        # the bench decode's last step, the long-context one, and head dim
+        # 256 (2 heads) at the bench decode's
+        for h, hd, b, L, pos in (
+                (MODEL["num_heads"], 128, BATCH, 256, PROMPT + NEW - 1),
+                (MODEL["num_heads"], 128, LC_BATCH, LC_SEQ, LC_PROMPT + LC_NEW - 1),
+                (2, 256, BATCH, 256, PROMPT + NEW - 1)):
             q = randn(b, h, 1, hd, dtype=dtype)
             k8, ks = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
             v8, vs = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
@@ -1004,17 +1121,21 @@ def quant_cases(torch, gen, randn):
 
 def paged_cases(torch, gen, randn):
     """paged_attn at the paged server's decode step (8 slots, 8 heads, hd
-    128, window 1024) with 1 and 8 pages used per slot, against SDPA over
+    128, window 1024) with 1 and 8 pages used per slot, and at head dim 256
+    (2 heads, 8 pages; in f32 the kernel's one-tile path), against SDPA over
     the gathered logical view."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import paged as P
 
     cases = []
-    b, h, hd = PAGED_SLOTS, MODEL["num_heads"], 128
+    b = PAGED_SLOTS
     maxp = PAGED_SEQ // P.PAGE
     npages = b * maxp + 1
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, h, hd, used_pages in (
+            (torch.bfloat16, MODEL["num_heads"], 128, (1, maxp)),
+            (torch.float32, MODEL["num_heads"], 128, (1, maxp)),
+            (torch.bfloat16, 2, 256, (maxp,)), (torch.float32, 2, 256, (maxp,))):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         pk = randn(npages, h, P.PAGE, hd, dtype=dtype)
@@ -1022,7 +1143,7 @@ def paged_cases(torch, gen, randn):
         table = (1 + torch.randperm(npages - 1, generator=gen, device=DEVICE)).reshape(
             b, maxp).to(torch.int32)
         q = randn(b, h, 1, hd, dtype=dtype)
-        for used in (1, maxp):
+        for used in used_pages:
             live = used * P.PAGE - 20
             pos = torch.full((b,), live - 1, device=DEVICE, dtype=torch.int32)
             args = (q, pk, pv, table, pos)
@@ -1045,6 +1166,67 @@ def paged_cases(torch, gen, randn):
                 **bound(2 * b * h * live * hd * size + 2 * b * h * hd * size
                         + 4 * b * (used + 1), 4 * b * h * live * hd, dn)))
     return cases
+
+
+def scan_cases(torch, gen) -> list:
+    """scan at the SSM train step's and long prefill's (8, 1024, 32768) in
+    bf16 and f32, at a server slot's one-row prefill (1, 384, 32768) in
+    bf16, and at the backward's operands (the decay flipped and shifted, so
+    its first row is 0), against the plain version.  Decays in [0.5, 1),
+    inputs normal.  The plain version is a loop of T steps of a few launches
+    each, timed over 2 calls.  No single PyTorch call computes a linear
+    recurrence: no library time."""
+    from minidiff_tpu_torch.kernels import scan as S
+
+    cases = []
+    c = SSM_SCAN[2]
+    for dtype, lead, t, backward in ((torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], False),
+                                     (torch.float32, SSM_SCAN[0], SSM_SCAN[1], False),
+                                     (torch.bfloat16, 1, 384, False),
+                                     (torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], True)):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        a = torch.rand((lead, t, c), generator=gen, device=DEVICE) * 0.5 + 0.5
+        b = torch.randn((lead, t, c), generator=gen, device=DEVICE)
+        if backward:
+            a = S._shift(torch.flip(a, [1]))
+        a, b = a.to(dtype), b.to(dtype)
+        cases.append(dict(
+            name="scan", dtype=dn, shape=[lead, t, c], backward=backward,
+            max_abs_err=max_err(torch, S.scan(a, b), S._plain_scan(a, b), "scan", dn),
+            ms=device_ms(torch, lambda: S.scan(a, b)),
+            plain_ms=device_ms(torch, lambda: S._plain_scan(a, b), iters=2),
+            library_ms=None,
+            # a and b read once, y written once; one f32 multiply and add
+            **bound(3 * lead * t * c * size, 2 * lead * t * c, "float32")))
+        del a, b
+    return cases
+
+
+def wide_norm_case(torch, randn) -> dict:
+    """RMSNorm and LayerNorm at d 16,384, wider than the kernels take
+    (MAX_WIDTH 8192), forward and backward in bf16: the composed path on the
+    card, no launch, equal to the plain version."""
+    from minidiff_tpu_torch import kernels as K
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    d = 16384
+    check(d > L.MAX_WIDTH, "the wide case must exceed MAX_WIDTH")
+    x, dy = (randn(8, d, dtype=torch.bfloat16) for _ in range(2))
+    g, b = (1 + 0.1 * randn(d, dtype=torch.bfloat16) for _ in range(2))
+    xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
+    K.reset_launch_counts()
+    y_rms = L.rmsnorm(xl, gl)
+    y_ln = L.layernorm(xl, gl, bl)
+    torch.autograd.backward((y_rms, y_ln), (dy, dy))
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in K.launch_counts().items() if n}
+    check(counts == {}, f"norms at d {d}: launches {counts}, expected none")
+    err = max(max_err(torch, y_rms, L._plain_rmsnorm(x, g), "ln", "bfloat16"),
+              max_err(torch, y_ln, L._plain_layernorm(x, g, b), "ln", "bfloat16"))
+    log(f"[kernel] rmsnorm / layernorm at d {d} bf16: composed, no launch; err "
+        f"vs plain {err:.3g}")
+    return dict(d=d, launches=counts, max_abs_err=err)
 
 
 def bound(nbytes: int, flops: int, dtype_name: str) -> dict:
@@ -1982,6 +2164,370 @@ def phase_options(torch, seed: int, report):
         f"{worst_name}), {OPT_GATE_SEQ} tokens")
     report["options"] = out
     report["launches_options"] = {k: launches.get(k, 0) for k in K.launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the Mamba family
+# ---------------------------------------------------------------------------
+
+
+def ssm_launches(model, forwards: int = 0, steps: int = 0, train_steps: int = 0):
+    """The launches of ``forwards`` parallel forwards or prefills (a scan per
+    block, an RMSNorm forward per block and for ln_f), ``steps`` decode
+    steps (the RMSNorms alone) and ``train_steps`` train steps (a forward,
+    the loss, and one backward kernel for each forward kernel)."""
+    n = len(model.blocks)
+    fwd = forwards + train_steps
+    want = {"scan": n * (fwd + train_steps), "rms_fwd": (n + 1) * (fwd + steps),
+            "rms_bwd": (n + 1) * train_steps, "xent_fwd": train_steps,
+            "xent_bwd": train_steps}
+    return {k: v for k, v in want.items() if v}
+
+
+def phase_ssm(torch, seed: int, report):
+    import copy
+
+    import numpy as np
+
+    import minidiff_tpu_torch as md
+    from minidiff_tpu_torch import (SGD, MambaLM, SSMDecodeServer,
+                                    generate_compiled_ssm, lm_loss, make_train_step)
+    from minidiff_tpu_torch import kernels as K
+
+    cfg = SSM_MODEL
+    model = MambaLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"n_params": n_params}
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # generate_compiled_ssm at bench.py:602-632's shape, then after
+    # ssm_bench.decode_bench's 1,024-token prompt with the prefill timed
+    rng = np.random.RandomState(seed + 12)
+    for label, plen in (("generate", PROMPT), ("generate_long", SSM_LONG_PROMPT)):
+        prompt = torch.from_numpy(rng.randint(1, cfg["vocab_size"], size=(BATCH, plen)))
+        generate_compiled_ssm(model, prompt, 4, device=DEVICE)  # warm-up
+        toks, dt, counts = _counted(torch, K, lambda: generate_compiled_ssm(
+            model, prompt, NEW, device=DEVICE))
+        want = ssm_launches(model, forwards=1, steps=NEW - 1)
+        check(counts == want, f"ssm {label}: launches {counts}, expected {want}")
+        check(tuple(toks.shape) == (BATCH, plen + NEW)
+              and bool(((toks >= 0) & (toks < cfg["vocab_size"])).all())
+              and torch.equal(toks[:, :plen].cpu(), prompt),
+              f"ssm {label}: tokens {tuple(toks.shape)} out of range")
+        add(counts)
+
+        def prefill():
+            with torch.inference_mode():
+                return model.prefill(prompt.to(DEVICE))
+
+        prefill()  # warm-up
+        _, pre_s, _ = _counted(torch, K, prefill)
+        out[label] = dict(prompt=plen, seconds=dt, tok_s=BATCH * NEW / dt,
+                          ms_per_step=dt / NEW * 1e3, prefill_ms=pre_s * 1e3,
+                          launches=counts)
+        log(f"[ssm] generate_compiled_ssm bf16 batch {BATCH} prompt {plen} new "
+            f"{NEW}: {dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, "
+            f"{dt / NEW * 1e3:.2f} ms/step (prefill alone {pre_s * 1e3:.2f} ms) "
+            f"| launches {counts}")
+    out["generate_profile"] = profile_run(
+        torch, "ssm generate_compiled_ssm 32 new tokens",
+        lambda: generate_compiled_ssm(model, prompt[:, :PROMPT], 32, device=DEVICE))
+
+    # SSMDecodeServer: phase 4's staggered schedule on 8 slots; in f32 every
+    # request must equal its solo decode token for token
+    prompts = [([int(t) for t in rng.randint(1, cfg["vocab_size"], n)], new)
+               for n, new in REQUESTS]
+    n_tokens = sum(new for _, new in REQUESTS)
+    m32 = MambaLM(dtype=torch.float32, device=DEVICE, seed=seed, **cfg)
+    srv = SSMDecodeServer(m32, max_batch=8, device=DEVICE)
+    (got, steps, slots), dt32, counts = _counted(torch, K, lambda: run_schedule(
+        srv, prompts))
+    check(slots < len(prompts), "ssm server: no slot was reused")
+    want = ssm_launches(m32, forwards=len(REQUESTS), steps=steps)
+    check(counts == want, f"ssm server: launches {counts}, expected {want}")
+    add(counts)
+    for i, ((p, n), g) in enumerate(zip(prompts, got)):
+        solo = generate_compiled_ssm(m32, [p], n, device=DEVICE)[0, len(p):].tolist()
+        if g != solo:
+            first = next(j for j, (a, b) in enumerate(zip(g, solo)) if a != b)
+            raise SmokeFailure(f"f32 ssm server request {i} (prompt {len(p)}) "
+                               f"differs from its solo decode at token {first}")
+    log(f"[ssm] server f32: {len(REQUESTS)} requests over 8 slots, {steps} steps, "
+        f"{n_tokens} tokens in {dt32:.3f} s: every request token-identical to its "
+        f"solo generate_compiled_ssm | launches {counts}")
+    del srv
+
+    # f32 gates, full width and one layer: the kernel path on the card
+    # against the plain path on the CPU, the same weights.  f32 through one
+    # layer in other summation orders leaves ~1e-6 relative; TF32 rounding
+    # (~1e-3) or a wrong kernel fails 1e-4
+    gate = copy.deepcopy(m32)
+    del gate.blocks[1:], gate.norms[1:]
+    del m32
+    cpu = copy.deepcopy(gate).to("cpu")
+    n = SSM_GATE_PROMPT + SSM_GATE_STEPS
+    gt = torch.from_numpy(np.random.RandomState(seed + 13).randint(
+        0, cfg["vocab_size"], size=(2, n)))
+    with torch.inference_mode():
+        last, states = gate.prefill(gt[:, :SSM_GATE_PROMPT].to(DEVICE))
+        stepped = [last]
+        for j in range(SSM_GATE_PROMPT, n):
+            logits, states = gate.step(states, gt[:, j].to(DEVICE))
+            stepped.append(logits)
+        stepped = torch.stack(stepped, dim=1).cpu()
+        ref = cpu(gt)[:, SSM_GATE_PROMPT - 1:]
+        logit_err = ((stepped - ref).abs().max() / ref.abs().max()).item()
+        check(logit_err <= 1e-4, f"ssm f32 prefill + steps GPU vs CPU full forward: "
+              f"max |err| {logit_err:.3g} of the largest logit")
+        lengths = torch.tensor([n, 3, 11])
+        rt = torch.from_numpy(np.random.RandomState(seed + 14).randint(
+            0, cfg["vocab_size"], size=(3, n)))
+        lg_card, st_card = gate.prefill(rt.to(DEVICE), lengths=lengths.to(DEVICE))
+        lg_cpu, st_cpu = cpu.prefill(rt, lengths=lengths)
+        state_err = max(((st_card[0][k].cpu() - st_cpu[0][k]).abs().max()
+                         / st_cpu[0][k].abs().max()).item() for k in ("h", "conv"))
+        state_err = max(state_err, ((lg_card.cpu() - lg_cpu).abs().max()
+                                    / lg_cpu.abs().max()).item())
+        check(state_err <= 1e-4, f"ssm f32 ragged prefill GPU vs CPU: max |err| "
+              f"{state_err:.3g} of the largest value")
+    # targets drawn apart from the inputs: with the tied head, a token's own
+    # embedding dominates its logits, so the identity task's loss is ~1e-7
+    # and its f32 rounding alone exceeds any relative bound
+    st, sy = (torch.from_numpy(np.random.RandomState(seed + 15 + i).randint(
+        0, cfg["vocab_size"], size=(1, SSM_GATE_SEQ))) for i in (0, 20))
+    loss_gpu = lm_loss(gate(st.to(DEVICE)), sy.to(DEVICE))
+    loss_gpu.backward()
+    loss_cpu = lm_loss(cpu(st), sy)
+    loss_cpu.backward()
+    check(abs(loss_gpu.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item()),
+          f"ssm f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gate.named_parameters():
+        r = cpu_params[name].grad
+        check(p.grad is not None and r is not None, f"ssm: no gradient for {name}")
+        rel = ((p.grad.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"ssm f32 gradient of {worst_name} GPU vs CPU: max |err| "
+          f"{worst:.3g} of its largest value")
+    out["gate"] = dict(layers=1, logits_rel_err=logit_err, ragged_rel_err=state_err,
+                       loss_gpu=loss_gpu.item(), loss_cpu=loss_cpu.item(),
+                       worst_grad_rel_err=worst, worst_param=worst_name)
+    log(f"[ssm] f32 gates, 1 layer at full width: prefill + {SSM_GATE_STEPS} "
+        f"steps within {logit_err:.3g} of the largest logit of the CPU forward; "
+        f"ragged prefill's logits and states within {state_err:.3g}; loss GPU "
+        f"{loss_gpu.item():.6f} CPU {loss_cpu.item():.6f}; every gradient within "
+        f"{worst:.3g} of its largest value (worst {worst_name}), {SSM_GATE_SEQ} "
+        f"tokens")
+    del gate, cpu
+
+    # bf16 server throughput and the state's bytes beside the flagship's KV
+    # cache for the same 8 slots (window 512, bf16)
+    srv = SSMDecodeServer(model, max_batch=8, device=DEVICE)
+    run_schedule(srv, prompts[:2])  # warm-up
+    srv = SSMDecodeServer(model, max_batch=8, device=DEVICE)
+    (got, steps, _), dt16, counts = _counted(torch, K, lambda: run_schedule(
+        srv, prompts))
+    check(counts == ssm_launches(model, forwards=len(REQUESTS), steps=steps),
+          f"ssm bf16 server: launches {counts}")
+    add(counts)
+    state_bytes = sum(t.numel() * t.element_size() for st_ in srv._caches
+                      for t in st_.values())
+    kv_bytes = (2 * MODEL["num_layers"] * 8 * MODEL["dim"] * 512
+                * torch.finfo(torch.bfloat16).bits // 8)
+    out["server"] = dict(requests=len(REQUESTS), tokens=n_tokens, steps=steps,
+                         f32_seconds=dt32, f32_tok_s=n_tokens / dt32,
+                         bf16_seconds=dt16, bf16_tok_s=n_tokens / dt16,
+                         ms_per_step=dt16 / steps * 1e3, state_bytes=state_bytes,
+                         flagship_kv_bytes=kv_bytes, launches=counts)
+    log(f"[ssm] server bf16: {n_tokens} tokens in {dt16:.3f} s ({n_tokens / dt16:.0f} "
+        f"tok/s, {dt16 / steps * 1e3:.2f} ms/step); state {state_bytes:,} bytes for 8 "
+        f"slots against the flagship's KV cache of {kv_bytes:,} (window 512)")
+    del srv
+
+    # the train step at ssm_bench.train_race's shape
+    trng = np.random.RandomState(seed + 16)
+    x, y = (torch.from_numpy(trng.randint(0, cfg["vocab_size"], size=(
+        SSM_TRAIN_BATCH, SSM_TRAIN_SEQ))).to(DEVICE) for _ in range(2))
+    step = make_train_step(model, SGD(SSM_LR), loss_fn=lm_loss, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    want = ssm_launches(model, train_steps=1)
+    losses, dt, counts = _timed_steps(
+        torch, K, lambda losses: losses + [step(x, y)], [], TRAIN_WARMUP,
+        SSM_TRAIN_STEPS, want, "ssm train step")
+    peak = torch.cuda.max_memory_allocated()
+    add(counts)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"ssm: non-finite train loss {losses}")
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    # 6 x the projections' weights (in_proj, x_proj, dt_proj, out_proj and
+    # the tied head) x tokens: forward and backward products
+    proj = sum(m.w.numel() for blk in model.blocks
+               for m in (blk.in_proj, blk.x_proj, blk.dt_proj, blk.out_proj))
+    flops = 6 * (proj + model.tok_emb.numel()) * tokens
+    out["train"] = dict(ms_per_step=dt * 1e3, tok_s=tokens / dt,
+                        model_tflop_s=flops / dt / 1e12, flops_per_step=flops,
+                        losses=losses, launches_per_step=want,
+                        peak_memory_bytes=peak)
+    log(f"[ssm] train bf16 batch {SSM_TRAIN_BATCH} x S {SSM_TRAIN_SEQ}, "
+        f"SGD({SSM_LR}), lm_loss: {dt * 1e3:.2f} ms/step over {SSM_TRAIN_STEPS} "
+        f"steps, {tokens / dt:.0f} tok/s, {flops / dt / 1e12:.1f} model TFLOP/s, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB | launches per step {want} | "
+        "losses " + " ".join(f"{v:.4f}" for v in losses))
+    out["train_profile"] = profile_run(torch, "one ssm train step", lambda: step(x, y))
+    del model, step, x, y
+
+    # the tape: md.value_and_grad of a linear_scan loss; an f32 gate against
+    # the CPU tape, then bf16 timed at the train step's scan shape (the
+    # forward scan and one reverse scan a step)
+    def scan_operands(shape, dtype, device, seed_):
+        # decays in [0.5, 1), inputs and loss weights normal
+        g = torch.Generator(device=device).manual_seed(seed_)
+        a = torch.rand(shape, generator=g, device=device) * 0.5 + 0.5
+        b, c = (torch.randn(shape, generator=g, device=device) for _ in range(2))
+        return [t.to(dtype) for t in (a, b, c)]
+
+    vag = md.value_and_grad(
+        lambda a, b, c: md.sum(md.linear_scan(a, b, axis=1) * c), argnums=(0, 1))
+    av, bv, cv = (t.numpy() for t in scan_operands(
+        SSM_TAPE_GATE, torch.float32, "cpu", seed + 17))
+
+    def tape_run():
+        value, grads = vag(*(md.Tensor(v) for v in (av, bv, cv)))
+        return [np.asarray(t) for t in (value, *grads)]
+
+    with md.use_backend(DEVICE):
+        card, dt, counts = _counted(torch, K, tape_run)
+    check(counts == SSM_TAPE_LAUNCHES, f"ssm tape gate: launches {counts}")
+    with md.use_backend("cpu"):
+        ref = tape_run()
+    tape_err = abs(float(card[0]) - float(ref[0])) / abs(float(ref[0]))
+    check(tape_err <= 1e-5, f"ssm tape gate: value card {card[0]} cpu {ref[0]}")
+    grad_err = max(float(np.abs(c - r).max() / np.abs(r).max())
+                   for c, r in zip(card[1:], ref[1:]))
+    check(grad_err <= 1e-4, f"ssm tape gate: gradients off by {grad_err:.3g}")
+    with md.use_backend(DEVICE):
+        ops = [md.Tensor(t) for t in scan_operands(SSM_SCAN, torch.bfloat16,
+                                                    DEVICE, seed + 18)]
+        _, dt, counts = _timed_steps(
+            torch, K, lambda state: vag(*ops), None, TRAIN_WARMUP, SSM_TRAIN_STEPS,
+            SSM_TAPE_LAUNCHES, "ssm tape scan step")
+        add(counts)
+        del ops
+    out["tape"] = dict(gate_shape=list(SSM_TAPE_GATE), value_rel_err=tape_err,
+                       grad_rel_err=grad_err, shape=list(SSM_SCAN),
+                       ms_per_step=dt * 1e3, launches=counts)
+    log(f"[ssm] tape value_and_grad of sum(linear_scan(a, b) * c): f32 gate at "
+        f"{SSM_TAPE_GATE} value within {tape_err:.3g}, gradients within "
+        f"{grad_err:.3g} of the CPU tape; bf16 at {SSM_SCAN}: {dt * 1e3:.3f} "
+        f"ms/step | launches {counts}")
+    report["ssm"] = out
+    report["launches_ssm"] = {k: launches.get(k, 0) for k in K.launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: head dims other than 128
+# ---------------------------------------------------------------------------
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def flash_launches(model, kinds) -> dict:
+    """One launch of each flash kernel in ``kinds`` per attention layer where
+    the model's head dim takes the kernels (``attention.HEAD_DIMS``, the
+    rule of ``flash_eligible``), none where it composes."""
+    from minidiff_tpu_torch.kernels.attention import HEAD_DIMS
+
+    if model.blocks[0].attn.head_dim not in HEAD_DIMS:
+        return {}
+    return {k: len(model.blocks) for k in kinds}
+
+
+def phase_head_dims(torch, seed: int, report):
+    import numpy as np
+
+    from minidiff_tpu_torch import (SGD, TransformerLM, generate_compiled, lm_loss,
+                                    make_train_step)
+    from minidiff_tpu_torch import kernels as K
+
+    out, launches = {}, {}
+    rng = np.random.RandomState(seed + 19)
+    flash_names = FLASH_KERNELS
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # TransformerLM() at its own defaults (head dim 32, f32), and the
+    # head-dim-256 model in bf16 at its train shape
+    for label, cfg, dtype, batch, seq in (
+            ("defaults", {}, torch.float32, 2, 128),
+            ("hd256", HD256_MODEL, torch.bfloat16, 8, HD256_SEQ)):
+        model = TransformerLM(dtype=dtype, device=DEVICE, seed=seed, **cfg)
+        hd = model.blocks[0].attn.head_dim
+        flash = bool(flash_launches(model, flash_names))
+        prompt = torch.from_numpy(rng.randint(1, model.vocab_size, size=(batch, 16)))
+        toks, dt_gen, counts = _counted(torch, K, lambda: generate_compiled(
+            model, prompt, 32, device=DEVICE))
+        add(counts)
+        want = flash_launches(model, ("flash_fwd",))
+        got = {k: counts[k] for k in flash_names if k in counts}
+        check(got == want, f"{label} generate: flash launches {got}, expected {want}")
+        check(bool(((toks >= 0) & (toks < model.vocab_size)).all()),
+              f"{label} generate: token out of range")
+        x = torch.from_numpy(rng.randint(0, model.vocab_size, size=(batch, seq)))
+        step = make_train_step(model, SGD(1e-3), loss_fn=lm_loss, device=DEVICE)
+        loss, dt_train, counts = _counted(torch, K, lambda: step(x, x))
+        add(counts)
+        want = flash_launches(model, flash_names)
+        got = {k: counts[k] for k in flash_names if k in counts}
+        check(got == want, f"{label} train step: flash launches {got}, expected {want}")
+        check(bool(torch.isfinite(loss)), f"{label} train step: loss {loss}")
+        out[label] = dict(head_dim=hd, route="flash" if flash else "composed",
+                          generate_seconds=dt_gen, train_seconds=dt_train,
+                          loss=float(loss), train_launches=counts)
+        log(f"[head dims] {label}: head dim {hd}, {out[label]['route']}; "
+            f"generate_compiled batch {batch} prompt 16 new 32 in {dt_gen:.3f} s, "
+            f"one train step {batch} x {seq} in {dt_train * 1e3:.1f} ms, loss "
+            f"{float(loss):.4f} | train launches {counts}")
+        del model, step
+
+    # the head-dim-256 model's f32 loss and gradients against the CPU
+    gpu = TransformerLM(dtype=torch.float32, device=DEVICE, seed=seed, **HD256_MODEL)
+    cpu = TransformerLM(dtype=torch.float32, device="cpu", seed=seed, **HD256_MODEL)
+    t = torch.from_numpy(rng.randint(0, HD256_MODEL["vocab_size"], size=(1, 256)))
+    K.reset_launch_counts()
+    loss_gpu = lm_loss(gpu(t.to(DEVICE)), t.to(DEVICE))
+    loss_gpu.backward()
+    counts = {k: n for k, n in K.launch_counts().items() if n and k in flash_names}
+    check(counts == flash_launches(gpu, flash_names),
+          f"hd256 f32 gate: flash launches {counts}")
+    loss_cpu = lm_loss(cpu(t), t)
+    loss_cpu.backward()
+    check(abs(loss_gpu.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item()),
+          f"hd256 f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        r = cpu_params[name].grad
+        rel = ((p.grad.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"hd256 f32 gradient of {worst_name} GPU vs CPU: max "
+          f"|err| {worst:.3g} of its largest value")
+    out["hd256_gate"] = dict(loss_gpu=loss_gpu.item(), loss_cpu=loss_cpu.item(),
+                             worst_grad_rel_err=worst, worst_param=worst_name)
+    log(f"[head dims] hd256 f32 gate, 256 tokens: loss GPU {loss_gpu.item():.6f} "
+        f"CPU {loss_cpu.item():.6f}; every gradient within {worst:.3g} of its "
+        f"largest value (worst {worst_name})")
+    report["head_dims"] = out
+    report["launches_head_dims"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """minidiff_tpu_torch: the PyTorch and CUDA port of minidiff_tpu for the H100.
 
-Five slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
+Six slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
 its three cleanup modes, higher-order sweeps and ``reuse_graph``, the op
 registry and its VJPs, ``value_and_grad`` / ``grad`` / ``vjp`` / ``jvp`` /
 ``hvp`` / ``hessian`` and the gradcheck oracle (``minidiff_tpu_torch.utils``),
@@ -10,13 +10,15 @@ over two array backends, ``"cuda"`` (the default) and ``"cpu"``
 continuous-batching ``DecodeServer`` and the paged ``PagedDecodeServer``, and
 int8 / int4 weight-only serving (``quantize_for_serving``), for the
 flagship options and the LLaMA-style ones (RMSNorm, RoPE, grouped-query
-attention, gated MLPs, parallel blocks, biases, tied embeddings).
+attention, gated MLPs, parallel blocks, biases, tied embeddings).  The
+Mamba family: ``MambaLM``, ``generate_compiled_ssm`` and
+``SSMDecodeServer``, and the tape's ``linear_scan``.
 Training: ``make_train_step`` with ``SGD``, ``Adam`` and ``AdamW``,
 ``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd.
 Hand-written sm_90a CUDA kernels (``minidiff_tpu_torch.kernels``) carry the
 tape's large 2-D matrix products, LayerNorm, RMSNorm and their fused
 residual-add forms, flash attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,
-attention over an int8 KV cache and paged decode attention.  Entry points
+attention over an int8 KV cache, paged decode attention and the linear scan.  Entry points
 run on the GPU unless the caller asks for the CPU, where every kernel runs
 its plain PyTorch version.
 The package imports neither JAX nor ``minidiff_tpu``.
@@ -60,10 +62,13 @@ from minidiff_tpu_torch.models import (  # noqa: F401
     Adam,
     AdamW,
     DecodeServer,
+    MambaLM,
     PagedDecodeServer,
+    SSMDecodeServer,
     TransformerLM,
     cross_entropy,
     generate_compiled,
+    generate_compiled_ssm,
     lm_loss,
     make_train_step,
     params_from_jax,

@@ -22,8 +22,9 @@ or divided by an integer), the result is numpy's float64.
 ``matmul`` / ``matmul_nt`` / ``matmul_tn`` go to ``kernels.matmul`` (the
 hand-written CUDA kernels for large 2-D f32/bf16 products),
 ``softmax_xent`` to ``kernels.xent``, ``rmsnorm`` and ``add_rmsnorm`` to
-``kernels.layernorm``, and ``dequant_matmul``, ``dequant_matmul4`` and
-``sdpa_int8_cache`` to ``kernels.quant``.  Autograd is the tape's: torch tensors
+``kernels.layernorm``, ``dequant_matmul``, ``dequant_matmul4`` and
+``sdpa_int8_cache`` to ``kernels.quant``, and ``linear_scan`` to
+``kernels.scan``.  Autograd is the tape's: torch tensors
 here never require grad.
 """
 
@@ -39,6 +40,7 @@ import torch
 from minidiff_tpu_torch.kernels import layernorm as _ln
 from minidiff_tpu_torch.kernels import matmul as _mm
 from minidiff_tpu_torch.kernels import quant as _quant
+from minidiff_tpu_torch.kernels import scan as _scan
 from minidiff_tpu_torch.kernels import xent as _xent
 
 if TYPE_CHECKING:
@@ -329,6 +331,13 @@ class TorchBackend:
         if axis is None:
             return torch.cumsum(a.reshape(-1), dim=0)
         return torch.cumsum(a, dim=axis)
+
+    # y_t = a_t * y_{t-1} + b_t along axis: the scan kernel for f32 and bf16
+    # on the card, its plain version (the numpy backend's sequential loop)
+    # otherwise (kernels/scan.py)
+    @staticmethod
+    def linear_scan(a, b, axis: int = -1):
+        return _scan.linear_scan(a, b, axis=axis)
 
     @staticmethod
     def sort(a, axis=-1):

@@ -9,13 +9,13 @@ built from ``csrc/`` with nvcc at first launch (see ``_build``)."""
 from __future__ import annotations
 
 from minidiff_tpu_torch.kernels import (attention, layernorm, matmul, paged,
-                                        quant, xent)
+                                        quant, scan, xent)
 
 __all__ = ["attention", "launch_counts", "layernorm", "matmul", "paged",
-           "quant", "reset_launch_counts", "xent"]
+           "quant", "reset_launch_counts", "scan", "xent"]
 
 _COUNTERS = (layernorm.LAUNCHES, attention.LAUNCHES, xent.LAUNCHES,
-             matmul.LAUNCHES, quant.LAUNCHES, paged.LAUNCHES)
+             matmul.LAUNCHES, quant.LAUNCHES, paged.LAUNCHES, scan.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -28,7 +28,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("layernorm", "rmsnorm", "flash_fwd", "flash_bwd", "xent", "matmul",
-           "quant", "paged")
+           "quant", "paged", "scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,7 @@ SIGNATURES = {
                             _I, _F, _I, _P)),
     "paged_attn": ("paged", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _P)),
+    "linear_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}

@@ -10,6 +10,14 @@ backward.  A CPU tensor goes to the plain versions, ``_plain_flash_fwd`` and
 ``_plain_flash_bwd``.  A CUDA tensor the kernels do not take raises: nothing
 falls back.
 
+``sdpa`` sends operands to ``SdpaFn`` only where ``flash_eligible`` holds,
+the rule of the JAX ``_flash_eligible`` (``attention.py:785-806``): 4-D, one
+dtype of f32 or bf16, head dim 128 or 256 (``d % 128 == 0 and d <= 256``),
+matching K/V shapes.  Anything else (head dim 32 or 64, f64) takes, on
+either device, the composed forward under torch autograd, as the JAX
+package's composed path.  The rule is decided from shapes and dtypes before
+launch.
+
 Masked scores are -1e30, not -inf, in both versions, as on the TPU.
 """
 
@@ -21,7 +29,9 @@ from torch.autograd.function import once_differentiable
 from minidiff_tpu_torch.kernels import _build
 
 _NEG_INF = -1e30
-_HEAD_DIM = 128
+# the head dims the kernels are built for (the JAX kernels' d % 128 == 0
+# and d <= 256)
+HEAD_DIMS = (128, 256)
 
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
@@ -101,9 +111,9 @@ def _check_cuda(name: str, q, k, v, *others):
             raise TypeError(f"{name}: operands must share q's device and dtype")
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d != _HEAD_DIM:
-        raise ValueError(f"{name}: kernel is specialised on head dim "
-                         f"{_HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: kernels are built for head dims "
+                         f"{HEAD_DIMS}, got {d}")
     if k.shape != (bh, sk, d) or v.shape != (bh, sk, d):
         raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
     for t in others:
@@ -207,12 +217,30 @@ class SdpaFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def flash_eligible(q, k, v) -> bool:
+    """Whether ``sdpa`` takes the flash kernels (``SdpaFn``) for these
+    operands: the JAX ``_flash_eligible`` without its Pallas switch."""
+    if q.dim() != 4 or not q.dtype == k.dtype == v.dtype:
+        return False
+    if q.dtype not in _build.DTYPE_CODES:
+        return False
+    b, h, _, d = q.shape
+    sk = k.shape[2] if k.dim() == 4 else -1
+    return (d % 128 == 0 and d <= 256 and tuple(k.shape) == (b, h, sk, d)
+            and tuple(v.shape) == (b, h, sk, d))
+
+
 def sdpa(q, k, v, causal: bool = False, scale=None, window=None):
-    """Scaled dot-product attention over (B, H, S, D) operands."""
+    """Scaled dot-product attention over (B, H, S, D) operands: the flash
+    kernels where ``flash_eligible`` holds, the composed path elsewhere."""
     if q.dim() != 4:
         raise ValueError(f"sdpa takes (B, H, S, D) operands, got {tuple(q.shape)}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not flash_eligible(q, k, v):
+        # the composed path (the plain forward) under torch autograd
+        window = _normalize_window(window, q.shape[-2], k.shape[-2], causal)
+        return _plain_flash_fwd(q, k, v, float(scale), bool(causal), window)[0]
     b, h, s, d = q.shape
     sk = k.shape[2]
     o = SdpaFn.apply(q.reshape(b * h, s, d), k.reshape(b * h, sk, d),

@@ -20,8 +20,12 @@
 // banks); thread j scores key j for every query head of the group, one warp
 // per query head takes the page's max and sum, and the threads then own the
 // (head, d) outputs of the PV product, whose f32 accumulator stays in shared
-// memory.  Double-buffered tiles (cp.async or TMA) and splitting a long slot
-// over several CTAs are later work.
+// memory.  Head dims 64, 128 and 256 are instantiated.  At f32 and hd 256
+// the K and V tiles of a page would take 266 KB of the 227 KB a block may
+// use, so there they share one buffer: V is loaded into it after the scores
+// are taken, while the warps run the softmax statistics.  Double-buffered
+// tiles (cp.async or TMA) and splitting a long slot over several CTAs are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,9 +67,14 @@ __device__ __forceinline__ float dot_row(const float* qrow, const T* krow) {
   return acc;
 }
 
+// whether K and V share one page tile (f32 at hd 256)
+template <typename T, int HD> __host__ __device__ constexpr bool one_tile() {
+  return 2ull * PAGE * tile_ld<T, HD>() * sizeof(T) > 160 * 1024;
+}
+
 template <typename T, int HD>
 size_t smem_bytes(int g) {
-  return 2ull * PAGE * tile_ld<T, HD>() * sizeof(T)
+  return (one_tile<T, HD>() ? 1ull : 2ull) * PAGE * tile_ld<T, HD>() * sizeof(T)
          + (2ull * g * HD + static_cast<size_t>(g) * PAGE + 3ull * g) * sizeof(float);
 }
 
@@ -79,8 +88,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   constexpr int EPV = epv<T>();
   constexpr int VPR = HD / EPV;  // 16-byte vectors per cache row
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kOneTile = one_tile<T, HD>();
   T* ks = reinterpret_cast<T*>(smem);          // (PAGE, LD)
-  T* vs = ks + PAGE * LD;                       // (PAGE, LD)
+  T* vs = kOneTile ? ks : ks + PAGE * LD;      // (PAGE, LD)
   float* qs = reinterpret_cast<float*>(vs + PAGE * LD);  // (g, HD)
   float* pr = qs + g * HD;                      // (g, PAGE) scores, then p
   float* acc = pr + g * PAGE;                   // (g, HD)
@@ -110,8 +120,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       const int r = i / VPR, c = (i % VPR) * EPV;
       *reinterpret_cast<uint4*>(ks + r * LD + c) =
           __ldg(reinterpret_cast<const uint4*>(pool_k + base + static_cast<size_t>(r) * HD + c));
-      *reinterpret_cast<uint4*>(vs + r * LD + c) =
-          __ldg(reinterpret_cast<const uint4*>(pool_v + base + static_cast<size_t>(r) * HD + c));
+      if (!kOneTile)
+        *reinterpret_cast<uint4*>(vs + r * LD + c) =
+            __ldg(reinterpret_cast<const uint4*>(pool_v + base + static_cast<size_t>(r) * HD + c));
     }
     __syncthreads();
 
@@ -124,6 +135,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       pr[gi * PAGE + tid] = visible ? sc : kNegInf;
     }
     __syncthreads();
+
+    // one shared tile: every score is taken, so V may overwrite K
+    if (kOneTile)
+      for (int i = tid; i < PAGE * VPR; i += kThreads) {
+        const int r = i / VPR, c = (i % VPR) * EPV;
+        *reinterpret_cast<uint4*>(vs + r * LD + c) =
+            __ldg(reinterpret_cast<const uint4*>(pool_v + base + static_cast<size_t>(r) * HD + c));
+      }
 
     // online softmax statistics, one warp per query head
     for (int gi = warp; gi < g; gi += kWarps) {
@@ -198,6 +217,8 @@ int dispatch(int hd, const void* q, const void* pk, const void* pv, const void* 
     return launch<T, 128>(q, pk, pv, table, pos, out, b, kvh, g, maxp, scale, window, sinks, st);
   if (hd == 64)
     return launch<T, 64>(q, pk, pv, table, pos, out, b, kvh, g, maxp, scale, window, sinks, st);
+  if (hd == 256)
+    return launch<T, 256>(q, pk, pv, table, pos, out, b, kvh, g, maxp, scale, window, sinks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -38,8 +38,9 @@
 // rows with 16-byte loads (hd / 16 lanes per row) and writes the f32 scores
 // to shared memory; phase 2 runs each row's softmax with one warp and
 // rewrites the scores as the rounded (p * vs); phase 3 streams the V rows the
-// same way and sums across lanes and warps.  Splitting L across CTAs and
-// wgmma are later work.
+// same way and sums across lanes and warps.  Head dims 64, 128 and 256 are
+// instantiated (the JAX kernel takes any multiple of 128).  Splitting L
+// across CTAs and wgmma are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -400,6 +401,7 @@ int sdpa_dispatch(int hd, const void* q, const void* k8, const void* ks,
                   int b, int kvh, int gc, int c, int L, float scale, cudaStream_t st) {
   if (hd == 128) return launch_sdpa<T, 128>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, st);
   if (hd == 64) return launch_sdpa<T, 64>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, st);
+  if (hd == 256) return launch_sdpa<T, 256>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

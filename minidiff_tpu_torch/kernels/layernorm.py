@@ -32,9 +32,13 @@ differentiable through ``LayerNormFn``, ``AddLayerNormFn``, ``RMSNormFn`` and
 ``AddRMSNormFn``.  A CUDA tensor goes to the hand-written kernels of
 ``csrc/layernorm.cu`` (``ln_fwd``, ``addln_fwd``, ``ln_bwd``, ``addln_bwd``)
 and ``csrc/rmsnorm.cu`` (``rms_fwd``, ``addrms_fwd``, ``rms_bwd``,
-``addrms_bwd``), which take rows of up to ``MAX_WIDTH`` values; a CPU tensor
-goes to the plain versions.  A CUDA tensor the kernels do not take raises:
-nothing falls back.
+``addrms_bwd``); a CPU tensor goes to the plain versions.  The kernels take
+f32 and bf16 rows of up to ``MAX_WIDTH`` values whose width their 16-byte
+vectors divide; other rows take the plain (composed) versions on either
+device, as the JAX package composes them (``layernorm.py:67-69``), by the
+rule ``uses_kernel`` decided before launch.  A CUDA tensor that the rule
+sends to the kernels and that they do not take (operands of mixed dtypes)
+raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -52,6 +56,16 @@ LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
 
 # the widest row the kernels take (the JAX kernels' limit)
 MAX_WIDTH = 8192
+
+
+def uses_kernel(x) -> bool:
+    """Whether the norm kernels take the rows of ``x``: f32 or bf16, a width
+    their 16-byte vectors divide (8 bf16 or 4 f32 values) and at most
+    ``MAX_WIDTH``.  Other rows take the plain version on either device."""
+    if x.dtype not in _build.DTYPE_CODES:
+        return False
+    d = x.shape[-1]
+    return d % (16 // x.element_size()) == 0 and d <= MAX_WIDTH
 
 
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
@@ -179,25 +193,25 @@ def _fwd_kernel(name: str, x, operands, eps: float, out_shape):
 
 
 def _layernorm_fwd(x, g, b, eps: float):
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_layernorm(x, g, b, eps)
     return _fwd_kernel("ln_fwd", x, (g, b), eps, x.shape)
 
 
 def _add_layernorm_fwd(x, a, g, b, eps: float):
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_add_layernorm(x, a, g, b, eps)
     return _fwd_kernel("addln_fwd", x, (a, g, b), eps, (2,) + tuple(x.shape))
 
 
 def _rmsnorm_fwd(x, g, eps: float):
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_rmsnorm(x, g, eps)
     return _fwd_kernel("rms_fwd", x, (g,), eps, x.shape)
 
 
 def _add_rmsnorm_fwd(x, a, g, eps: float):
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_add_rmsnorm(x, a, g, eps)
     return _fwd_kernel("addrms_fwd", x, (a, g), eps, (2,) + tuple(x.shape))
 
@@ -235,7 +249,7 @@ def _bwd_kernel(name: str, x, g, dy, g0, eps: float):
 
 def ln_grads(x, g, dy, eps: float = 1e-5):
     """(dx, dg, db) of ``layernorm(x, g, b, eps)`` for the cotangent dy."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_ln_grads(x, g, dy, eps)
     return _bwd_kernel("ln_bwd", x, g, dy, None, eps)
 
@@ -243,7 +257,7 @@ def ln_grads(x, g, dy, eps: float = 1e-5):
 def addln_grads(t, g, dy, g0, eps: float = 1e-5):
     """(dx, dg, db) of ``add_layernorm`` for the cotangents g0 of ``t =
     x + a`` and dy of ``LN(t)``; dx is the gradient of both x and a."""
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or not uses_kernel(t):
         return _plain_addln_grads(t, g, dy, g0, eps)
     return _bwd_kernel("addln_bwd", t, g, dy, g0, eps)
 
@@ -287,7 +301,7 @@ class AddLayerNormFn(torch.autograd.Function):
 
 def rms_grads(x, g, dy, eps: float = 1e-6):
     """(dx, dg) of ``rmsnorm(x, g, eps)`` for the cotangent dy."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not uses_kernel(x):
         return _plain_rms_grads(x, g, dy, eps)
     return _bwd_kernel("rms_bwd", x, g, dy, None, eps)
 
@@ -295,7 +309,7 @@ def rms_grads(x, g, dy, eps: float = 1e-6):
 def addrms_grads(t, g, dy, g0, eps: float = 1e-6):
     """(dx, dg) of ``add_rmsnorm`` for the cotangents g0 of ``t = x + a``
     and dy of ``RMSNorm(t)``; dx is the gradient of both x and a."""
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or not uses_kernel(t):
         return _plain_addrms_grads(t, g, dy, g0, eps)
     return _bwd_kernel("addrms_bwd", t, g, dy, g0, eps)
 

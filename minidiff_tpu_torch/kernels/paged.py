@@ -30,8 +30,9 @@ from minidiff_tpu_torch.kernels import _build
 PAGE = 128
 # launches of the kernel since the last reset (kernels.reset_launch_counts)
 LAUNCHES = {"paged_attn": 0}
-# the head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+# the head dims the kernel is built for; others take the plain version on
+# either device (``paged_attention``)
+HEAD_DIMS = (64, 128, 256)
 _NEG_INF = -1e30
 
 
@@ -76,8 +77,6 @@ def _check_cuda(q, pool_k, pool_v, table, pos):
     if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise TypeError("paged_attn: q must be cast to the pools' dtype")
     b, kv, g, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"paged_attn: kernel takes head dims {HEAD_DIMS}, got {hd}")
     if (pool_k.dim() != 4 or pool_k.shape[1:] != (kv, PAGE, hd)
             or pool_v.shape != pool_k.shape or table.dim() != 2
             or table.shape[0] != b or pos.shape != (b,)):
@@ -89,10 +88,11 @@ def _check_cuda(q, pool_k, pool_v, table, pos):
 def paged_attention(q, pool_k, pool_v, table, pos, scale=None, window=None,
                     sinks: int = 0):
     """One decode token per slot over its pages -> (B, kv, g, hd) in
-    q.dtype."""
+    q.dtype.  A head dim the kernel is not built for (``HEAD_DIMS``) takes
+    the plain version on either device."""
     hd = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / (hd ** 0.5)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or hd not in HEAD_DIMS:
         return paged_attention_reference(q, pool_k, pool_v, table, pos, scale,
                                          window, int(sinks))
     _check_cuda(q, pool_k, pool_v, table, pos)

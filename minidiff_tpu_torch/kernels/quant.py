@@ -42,8 +42,9 @@ from minidiff_tpu_torch.kernels import _build
 LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0}
 # the most activation rows a dequant-matmul kernel takes (quant.py:111)
 MAX_KERNEL_ROWS = 256
-# the head dims the attention kernel is built for
-HEAD_DIMS = (64, 128)
+# the head dims the attention kernel is built for; others take the plain
+# version on either device (``sdpa_int8_cache``)
+HEAD_DIMS = (64, 128, 256)
 _NEG_INF = -1e30
 
 
@@ -250,17 +251,16 @@ def sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale=None):
     q (B, h, c, hd) with h a multiple of the cache's kv heads; k8/v8
     (B, kv, L, hd) int8; ks/vs (B, kv, L) f32 per-row scales; pos (B,) int:
     key l is visible to chunk position i iff l <= pos + i.  Returns
-    (B, h, c, hd) in q.dtype.
+    (B, h, c, hd) in q.dtype.  A head dim the kernel is not built for
+    (``HEAD_DIMS``) takes the plain version on either device.
     """
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or q.shape[-1] not in HEAD_DIMS:
         return _plain_sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale)
     _check_cuda("sdpa_int8", q, k8, ks, v8, vs,
                 dtypes=(torch.int8, torch.float32, torch.int8, torch.float32))
     qg, c, scale = _grouped(q, k8, scale)
     bq, kv, gc, hd = qg.shape
     L = k8.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"sdpa_int8: kernel takes head dims {HEAD_DIMS}, got {hd}")
     if (k8.shape != (bq, kv, L, hd) or v8.shape != k8.shape
             or ks.shape != (bq, kv, L) or vs.shape != ks.shape
             or gc * kv != q.shape[1] * c):

@@ -2,7 +2,8 @@
 options) with its serving path (compiled decode,
 the continuous-batching decode server, the paged server, int8 / int4
 weight-only quantization and the int8 KV cache) and its training path (the
-train step, optimizers and losses)."""
+train step, optimizers and losses), and the Mamba family (MambaLM, its
+compiled decode and the SSM decode server)."""
 
 from minidiff_tpu_torch.models.convert import params_from_jax
 from minidiff_tpu_torch.models.decode import generate_compiled
@@ -11,10 +12,12 @@ from minidiff_tpu_torch.models.mlp import make_train_step
 from minidiff_tpu_torch.models.optim import SGD, Adam, AdamW
 from minidiff_tpu_torch.models.paged import PagedDecodeServer
 from minidiff_tpu_torch.models.quant import quantize_for_serving, quantized_bytes
-from minidiff_tpu_torch.models.server import DecodeServer
+from minidiff_tpu_torch.models.server import DecodeServer, SSMDecodeServer
+from minidiff_tpu_torch.models.ssm import MambaBlock, MambaLM, generate_compiled_ssm
 from minidiff_tpu_torch.models.transformer import TransformerLM, lm_loss
 
-__all__ = ["SGD", "Adam", "AdamW", "DecodeServer", "PagedDecodeServer",
-           "TransformerLM", "cross_entropy", "generate_compiled", "lm_loss",
-           "make_train_step", "params_from_jax", "quantize_for_serving",
-           "quantized_bytes"]
+__all__ = ["SGD", "Adam", "AdamW", "DecodeServer", "MambaBlock", "MambaLM",
+           "PagedDecodeServer", "SSMDecodeServer", "TransformerLM",
+           "cross_entropy", "generate_compiled", "generate_compiled_ssm",
+           "lm_loss", "make_train_step", "params_from_jax",
+           "quantize_for_serving", "quantized_bytes"]

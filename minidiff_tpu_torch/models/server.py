@@ -12,9 +12,10 @@ keep decoding garbage into their own rows, which is ignored.
 
 Greedy outputs are token-for-token identical to decoding each request alone
 through ``generate_compiled``.  Prefix caching, chunked prefill and the
-speculative and SSM servers come with a later slice.  ``PagedDecodeServer``
-(``models/paged.py``) keeps the host API and replaces the cache through the
-``_alloc_caches`` / ``_prefill_slot`` / ``_step_logits`` hooks.
+speculative server come with a later slice.  ``PagedDecodeServer``
+(``models/paged.py``) and ``SSMDecodeServer`` (below) keep the host API and
+replace the cache through the ``_resolve_window`` / ``_alloc_caches`` /
+``_prefill_slot`` / ``_step_logits`` hooks.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from minidiff_tpu_torch.models import functional as F
 from minidiff_tpu_torch.models.layers import check_device
 from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
 
-__all__ = ["DecodeServer"]
+__all__ = ["DecodeServer", "SSMDecodeServer"]
 
 _BUCKET = 128
 
@@ -55,16 +56,7 @@ class DecodeServer:
         self.greedy = greedy
         self.temperature = float(temperature)
         self.top_k, self.top_p, self.min_p = top_k, top_p, min_p
-        w = int(window or model.max_seq_len)
-        if w % _BUCKET:
-            raise ValueError(f"window {w} must be a multiple of {_BUCKET}")
-        # the JAX server's rule for every model; without RoPE, positions
-        # beyond max_seq_len would also index past pos_emb
-        if w > model.max_seq_len:
-            why = "" if model.rope else " (positions past pos_emb)"
-            raise ValueError(f"window {w} exceeds model.max_seq_len "
-                             f"{model.max_seq_len}{why}")
-        self.window = w
+        self.window = self._resolve_window(window)
         self._caches = self._alloc_caches()
         # host-side slot state
         self._pos = np.zeros(max_batch, np.int64)      # position of last token
@@ -74,6 +66,21 @@ class DecodeServer:
         self._out: "dict[int, list]" = {}
         self._seed = [0] * max_batch
         self._steps = np.zeros(max_batch, np.int64)    # slot-local step count
+
+    def _resolve_window(self, window):
+        """The KV window: ``window`` (``max_seq_len`` by default), a multiple
+        of 128 within ``max_seq_len``."""
+        model = self.model
+        w = int(window or model.max_seq_len)
+        if w % _BUCKET:
+            raise ValueError(f"window {w} must be a multiple of {_BUCKET}")
+        # the JAX server's rule for every model; without RoPE, positions
+        # beyond max_seq_len would also index past pos_emb
+        if w > model.max_seq_len:
+            why = "" if model.rope else " (positions past pos_emb)"
+            raise ValueError(f"window {w} exceeds model.max_seq_len "
+                             f"{model.max_seq_len}{why}")
+        return w
 
     def _alloc_caches(self):
         """One dense (max_batch, kv, window, hd) K and V cache per layer."""
@@ -131,7 +138,7 @@ class DecodeServer:
         prompt = [int(t) for t in prompt]
         if len(prompt) < 1 or max_new_tokens < 1:
             raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
-        if len(prompt) + max_new_tokens > self.window:
+        if self.window is not None and len(prompt) + max_new_tokens > self.window:
             raise ValueError(f"prompt + new tokens exceed the window {self.window}")
         return prompt
 
@@ -181,3 +188,34 @@ class DecodeServer:
         if self._budget[slot] == 0 and slot not in self._free:
             self._free.append(slot)
         return out
+
+
+class SSMDecodeServer(DecodeServer):
+    """Continuous batching for the Mamba family (``models/ssm.py``).
+
+    The slot state is the O(1) recurrent state of each block, the hidden
+    ``h`` (max_batch, d_inner, n) and the conv window (max_batch, K-1,
+    d_inner): no KV window and no per-request length limit.  A slot's
+    prefill runs its bucketed prompt as one ragged ``MambaLM.prefill``
+    (``lengths``, one scan per block) and swaps its row in; the shared step
+    is the batched ``MambaLM.step``.  Greedy outputs are token-for-token
+    those of ``generate_compiled_ssm`` on each request alone.
+    """
+
+    def _resolve_window(self, window):
+        return None  # no KV window: context length is unbounded
+
+    def _alloc_caches(self):
+        return self.model.init_state(self.max_batch)
+
+    def _prefill_slot(self, slot: int, padded, s0: int):
+        lengths = torch.tensor([s0], device=self.device)
+        logits, rows = self.model.prefill(padded, lengths=lengths)
+        for state, row in zip(self._caches, rows):
+            state["h"][slot] = row["h"][0]
+            state["conv"][slot] = row["conv"][0]
+        return logits
+
+    def _step_logits(self, toks, pos):
+        logits, self._caches = self.model.step(self._caches, toks[:, 0])
+        return logits[:, None]

@@ -20,10 +20,12 @@ resolves its backend function at call time (``backend/torch_backend.py``).
 * the quantized serving ops (``dequant_matmul``, ``dequant_matmul4``,
   ``sdpa_int8_cache``) run the ``kernels/quant.py`` kernels for f32 and
   bf16; their gradient flows to x only.
+* linear_scan's two VJPs share one reversed scan (the ``scan`` kernel for
+  f32 and bf16) through a single-entry memo.
 
-Not ported yet (each waits for the slice that needs it): ``linear_scan``,
-the collectives, ``dequant_matmul_bmm``, ``sdpa``, ``layernorm`` and
-``add_layernorm`` as tape ops, and the conv2d family.
+Not ported yet (each waits for the slice that needs it): the collectives,
+``dequant_matmul_bmm``, ``sdpa``, ``layernorm`` and ``add_layernorm`` as
+tape ops, and the conv2d family.
 """
 
 from __future__ import annotations
@@ -480,6 +482,70 @@ def cumsum_grad(x, grad, axis=None, **kwargs):
 cumsum = wrapping.create_unary_op_func(
     forward_func=as_tensor_func(backend_fn("cumsum")),
     grad=cumsum_grad,
+    kwargs_to_grads=True,
+)
+
+
+# linear_scan(a, b, axis): y_t = a_t * y_{t-1} + b_t along ``axis``, y_{-1}
+# = 0.  Forward: the scan kernel for f32 and bf16 (``kernels.scan``, the
+# plain loop on the CPU and for other dtypes).  Its VJPs are themselves a
+# reversed linear scan with a shifted decay, so the backward runs the same
+# kernel; both VJPs need the same cotangent, kept in a single-entry memo
+# keyed by the operands (the JAX package's ``_linear_scan_r_memo``; the memo
+# holds the operands, so their ids stay unique while it does).  The memo'd
+# value is a framework Tensor: under grad mode the two VJPs are two
+# consumers of one tape node, so higher-order re-taping works.
+
+
+def _scan_shift(t, axis):
+    """t_{i-1} along ``axis`` with a zero slab at i=0 (framework ops only,
+    so the shift re-tapes under higher-order differentiation)."""
+    ax = axis % t.ndim
+    pre = (slice(None),) * ax
+    zero = md.zeros_like(t[pre + (slice(0, 1),)])
+    return concat((zero, t[pre + (slice(0, -1),)]), axis=ax)
+
+
+_linear_scan_memo: dict = {}
+
+
+def _linear_scan_cotangent(a, b, grad, axis):
+    """r_t = g_t + a_{t+1} r_{t+1}: the scan run in reverse (flip time,
+    shift the decay one step, linear_scan, flip back)."""
+    key = (id(a), id(b), id(grad), axis, md.grad_allowed_())
+    if _linear_scan_memo.get("key") != key:
+        ar = flip(a, axis=axis)
+        r = flip(linear_scan(_scan_shift(ar, axis), flip(grad, axis=axis),
+                             axis=axis), axis=axis)
+        _linear_scan_memo.update(key=key, refs=(a, b, grad), val=r)
+    return _linear_scan_memo["val"]
+
+
+def linear_scan_grad_b(a, b, grad, axis=-1, _output=None):
+    return _linear_scan_cotangent(a, b, grad, axis)
+
+
+def linear_scan_grad_a(a, b, grad, axis=-1, _output=None):
+    """dy_t/da_t = y_{t-1}, scaled by the accumulated cotangent r_t."""
+    y = linear_scan(a, b, axis=axis) if _output is None else _output
+    return _linear_scan_cotangent(a, b, grad, axis) * _scan_shift(y, axis)
+
+
+linear_scan_grad_a.needs_output = True
+
+
+def _linear_scan_forward(a, b, axis=-1):
+    if a.shape != b.shape:
+        raise ValueError(
+            f"linear_scan requires matching shapes, got {tuple(a.shape)} vs "
+            f"{tuple(b.shape)} (broadcast explicitly before scanning)")
+    return backend_fn("linear_scan")(a, b, axis=axis)
+
+
+linear_scan = wrapping.create_binary_op_func(
+    forward_func=as_tensor_func(_linear_scan_forward),
+    grad_x=linear_scan_grad_a,
+    grad_y=linear_scan_grad_b,
     kwargs_to_grads=True,
 )
 
@@ -1237,6 +1303,7 @@ __all__ = [
     "var",
     "sum",
     "cumsum",
+    "linear_scan",
     "einsum",
     "sort",
     "argsort",

@@ -197,6 +197,72 @@ def test_sdpa_window_matches_composed():
         TA.sdpa(*(torch.from_numpy(t) for t in (q, k, v)), window=64)
 
 
+# the JAX ``_flash_eligible`` (with its Pallas switch on) and the port's
+# ``flash_eligible`` agree on every head dim and dtype: the kernels take
+# head dims 128 and 256 in f32 and bf16, everything else composes
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192, 256, 384])
+def test_flash_eligible_follows_the_jax_rule(monkeypatch, hd, dtype):
+    monkeypatch.setattr(A, "_pallas_enabled", lambda: True)
+    shape = (2, 2, 16, hd)
+    want = A._flash_eligible(*(jnp.zeros(shape, dtype) for _ in range(3)))
+    tdt = {"float64": torch.float64, **_TORCH}[dtype]
+    t = torch.zeros(shape, dtype=tdt)
+    assert TA.flash_eligible(t, t, t) == want
+    assert want == (hd in (128, 256) and dtype != "float64")
+    # mixed dtypes and mismatched K/V never take the kernels
+    assert not TA.flash_eligible(t, t, t.to(torch.float16))
+    assert not TA.flash_eligible(t, t[:, :1], t)
+
+
+def test_composed_route_at_head_dim_32_matches_jax(monkeypatch):
+    # TransformerLM()'s own head dim: the composed forward under torch
+    # autograd, value and gradients against JAX's composed path (f64)
+    flash = []
+    fwd = TA.flash_fwd
+    monkeypatch.setattr(TA, "flash_fwd", lambda *a: flash.append(1) or fwd(*a))
+    rng = np.random.RandomState(13)
+    q, k, v, do = (rng.standard_normal((2, 2, 24, 32)) for _ in range(4))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = TA.sdpa(tq, tk, tv, causal=True)
+    assert not flash
+    out.backward(torch.from_numpy(do))
+    ref, vjp = jax.vjp(lambda a, b, c: A._composed_sdpa(a, b, c, 32 ** -0.5, True),
+                       *(jnp.asarray(t) for t in (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-10, atol=1e-10)
+    for got, want in zip((tq, tk, tv), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   rtol=1e-10, atol=1e-10)
+    # head dim 128 in f32 goes to the flash Function
+    q4 = torch.zeros(1, 1, 8, 128, requires_grad=True)
+    TA.sdpa(q4, q4, q4)
+    assert flash == [1]
+
+
+def test_norm_rule_composes_wide_and_ragged_rows(monkeypatch):
+    # the kernels take f32 / bf16 rows their 16-byte vectors divide, up to
+    # MAX_WIDTH (shrunk here); wider or ragged rows, and f64, compose
+    monkeypatch.setattr(TLN, "MAX_WIDTH", 128)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rule = TLN.uses_kernel
+    assert rule(torch.zeros(4, 128, dtype=f32)) and rule(torch.zeros(2, 120, dtype=bf16))
+    assert not rule(torch.zeros(4, 256, dtype=f32))      # above MAX_WIDTH
+    assert not rule(torch.zeros(4, 130, dtype=f32))      # 130 % 4
+    assert not rule(torch.zeros(4, 124, dtype=bf16))     # 124 % 8
+    assert not rule(torch.zeros(4, 64, dtype=torch.float64))
+    # the composed rows give the plain version's values, forward and back
+    rng = np.random.RandomState(14)
+    x, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_()
+            for s in ((4, 256), (256,)))
+    y = TLN.rmsnorm(x, g)
+    y.backward(torch.ones_like(y))
+    torch.testing.assert_close(y, TLN._plain_rmsnorm(x, g), rtol=0, atol=0)
+    dx, dg = TLN._plain_rms_grads(x.detach(), g.detach(), torch.ones_like(y))
+    torch.testing.assert_close(x.grad, dx, rtol=0, atol=0)
+    torch.testing.assert_close(g.grad, dg, rtol=0, atol=0)
+
+
 def _ln_bwd_inputs(dtype: str, seed: int):
     """x, g, dy, g0 as JAX and torch operands of the same values."""
     (x, a, g, _), (tx, ta, tg, _) = _ln_inputs(dtype, seed=seed)
@@ -493,13 +559,17 @@ def test_cpu_wrappers_launch_nothing():
     xr, ar, gr = (torch.randn(*shape, requires_grad=True)
                   for shape in ((4, 256), (4, 256), (256,)))
     (TLN.rmsnorm(xr, gr).sum() + TLN.add_rmsnorm(xr, ar, gr).sum()).backward()
+    from minidiff_tpu_torch.kernels import scan as TS
+
+    sa, sb = (torch.rand(2, 16, 8, requires_grad=True) for _ in range(2))
+    TS.linear_scan(sa, sb, axis=1).sum().backward()
     assert kernels.launch_counts() == {
         "ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
         "rms_fwd": 0, "addrms_fwd": 0, "rms_bwd": 0, "addrms_bwd": 0,
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "xent_fwd": 0, "xent_bwd": 0,
         "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0,
-        "dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0, "paged_attn": 0}
+        "dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0, "paged_attn": 0, "scan": 0}
 
 
 @pytest.fixture

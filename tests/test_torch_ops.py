@@ -24,7 +24,6 @@ TOL = dict(rtol=1e-10, atol=1e-10)
 
 # the JAX package's ops that wait for later slices of the port
 LATER = {
-    "linear_scan",  # SSM
     "psum", "ppermute", "pmean", "all_gather", "psum_scatter", "all_to_all",
     "dequant_matmul_bmm",  # the MoE expert bank
     "sdpa", "layernorm", "add_layernorm",  # models
@@ -95,6 +94,9 @@ DIFF = [
     ("sum", lambda m, a: m.sum(a, axis=-1, keepdims=True), [A34], [0]),
     ("cumsum", lambda m, a: m.cumsum(a, axis=1), [A34], [0]),
     ("cumsum_flat", lambda m, a: m.cumsum(a), [A34], [0]),
+    # the first-order recurrence: both VJPs share one reversed scan
+    ("linear_scan", lambda m, a, b: m.linear_scan(a, b, axis=1),
+     [_r(2, 5, 3), _r(2, 5, 3, seed=1)], [0, 1]),
     ("einsum_mm", lambda m, a, b: m.einsum("ij,kj->ik", a, b), [A34, B34], [0, 1]),
     ("einsum_diag", lambda m, a: m.einsum("ii->i", a), [_r(4, 4)], [0]),
     ("einsum_ellipsis", lambda m, a, b: m.einsum("...ij,...jk", a, b),

@@ -70,6 +70,9 @@ KERNEL_CASES = {
     "window_sinks": (2, 1, 2, 128, 4, [4, 3], "float32", 192, 2),
     "hd64": (2, 2, 2, 64, 3, [2, 3], "float32", None, 0),
     "single_page": (2, 2, 2, 128, 4, [1, 1], "float32", None, 0),
+    # head dim 256 (Gemma's), the third instantiation of the kernel
+    "hd256": (2, 1, 2, 256, 3, [2, 3], "float32", None, 0),
+    "hd256_bf16": (2, 2, 1, 256, 2, [1, 2], "bfloat16", None, 0),
 }
 
 

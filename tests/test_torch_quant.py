@@ -188,6 +188,25 @@ def test_plain_sdpa_int8_matches_jax(b, kv, g, c, dtype):
            want, dtype)
 
 
+# head dim 256 (Gemma's), the kernel's third instantiation; the JAX
+# kernel takes any multiple of 128
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_sdpa_int8_at_head_dim_256_matches_jax(dtype):
+    b, kv, g, c, L, hd = 2, 1, 2, 1, 128, 256
+    (jk8, jks, jv8, jvs), (tk8, tks, tv8, tvs) = _cache(b, kv, L, hd, seed=6)
+    q = np.random.RandomState(7).standard_normal((b, kv * g, c, hd))
+    qj, qt = _both(q, dtype)
+    pos = np.array([40, 127])
+    got = TQ.sdpa_int8_cache(qt, tk8, tks, tv8, tvs, torch.from_numpy(pos))
+    assert got.dtype == _TORCH[dtype] and got.shape == (b, kv * g, c, hd)
+    qg = qj.reshape(b, kv, g * c, hd)
+    for ref in (JQ._jnp_sdpa_int8(qg, jk8, jks, jv8, jvs, jnp.asarray(pos), c,
+                                  hd ** -0.5),
+                JQ._pallas_sdpa_int8(qg, jk8, jks, jv8, jvs, jnp.asarray(pos), c,
+                                     hd ** -0.5, interpret=True)):
+        _close(got.reshape(b, kv, g * c, hd), ref, dtype)
+
+
 def test_prefill_sized_products_take_the_matmul_route():
     # quant.py:111: more than 256 activation rows is no weight stream
     assert TQ.uses_kernel(8) and TQ.uses_kernel(256)
