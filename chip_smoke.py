@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, tape, quantized and paged
-serving paths, the LLaMA-style options and the Mamba family on one NVIDIA
-GPU.
+serving paths, the LLaMA-style options, the Mamba family and the
+Mixture-of-Experts family on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
 
@@ -16,8 +16,10 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    bound; the flash kernels at head dim 256, ``sdpa_int8`` and
    ``paged_attn`` at head dim 256, the scan at the SSM train step's,
    backward's and server prefill's shapes, an RMSNorm at d 16,384 (wider
-   than the kernels: composed, no launch), and the flash rule at head dims
-   32, 64, 128 and 256 (the route each takes, counted by launches);
+   than the kernels: composed, no launch), the flash rule at head dims
+   32, 64, 128 and 256 (the route each takes, counted by launches), and
+   ``dq_bmm`` at the MoE model's decode and prefill banks (a C of 384
+   launches nothing);
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -85,9 +87,24 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    2 heads, 2 layers, the flash kernels' 256 instantiation), each through
    ``generate_compiled`` and a train step with exact flash launches, and
    the head-dim-256 model's f32 loss and gradients against the CPU;
-12. the kernels line: every kernel must have launched on its paths (counts
+12. the Mixture-of-Experts family at ``bench.py:502-530``'s
+   ``decode_moe_int8`` configuration (``MoETransformerLM`` V512 d1024, 8
+   heads over 4 KV heads, L4, 8 experts top-2 at capacity 4.0, grouped,
+   RMSNorm, RoPE, SwiGLU 2048 without bias, renormalised gates, bf16):
+   ``generate_compiled`` over bf16 and int8 expert banks (batch 8, prompt
+   16, 64 new tokens; exact ``dq_bmm`` and ``dq_mm`` launches), one
+   profiled int8 decode, ``DecodeServer`` and ``PagedDecodeServer`` (8
+   slots, window 256, 10 staggered requests) in bf16 and in f32, where
+   every request equals its solo decode; f32 gates at full width and one
+   layer against the CPU (identical slot tables with the smallest top-k
+   gap, prefill + 8 cached steps over float and int8 banks, the loss with
+   aux and every gradient); and ``benchmarks/moe_bench.py``'s train step
+   (V512 d512 h4 L2, E8 top-1 at capacity 1.0, batch 8 x 512, bf16) grouped
+   and one-hot beside the equal-FLOPs dense step, with exact launches and
+   one profiled step;
+13. the kernels line: every kernel must have launched on its paths (counts
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
-   7, phase 8 and each run of 9, 10 and 11, and read just after each).
+   7, phase 8 and each run of 9, 10, 11 and 12, and read just after each).
 
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -200,7 +217,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
-                  "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel")
+                  "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel",
+                  "dq_bmm_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -210,8 +228,9 @@ TAPE_ONLY = {"matmul_nn", "matmul_nt", "matmul_tn"}
 QUANT_ONLY = {"dq_mm", "dq4_mm", "sdpa_int8"}
 PAGED_ONLY = {"paged_attn"}
 SSM_ONLY = {"scan"}
+MOE_ONLY = {"dq_bmm"}
 PATHS = ("generate", "server", "train", "tape", "quant", "paged", "options",
-         "ssm", "head_dims")
+         "ssm", "head_dims", "moe")
 
 # quantized decode (bench.py:350-443): the serving model above at its bench
 # size, and the int8 KV cache at long context (bench.py:413-443)
@@ -270,6 +289,28 @@ SSM_GATE_PROMPT, SSM_GATE_STEPS, SSM_GATE_SEQ = 16, 8, 128
 SSM_TAPE_GATE = (2, 256, 4096)
 # per tape step: the forward scan and one reverse scan for both VJPs
 SSM_TAPE_LAUNCHES = {"scan": 2}
+
+# the MoE family at bench.py:502-530's decode_moe_int8 row: nothing is cut.
+# Its decode: batch 8, prompt 16, 64 new tokens; at capacity 4.0 x top-2
+# over 8 experts each expert has C = T slots, so no token is ever dropped
+# and a server request routes as it would alone
+MOE_MODEL = dict(vocab_size=512, dim=1024, num_heads=8, num_kv_heads=4,
+                 num_layers=4, num_experts=8, k=2, capacity_factor=4.0,
+                 grouped=True, max_seq_len=256, norm="rms", rope=True,
+                 mlp="swiglu", mlp_hidden=2048, mlp_bias=False, renorm_gates=True)
+MOE_NEW = 64
+# 10 staggered requests whose prompt and new tokens fit the 256 window
+MOE_REQUESTS = [(16, 64), (130, 48), (200, 40), (16, 96), (100, 40), (40, 80),
+                (160, 24), (90, 56), (5, 30), (180, 60)]
+# benchmarks/moe_bench.py: V512 d512 h4 L2, S 512, batch 8, E 8, top-1 at
+# capacity 1.0, LayerNorm, gelu experts with bias, bf16, SGD(1e-3),
+# make_moe_loss(0.01); the dense TransformerLM of equal FLOPs beside it
+MOE_TRAIN = dict(vocab_size=512, dim=512, num_heads=4, num_layers=2,
+                 num_experts=8, max_seq_len=512, k=1, capacity_factor=1.0)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS, MOE_TRAIN_ROUNDS = 8, 512, 5, 2
+# the f32 gates: one layer, a prompt of 16 and 8 cached steps, one
+# sequence of 128 tokens for the loss and gradients
+MOE_GATE_PROMPT, MOE_GATE_STEPS, MOE_GATE_SEQ = 16, 8, 128
 
 # the tape path.  bench.py:196-234's matmul step: 4096^2 bf16, lr 1e-6, 2
 # warm-up and 10 timed steps; each step's forward is one nn product and its
@@ -345,7 +386,7 @@ def main() -> int:
                         ("train", phase_train), ("tape", phase_tape),
                         ("quant", phase_quant), ("paged", phase_paged),
                         ("options", phase_options), ("ssm", phase_ssm),
-                        ("head_dims", phase_head_dims)):
+                        ("head_dims", phase_head_dims), ("moe", phase_moe)):
         timed(name, phase, args.seed)
 
     from minidiff_tpu_torch import kernels as K
@@ -386,7 +427,8 @@ def required_paths(name: str) -> tuple:
     the others on the paths that only they serve."""
     for only, paths in ((TAPE_ONLY, ("tape",)), (QUANT_ONLY, ("quant",)),
                         (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",)),
-                        (OPTIONS_ONLY, ("options",)), (SSM_ONLY, ("ssm",))):
+                        (OPTIONS_ONLY, ("options",)), (SSM_ONLY, ("ssm",)),
+                        (MOE_ONLY, ("moe",))):
         if name in only:
             return paths
     return ("generate", "server", "train", "quant", "paged")
@@ -490,7 +532,7 @@ def phase_kernels(torch, report):
              + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
              + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn)
-             + scan_cases(torch, gen))
+             + scan_cases(torch, gen) + dq_bmm_cases(torch, randn))
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
@@ -517,7 +559,8 @@ def phase_kernels(torch, report):
     # the bench decode's last step ([B, kv, g*c, hd, L]), paged_attn at the
     # paged server's steps ([B, kv, g, hd, pages per slot]), the RMSNorm
     # forwards at the options model's decode step and their backwards at its
-    # train step, and the scan at the SSM train step's (lead, T, C)
+    # train step, the scan at the SSM train step's (lead, T, C), and dq_bmm
+    # at the MoE model's decode step's w1 bank ([E, C, K, N])
     d, rows = TRAIN_MODEL["dim"], TRAIN_BATCH * TRAIN_SEQ
     bhs = [TRAIN_BATCH * TRAIN_MODEL["num_heads"], TRAIN_SEQ, 128]
     ln_src = "minidiff_tpu_torch/kernels/csrc/layernorm.cu"
@@ -559,6 +602,9 @@ def phase_kernels(torch, report):
                        [orows, od]),
         "scan": ("minidiff_tpu_torch/kernels/csrc/scan.cu",
                  "minidiff_tpu/kernels/scan.py:67", list(SSM_SCAN)),
+        "dq_bmm": (q_src, "minidiff_tpu/kernels/quant.py:274",
+                   [MOE_MODEL["num_experts"], BATCH, MOE_MODEL["dim"],
+                    2 * MOE_MODEL["mlp_hidden"]]),
     }
     line = []
     for name, (src, replaces, shape) in meta.items():
@@ -1116,6 +1162,45 @@ def quant_cases(torch, gen, randn):
                 # K and V lines with their scales, q and o; QK^T and PV
                 **bound(2 * b * h * live * (hd + 4) + 2 * b * h * hd * size + 4 * b,
                         4 * b * h * live * hd, dn)))
+    return cases
+
+
+def dq_bmm_cases(torch, randn):
+    """dq_bmm at the MoE serving model's banks ([E, C, K, N]): a decode step's
+    w1 (8, 8, 1024) @ (8, 1024, 4096) and w2 (8, 8, 2048) @ (8, 2048, 1024),
+    the bench prefill's w1 (8 x 16 tokens: C = 128), and a C of 5 (no
+    multiple of the kernel's 8 rows), against torch.bmm on the dequantized
+    bank.  A C of 384 (a server prefill's bucket) takes the plain version:
+    no launch."""
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    e, d, ff = MOE_MODEL["num_experts"], MOE_MODEL["dim"], MOE_MODEL["mlp_hidden"]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        size = torch.finfo(dtype).bits // 8
+        for c, k, n in ((BATCH, d, 2 * ff), (BATCH, ff, d), (128, d, 2 * ff),
+                        (5, d, 2 * ff)):
+            x = randn(e, c, k, dtype=dtype)
+            q, s = Q.quantize_int8_stacked(randn(e, k, n, dtype=torch.float32)
+                                           * k ** -0.5)
+            wd = (q.float() * s[:, None, :]).to(dtype)
+            cases.append(dict(
+                name="dq_bmm", dtype=dn, shape=[e, c, k, n],
+                max_abs_err=max_err(torch, Q.dequant_matmul_bmm(x, q, s),
+                                    Q._plain_dequant_bmm(x, q, s), "dq", dn),
+                ms=device_ms(torch, lambda: Q.dequant_matmul_bmm(x, q, s)),
+                plain_ms=device_ms(torch, lambda: Q._plain_dequant_bmm(x, q, s)),
+                library_ms=device_ms(torch, lambda: torch.bmm(x, wd)),
+                # x and the output in x's dtype, the int8 bank and its scales
+                **bound((e * c * k + e * c * n) * size + e * k * n + 4 * e * n,
+                        2 * e * c * n * k, dn)))
+    x = randn(e, 384, d, dtype=torch.bfloat16)
+    before = Q.LAUNCHES["dq_bmm"]
+    out = Q.dequant_matmul_bmm(x, q, s)
+    check(Q.LAUNCHES["dq_bmm"] == before, "dq_bmm launched at C = 384")
+    check(torch.equal(out, Q._plain_dequant_bmm(x, q, s)),
+          "dq_bmm at C = 384 is not its plain version")
     return cases
 
 
@@ -1970,26 +2055,46 @@ def phase_paged(torch, seed: int, report):
 # ---------------------------------------------------------------------------
 
 
-def options_forward_launches(model) -> dict:
+def forward_launches(model) -> dict:
     """The kernel launches of one forward of ``model``, read off its
-    modules: an RMSNorm forward for each RMSNorm used alone (ln1 of each
-    block, ln_f), a fused add+RMSNorm for each block's ln2 (residual_norm),
-    a flash forward for each attention."""
-    from minidiff_tpu_torch.models.transformer import MultiHeadAttention, RMSNorm
+    modules: a norm forward for each LayerNorm or RMSNorm used alone (ln1 of
+    each block, ln_f), a fused add+norm for each block's ln2
+    (residual_norm), a flash forward for each attention, a ``dq_mm`` for each
+    int8 Linear and two ``dq_bmm`` for each int8 expert bank (routing C <=
+    256 rows per expert)."""
+    from minidiff_tpu_torch.models.layers import Linear
+    from minidiff_tpu_torch.models.moe import Experts
+    from minidiff_tpu_torch.models.transformer import (LayerNorm,
+                                                       MultiHeadAttention, RMSNorm)
 
-    names = [n for n, m in model.named_modules() if isinstance(m, RMSNorm)]
-    fused = sum(n.endswith(".ln2") for n in names)
-    attn = sum(isinstance(m, MultiHeadAttention) for m in model.modules())
-    return {"rms_fwd": len(names) - fused, "addrms_fwd": fused, "flash_fwd": attn}
+    out = {}
+    for cls, alone, fused in ((LayerNorm, "ln_fwd", "addln_fwd"),
+                              (RMSNorm, "rms_fwd", "addrms_fwd")):
+        names = [n for n, m in model.named_modules() if isinstance(m, cls)]
+        out[fused] = sum(n.endswith(".ln2") for n in names)
+        out[alone] = len(names) - out[fused]
+    mods = list(model.modules())
+    out["flash_fwd"] = sum(isinstance(m, MultiHeadAttention) for m in mods)
+    out["dq_mm"] = sum(isinstance(m, Linear) and m.w_q is not None for m in mods)
+    out["dq_bmm"] = 2 * sum(isinstance(m, Experts) and m.w1_q is not None
+                            for m in mods)
+    return {k: n for k, n in out.items() if n}
 
 
-def options_train_launches(model) -> dict:
+_BACKWARD = {"ln_fwd": ("ln_bwd",), "addln_fwd": ("addln_bwd",),
+             "rms_fwd": ("rms_bwd",), "addrms_fwd": ("addrms_bwd",),
+             "flash_fwd": ("flash_bwd_dkv", "flash_bwd_dq")}
+
+
+def train_launches(model) -> dict:
     """The launches of one train step: the forward's, the loss, and one
     backward kernel for each forward kernel."""
-    fwd = options_forward_launches(model)
-    return {**fwd, "xent_fwd": 1, "rms_bwd": fwd["rms_fwd"],
-            "addrms_bwd": fwd["addrms_fwd"], "flash_bwd_dkv": fwd["flash_fwd"],
-            "flash_bwd_dq": fwd["flash_fwd"], "xent_bwd": 1}
+    fwd = forward_launches(model)
+    out = {**fwd, "xent_fwd": 1, "xent_bwd": 1}
+    for k, n in fwd.items():
+        for b in _BACKWARD[k]:
+            out[b] = n
+    return out
 
 
 def _f32_prefix(torch, model, layers: int):
@@ -2025,7 +2130,7 @@ def phase_options(torch, seed: int, report):
             launches[k] = launches.get(k, 0) + n
 
     # generate_compiled at bench.py:311-323's shape
-    fwd = options_forward_launches(model)
+    fwd = forward_launches(model)
     prompt = torch.from_numpy(np.random.RandomState(seed + 7).randint(
         1, cfg["vocab_size"], size=(BATCH, PROMPT)))
     generate_compiled(model, prompt, 4, device=DEVICE)  # warm-up
@@ -2091,7 +2196,7 @@ def phase_options(torch, seed: int, report):
     train_toks = torch.from_numpy(np.random.RandomState(seed + 9).randint(
         0, cfg["vocab_size"], size=(OPT_TRAIN_BATCH, OPT_TRAIN_SEQ))).to(DEVICE)
     step = make_train_step(model, SGD(1e-3), loss_fn=lm_loss, device=DEVICE)
-    want = options_train_launches(model)
+    want = train_launches(model)
     losses, dt, counts = _timed_steps(
         torch, K, lambda losses: losses + [step(train_toks, train_toks)], [],
         TRAIN_WARMUP, OPT_TRAIN_STEPS, want, "options train step")
@@ -2528,6 +2633,290 @@ def phase_head_dims(torch, seed: int, report):
         f"largest value (worst {worst_name})")
     report["head_dims"] = out
     report["launches_head_dims"] = {k: launches.get(k, 0) for k in K.launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the Mixture-of-Experts family
+# ---------------------------------------------------------------------------
+
+
+def _record_routes(torch, model, routes):
+    """Make every MoE layer of ``model`` append, per routing call, its slot
+    tables (on the CPU) and the smallest gap between the k-th and the
+    (k+1)-th router probability of its tokens."""
+    from minidiff_tpu_torch.models import functional as F
+
+    for blk in model.blocks:
+        moe = blk.moe
+
+        def spy(xt, c, moe=moe, route=moe.compute_routing_sparse):
+            probs = F.softmax(xt @ moe.router.w, dim=-1).float()
+            top = probs.topk(moe.k + 1, dim=-1).values
+            choices, aux = route(xt, c)
+            routes.append(([slot.cpu() for slot, _ in choices],
+                           (top[:, moe.k - 1] - top[:, moe.k]).min().item()))
+            return choices, aux
+
+        moe.compute_routing_sparse = spy
+
+
+def _cached_logits(torch, model, toks, prompt: int, L: int):
+    """Logits (B, n - prompt + 1, V) on the CPU of a prefill of ``prompt``
+    tokens and one cached step for each token after it."""
+    from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
+
+    dev = model.device
+    b, n = toks.shape
+    with torch.inference_mode():
+        caches, last = _prefill(model, toks[:, :prompt].to(dev), L)
+        out = [last]
+        for j in range(prompt, n):
+            pos = torch.full((b,), j, dtype=torch.long, device=dev)
+            out.append(_chunk_step(model, caches, toks[:, j:j + 1].to(dev), pos,
+                                   L)[:, 0])
+        return torch.stack(out, dim=1).float().cpu()
+
+
+def phase_moe(torch, seed: int, report):
+    import copy
+
+    import numpy as np
+
+    from minidiff_tpu_torch import (SGD, DecodeServer, MoETransformerLM,
+                                    PagedDecodeServer, TransformerLM,
+                                    generate_compiled, lm_loss, make_moe_loss,
+                                    make_train_step, quantize_for_serving,
+                                    quantized_bytes)
+    from minidiff_tpu_torch import kernels as K
+
+    cfg = MOE_MODEL
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    model = MoETransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **cfg)
+    q8 = quantize_for_serving(model)
+    weight_bytes = {"bf16": quantized_bytes(model), "int8": quantized_bytes(q8)}
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    out["weight_bytes"] = weight_bytes
+
+    # generate_compiled over bf16 and int8 banks at bench.py:502-530's shape;
+    # the prefill (C = 128 slots per expert) and every step (C = 8) run each
+    # forward kernel once, flash only in the prefill
+    prompt = torch.from_numpy(np.random.RandomState(seed + 20).randint(
+        1, cfg["vocab_size"], size=(BATCH, PROMPT)))
+    for label, m in (("bf16", model), ("int8", q8)):
+        generate_compiled(m, prompt, 4, device=DEVICE)  # warm-up
+        toks, dt, counts = _counted(torch, K, lambda: generate_compiled(
+            m, prompt, MOE_NEW, device=DEVICE))
+        per_forward = forward_launches(m)
+        want = {k: n * (MOE_NEW if k != "flash_fwd" else 1)
+                for k, n in per_forward.items()}
+        check(counts == want, f"moe generate {label}: launches {counts}, "
+              f"expected {want}")
+        check(tuple(toks.shape) == (BATCH, PROMPT + MOE_NEW)
+              and bool(((toks >= 0) & (toks < cfg["vocab_size"])).all()),
+              f"moe generate {label}: tokens {tuple(toks.shape)} out of range")
+        add(counts)
+        out[f"generate_{label}"] = dict(
+            seconds=dt, tok_s=BATCH * MOE_NEW / dt, ms_per_step=dt / MOE_NEW * 1e3,
+            launches=counts, per_forward=per_forward)
+        log(f"[moe] generate_compiled {label} banks, batch {BATCH} prompt {PROMPT} "
+            f"new {MOE_NEW}: {dt:.3f} s, {BATCH * MOE_NEW / dt:.0f} tok/s, "
+            f"{dt / MOE_NEW * 1e3:.2f} ms/step | per prefill and step {per_forward}")
+    check(out["generate_int8"]["per_forward"].get("dq_bmm") == 2 * cfg["num_layers"],
+          "moe int8: two dq_bmm per layer")
+    ratio = out["generate_bf16"]["seconds"] / out["generate_int8"]["seconds"]
+    out["int8_speedup_vs_bf16"] = ratio
+    log(f"[moe] int8 / bf16 speed-up {ratio:.4f} (bench's "
+        f"decode_moe_int8_speedup_vs_bf16); weight bytes bf16 "
+        f"{weight_bytes['bf16']:,} int8 {weight_bytes['int8']:,} "
+        f"({weight_bytes['int8'] / weight_bytes['bf16']:.3f}x)")
+    out["generate_profile"] = profile_run(
+        torch, "moe int8 generate_compiled 32 new tokens",
+        lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
+    del q8
+
+    # the servers: 10 staggered requests on 8 slots, window 256; bf16 timed,
+    # f32 token-identical to solo decoding (no token is dropped at capacity
+    # E / k, so a request routes as it would alone)
+    rng = np.random.RandomState(seed + 21)
+    prompts = [([int(t) for t in rng.randint(1, cfg["vocab_size"], n)], new)
+               for n, new in MOE_REQUESTS]
+    n_tokens = sum(new for _, new in MOE_REQUESTS)
+    m32 = _f32_prefix(torch, model, cfg["num_layers"])
+    fwd = forward_launches(model)
+    for dtype, m in (("bf16", model), ("f32", m32)):
+        solo = [generate_compiled(m, [p], n, device=DEVICE)[0, len(p):].tolist()
+                for p, n in prompts]
+        for cls in (DecodeServer, PagedDecodeServer):
+            name = f"{cls.__name__}_{dtype}"
+            if dtype == "bf16":
+                run_schedule(cls(m, max_batch=8, window=cfg["max_seq_len"],
+                                 device=DEVICE), prompts[:2])  # warm-up
+            srv = cls(m, max_batch=8, window=cfg["max_seq_len"], device=DEVICE)
+            (got, steps, slots), dt, counts = _counted(
+                torch, K, lambda: run_schedule(srv, prompts))
+            check(slots < len(prompts), f"moe {name}: no slot was reused")
+            want = {k: n * (len(prompts) + (steps if k != "flash_fwd" else 0))
+                    for k, n in fwd.items()}
+            if cls is PagedDecodeServer:
+                want["paged_attn"] = cfg["num_layers"] * steps
+            check(counts == want, f"moe {name}: launches {counts}, expected {want}")
+            add(counts)
+            check(all(len(g) == n for g, (_, n) in zip(got, prompts)),
+                  f"moe {name}: wrong token counts")
+            same = sum(a == b for g, s_ in zip(got, solo) for a, b in zip(g, s_))
+            if dtype == "f32":
+                for i, (g, s_) in enumerate(zip(got, solo)):
+                    if g != s_:
+                        first = next(j for j, (a, b) in enumerate(zip(g, s_))
+                                     if a != b)
+                        raise SmokeFailure(
+                            f"f32 moe {name} request {i} (prompt {len(prompts[i][0])})"
+                            f" differs from its solo decode at token {first}")
+            out[name] = dict(requests=len(prompts), tokens=n_tokens, steps=steps,
+                             seconds=dt, tok_s=n_tokens / dt,
+                             ms_per_step=dt / steps * 1e3,
+                             agreement=same / n_tokens, launches=counts)
+            log(f"[moe] {name}: {len(prompts)} requests over 8 slots, {steps} "
+                f"steps, {n_tokens} tokens in {dt:.3f} s ({n_tokens / dt:.0f} "
+                f"tok/s); agreement with solo decode {same}/{n_tokens}")
+            del srv
+    del m32
+
+    # f32 gates at full width and one layer, the card against the CPU: the
+    # same routes first (a probability gap under f32 rounding would flip a
+    # route), then prefill + 8 cached steps' logits over float and int8
+    # banks (the same codes on both devices), then the loss with aux and
+    # every gradient.  f32 through one layer in other summation orders
+    # leaves ~1e-6 relative; TF32 rounding (~1e-3) or a wrong kernel fails
+    # 1e-4
+    gate = _f32_prefix(torch, model, 1)
+    del model
+    cpu = copy.deepcopy(gate).to("cpu")
+    n = MOE_GATE_PROMPT + MOE_GATE_STEPS
+    gt = torch.from_numpy(np.random.RandomState(seed + 22).randint(
+        0, cfg["vocab_size"], size=(2, n)))
+    gate_out = {}
+    qcpu = quantize_for_serving(cpu)
+    for label, g_model, c_model in (
+            ("float", gate, cpu),
+            ("int8", copy.deepcopy(qcpu).to(DEVICE), qcpu)):
+        routes = {"card": [], "cpu": []}
+        _record_routes(torch, g_model, routes["card"])
+        _record_routes(torch, c_model, routes["cpu"])
+        K.reset_launch_counts()
+        lg = _cached_logits(torch, g_model, gt, MOE_GATE_PROMPT, 128)
+        used = {k: v for k, v in K.launch_counts().items() if v}
+        ref = _cached_logits(torch, c_model, gt, MOE_GATE_PROMPT, 128)
+        for m in (g_model, c_model):  # the spies go with the gate
+            for blk in m.blocks:
+                del blk.moe.compute_routing_sparse
+        check(len(routes["card"]) == len(routes["cpu"]) == 1 + MOE_GATE_STEPS,
+              f"moe gate {label}: {len(routes['card'])} routing calls")
+        for i, ((a, _), (b, _)) in enumerate(zip(routes["card"], routes["cpu"])):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"moe f32 gate {label}: slot tables of call {i} differ between "
+                  f"the card and the CPU")
+        gap = min(g for _, g in routes["card"])
+        err = ((lg - ref).abs().max() / ref.abs().max()).item()
+        check(err <= 1e-4, f"moe f32 {label} prefill + steps GPU vs CPU: max "
+              f"|err| {err:.3g} of the largest logit")
+        if label == "int8":
+            check(used.get("dq_bmm") == 2 * (1 + MOE_GATE_STEPS),
+                  f"moe gate int8: launches {used}")
+        gate_out[label] = dict(logits_rel_err=err, min_topk_gap=gap, launches=used)
+        log(f"[moe] f32 gate {label} banks, 1 layer: slot tables of the prefill "
+            f"and {MOE_GATE_STEPS} steps identical on the card and the CPU "
+            f"(smallest top-{cfg['k']} probability gap {gap:.3g}); logits within "
+            f"{err:.3g} of the largest | launches {used}")
+    st, sy = (torch.from_numpy(np.random.RandomState(seed + 23 + i).randint(
+        0, cfg["vocab_size"], size=(1, MOE_GATE_SEQ))) for i in range(2))
+    loss_fn = make_moe_loss(0.01)
+    K.reset_launch_counts()
+    loss_gpu = loss_fn(gate.forward_with_aux(st.to(DEVICE)), sy.to(DEVICE))
+    loss_gpu.backward()
+    add({k: v for k, v in K.launch_counts().items() if v})
+    loss_cpu = loss_fn(cpu.forward_with_aux(st), sy)
+    loss_cpu.backward()
+    check(abs(loss_gpu.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item()),
+          f"moe f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gate.named_parameters():
+        r = cpu_params[name].grad
+        check(p.grad is not None and r is not None, f"moe: no gradient for {name}")
+        rel = ((p.grad.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"moe f32 gradient of {worst_name} GPU vs CPU: max "
+          f"|err| {worst:.3g} of its largest value")
+    check(gate.blocks[0].moe.router.w.grad is not None, "moe: no router gradient")
+    gate_out.update(loss_gpu=loss_gpu.item(), loss_cpu=loss_cpu.item(),
+                    worst_grad_rel_err=worst, worst_param=worst_name)
+    out["gate"] = gate_out
+    log(f"[moe] f32 gate, 1 layer at full width, {MOE_GATE_SEQ} tokens: loss with "
+        f"aux GPU {loss_gpu.item():.6f} CPU {loss_cpu.item():.6f}; every gradient "
+        f"(the router's included) within {worst:.3g} of its largest value (worst "
+        f"{worst_name})")
+    del gate, cpu
+
+    # the train step at benchmarks/moe_bench.py's configuration: grouped and
+    # one-hot MoE and the equal-FLOPs dense step, timed in turns
+    tcfg = MOE_TRAIN
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, tcfg["vocab_size"], size=(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ))).to(DEVICE)
+    models = {
+        "grouped": MoETransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
+                                    grouped=True, **tcfg),
+        "onehot": MoETransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
+                                   grouped=False, **tcfg),
+        "dense": TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
+                               **{k: v for k, v in tcfg.items() if k not in (
+                                   "num_experts", "k", "capacity_factor")}),
+    }
+    steps = {name: make_train_step(
+        m, SGD(1e-3), loss_fn=lm_loss if name == "dense" else make_moe_loss(0.01),
+        device=DEVICE, apply_fn=None if name == "dense" else m.forward_with_aux)
+        for name, m in models.items()}
+    times = {name: [] for name in models}
+    losses = {name: [] for name in models}
+    for r in range(MOE_TRAIN_ROUNDS):
+        for name in models:
+            want = train_launches(models[name])
+            losses[name], dt, counts = _timed_steps(
+                torch, K, lambda ls: ls + [steps[name](toks, toks)], losses[name],
+                TRAIN_WARMUP if r == 0 else 0, MOE_TRAIN_STEPS, want,
+                f"moe train step {name}")
+            times[name].append(dt)
+            add(counts)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    best = {name: min(ts) for name, ts in times.items()}
+    for name, ls in losses.items():
+        ls = [float(x) for x in ls]
+        check(all(np.isfinite(ls)), f"moe train {name}: non-finite loss {ls}")
+        losses[name] = ls
+    out["train"] = dict(
+        ms_per_step={name: [t * 1e3 for t in ts] for name, ts in times.items()},
+        tok_s={name: tokens / t for name, t in best.items()},
+        grouped_speedup_vs_onehot=best["onehot"] / best["grouped"],
+        moe_vs_dense=best["grouped"] / best["dense"],
+        launches_per_step={name: train_launches(m) for name, m in models.items()},
+        losses=losses)
+    log(f"[moe] train bf16 batch {MOE_TRAIN_BATCH} x S {MOE_TRAIN_SEQ} (moe_bench): "
+        + ", ".join(f"{name} {best[name] * 1e3:.2f} ms/step ({tokens / best[name]:.0f} "
+                    f"tok/s)" for name in models)
+        + f" | grouped speed-up vs one-hot {best['onehot'] / best['grouped']:.4f}, "
+        f"MoE / dense {best['grouped'] / best['dense']:.4f} | launches per step "
+        f"{train_launches(models['grouped'])} | final losses "
+        + " ".join(f"{name} {ls[-1]:.4f}" for name, ls in losses.items()))
+    out["train_profile"] = profile_run(
+        torch, "one grouped moe train step", lambda: steps["grouped"](toks, toks))
+    report["moe"] = out
+    report["launches_moe"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """minidiff_tpu_torch: the PyTorch and CUDA port of minidiff_tpu for the H100.
 
-Six slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
+Seven slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
 its three cleanup modes, higher-order sweeps and ``reuse_graph``, the op
 registry and its VJPs, ``value_and_grad`` / ``grad`` / ``vjp`` / ``jvp`` /
 ``hvp`` / ``hessian`` and the gradcheck oracle (``minidiff_tpu_torch.utils``),
@@ -12,13 +12,18 @@ int8 / int4 weight-only serving (``quantize_for_serving``), for the
 flagship options and the LLaMA-style ones (RMSNorm, RoPE, grouped-query
 attention, gated MLPs, parallel blocks, biases, tied embeddings).  The
 Mamba family: ``MambaLM``, ``generate_compiled_ssm`` and
-``SSMDecodeServer``, and the tape's ``linear_scan``.
+``SSMDecodeServer``, and the tape's ``linear_scan``.  Mixture-of-Experts:
+``MoETransformerLM`` (one-hot or grouped top-k routing) serving over bf16 or
+int8 expert banks through the same decode paths, its train step
+(``make_moe_loss``, ``make_train_step(..., apply_fn=...)``), and the tape's
+``dequant_matmul_bmm``.
 Training: ``make_train_step`` with ``SGD``, ``Adam`` and ``AdamW``,
 ``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd.
 Hand-written sm_90a CUDA kernels (``minidiff_tpu_torch.kernels``) carry the
 tape's large 2-D matrix products, LayerNorm, RMSNorm and their fused
 residual-add forms, flash attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,
-attention over an int8 KV cache, paged decode attention and the linear scan.  Entry points
+the batched int8 dequant-matmul of an expert bank, attention over an int8 KV
+cache, paged decode attention and the linear scan.  Entry points
 run on the GPU unless the caller asks for the CPU, where every kernel runs
 its plain PyTorch version.
 The package imports neither JAX nor ``minidiff_tpu``.
@@ -63,6 +68,7 @@ from minidiff_tpu_torch.models import (  # noqa: F401
     AdamW,
     DecodeServer,
     MambaLM,
+    MoETransformerLM,
     PagedDecodeServer,
     SSMDecodeServer,
     TransformerLM,
@@ -70,6 +76,7 @@ from minidiff_tpu_torch.models import (  # noqa: F401
     generate_compiled,
     generate_compiled_ssm,
     lm_loss,
+    make_moe_loss,
     make_train_step,
     params_from_jax,
     quantize_for_serving,

@@ -22,8 +22,9 @@ or divided by an integer), the result is numpy's float64.
 ``matmul`` / ``matmul_nt`` / ``matmul_tn`` go to ``kernels.matmul`` (the
 hand-written CUDA kernels for large 2-D f32/bf16 products),
 ``softmax_xent`` to ``kernels.xent``, ``rmsnorm`` and ``add_rmsnorm`` to
-``kernels.layernorm``, ``dequant_matmul``, ``dequant_matmul4`` and
-``sdpa_int8_cache`` to ``kernels.quant``, and ``linear_scan`` to
+``kernels.layernorm``, ``dequant_matmul``, ``dequant_matmul4``,
+``dequant_matmul_bmm`` and ``sdpa_int8_cache`` to ``kernels.quant``, and
+``linear_scan`` to
 ``kernels.scan``.  Autograd is the tape's: torch tensors
 here never require grad.
 """
@@ -458,12 +459,14 @@ class TorchBackend:
     rmsnorm = staticmethod(_ln.for_tape("rmsnorm"))
     add_rmsnorm = staticmethod(_ln.for_tape("add_rmsnorm"))
 
-    # quantized serving: the dq_mm / dq4_mm / sdpa_int8 kernels or their
-    # plain versions (kernels/quant.py)
+    # quantized serving: the dq_mm / dq4_mm / dq_bmm / sdpa_int8 kernels or
+    # their plain versions (kernels/quant.py)
     dequant_matmul = staticmethod(_quant.for_tape("dequant_matmul"))
     dequant_matmul4 = staticmethod(_quant.for_tape("dequant_matmul4"))
+    dequant_matmul_bmm = staticmethod(_quant.for_tape("dequant_matmul_bmm"))
     sdpa_int8_cache = staticmethod(_quant.for_tape("sdpa_int8_cache"))
     unpack_int4 = staticmethod(_quant.unpack_int4)
+    quantize_int8_stacked = staticmethod(_quant.quantize_int8_stacked)
 
     # ---- ternary ----
     @staticmethod

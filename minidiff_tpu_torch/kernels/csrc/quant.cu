@@ -1,12 +1,15 @@
 // Quantized serving kernels for sm_90a: the int8 and int4 weight-only
-// dequant-matmuls and masked attention over an int8 KV cache.
+// dequant-matmuls, the batched int8 dequant-matmul of an MoE expert bank, and
+// masked attention over an int8 KV cache.
 //
 // Replaces, in minidiff_tpu/kernels/quant.py:
 //   dq_mm     <- _dq_mm_kernel (:58, pallas_call at :70)
+//   dq_bmm    <- _dq_bmm_kernel (:274, pallas_call at :286)
 //   dq4_mm    <- _dq4_mm_kernel (:412, pallas_call at :453)
 //   sdpa_int8 <- _make_sdpa_int8_kernel (:138, pallas_call at :196)
 // with the same arithmetic (kernels/quant.py in the port states it):
 //   dq_mm:     out = (sum_k x[k] * q[k, n]) * s[n], summed in f32, cast once;
+//   dq_bmm:    dq_mm for each expert e: x[e] (C, K), q[e] (K, N), s[e] (N,);
 //   dq4_mm:    out = sum_k x[k] * w[k, n], w = (code * group scale) in f32
 //              rounded to x's dtype before the product, summed in f32;
 //   sdpa_int8: scores (q . k8) * (ks * scale) in f32, masked to
@@ -29,7 +32,10 @@
 // high nibble is an arithmetic shift of the sign-extended byte, the low one
 // (b << 28) >> 28; row r belongs to group r / group, so the low plane reads
 // groups [0, G/2) and the high plane [G/2, G).  A weight row that is no whole
-// number of 16-byte vectors (N % 16 != 0) is read byte by byte.
+// number of 16-byte vectors (N % 16 != 0) is read byte by byte.  dq_bmm runs
+// dq_mm's tile with the expert as a third grid axis: blockIdx.z offsets x, q,
+// s and the output by one expert's strides, so each expert's bank streams
+// through its own CTAs, once per 8 rows of that expert's slots.
 //
 // sdpa_int8 at decode reads the int8 cache lines and their f32 scales once:
 // (hd + 4) bytes per key for K and for V, bound by bytes.  Design: one CTA
@@ -137,10 +143,12 @@ __device__ __forceinline__ void stage_x(float* dst, int ld, const T* x, int row0
   }
 }
 
+// One CTA's (8 rows, 64 columns) tile of (x @ q) * s.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-dq_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-             const float* __restrict__ s, T* __restrict__ out, int m, int n, int k) {
+__device__ __forceinline__ void dq_mm_tile(const T* __restrict__ x,
+                                           const int8_t* __restrict__ q,
+                                           const float* __restrict__ s,
+                                           T* __restrict__ out, int m, int n, int k) {
   __shared__ float xs[MT * KC];
   __shared__ float red[kWarps][MT][BN];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -173,6 +181,22 @@ dq_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   reduce_tile(acc, red, row0, col_base, m, n, [&](int row, int col, float sum) {
     out[static_cast<size_t>(row) * n + col] = from_f<T>(sum * s[col]);
   });
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dq_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+             const float* __restrict__ s, T* __restrict__ out, int m, int n, int k) {
+  dq_mm_tile<T, VEC>(x, q, s, out, m, n, k);
+}
+
+// blockIdx.z is the expert: its operands start one expert's stride further on
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dq_bmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+              const float* __restrict__ s, T* __restrict__ out, int c, int n, int k) {
+  const size_t e = blockIdx.z;
+  dq_mm_tile<T, VEC>(x + e * c * k, q + e * k * n, s + e * n, out + e * c * n, c, n, k);
 }
 
 constexpr int KC4 = 256;  // packed rows of x staged per chunk (both planes)
@@ -233,8 +257,9 @@ dq4_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
 
 template <typename T>
 int launch_dq(bool int4, const void* x, const void* w, const void* s, void* out,
-              int m, int n, int k, int group, cudaStream_t st) {
-  const dim3 grid((n + BN - 1) / BN, (m + MT - 1) / MT);
+              int experts, int m, int n, int k, int group, cudaStream_t st) {
+  // experts: the bank's expert count for dq_bmm, 0 for the 2-D products
+  const dim3 grid((n + BN - 1) / BN, (m + MT - 1) / MT, experts > 0 ? experts : 1);
   const bool vec = n % 16 == 0;
   const T* xp = static_cast<const T*>(x);
   const int8_t* wp = static_cast<const int8_t*>(w);
@@ -243,6 +268,9 @@ int launch_dq(bool int4, const void* x, const void* w, const void* s, void* out,
   if (int4) {
     if (vec) dq4_mm_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k, group);
     else dq4_mm_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k, group);
+  } else if (experts > 0) {
+    if (vec) dq_bmm_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k);
+    else dq_bmm_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k);
   } else {
     if (vec) dq_mm_kernel<T, true><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k);
     else dq_mm_kernel<T, false><<<grid, kThreads, 0, st>>>(xp, wp, sp, op, m, n, k);
@@ -410,16 +438,24 @@ int sdpa_dispatch(int hd, const void* q, const void* k8, const void* ks,
 extern "C" int dq_mm(const void* x, const void* q, const void* s, void* out,
                      int m, int n, int k, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, m, n, k, 0, st);
-  return launch_dq<float>(false, x, q, s, out, m, n, k, 0, st);
+  if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, 0, m, n, k, 0, st);
+  return launch_dq<float>(false, x, q, s, out, 0, m, n, k, 0, st);
+}
+
+extern "C" int dq_bmm(const void* x, const void* q, const void* s, void* out,
+                      int e, int c, int n, int k, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (e < 1 || e > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, e, c, n, k, 0, st);
+  return launch_dq<float>(false, x, q, s, out, e, c, n, k, 0, st);
 }
 
 extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
                       int m, int n, int k, int group, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k % 2 || group < 1 || k % group) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(true, x, p, s, out, m, n, k, group, st);
-  return launch_dq<float>(true, x, p, s, out, m, n, k, group, st);
+  if (dtype == 1) return launch_dq<__nv_bfloat16>(true, x, p, s, out, 0, m, n, k, group, st);
+  return launch_dq<float>(true, x, p, s, out, 0, m, n, k, group, st);
 }
 
 extern "C" int sdpa_int8(const void* q, const void* k8, const void* ks,

@@ -3,12 +3,15 @@ cache, for quantized serving.
 
 Port of ``minidiff_tpu/kernels/quant.py``: the quantizers
 (``quantize_int8``, ``quantize_int8_rows``, ``quantize_int4``,
-``unpack_int4``, plain torch in both packages, bit-identical codes and
-scales), ``dequant_matmul``, ``dequant_matmul4`` and ``sdpa_int8_cache``.
+``unpack_int4``, ``quantize_int8_stacked``, plain torch in both packages,
+bit-identical codes and scales), ``dequant_matmul``, ``dequant_matmul4``,
+``dequant_matmul_bmm`` (an MoE expert bank) and ``sdpa_int8_cache``.
 Semantics, shared by the CUDA kernels and the plain versions (acc = f32 for
 sub-f32 inputs, else the input dtype):
 
     dequant_matmul(x, q, s)  = ((x @ q) in acc * s)             -> x.dtype
+    dequant_matmul_bmm(x (E, C, K), q (E, K, N), s (E, N))
+                             = dequant_matmul(x[e], q[e], s[e]) for each e
     dequant_matmul4(x, p, s) = x @ (unpack(p) * s[group]).to(x.dtype),
                                summed in acc                    -> x.dtype
     sdpa_int8_cache: scores (q . k8) * (ks * scale) in f32, masked to
@@ -20,11 +23,12 @@ weight to x.dtype before it.  int4 packs split-half: ``packed[i]`` holds row
 i in its low nibble and row i + K/2 in its high nibble.
 
 A CUDA tensor goes to the hand-written kernels of ``csrc/quant.cu``
-(``dq_mm``, ``dq4_mm``, ``sdpa_int8``); a CPU tensor to the plain versions
-(``_plain_dequant_matmul``, ``_plain_dequant_matmul4``, ``_plain_sdpa_int8``,
-the ports of the JAX ``_jnp_*`` functions).  As in the JAX dispatcher
-(``quant.py:102-114``), a product of more than 256 rows (a prefill) is not
-weight-streaming: ``uses_kernel`` sends it to the plain version on the
+(``dq_mm``, ``dq4_mm``, ``dq_bmm``, ``sdpa_int8``); a CPU tensor to the plain
+versions (``_plain_dequant_matmul``, ``_plain_dequant_matmul4``,
+``_plain_dequant_bmm``, ``_plain_sdpa_int8``, the ports of the JAX
+``_jnp_*`` functions).  As in the JAX dispatcher (``quant.py:102-114``), a
+product of more than 256 rows (a prefill; for a bank, rows per expert) is
+not weight-streaming: ``uses_kernel`` sends it to the plain version on the
 dequantized weight, a ``torch.matmul``, on either device.  A CUDA tensor the
 kernels do not take raises: nothing falls back.  These ops serve decoding
 only and have no autograd; the tape's ops supply the VJPs.
@@ -39,7 +43,7 @@ import torch
 from minidiff_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
-LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0}
+LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "dq_bmm": 0, "sdpa_int8": 0}
 # the most activation rows a dequant-matmul kernel takes (quant.py:111)
 MAX_KERNEL_ROWS = 256
 # the head dims the attention kernel is built for; others take the plain
@@ -63,6 +67,14 @@ def quantize_int8(w):
     if w.dim() != 2:
         raise ValueError("quantize_int8 expects a 2-D weight matrix")
     return _quantize_rows(w, 0, 127.0)
+
+
+def quantize_int8_stacked(w):
+    """(E, K, N) float expert bank -> (q int8 (E, K, N), s f32 (E, N)),
+    symmetric per (expert, output column)."""
+    if w.dim() != 3:
+        raise ValueError("quantize_int8_stacked expects a 3-D weight bank")
+    return _quantize_rows(w, 1, 127.0)
 
 
 def quantize_int8_rows(x):
@@ -114,6 +126,13 @@ def _plain_dequant_matmul(x, q, s):
     """(x @ q) in acc, times s, cast to x.dtype (``_jnp_dequant_matmul``)."""
     acc = _acc_dtype(x.dtype)
     return (torch.matmul(x.to(acc), q.to(acc)) * s.to(acc)).to(x.dtype)
+
+
+def _plain_dequant_bmm(x, q, s):
+    """Each expert's (x[e] @ q[e]) in acc, times s[e], cast to x.dtype
+    (``_jnp_dequant_bmm``)."""
+    acc = _acc_dtype(x.dtype)
+    return (torch.bmm(x.to(acc), q.to(acc)) * s.to(acc)[:, None, :]).to(x.dtype)
 
 
 def _dequantized4(p, s, dtype):
@@ -206,6 +225,28 @@ def dequant_matmul(x, q, s):
     return out.reshape(*x.shape[:-1], n)
 
 
+def dequant_matmul_bmm(x, q, s):
+    """x (E, C, K) float @ q (E, K, N) int8 * s (E, N) -> (E, C, N).  C > 256
+    rows per expert take the plain version (``uses_kernel``)."""
+    if x.dim() != 3 or q.dim() != 3:
+        raise ValueError("dequant_matmul_bmm expects 3-D x and weight bank")
+    if x.shape[0] != q.shape[0] or x.shape[2] != q.shape[1]:
+        raise ValueError(f"dequant_matmul_bmm: x {tuple(x.shape)} vs bank "
+                         f"{tuple(q.shape)}")
+    e, c, k = x.shape
+    n = q.shape[2]
+    if x.device.type == "cpu" or not uses_kernel(c):
+        return _plain_dequant_bmm(x, q, s)
+    _check_cuda("dq_bmm", x, q, s, dtypes=(torch.int8, torch.float32))
+    if s.shape != (e, n):
+        raise ValueError(f"dq_bmm: scales {tuple(s.shape)}, expected ({e}, {n})")
+    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if out.numel():
+        ops = [_build.operand(t) for t in (x, q, s)]
+        _launch("dq_bmm", x, (*ops, out), (e, c, n, k))
+    return out
+
+
 def dequant_matmul4(x, p, s):
     """x (..., K) @ (unpack_int4(p (K/2, N)) * s (K/G, N)) -> (..., N)."""
     if p.dim() != 2 or s.dim() != 2:
@@ -280,4 +321,5 @@ def for_tape(name: str):
     return _build.tape_entry(name, *{
         "dequant_matmul": (dequant_matmul, _plain_dequant_matmul),
         "dequant_matmul4": (dequant_matmul4, _plain_dequant_matmul4),
+        "dequant_matmul_bmm": (dequant_matmul_bmm, _plain_dequant_bmm),
         "sdpa_int8_cache": (sdpa_int8_cache, _plain_sdpa_int8_cache)}[name])

@@ -16,13 +16,15 @@ _LATER = "a later slice of the port"
 
 
 def make_train_step(model, optimizer=None, loss_fn=F.cross_entropy,
-                    grad_accum: int = 1, device="cuda", *,
+                    grad_accum: int = 1, device="cuda", *, apply_fn=None,
                     trainable=None, donate: bool = False):
     """Build ``step(x, y) -> loss`` that trains ``model`` in place.
 
     One step runs the forward, ``backward()`` and ``optimizer.step`` over
     ``model.parameters()`` (``optimizer`` defaults to ``SGD(0.1)``, as in the
-    JAX package).  ``loss_fn`` receives ``model(x)`` and the targets.
+    JAX package).  ``loss_fn`` receives ``apply_fn(x)`` (``model(x)`` by
+    default; an MoE model trains with ``apply_fn=model.forward_with_aux``,
+    whose (logits, aux) ``make_moe_loss`` takes) and the targets.
     ``grad_accum > 1`` splits the batch
     into that many microbatches, runs forward and backward on each, sums
     their gradients and losses, and scales both once before the single
@@ -39,6 +41,7 @@ def make_train_step(model, optimizer=None, loss_fn=F.cross_entropy,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = check_device(model, device)
     optimizer = optimizer or SGD(0.1)
+    apply = apply_fn or model
     params = list(model.parameters())
 
     def step(x, y, rng=None):
@@ -49,7 +52,7 @@ def make_train_step(model, optimizer=None, loss_fn=F.cross_entropy,
         for p in params:
             p.grad = None
         if grad_accum == 1:
-            loss = loss_fn(model(x), y)
+            loss = loss_fn(apply(x), y)
             loss.backward()
         else:
             if x.shape[0] % grad_accum:
@@ -58,7 +61,7 @@ def make_train_step(model, optimizer=None, loss_fn=F.cross_entropy,
             n = x.shape[0] // grad_accum
             loss = None
             for i in range(grad_accum):
-                li = loss_fn(model(x[i * n:(i + 1) * n]), y[i * n:(i + 1) * n])
+                li = loss_fn(apply(x[i * n:(i + 1) * n]), y[i * n:(i + 1) * n])
                 li.backward()  # sums into each .grad
                 loss = li.detach() if loss is None else loss + li.detach()
             scale = 1.0 / grad_accum

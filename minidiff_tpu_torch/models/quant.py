@@ -13,7 +13,11 @@ The selection rules are the JAX package's: a weight is quantized when it is
 2-D with at least ``min_elements`` entries (the attention QKV and output
 projections, the MLP and the untied head); int4 falls back to int8 for a K
 that is odd or not a multiple of ``group``; LayerNorm gains and biases,
-Linear biases and the embeddings stay as they are.
+Linear biases and the embeddings stay as they are.  An MoE expert bank, a
+3-D ``w1`` / ``w2`` (E, K, N) with at least ``min_elements`` entries, becomes
+``w1_q`` / ``w1_s`` (and ``w2_q`` / ``w2_s``): int8 per (expert, output
+column) at either ``bits``, multiplied through ``dequant_matmul_bmm``.  The
+MoE router (no ``Linear``) stays full precision.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from minidiff_tpu_torch.kernels import quant
 from minidiff_tpu_torch.models.layers import Linear
+from minidiff_tpu_torch.models.moe import Experts
 
 __all__ = ["quantize_for_serving", "quantized_bytes"]
 
@@ -52,7 +57,20 @@ def quantize_for_serving(model, min_elements: int = 128 * 128, bits: int = 8,
             if (isinstance(mod, Linear) and mod.w is not None
                     and mod.w.dim() == 2 and mod.w.numel() >= min_elements):
                 _quantize(mod, bits, group)
+            elif isinstance(mod, Experts):
+                _quantize_banks(mod, min_elements)
     return out
+
+
+def _quantize_banks(ex: Experts, min_elements: int) -> None:
+    for name in ("w1", "w2"):
+        w = getattr(ex, name)
+        if w is not None and w.dim() == 3 and w.numel() >= min_elements:
+            q, s = quant.quantize_int8_stacked(w.detach())
+            setattr(ex, name + "_q", q)
+            setattr(ex, name + "_s", s)
+            delattr(ex, name)
+            setattr(ex, name, None)
 
 
 def quantized_bytes(model) -> int:

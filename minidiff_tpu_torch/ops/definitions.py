@@ -18,14 +18,14 @@ resolves its backend function at call time (``backend/torch_backend.py``).
   add_rmsnorm's first-order VJPs share one ``rms_bwd`` / ``addrms_bwd``
   launch in the same way.
 * the quantized serving ops (``dequant_matmul``, ``dequant_matmul4``,
-  ``sdpa_int8_cache``) run the ``kernels/quant.py`` kernels for f32 and
-  bf16; their gradient flows to x only.
+  ``dequant_matmul_bmm``, ``sdpa_int8_cache``) run the ``kernels/quant.py``
+  kernels for f32 and bf16; their gradient flows to x only.
 * linear_scan's two VJPs share one reversed scan (the ``scan`` kernel for
   f32 and bf16) through a single-entry memo.
 
 Not ported yet (each waits for the slice that needs it): the collectives,
-``dequant_matmul_bmm``, ``sdpa``, ``layernorm`` and ``add_layernorm`` as
-tape ops, and the conv2d family.
+``sdpa``, ``layernorm`` and ``add_layernorm`` as tape ops, and the conv2d
+family.
 """
 
 from __future__ import annotations
@@ -1256,6 +1256,20 @@ dequant_matmul4 = wrapping.create_ternary_op_func(
     tensor_only=True,
 )
 
+# the stacked sibling for an MoE expert bank: x (E, C, K) @ (q (E, K, N) *
+# s (E, N)); the gradient flows to x only, through the frozen dequantized bank
+def _dequant_matmul_bmm_grad_x(x, q, s, grad):
+    wdt = (s.reshape((-1,))[:1] * grad.reshape((-1,))[:1]).dtype
+    w = q.astype(wdt) * md.expand_dims(s.astype(wdt), 1)  # (E, K, N)
+    return matmul_nt(grad.astype(wdt), w).astype(x.dtype)
+
+
+dequant_matmul_bmm = wrapping.create_ternary_op_func(
+    forward_func=as_tensor_func(backend_fn("dequant_matmul_bmm")),
+    grad_x=_dequant_matmul_bmm_grad_x,
+    tensor_only=True,
+)
+
 # attention over an int8 KV cache (q, k8, ks, v8, vs, pos; kwarg scale):
 # serving only, non-differentiable by design, as in the JAX package
 sdpa_int8_cache = wrapping.create_op_func(
@@ -1351,5 +1365,6 @@ __all__ = [
     "where",
     "dequant_matmul",
     "dequant_matmul4",
+    "dequant_matmul_bmm",
     "sdpa_int8_cache",
 ]

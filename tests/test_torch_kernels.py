@@ -550,6 +550,8 @@ def test_cpu_wrappers_launch_nothing():
     x = torch.randn(8, 256)
     TQ.dequant_matmul(x, *TQ.quantize_int8(torch.randn(256, 64)))
     TQ.dequant_matmul4(x, *TQ.quantize_int4(torch.randn(256, 64)))
+    TQ.dequant_matmul_bmm(x.reshape(2, 4, 256),
+                          *TQ.quantize_int8_stacked(torch.randn(2, 256, 64)))
     k8, ks = TQ.quantize_int8_rows(torch.randn(1, 2, 128, 64))
     TQ.sdpa_int8_cache(torch.randn(1, 2, 1, 64), k8, ks, k8, ks, torch.tensor([5]))
     pool = torch.randn(2, 2, 128, 64)
@@ -569,7 +571,8 @@ def test_cpu_wrappers_launch_nothing():
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
         "xent_fwd": 0, "xent_bwd": 0,
         "matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0,
-        "dq_mm": 0, "dq4_mm": 0, "sdpa_int8": 0, "paged_attn": 0, "scan": 0}
+        "dq_mm": 0, "dq4_mm": 0, "dq_bmm": 0, "sdpa_int8": 0, "paged_attn": 0,
+        "scan": 0}
 
 
 @pytest.fixture

@@ -25,7 +25,6 @@ TOL = dict(rtol=1e-10, atol=1e-10)
 # the JAX package's ops that wait for later slices of the port
 LATER = {
     "psum", "ppermute", "pmean", "all_gather", "psum_scatter", "all_to_all",
-    "dequant_matmul_bmm",  # the MoE expert bank
     "sdpa", "layernorm", "add_layernorm",  # models
     "conv2d", "conv2d_input_grad", "conv2d_kernel_grad",  # CNN
 }
@@ -61,6 +60,8 @@ POS34 = _r(3, 4, seed=3, lo=0.5)
 # int8 codes (8, 5), and packed int4 codes for K = 8 in two groups of 4
 Q8 = np.random.RandomState(6).randint(-127, 128, (8, 5)).astype(np.int8)
 P4 = np.random.RandomState(7).randint(-128, 128, (4, 5)).astype(np.int8)
+# an int8 expert bank of 2 experts, (E, K, N) = (2, 8, 5)
+QB = np.random.RandomState(8).randint(-127, 128, (2, 8, 5)).astype(np.int8)
 
 # (id, fn(package, *tensors), inputs, indices of differentiable inputs)
 DIFF = [
@@ -152,6 +153,8 @@ DIFF = [
      [_r(2, 3, 8), Q8, _r(5, seed=4, lo=0.1)], [0]),
     ("dequant_matmul4", lambda m, x, p, s: m.dequant_matmul4(x, p, s),
      [_r(3, 8), P4, _r(2, 5, seed=5, lo=0.1)], [0]),
+    ("dequant_matmul_bmm", lambda m, x, q, s: m.dequant_matmul_bmm(x, q, s),
+     [_r(2, 3, 8), QB, _r(2, 5, seed=9, lo=0.1)], [0]),
 ]
 
 NON_DIFF = [

@@ -156,6 +156,62 @@ def test_plain_dequant_matmul4_matches_jax(dtype):
         _close(got, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_quantizer_is_bit_identical_to_jax(dtype):
+    w = np.stack([_weight(64, 48, seed=e) * (e + 1) for e in range(3)])
+    w[2] = 0.0  # an all-zero expert takes the s = 1 guard in every column
+    wj, wt = _both(w, dtype)
+    (qj, sj), (qt, st) = JQ.quantize_int8_stacked(wj), TQ.quantize_int8_stacked(wt)
+    assert qt.dtype == torch.int8 and tuple(st.shape) == (3, 48)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    with pytest.raises(ValueError, match="3-D"):
+        TQ.quantize_int8_stacked(wt[0])
+
+
+# (E, C, K, N): the interpret-mode kernel's N-tile is 256; a C that is no
+# multiple of 8 (the CUDA kernel's rows per CTA) and one of 16
+@pytest.mark.parametrize("c", [5, 16])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_plain_dequant_bmm_matches_jax(dtype, c, _interpret_pallas):
+    e, k, n = 3, 128, 512
+    x = np.random.RandomState(8).standard_normal((e, c, k))
+    wb = np.stack([_weight(k, n, seed=10 + i) for i in range(e)])
+    q, s = JQ.quantize_int8_stacked(jnp.asarray(wb))
+    xj, xt = _both(x, dtype)
+    qt, st = torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s))
+    got = TQ._plain_dequant_bmm(xt, qt, st)
+    assert got.dtype == _TORCH[dtype] and tuple(got.shape) == (e, c, n)
+    refs = [JQ._jnp_dequant_bmm(xj, q, s)]
+    if dtype != "float64":  # the kernel takes f32 and bf16
+        refs.append(JQ._pallas_dequant_bmm(xj, q, s))
+    for ref in refs:
+        _close(got, ref, dtype)
+    # the entry point (the plain version on the CPU) and each expert's 2-D
+    # product agree with it exactly
+    assert torch.equal(TQ.dequant_matmul_bmm(xt, qt, st), got)
+    for i in range(e):
+        _close(got[i], JQ._jnp_dequant_matmul(xj[i], q[i], s[i]), dtype)
+
+
+def test_dequant_bmm_shape_errors_and_route_rule():
+    q, s = TQ.quantize_int8_stacked(torch.randn(2, 16, 8))
+    for bad_x, bad_q in ((torch.randn(2, 16), q), (torch.randn(2, 3, 16), q[0]),
+                         (torch.randn(3, 3, 16), q), (torch.randn(2, 3, 12), q)):
+        with pytest.raises(ValueError, match="dequant_matmul_bmm"):
+            TQ.dequant_matmul_bmm(bad_x, bad_q, s)
+    # the rule of dq_mm on C, the rows per expert (quant.py:111): a server
+    # prefill of a 384-token bucket routes 384 rows per expert at capacity
+    # E / k, which take the plain product on the dequantized bank
+    assert TQ.uses_kernel(256) and not TQ.uses_kernel(384)
+    x = torch.randn(2, 384, 16, dtype=torch.float64)
+    assert torch.equal(TQ.dequant_matmul_bmm(x, q, s),
+                       TQ._plain_dequant_bmm(x, q, s))
+    # the tape's entry: f64 (the oracle) always takes the plain version
+    entry = TQ.for_tape("dequant_matmul_bmm")
+    assert torch.equal(entry(x, q, s), TQ._plain_dequant_bmm(x, q, s))
+
+
 def _cache(b, kv, L, hd, seed):
     rng = np.random.RandomState(seed)
     k8, ks = JQ.quantize_int8_rows(jnp.asarray(rng.standard_normal((b, kv, L, hd))))
