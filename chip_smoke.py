@@ -17,9 +17,14 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    ``paged_attn`` at head dim 256, the scan at the SSM train step's,
    backward's and server prefill's shapes, an RMSNorm at d 16,384 (wider
    than the kernels: composed, no launch), the flash rule at head dims
-   32, 64, 128 and 256 (the route each takes, counted by launches), and
+   32, 64, 128 and 256 (the route each takes, counted by launches),
    ``dq_bmm`` at the MoE model's decode and prefill banks (a C of 384
-   launches nothing);
+   launches nothing), ``dq4_mm`` at int4 groups 64 and 256, a ragged N
+   (520) and one row, each case with the tile and K splits it launched
+   with, and the A/B of ``dq_bmm`` / ``dq4_mm`` in bf16 at the main path's
+   shapes: the tensor-core tiles against a ``-DDQ_SIMT_BF16`` build of
+   ``quant.cu`` (the SIMT tile) in turns, with the library call, and cold
+   times beside the warm ones (weights rotated over 100 MB);
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -117,7 +122,9 @@ measurement (all kernel cases, the profile) to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -218,7 +225,7 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
                   "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel",
-                  "dq_bmm_kernel")
+                  "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -316,6 +323,26 @@ MOE_GATE_PROMPT, MOE_GATE_STEPS, MOE_GATE_SEQ = 16, 8, 128
 # warm-up and 10 timed steps; each step's forward is one nn product and its
 # backward one nt (dx) and one tn (dw)
 MM_N, MM_LR, MM_WARMUP, MM_STEPS = 4096, 1e-6, 2, 10
+# the dequant kernels' A/B of phase 2 (dq_route_ab): the tensor-core tiles
+# against the SIMT tile of a -DDQ_SIMT_BF16 build, at the main path's shapes
+# ([E, C, K, N] for dq_bmm, [M, K, N] for dq4_mm); a cold time rotates over
+# copies of the weight that together exceed COLD_BYTES (twice the 50 MB L2)
+DQ_BMM_AB = ([8, 128, 1024, 4096], [8, 128, 2048, 1024], [8, 8, 1024, 4096],
+             [8, 8, 2048, 1024], [8, 5, 1024, 4096])
+DQ4_AB = ([128, 1024, 3072], [128, 1024, 4096], [128, 4096, 1024], [8, 1024, 3072],
+          [8, 1024, 1024], [8, 1024, 4096], [8, 1024, 512], [8, 4096, 1024])
+COLD_BYTES = 100e6
+# the split A/B of phase 2 (dq_split_ab): each shape on its plan's tile at
+# 1, 2, 4, 8 and 16 K splits (as many as its units allow), the evidence for
+# dq_plan's split rule; the 128-row shapes on the large tile, the decode
+# shapes on the small one ((bits, shape) as DQ_BMM_AB / DQ4_AB)
+DQ_SPLIT_AB = ((8, [8, 128, 2048, 1024]), (8, [8, 128, 1024, 4096]),
+               (4, [128, 1024, 3072]), (4, [128, 1024, 4096]), (4, [128, 4096, 1024]),
+               (8, [8, 8, 2048, 1024]), (4, [8, 4096, 1024]), (4, [8, 1024, 3072]))
+# the tile A/B at 9-16 rows (dq_tile_ab): a 16-token bucket's products on
+# each tensor-core tile, with the split rule's splits for that tile
+DQ_TILE_AB = ((8, [8, 16, 1024, 4096]), (8, [8, 16, 2048, 1024]),
+              (4, [16, 1024, 3072]), (4, [16, 4096, 1024]))
 MM_STEP_LAUNCHES = {"matmul_nn": 1, "matmul_nt": 1, "matmul_tn": 1}
 # benchmarks/mlp_bench.py's device-bound config mlp_784x4096x10_b8192:
 # batch 8192, 784 -> 4096 (relu) -> 10, f32, SGD 0.1.  Per step: layer 1's
@@ -510,10 +537,18 @@ def phase_kernels(torch, report):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DNORM_BLOCK_PER_ROW", "-o",
          str(block_lib), str(_build._CSRC / "layernorm.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # quant.cu with every bf16 dq_bmm / dq4_mm on the SIMT tile (dq_route_ab)
+    simt_lib = _build.BUILD_DIR / "quant-simt.so"
+    simt_build = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDQ_SIMT_BF16", "-o",
+         str(simt_lib), str(_build._CSRC / "quant.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build_all()
     block_log = block_build.communicate()[0]
     check(block_build.returncode == 0, f"nvcc -DNORM_BLOCK_PER_ROW:\n{block_log}")
-    log(f"[build] {len(_build.SOURCES) + 1} sources in "
+    simt_log = simt_build.communicate()[0]
+    check(simt_build.returncode == 0, f"nvcc -DDQ_SIMT_BF16:\n{simt_log}")
+    log(f"[build] {len(_build.SOURCES) + 2} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -532,11 +567,14 @@ def phase_kernels(torch, report):
              + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
              + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn)
-             + scan_cases(torch, gen) + dq_bmm_cases(torch, randn))
+             + scan_cases(torch, gen) + dq_bmm_cases(torch, randn)
+             + dq_edge_cases(torch, randn))
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
-        log(f"[kernel] {c['name']:13s} {c['dtype']:8s} {str(c['shape']):18s}"
+        tile = (f" {c['tile']}x{c['splits']}" if c.get("tile") else "")
+        log(f"[kernel] {c['name']:13s} {c['dtype']:8s} {str(c['shape']):18s}{tile}"
+            f"{' g' + str(c['group']) if c.get('group') else ''}"
             f"{' causal' if c.get('causal') else '':7s}"
             f"{' w' + str(c['window']) if c.get('window') else '':5s}"
             f"{' g' + str(c['groups']) if c.get('groups', 1) > 1 else '':4s} "
@@ -549,6 +587,10 @@ def phase_kernels(torch, report):
     report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
+    report["dq_route_ab"] = dq_route_ab(torch, randn, simt_lib)
+    report["dq_split_ab"] = dq_split_ab(torch, randn)
+    report["dq_tile_ab"] = dq_tile_ab(torch, randn)
+    report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
 
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
@@ -1130,6 +1172,8 @@ def quant_cases(torch, gen, randn):
                           else (q8.float() * s8).to(dtype))
                     cases.append(dict(
                         name=name, dtype=dn, shape=[m, k, n],
+                        **(_plan_info(Q.dq_plan(4, m, n, k, dtype, group=128))
+                           if name == "dq4_mm" else {}),
                         max_abs_err=max_err(torch, fn(x, wq, sq), plain(x, wq, sq),
                                             "dq", dn),
                         ms=device_ms(torch, lambda: fn(x, wq, sq)),
@@ -1168,10 +1212,11 @@ def quant_cases(torch, gen, randn):
 def dq_bmm_cases(torch, randn):
     """dq_bmm at the MoE serving model's banks ([E, C, K, N]): a decode step's
     w1 (8, 8, 1024) @ (8, 1024, 4096) and w2 (8, 8, 2048) @ (8, 2048, 1024),
-    the bench prefill's w1 (8 x 16 tokens: C = 128), and a C of 5 (no
-    multiple of the kernel's 8 rows), against torch.bmm on the dequantized
-    bank.  A C of 384 (a server prefill's bucket) takes the plain version:
-    no launch."""
+    the bench prefill's w1 and w2 (8 x 16 tokens: C = 128; w2 splits K on
+    the large tile), a C of 5 (no multiple of the kernel's 8 rows), 16 (a
+    16-token bucket), and 40 and 200 (large tiles cut short by rows), against
+    torch.bmm on the dequantized bank.  A C of 384 (a server prefill's
+    bucket) takes the plain version: no launch."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     e, d, ff = MOE_MODEL["num_experts"], MOE_MODEL["dim"], MOE_MODEL["mlp_hidden"]
@@ -1180,13 +1225,15 @@ def dq_bmm_cases(torch, randn):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         for c, k, n in ((BATCH, d, 2 * ff), (BATCH, ff, d), (128, d, 2 * ff),
-                        (5, d, 2 * ff)):
+                        (128, ff, d), (5, d, 2 * ff), (16, d, 2 * ff), (40, d, 2 * ff),
+                        (200, ff, d)):
             x = randn(e, c, k, dtype=dtype)
             q, s = Q.quantize_int8_stacked(randn(e, k, n, dtype=torch.float32)
                                            * k ** -0.5)
             wd = (q.float() * s[:, None, :]).to(dtype)
             cases.append(dict(
                 name="dq_bmm", dtype=dn, shape=[e, c, k, n],
+                **_plan_info(Q.dq_plan(8, c, n, k, dtype, experts=e)),
                 max_abs_err=max_err(torch, Q.dequant_matmul_bmm(x, q, s),
                                     Q._plain_dequant_bmm(x, q, s), "dq", dn),
                 ms=device_ms(torch, lambda: Q.dequant_matmul_bmm(x, q, s)),
@@ -1195,13 +1242,247 @@ def dq_bmm_cases(torch, randn):
                 # x and the output in x's dtype, the int8 bank and its scales
                 **bound((e * c * k + e * c * n) * size + e * k * n + 4 * e * n,
                         2 * e * c * n * k, dn)))
-    x = randn(e, 384, d, dtype=torch.bfloat16)
+    x = randn(e, 384, q.shape[1], dtype=torch.bfloat16)
     before = Q.LAUNCHES["dq_bmm"]
     out = Q.dequant_matmul_bmm(x, q, s)
     check(Q.LAUNCHES["dq_bmm"] == before, "dq_bmm launched at C = 384")
     check(torch.equal(out, Q._plain_dequant_bmm(x, q, s)),
           "dq_bmm at C = 384 is not its plain version")
     return cases
+
+
+def _plan_info(plan) -> dict:
+    """The tile and the K splits a dq_bmm / dq4_mm case launches with."""
+    return dict(tile=plan.tile, splits=plan.splits)
+
+
+def _dq_case(torch, randn, bits, dtype, shape, group=128):
+    """One dq_bmm ([E, C, K, N], bits 8) or dq4_mm ([M, K, N], bits 4) case:
+    its entry point on x and a quantized weight, the plain version, the
+    library call on the dequantized weight (torch.bmm / x @ w), the plan,
+    the bound's bytes and flops, and a maker of fresh weight copies."""
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    size = torch.finfo(dtype).bits // 8
+    if bits == 8:
+        e, c, k, n = shape
+        x = randn(e, c, k, dtype=dtype)
+
+        def weight():
+            return Q.quantize_int8_stacked(randn(e, k, n, dtype=torch.float32) * k ** -0.5)
+
+        def dequant(q, s):
+            return (q.float() * s[:, None, :]).to(dtype)
+
+        run, plain, lib = Q.dequant_matmul_bmm, Q._plain_dequant_bmm, torch.bmm
+        plan = Q.dq_plan(8, c, n, k, dtype, experts=e)
+        nbytes = (e * c * k + e * c * n) * size + e * k * n + 4 * e * n
+        flops = 2 * e * c * n * k
+    else:
+        m, k, n = shape
+        x = randn(m, k, dtype=dtype)
+
+        def weight():
+            return Q.quantize_int4(randn(k, n, dtype=torch.float32) * k ** -0.5, group=group)
+
+        def dequant(p, s):
+            return Q._dequantized4(p, s, dtype)
+
+        run, plain, lib = Q.dequant_matmul4, Q._plain_dequant_matmul4, torch.matmul
+        plan = Q.dq_plan(4, m, n, k, dtype, group=group)
+        nbytes = (m * k + m * n) * size + k * n // 2 + 4 * (k // group) * n
+        flops = 2 * m * n * k
+    return dict(x=x, weight=weight, dequant=dequant, run=run, plain=plain, lib=lib,
+                plan=plan, nbytes=nbytes, flops=flops)
+
+
+def dq_edge_cases(torch, randn):
+    """dq4_mm at int4 groups 64 and 256, a ragged N (520: no multiple of 16,
+    8-byte weight copies), one row, 16 rows (a 16-token bucket) and 40 and
+    200 rows (large tiles cut short by rows); dq_bmm at N 520; each in bf16
+    and f32 against its plain version (dq_bmm_cases holds C = 5)."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for bits, shape, group in ((4, [8, 1024, 3072], 64), (4, [128, 1024, 3072], 64),
+                                   (4, [8, 1024, 3072], 256), (4, [128, 1024, 3072], 256),
+                                   (4, [8, 1024, 520], 128), (4, [128, 1024, 520], 128),
+                                   (4, [1, 1024, 3072], 128), (4, [16, 1024, 3072], 128),
+                                   (4, [40, 1024, 3072], 128), (4, [200, 4096, 1024], 128),
+                                   (8, [8, 8, 1024, 520], 128)):
+            d = _dq_case(torch, randn, bits, dtype, shape, group)
+            q, s = d["weight"]()
+            x, wd = d["x"], d["dequant"](q, s)
+            cases.append(dict(
+                name="dq4_mm" if bits == 4 else "dq_bmm", dtype=dn, shape=shape,
+                group=group if bits == 4 else None, **_plan_info(d["plan"]),
+                max_abs_err=max_err(torch, d["run"](x, q, s), d["plain"](x, q, s), "dq", dn),
+                ms=device_ms(torch, lambda: d["run"](x, q, s)),
+                plain_ms=device_ms(torch, lambda: d["plain"](x, q, s)),
+                library_ms=device_ms(torch, lambda: d["lib"](x, wd)),
+                **bound(d["nbytes"], d["flops"], dn)))
+    return cases
+
+
+def cold_ms(torch, fn, copies) -> float:
+    """device_ms of fn(copy), each call on the next of ``copies`` (whose
+    total exceeds the L2), so that every call finds its weight cold."""
+    import itertools
+
+    it = itertools.cycle(copies)
+    return device_ms(torch, lambda: fn(next(it)))
+
+
+def _quant_lib(path):
+    """A build of quant.cu at ``path``, loaded with the C signatures."""
+    import ctypes
+
+    from minidiff_tpu_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(path))
+    for fn, (src, argtypes) in _build.SIGNATURES.items():
+        if src == "quant":
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def quant_built_as(lib):
+    """Every quant kernel launched from ``lib`` until the block ends."""
+    from minidiff_tpu_torch.kernels import _build
+
+    tiles = _build._lib("quant")
+    _build._libs["quant"] = lib
+    try:
+        yield
+    finally:
+        _build._libs["quant"] = tiles
+
+
+def dq_route_ab(torch, randn, simt_lib) -> list:
+    """dq_bmm and dq4_mm in bf16 at the main path's shapes (DQ_BMM_AB,
+    DQ4_AB): the tensor-core tiles against the SIMT tile of ``simt_lib``
+    (quant.cu built with -DDQ_SIMT_BF16), timed in turns (SIMT, tiles,
+    tiles, SIMT), each within TOL["dq"] of the plain version; beside them the
+    library call warm, and the tiles and the library call cold (weights
+    rotated over COLD_BYTES)."""
+    import math
+
+    from minidiff_tpu_torch.kernels import _build
+
+    simt, tiles = _quant_lib(simt_lib), _build._lib("quant")
+    dtype, dn = torch.bfloat16, "bfloat16"
+    rows = []
+    for bits, shapes in ((8, DQ_BMM_AB), (4, DQ4_AB)):
+        for shape in shapes:
+            d = _dq_case(torch, randn, bits, dtype, shape)
+            q, s = d["weight"]()
+            x, run = d["x"], d["run"]
+            ref = d["plain"](x, q, s)
+            us = {}
+            for route, lib in (("simt", simt), ("tiles", tiles), ("tiles2", tiles),
+                               ("simt2", simt)):
+                with quant_built_as(lib):
+                    us[route + "_err"] = max_err(torch, run(x, q, s), ref, "dq", dn)
+                    us[route] = device_ms(torch, lambda: run(x, q, s)) * 1e3
+            wbytes = q.numel() * q.element_size() + s.numel() * 4
+            copies = [d["weight"]() for _ in range(math.ceil(COLD_BYTES / wbytes) + 1)]
+            cold = cold_ms(torch, lambda c: run(x, *c), copies) * 1e3
+            del copies
+            wd = d["dequant"](q, s)
+            lib_us = device_ms(torch, lambda: d["lib"](x, wd)) * 1e3
+            lcopies = [wd.clone() for _ in range(
+                math.ceil(COLD_BYTES / (wd.numel() * wd.element_size())) + 1)]
+            lib_cold = cold_ms(torch, lambda c: d["lib"](x, c), lcopies) * 1e3
+            del lcopies
+            b = bound(d["nbytes"], d["flops"], dn)
+            row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape,
+                       **_plan_info(d["plan"]), ctas=d["plan"].ctas,
+                       simt_us=[us["simt"], us["simt2"]], tiles_us=[us["tiles"], us["tiles2"]],
+                       tiles_cold_us=cold, library_us=lib_us, library_cold_us=lib_cold,
+                       bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
+                       max_abs_err=us["tiles_err"], simt_max_abs_err=us["simt_err"])
+            rows.append(row)
+            log(f"[dq ab] {row['name']:6s} {str(shape):21s} {row['tile']:7s}x{row['splits']:<2d} "
+                f"SIMT {us['simt']:8.2f} / {us['simt2']:8.2f} us | tiles {us['tiles']:7.2f} / "
+                f"{us['tiles2']:7.2f} us, cold {cold:7.2f} | library {lib_us:6.2f}, cold "
+                f"{lib_cold:6.2f} | bound {row['bound_us']:6.2f} us | err {row['max_abs_err']:.3g}")
+    return rows
+
+
+def _ab_turns(torch, routes, x, q, s, ref, dn):
+    """Each of ``routes`` ({label: plan}) within TOL["dq"] of ``ref``, then
+    timed in turns, forward and back over the routes; us per route as
+    [forward, back] and the max |err|."""
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    us = {r: [] for r in routes}
+    err = {r: max_err(torch, Q._dq_tiles(x, q, s, p), ref, "dq", dn)
+           for r, p in routes.items()}
+    for order in (list(routes), list(routes)[::-1]):
+        for r in order:
+            p = routes[r]
+            us[r].append(device_ms(torch, lambda: Q._dq_tiles(x, q, s, p)) * 1e3)
+    return us, err
+
+
+def dq_split_ab(torch, randn) -> list:
+    """dq_bmm and dq4_mm in bf16 at DQ_SPLIT_AB's shapes, each on its plan's
+    tile at 1, 2, 4, 8 and 16 K splits (no more than its units), in turns:
+    the readings behind dq_plan's split rule, and a check of every split
+    count's K ranges (tc_body's) against the plain version."""
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    dtype, dn = torch.bfloat16, "bfloat16"
+    rows = []
+    for bits, shape in DQ_SPLIT_AB:
+        d = _dq_case(torch, randn, bits, dtype, shape)
+        q, s = d["weight"]()
+        x, plan = d["x"], d["plan"]
+        k = shape[-2]
+        units = (k // 2 // 128) if bits == 4 else k // Q.TILES[8][plan.tile][2]
+        tiles = plan.ctas // plan.splits
+        routes = {n: Q.DqPlan(plan.tile, n, tiles * n)
+                  for n in (1, 2, 4, 8, 16) if n <= units}
+        us, err = _ab_turns(torch, routes, x, q, s, d["plain"](x, q, s), dn)
+        row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape, tile=plan.tile,
+                   tiles=tiles, plan_splits=plan.splits,
+                   us={str(n): v for n, v in us.items()},
+                   max_abs_err={str(n): v for n, v in err.items()})
+        rows.append(row)
+        log(f"[dq splits] {row['name']:6s} {str(shape):21s} {plan.tile:7s} {tiles:4d} tiles, "
+            f"plan x{plan.splits:<2d} | " + " | ".join(
+                f"x{n} {v[0]:6.2f} / {v[1]:6.2f}" for n, v in us.items()) + " us")
+    return rows
+
+
+def dq_tile_ab(torch, randn) -> list:
+    """dq_bmm and dq4_mm in bf16 at 16 rows (DQ_TILE_AB) on each tensor-core
+    tile, with the split rule's splits for that tile, in turns, each within
+    TOL["dq"] of the plain version: the readings behind the row rule."""
+    from minidiff_tpu_torch.kernels import quant as Q
+
+    dtype, dn = torch.bfloat16, "bfloat16"
+    rows = []
+    for bits, shape in DQ_TILE_AB:
+        d = _dq_case(torch, randn, bits, dtype, shape)
+        q, s = d["weight"]()
+        x = d["x"]
+        m, k, n = (shape[1:] if bits == 8 else shape)
+        routes = {t: Q.dq_plan(bits, m, n, k, dtype, group=128 if bits == 4 else None,
+                               experts=shape[0] if bits == 8 else 1, tile=t)
+                  for t in ("small8", "small16", "large")}
+        us, err = _ab_turns(torch, routes, x, q, s, d["plain"](x, q, s), dn)
+        row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape,
+                   plan_tile=d["plan"].tile,
+                   routes={t: dict(splits=p.splits, ctas=p.ctas, us=us[t], max_abs_err=err[t])
+                           for t, p in routes.items()})
+        rows.append(row)
+        log(f"[dq tiles] {row['name']:6s} {str(shape):19s} plan {d['plan'].tile:7s} | " + " | ".join(
+            f"{t} x{p.splits} {us[t][0]:6.2f} / {us[t][1]:6.2f}" for t, p in routes.items())
+            + " us")
+    return rows
 
 
 def paged_cases(torch, gen, randn):
@@ -1413,6 +1694,11 @@ def profile_run(torch, label, run):
                 else "cuBLAS" if k.startswith("nvjet") or "gemm" in k.lower()
                 else "other PyTorch kernels and copies")
         by_kind[kind] = by_kind.get(kind, 0.0) + t
+    ported = {}  # device us and calls of each ported kernel, by symbol
+    for sym in PORTED_SYMBOLS:
+        hits = [(t, n) for k, t, n in rows if re.search(rf"\b{sym}\b", k)]
+        if hits:
+            ported[sym] = [sum(t for t, _ in hits), sum(n for _, n in hits)]
     rows.sort(key=lambda r: -r[1])
     top = [dict(kernel=k[:90], device_us=t, calls=n) for k, t, n in rows[:12]]
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, "
@@ -1423,8 +1709,10 @@ def profile_run(torch, label, run):
         f"{kind} {t / 1e3:.2f} ms" for kind, t in sorted(by_kind.items())))
     for r in top:
         log(f"[profile]   {r['device_us']:9.1f} us {r['calls']:5d} calls  {r['kernel']}")
+    log("[profile]   ported: " + ", ".join(
+        f"{sym} {us:.1f} us in {n}" for sym, (us, n) in sorted(ported.items())))
     return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
-                device_us_by_kind=by_kind, top=top)
+                device_us_by_kind=by_kind, top=top, ported=ported)
 
 
 # ---------------------------------------------------------------------------
@@ -1869,6 +2157,15 @@ def phase_quant(torch, seed: int, report):
     out["profile"] = profile_run(
         torch, "int8 generate_compiled 32 new tokens",
         lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
+    # the int4 decode on the tensor-core tiles, then on the SIMT tile
+    out["profile_int4"] = profile_run(
+        torch, "int4 generate_compiled 32 new tokens",
+        lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
+    if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
+        with quant_built_as(_quant_lib(report["simt_quant_lib"])):
+            out["profile_int4_simt"] = profile_run(
+                torch, "int4 generate_compiled 32 new tokens, SIMT tile",
+                lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
     del q8, q4
 
     # the int8 KV cache at long context (bench.py:413-443): the prefill's
@@ -2737,6 +3034,11 @@ def phase_moe(torch, seed: int, report):
     out["generate_profile"] = profile_run(
         torch, "moe int8 generate_compiled 32 new tokens",
         lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
+    if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
+        with quant_built_as(_quant_lib(report["simt_quant_lib"])):
+            out["generate_profile_simt"] = profile_run(
+                torch, "moe int8 generate_compiled 32 new tokens, SIMT tile",
+                lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
     del q8
 
     # the servers: 10 staggered requests on 8 slots, window 256; bf16 timed,

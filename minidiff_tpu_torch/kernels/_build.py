@@ -58,8 +58,8 @@ SIGNATURES = {
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sdpa_int8": ("quant", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _I, _P)),
     "paged_attn": ("paged", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

@@ -18,14 +18,75 @@
 // Products of a bf16 (or f32-held integer) value and an int8 code are exact
 // in f32, so the sums differ from the plain versions only in their order.
 //
-// Bound on the H100: at decode (m = 8 activation rows) a dequant-matmul does
-// 2*m = 16 flop per weight byte (32 for int4), far under the ~295 flop/byte
-// ridge: it is bound by the bytes of the weight, which it must read once.
-// Design: each CTA owns a 64-column tile of the output and 8 activation
-// rows; its 8 warps split K, each lane streams 16 consecutive columns of one
-// weight row with one 16-byte load (coalesced along N, 64 bytes per row per
-// warp step) and keeps 8 x 16 f32 accumulators in registers, while the x rows
-// are staged in shared memory in chunks of K.  Lanes of one warp sum by
+// dq_bmm and dq4_mm in bf16 run on tensor cores (the tc namespace below).
+// What bounds them on the H100: at decode (<= 16 activation rows) a
+// dequant-matmul does 2 flop per row per weight byte (4 for int4), far under
+// the ~295 flop/byte ridge, so it is bound by the weight's bytes, which it
+// must read once, and by the latency of those loads; at a 128-row prefill it
+// does ~256 flop per byte, at the ridge, bound by the tensor cores.  The
+// SIMT tile they replace (dq_mm_tile, below) did each product with FFMAs on
+// 8 rows per CTA, so a 128-row bank was streamed 16 times, at 200-255
+// registers and one CTA per SM, with plain 16-byte loads and no stages in
+// flight.  The design:
+//   - copies: a ring of 4 shared-memory stages filled by cp.async (16-byte
+//     .cg copies; 8-byte .ca where a weight row is no whole number of 16
+//     bytes), each holding the stored weight tile, the x tile it meets and,
+//     for int4, one scale row per plane; rows past the split, rows past m and
+//     columns past n are zero-filled by the copy itself.  Each thread's
+//     copies are the same every stage, their addresses computed once;
+//   - dequantization in registers: ldmatrix.trans of the stored [k][n] byte
+//     tile hands each lane the bytes of two adjacent columns at a k pair,
+//     which become the MMA's weight fragment (even columns on rows 0-7 of the
+//     16-row side, odd columns on rows 8-15).  A byte becomes its code
+//     exactly by a byte permute into the mantissa of 2^23 and one
+//     subtraction; int8 codes stay unscaled (the column scale multiplies the
+//     f32 sum in the epilogue, as _dq_bmm_kernel does), int4 codes are
+//     multiplied by their group's scale in f32 and rounded to bf16 before the
+//     product, as _dq4_mm_kernel does.  A stage lies inside one scale group of
+//     each int4 plane (group % stage rows == 0, K/2 % group == 0), so its
+//     scale rows are loaded once per stage, and one packed tile feeds two
+//     products: plane 0 against x's columns [k0, k0 + T), plane 1 against
+//     [K/2 + k0, K/2 + k0 + T);
+//   - orientation: both tiles compute out^T = W^T x^T, the weight's columns
+//     on the MMA's M side.  <= 16 rows ("small"): mma.sync m16n8k16, the
+//     rows on its 8-wide side (no lane spent on padding rows), 64 columns
+//     per CTA, two warps per 32 columns each taking half the k16 slices;
+//     9-16 rows take both 8-row blocks in one CTA ("small16"), which reads
+//     each weight byte once where two 8-row CTAs read it twice (at 16 rows
+//     in chip_smoke.py's dq_tile_ab, 1.1-2x faster than "small8" and
+//     1.7-3.3x faster than the large tile);
+//     17..256 rows ("large"): wgmma m64n128k16 with A, the weight, from
+//     registers (each warp converts only its own 16 columns, so no byte is
+//     converted twice) and B, x, from shared memory through a matrix
+//     descriptor (x staged in 8-row x 16-byte core matrices); warpgroups of
+//     64 columns by the CTA's 128 rows (int8 four, 256 columns and one CTA
+//     per SM, so that each expert's x is read from L2 by half as many CTAs;
+//     int4 two), one stage's MMAs in flight while the next stages are
+//     copied.  What bounds this tile is open (PERF.md, §6): it runs well
+//     under the MMA rate, yet TMA copies (x multicast to column-tile pairs)
+//     made it no faster;
+//   - split-K where the output tiles are too few for the card (the decode
+//     banks' w2, int4's narrow fc2, the 128-row int4 products and the w2
+//     bank at 128 rows; the counts are dq_plan's, measured per tile by
+//     chip_smoke.py's dq_split_ab): the splits of a tile are one
+//     thread-block cluster (up to 16 CTAs, the H100's non-portable size).
+//     Each CTA stores its f32 partial into the owners' shared memory
+//     (st.shared::cluster: slice r of the tile to CTA r), and each owner
+//     sums its S rows in rank order, scales and casts: deterministic, no
+//     atomics, no workspace and no second launch.  Split s takes units
+//     [s * units / S, (s + 1) * units / S) of the stored weight rows, a
+//     unit one stage (int8) or one scale group (int4).
+// The launch plan (tile, splits) is decided in Python before
+// launch (kernels/quant.py dq_plan) from shapes and dtypes; f32, and shapes
+// outside the tiles' rule (K % 16, n % 8, an int4 group the stages do not
+// divide), take the SIMT tile.  Built with -DDQ_SIMT_BF16, every dq_bmm and
+// dq4_mm runs on the SIMT tile (chip_smoke.py's A/B of the two).
+//
+// The SIMT tile (dq_mm, and the f32 dq_bmm / dq4_mm): each CTA owns a
+// 64-column tile of the output and 8 activation rows; its 8 warps split K,
+// each lane streams 16 consecutive columns of one weight row with one
+// 16-byte load and keeps 8 x 16 f32 accumulators in registers, while the x
+// rows are staged in shared memory in chunks of K.  Lanes of one warp sum by
 // shuffle, the 8 warps through shared memory, and the epilogue scales and
 // casts.  More than 8 rows (a prefill of up to 256) tile over blockIdx.y and
 // re-read the weight from L2.  f32 inputs use FFMA (no TF32).  int4: the
@@ -33,9 +94,7 @@
 // (b << 28) >> 28; row r belongs to group r / group, so the low plane reads
 // groups [0, G/2) and the high plane [G/2, G).  A weight row that is no whole
 // number of 16-byte vectors (N % 16 != 0) is read byte by byte.  dq_bmm runs
-// dq_mm's tile with the expert as a third grid axis: blockIdx.z offsets x, q,
-// s and the output by one expert's strides, so each expert's bank streams
-// through its own CTAs, once per 8 rows of that expert's slots.
+// dq_mm's tile with the expert as a third grid axis.
 //
 // sdpa_int8 at decode reads the int8 cache lines and their f32 scales once:
 // (hd + 4) bytes per key for K and for V, bound by bytes.  Design: one CTA
@@ -279,6 +338,656 @@ int launch_dq(bool int4, const void* x, const void* w, const void* s, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// dq_bmm and dq4_mm in bf16: the tensor-core tiles
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+struct Args {
+  const bf16* x;      // (E, m, k) activations
+  const int8_t* w;    // (E, k, n) int8 codes, or (k/2, n) packed int4
+  const float* s;     // (E, n) column scales, or (k/group, n) group scales
+  bf16* out;          // (E, m, n)
+  int m, n, k, group;
+  int splits;         // K splits: the CTAs of one cluster
+};
+
+// The tile of each launch plan (kernels/quant.py ``TILES`` and ``dq_plan``).
+// MODE 0 / 1 ("small8" / "small16", <= 8 / <= 16 activation rows):
+// out^T = W^T x^T on mma.sync, 16 output columns on the MMA's 16-row side
+// and the rows on its 8-wide side; 64 columns per CTA, 4 warps: two of 32
+// columns for each half of a stage's k16 slices.  MODE 2 ("large", 17..256
+// rows): out^T = W^T x^T on wgmma, warpgroups of 64 output columns by
+// the CTA's 128 activation rows; int8 four of them (256 columns, one CTA
+// per SM, so that x is read from L2 half as often), int4 two.  P is the
+// number of weight planes a stored row feeds: 1 (int8), 2 (int4: packed
+// row i holds K rows i and K/2 + i).
+template <int P, int MODE>
+struct Tile {
+  static constexpr bool kSmall = MODE < 2;
+  static constexpr int NB = MODE == 1 ? 2 : 1;       // 8-row blocks (small)
+  static constexpr int kThreads = kSmall ? 128 : P == 1 ? 512 : 256;
+  static constexpr int kMinBlocks = kSmall ? 4 : P == 1 ? 1 : 2;
+  static constexpr int XR = kSmall ? 8 * NB : 128;   // activation rows per CTA
+  static constexpr int BN = kSmall ? 64 : P == 1 ? 256 : 128;  // output columns per CTA
+  static constexpr int RB = P == 2 ? 32 : 64;        // stored rows per stage
+  // the cp.async ring, and the stages in flight: the large tile keeps one
+  // more slot for the stage its MMAs may still read
+  static constexpr int kSlots = !kSmall && P == 1 ? 5 : 4;
+  static constexpr int kAhead = kSmall ? kSlots - 1 : kSlots - 2;
+  static constexpr int RLD = BN + 16;                // stored row stride (bytes): conflict-free
+  static constexpr int XLD = P * RB + 8;             // small: x row stride (bf16), conflict-free
+  static constexpr int kRaw = RB * RLD;
+  static constexpr int kX = kSmall ? XR * XLD * 2 : XR * P * RB * 2;  // large: core matrices
+  static constexpr int kSc = P == 2 ? 2 * BN * 4 : 0;
+  static constexpr int kSlot = kRaw + kX + kSc;
+  // the sums: small, the k-groups' tiles and the cluster's receive buffer;
+  // large, the receive buffer
+  static constexpr int kRed = (kSmall ? 3 : 1) * XR * BN * 4;
+  static constexpr int kBody = kSlots * kSlot > kRed ? kSlots * kSlot : kRed;
+  static constexpr int kSmem = kBody + BN * 4;  // then the int8 column scales
+  static constexpr int kWChunks = RB * BN / 16 / kThreads;  // 16-byte weight copies a thread
+  static_assert(kRaw % 128 == 0 && kX % 128 == 0 && kSlot % 128 == 0, "aligned slots");
+  static_assert(RB * BN % (16 * kThreads) == 0, "whole weight copies per thread");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 8) bytes from global memory into shared memory; src_bytes 0 fills
+// the destination with zeros (rows past the split, columns past n).
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate.  Not
+// volatile: a pure function of its registers, which the compiler may
+// schedule among the loads and conversions.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte J of u placed in the low mantissa of 2^23, minus bias: u's bytes
+// hold code + bias - 2^23 (unsigned), so the result is the code, exactly.
+template <int J>
+__device__ __forceinline__ float byte_code(unsigned u, float bias) {
+  return __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | J)), bias);
+}
+
+// two f32 values that bf16 holds exactly, as bf16x2 (lo in the low half):
+// their upper halves
+__device__ __forceinline__ unsigned pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn: round to nearest even
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The weight operand from one register of an ldmatrix.trans of the stored
+// [k][n] byte tile (b16 = two adjacent columns): its bytes are (k0, 2j),
+// (k0, 2j + 1), (k1, 2j), (k1, 2j + 1) for k1 = k0 + 1.  `even` packs the
+// k pair of column 2j, `odd` that of column 2j + 1, each as bf16x2 (k0 low):
+// the fragment of an MMA whose weight columns are the even (or odd) columns
+// of the tile.
+struct Pair {
+  unsigned even, odd;
+};
+
+// int8: the codes, exact in bf16 (the column scale multiplies the f32 sum)
+__device__ __forceinline__ Pair int8_pair(unsigned w) {
+  const unsigned u = w ^ 0x80808080u;  // code + 128 in each byte
+  constexpr float kBias = 8388736.f;   // 2^23 + 128
+  return {pack_exact(byte_code<0>(u, kBias), byte_code<2>(u, kBias)),
+          pack_exact(byte_code<1>(u, kBias), byte_code<3>(u, kBias))};
+}
+
+// int4, one plane (HI: the high nibbles, the rows K/2 + i): each code times
+// its column's group scale in f32, rounded to bf16, as the plain version
+template <bool HI>
+__device__ __forceinline__ Pair int4_pair(unsigned w, float2 s) {
+  const unsigned u = ((HI ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;  // code + 8
+  constexpr float kBias = 8388616.f;                                     // 2^23 + 8
+  return {pack_bf16(__fmul_rn(byte_code<0>(u, kBias), s.x),
+                    __fmul_rn(byte_code<2>(u, kBias), s.x)),
+          pack_bf16(__fmul_rn(byte_code<1>(u, kBias), s.y),
+                    __fmul_rn(byte_code<3>(u, kBias), s.y))};
+}
+
+template <int P, int PLANE>
+__device__ __forceinline__ Pair weight_pair(unsigned w, float2 s) {
+  if constexpr (P == 1) return int8_pair(w);
+  else return int4_pair<PLANE == 1>(w, s);
+}
+
+// The cluster's split-K reduction, through distributed shared memory.  The
+// S CTAs of a cluster hold the f32 partials of one output tile of T
+// elements; CTA r owns the tile's slice [r T/S, (r+1) T/S).  Each CTA
+// stores every slice of its partial into the slice owner's shared memory,
+// at row `rank` of the owner's receive buffer [S][T/S] (remote stores need
+// no round trip), and after the cluster barrier each owner sums its S rows
+// in rank order: deterministic, no atomics.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_barrier() {  // every thread of the cluster
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// elements i.. (4 or 2) of this CTA's partial into its owner's receive
+// buffer at shared-memory offset `recv` (the same in every CTA of the
+// cluster); a slice is 2^lslice elements
+__device__ __forceinline__ unsigned owner_addr(unsigned recv, int i, int lslice, unsigned rank) {
+  const int owner = i >> lslice, slice = 1 << lslice;
+  unsigned addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(recv + ((static_cast<int>(rank) - owner) * slice + i) * 4), "r"(owner));
+  return addr;
+}
+__device__ __forceinline__ void push4(unsigned recv, int i, int lslice, unsigned rank,
+                                      float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   owner_addr(recv, i, lslice, rank)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void push2(unsigned recv, int i, int lslice, unsigned rank,
+                                      float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                   owner_addr(recv, i, lslice, rank)),
+               "f"(v.x), "f"(v.y)
+               : "memory");
+}
+// after the barrier: this CTA's slice, summed over the S rows in order,
+// to put(element index, float4)
+template <typename F>
+__device__ __forceinline__ void sum_slice(const float* recv, int T, int S, unsigned rank,
+                                          int threads, F put) {
+  const int slice = T / S;
+  for (int k = 4 * static_cast<int>(threadIdx.x); k < slice; k += 4 * threads) {
+    float4 v = *reinterpret_cast<const float4*>(recv + k);
+    for (int j = 1; j < S; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(recv + j * slice + k);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    put(static_cast<int>(rank) * slice + k, v);
+  }
+}
+
+// The large tile's tools.  out^T = W^T x^T as warpgroup MMAs: each
+// warpgroup owns 64 output columns (the MMA's M side), the CTA's 128
+// activation rows are its N side.  A, the dequantized weight, comes from
+// registers: each warp turns its own 16 columns' bytes into bf16 fragments
+// (no two warps convert the same byte).  B, x, is read by the tensor cores
+// from shared memory through a matrix descriptor (x staged in 8-row x
+// 16-byte core matrices).  One stage's MMAs run while the warps wait for,
+// and copy, the next stages.
+
+__device__ __forceinline__ uint64_t xdesc(unsigned addr, unsigned sbo) {
+  // K-major, no swizzle: core matrices 128 bytes apart along K (LBO), row
+  // groups of 8 `sbo` bytes apart (SBO); fields in 16-byte units
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | static_cast<uint64_t>(128 >> 4) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the accumulators where the asynchronous MMAs write them
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) = a (64 x 16 bf16, registers) . b (16 x 128 bf16, smem)
+// + (accumulate ? d : 0): the first MMA of a tile defines the accumulators,
+// so that no other instruction writes them while MMAs are in flight
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], const unsigned (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int P, int MODE>
+__device__ __forceinline__ void tc_body(const Args& a, bool vec16) {
+  using L = Tile<P, MODE>;
+  extern __shared__ __align__(128) unsigned char dq_smem[];
+  const unsigned sbase = smem_addr(dq_smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4;
+
+  const int e = blockIdx.z;
+  const int split = blockIdx.x % a.splits;
+  const int col0 = blockIdx.x / a.splits * L::BN, row0 = blockIdx.y * L::XR;
+  const int kh = a.k / 2, stored = P == 2 ? kh : a.k;
+  // split s takes the stored rows of units [s * units / S, (s + 1) * units / S),
+  // a unit one stage (int8) or one scale group (int4: so that every split
+  // starts on a group boundary of both planes)
+  const int unit = P == 2 ? a.group : L::RB;
+  const int units = (stored + unit - 1) / unit;
+  const int rbeg = split * units / a.splits * unit;
+  const int rend = min(stored, (split + 1) * units / a.splits * unit);
+  const int iters = (rend - rbeg + L::RB - 1) / L::RB;
+  const bf16* x = a.x + static_cast<size_t>(e) * a.m * a.k;
+  const int8_t* w = a.w + static_cast<size_t>(e) * stored * a.n;
+  const float* s = a.s + static_cast<size_t>(e) * a.n;
+
+  // Each thread's copies are the same every stage, one stage's rows on:
+  // their addresses are computed once.  Weight: 16-byte chunks (8-byte
+  // when n % 16 != 0) of the RB x BN tile; x: 16-byte chunks of the XR x
+  // (P * RB) tile, plane p's columns from p * K/2 (small: rows of XLD; large:
+  // 8-row x 16-byte core matrices, KC along K, for the wgmma descriptor).
+  const int wcpr = vec16 ? L::BN / 16 : L::BN / 8;   // chunks per weight row
+  const int wbytes = vec16 ? 16 : 8;
+  const int wr0 = tid / wcpr, wc = (tid % wcpr) * wbytes, wrstep = L::kThreads / wcpr;
+  const bool wcol_ok = col0 + wc < a.n;
+  const int8_t* wsrc = w + static_cast<size_t>(rbeg + wr0) * a.n + col0 + wc;
+  const size_t wstep = static_cast<size_t>(wrstep) * a.n;
+  const unsigned wdst = sbase + wr0 * L::RLD + wc;
+  constexpr int KC = P * L::RB / 8;                  // x chunks per row
+  const int xkc = tid % KC, xplane = xkc * 8 / L::RB, xcol = xkc * 8 % L::RB;
+  const int xr0 = tid / KC;
+  constexpr int XRSTEP = L::kThreads / KC;
+  const bf16* xsrc = x + static_cast<size_t>(row0 + xr0) * a.k + xplane * kh + rbeg + xcol;
+  const unsigned xdst =
+      sbase + L::kRaw
+      + (L::kSmall ? (xr0 * L::XLD + xkc * 8) * 2 : ((xr0 / 8) * KC + xkc) * 128 + (xr0 % 8) * 16);
+  constexpr unsigned XJ = L::kSmall ? XRSTEP * L::XLD * 2 : XRSTEP / 8 * KC * 128;
+
+  auto load = [&](int it) {
+    const unsigned slot = it % L::kSlots * L::kSlot;
+    const int r0 = it * L::RB;  // from rbeg
+#pragma unroll
+    for (int j = 0; j < 2 * L::kWChunks; ++j) {
+      if (j < L::kWChunks || !vec16) {  // twice the chunks at 8 bytes
+        const bool ok = wcol_ok && rbeg + r0 + wr0 + j * wrstep < rend;
+        const int8_t* src = ok ? wsrc + static_cast<size_t>(r0) * a.n + j * wstep : w;
+        if (vec16) cp_async16(wdst + slot + j * wrstep * L::RLD, src, ok ? 16 : 0);
+        else cp_async8(wdst + slot + j * wrstep * L::RLD, src, ok ? 8 : 0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j * XRSTEP < L::XR; ++j) {
+      if (L::XR % XRSTEP == 0 || xr0 + j * XRSTEP < L::XR) {
+        const bool ok = row0 + xr0 + j * XRSTEP < a.m && rbeg + r0 + xcol < rend;
+        const bf16* src = ok ? xsrc + r0 + static_cast<size_t>(j * XRSTEP) * a.k : x;
+        cp_async16(xdst + slot + j * XJ, src, ok ? 16 : 0);
+      }
+    }
+    if constexpr (P == 2) {  // one scale row per plane: the stage lies in one group of each
+      if (tid < L::BN / 2) {
+        const int plane = tid / (L::BN / 4), c = (tid % (L::BN / 4)) * 4;
+        const int grp = (plane * kh + rbeg + r0) / a.group;
+        const bool ok = col0 + c < a.n;
+        cp_async16(sbase + slot + L::kRaw + L::kX + (plane * L::BN + c) * 4,
+                   ok ? s + static_cast<size_t>(grp) * a.n + col0 + c : s, ok ? 16 : 0);
+      }
+    }
+  };
+
+  float* colscale = reinterpret_cast<float*>(dq_smem + L::kBody);  // int8: s[e][col0..]
+  if (P == 1 && tid < L::BN / 4) {
+    const bool ok = col0 + 4 * tid < a.n;
+    cp_async16(sbase + L::kBody + 16 * tid, ok ? s + col0 + 4 * tid : s, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int it = 0; it < L::kAhead; ++it) {
+    if (it < iters) load(it);
+    cp_async_commit();
+  }
+
+  bf16* out = a.out + static_cast<size_t>(e) * a.m * a.n;
+  // elements i..i+3 of the [XR][BN] tile, scaled (int8) and cast; n % 8 == 0
+  // and i % 4 == 0: the four columns are all in or all out
+  auto put = [&](int i, float4 v) {
+    const int row = row0 + i / L::BN, c = i % L::BN;
+    if (row >= a.m || col0 + c >= a.n) return;
+    if (P == 1) {
+      const float4 sv = *reinterpret_cast<const float4*>(colscale + c);
+      v.x *= sv.x;
+      v.y *= sv.y;
+      v.z *= sv.z;
+      v.w *= sv.w;
+    }
+    *reinterpret_cast<uint2*>(out + static_cast<size_t>(row) * a.n + col0 + c) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  };
+  float* red = reinterpret_cast<float*>(dq_smem);
+  constexpr int T = L::XR * L::BN;
+  const int lslice = __ffs(T / a.splits) - 1;  // T and the splits are powers of two
+
+  if constexpr (L::kSmall) {
+    // warp (wn, kg) = (warp % 2, warp / 2) owns columns 32 wn.. and the k16
+    // slices kg, kg + 2, ... of each stage
+    const int wn = warp % 2, kg = warp / 2;
+    float acc[2][L::NB][4] = {};  // [16-column half][8-row block]
+    // ldmatrix addresses within a slot: the weight tile's k16 x 32 bytes of
+    // the warp's columns (transposed), x's rows
+    const unsigned wfrag =
+        sbase + (lane % 8 + ((lane / 8) % 2) * 8) * L::RLD + 32 * wn + (lane / 16) * 16;
+    const unsigned xfrag =
+        sbase + L::kRaw
+        + (((L::NB == 2 ? lane / 16 : 0) * 8 + lane % 8) * L::XLD + ((lane / 8) % 2) * 8) * 2;
+    for (int it = 0; it < iters; ++it) {
+      cp_async_wait<L::kAhead - 1>();
+      __syncthreads();  // stage it landed; every warp is done with stage it - 1
+      if (it + L::kAhead < iters) load(it + L::kAhead);
+      cp_async_commit();
+
+      const unsigned slot = it % L::kSlots * L::kSlot;
+      float2 sc[2][2] = {};  // [plane][16-column half]: the scales of columns 2g, 2g + 1
+      if constexpr (P == 2) {
+        const float* sp =
+            reinterpret_cast<const float*>(dq_smem + slot + L::kRaw + L::kX) + 32 * wn + 2 * g;
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            sc[plane][h] = *reinterpret_cast<const float2*>(sp + plane * L::BN + 16 * h);
+      }
+      // the weight bytes of rows kk..kk+15, the warp's 32 columns: [0] k 0-7
+      // / columns 0-15, [1] k 8-15 / 0-15, [2] k 0-7 / 16-31, [3] k 8-15 /
+      // 16-31; the next slice's are loaded before this one's products
+      constexpr int KSTEP = 32;  // each k-group takes every other slice
+      unsigned wr[4];
+      ldsm_x4_t(wr, wfrag + slot + 16 * kg * L::RLD);
+#pragma unroll
+      for (int q = 0; q < L::RB / KSTEP; ++q) {
+        const int kk = 16 * kg + q * KSTEP;
+        const unsigned cur[4] = {wr[0], wr[1], wr[2], wr[3]};
+        if (q + 1 < L::RB / KSTEP) ldsm_x4_t(wr, wfrag + slot + (kk + KSTEP) * L::RLD);
+#pragma unroll
+        for (int plane = 0; plane < P; ++plane) {
+          // B = x^T of 8 rows per block
+          unsigned bx[4];
+          const unsigned xk = xfrag + slot + (plane * L::RB + kk) * 2;
+          if constexpr (L::NB == 2) {
+            ldsm_x4(bx, xk);
+          } else {
+            unsigned b2[2];
+            ldsm_x2(b2, xk);
+            bx[0] = b2[0];
+            bx[1] = b2[1];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // A = W^T of 16 columns: rows 0-7 the even, 8-15 the odd ones
+            Pair lo, hi;
+            if (plane == 0) {
+              lo = weight_pair<P, 0>(cur[2 * h], sc[0][h]);
+              hi = weight_pair<P, 0>(cur[2 * h + 1], sc[0][h]);
+            } else {
+              lo = weight_pair<P, 1>(cur[2 * h], sc[1][h]);
+              hi = weight_pair<P, 1>(cur[2 * h + 1], sc[1][h]);
+            }
+            const unsigned af[4] = {lo.even, lo.odd, hi.even, hi.odd};
+#pragma unroll
+            for (int b = 0; b < L::NB; ++b) mma(acc[h][b], af, bx[2 * b], bx[2 * b + 1]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it holds the sums
+
+    // acc[h][b][t]: column 32 wn + 16 h + 2 g (+ 1 for t >= 2), row
+    // 8 b + 2 (lane % 4) (+ 1 for odd t); the two k-groups meet in order
+    const int c2 = 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int b = 0; b < L::NB; ++b)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          red[kg * T + (8 * b + c2 + (t & 1)) * L::BN + 32 * wn + 16 * h + 2 * g + (t >> 1)] =
+              acc[h][b][t];
+    __syncthreads();
+    if (a.splits == 1) {
+#pragma unroll
+      for (int i = 4 * tid; i < T; i += 4 * L::kThreads) {
+        const float4 p = *reinterpret_cast<const float4*>(red + i);
+        const float4 q = *reinterpret_cast<const float4*>(red + T + i);
+        put(i, make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w));
+      }
+    } else {
+      // the receive buffer [S][T/S] sits past the k-groups' tiles, where a
+      // peer still streaming its stages may hold its ring: wait for all
+      const unsigned rank = cluster_rank(), recv = sbase + 2 * T * 4;
+      cluster_barrier();
+      for (int i = 4 * tid; i < T; i += 4 * L::kThreads) {
+        const float4 p = *reinterpret_cast<const float4*>(red + i);
+        const float4 q = *reinterpret_cast<const float4*>(red + T + i);
+        push4(recv, i, lslice, rank, make_float4(p.x + q.x, p.y + q.y, p.z + q.z, p.w + q.w));
+      }
+      cluster_barrier();
+      sum_slice(red + 2 * T, T, a.splits, rank, L::kThreads, put);
+    }
+  } else {
+    // warpgroup wg = warp / 4 owns output columns 64 wg..; its warp wq =
+    // warp % 4 converts the weight of columns c0 = 64 wg + 16 wq .. + 15 into
+    // the A fragment of rows 16 wq.. (rows 0-7 the even, 8-15 the odd ones)
+    const int c0 = 64 * (warp / 4) + 16 * (warp % 4);
+    // ldmatrix.x4.trans of 32 stored rows at once: four 8-row matrices
+    // stacked along K, the k halves of two k16 steps
+    const unsigned wfrag = sbase + lane * L::RLD + c0;
+    constexpr int NS = L::RB / 16;  // k16 steps per plane and stage
+    float acc[64];  // defined by the first MMA
+    for (int it = 0; it < iters; ++it) {
+      cp_async_wait<L::kAhead - 1>();
+      __syncthreads();  // stage it landed; every warpgroup is done with stage it - 2
+      if (it + L::kAhead < iters) load(it + L::kAhead);
+      cp_async_commit();
+
+      const unsigned slot = it % L::kSlots * L::kSlot;
+      float2 sc[2] = {};  // [plane]: the scales of columns c0 + 2g, c0 + 2g + 1
+      if constexpr (P == 2) {
+        const float* sp = reinterpret_cast<const float*>(dq_smem + slot + L::kRaw + L::kX);
+        sc[0] = *reinterpret_cast<const float2*>(sp + c0 + 2 * g);
+        sc[1] = *reinterpret_cast<const float2*>(sp + L::BN + c0 + 2 * g);
+      }
+      unsigned wr[NS / 2][4];
+#pragma unroll
+      for (int q = 0; q < NS / 2; ++q) ldsm_x4_t(wr[q], wfrag + slot + 32 * q * L::RLD);
+      wgmma_wait<0>();  // the previous stage's MMAs no longer read the A registers
+      unsigned af[P * NS][4];
+#pragma unroll
+      for (int st = 0; st < NS; ++st)
+#pragma unroll
+        for (int plane = 0; plane < P; ++plane) {
+          const unsigned* c = wr[st / 2] + 2 * (st % 2);
+          Pair lo, hi;
+          if (plane == 0) {
+            lo = weight_pair<P, 0>(c[0], sc[0]);
+            hi = weight_pair<P, 0>(c[1], sc[0]);
+          } else {
+            lo = weight_pair<P, 1>(c[0], sc[1]);
+            hi = weight_pair<P, 1>(c[1], sc[1]);
+          }
+          unsigned* f = af[plane * NS + st];
+          f[0] = lo.even;
+          f[1] = lo.odd;
+          f[2] = hi.even;
+          f[3] = hi.odd;
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int f = 0; f < P * NS; ++f)  // x's k offset in the stage: 16 f (plane 1 from RB)
+        wgmma_m64n128(acc, af[f], xdesc(sbase + slot + L::kRaw + 2 * f * 128, KC * 128),
+                      it > 0 || f > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    cp_async_wait<0>();
+
+    // acc[4j + t]: output column c0 + 2g (+ 1 for t >= 2), activation row
+    // 8 j + 2 (lane % 4) (+ 1 for odd t)
+    const int c2 = 2 * (lane % 4), col = col0 + c0 + 2 * g;
+    if (a.splits == 1) {
+      if (col < a.n) {
+        const float2 cs = P == 1 ? *reinterpret_cast<const float2*>(colscale + c0 + 2 * g)
+                                 : make_float2(1.f, 1.f);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * j + c2 + r;
+            if (row < a.m)
+              *reinterpret_cast<unsigned*>(out + static_cast<size_t>(row) * a.n + col) =
+                  pack_bf16(acc[4 * j + r] * cs.x, acc[4 * j + 2 + r] * cs.y);
+          }
+      }
+    } else {
+      // the receive buffer [S][T/S] overlays the ring: wait for every peer
+      // to finish its stages
+      const unsigned rank = cluster_rank();
+      cluster_barrier();
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          push2(sbase, (8 * j + c2 + r) * L::BN + c0 + 2 * g, lslice, rank,
+                make_float2(acc[4 * j + r], acc[4 * j + 2 + r]));
+      cluster_barrier();
+      sum_slice(red, T, a.splits, rank, L::kThreads, put);
+    }
+  }
+}
+
+}  // namespace tc
+
+// The kernels under their own names, so that profiles tell them apart.
+// MODE 0 / 1: the small tile for <= 8 / <= 16 rows; 2: the large tile.
+template <int MODE>
+__global__ void __launch_bounds__(tc::Tile<1, MODE>::kThreads, tc::Tile<1, MODE>::kMinBlocks)
+dq_bmm_tc_kernel(tc::Args a, bool vec16) {
+  tc::tc_body<1, MODE>(a, vec16);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(tc::Tile<2, MODE>::kThreads, tc::Tile<2, MODE>::kMinBlocks)
+dq4_mm_tc_kernel(tc::Args a, bool vec16) {
+  tc::tc_body<2, MODE>(a, vec16);
+}
+
+template <int P, int MODE>
+int launch_tc(const tc::Args& a, int experts, cudaStream_t st) {
+  using L = tc::Tile<P, MODE>;
+  auto kernel = P == 1 ? dq_bmm_tc_kernel<MODE> : dq4_mm_tc_kernel<MODE>;
+  // the kernel's attributes, once per device: its shared memory, and
+  // clusters of up to 16 CTAs (the H100's non-portable size)
+  static unsigned configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(configured >> dev & 1u))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && dev < 32) configured |= 1u << dev;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.n + L::BN - 1) / L::BN * a.splits, (a.m + L::XR - 1) / L::XR, experts);
+  if (a.splits == 1) {
+    kernel<<<grid, L::kThreads, L::kSmem, st>>>(a, a.n % 16 == 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;  // the splits of one tile: one cluster
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, a.n % 16 == 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile codes of kernels/quant.py ``TILE_CODES``: 0 the SIMT tile above,
+// 1 / 2 the small tile for <= 8 / <= 16 rows, 3 the large tile.  Which tile
+// and how many splits a product takes is the wrapper's plan (dq_plan); the
+// entry points refuse only what the tiles cannot run at all: a dtype other
+// than bf16, weight rows of no whole 8 bytes, stored rows of no whole k16
+// steps, or splits that are no cluster of 1-16 CTAs each given at least one
+// unit (tc_body) of the `stored` weight rows.
+bool tc_args_ok(int tile, int dtype, int n, int stored, int unit, int splits) {
+  const int units = (stored + unit - 1) / unit;
+  return tile >= 1 && tile <= 3 && dtype == 1 && n % 8 == 0 && stored % 16 == 0
+         && splits >= 1 && splits <= 16 && (splits & (splits - 1)) == 0 && splits <= units;
+}
+
+template <int P>
+int dispatch_tc(const tc::Args& a, int tile, int experts, cudaStream_t st) {
+  if (tile == 1) return launch_tc<P, 0>(a, experts, st);
+  if (tile == 2) return launch_tc<P, 1>(a, experts, st);
+  return launch_tc<P, 2>(a, experts, st);
+}
+
+// ---------------------------------------------------------------------------
 // sdpa_int8
 // ---------------------------------------------------------------------------
 
@@ -443,19 +1152,43 @@ extern "C" int dq_mm(const void* x, const void* q, const void* s, void* out,
 }
 
 extern "C" int dq_bmm(const void* x, const void* q, const void* s, void* out,
-                      int e, int c, int n, int k, int dtype, void* stream) {
+                      int e, int c, int n, int k, int tile, int splits, int dtype,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (e < 1 || e > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, e, c, n, k, 0, st);
-  return launch_dq<float>(false, x, q, s, out, e, c, n, k, 0, st);
+#ifdef DQ_SIMT_BF16
+  tile = 0;
+#endif
+  if (tile == 0) {
+    if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, e, c, n, k, 0, st);
+    return launch_dq<float>(false, x, q, s, out, e, c, n, k, 0, st);
+  }
+  if (!tc_args_ok(tile, dtype, n, k, tc::Tile<1, 0>::RB, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+                   static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
+                   c, n, k, 0, splits};
+  return dispatch_tc<1>(a, tile, e, st);
 }
 
 extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
-                      int m, int n, int k, int group, int dtype, void* stream) {
+                      int m, int n, int k, int group, int tile, int splits, int dtype,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k % 2 || group < 1 || k % group) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(true, x, p, s, out, 0, m, n, k, group, st);
-  return launch_dq<float>(true, x, p, s, out, 0, m, n, k, group, st);
+#ifdef DQ_SIMT_BF16
+  tile = 0;
+#endif
+  if (tile == 0) {
+    if (dtype == 1) return launch_dq<__nv_bfloat16>(true, x, p, s, out, 0, m, n, k, group, st);
+    return launch_dq<float>(true, x, p, s, out, 0, m, n, k, group, st);
+  }
+  if (!tc_args_ok(tile, dtype, n, k / 2, group, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(p),
+                   static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
+                   m, n, k, group, splits};
+  return dispatch_tc<2>(a, tile, 1, st);
 }
 
 extern "C" int sdpa_int8(const void* q, const void* k8, const void* ks,

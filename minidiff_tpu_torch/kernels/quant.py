@@ -29,14 +29,19 @@ versions (``_plain_dequant_matmul``, ``_plain_dequant_matmul4``,
 ``_jnp_*`` functions).  As in the JAX dispatcher (``quant.py:102-114``), a
 product of more than 256 rows (a prefill; for a bank, rows per expert) is
 not weight-streaming: ``uses_kernel`` sends it to the plain version on the
-dequantized weight, a ``torch.matmul``, on either device.  A CUDA tensor the
-kernels do not take raises: nothing falls back.  These ops serve decoding
-only and have no autograd; the tape's ops supply the VJPs.
+dequantized weight, a ``torch.matmul``, on either device.  ``dq_bmm`` and
+``dq4_mm`` launch by the plan of ``dq_plan``, decided from shapes and dtypes
+before launch: bf16 inside the tensor-core tiles' rule takes a tile (and a
+split of K when its output tiles cannot fill the card), everything else the
+SIMT tile.  A CUDA tensor the kernels do not take raises: nothing falls
+back.  These ops serve decoding only and have no autograd; the tape's ops
+supply the VJPs.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +51,35 @@ from minidiff_tpu_torch.kernels import _build
 LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "dq_bmm": 0, "sdpa_int8": 0}
 # the most activation rows a dequant-matmul kernel takes (quant.py:111)
 MAX_KERNEL_ROWS = 256
+# the H100's streaming multiprocessors: a launch of few output tiles splits
+# K (``dq_plan``)
+SMS = 132
+# the most K splits of one output tile: the CTAs of a thread-block cluster
+# (16, the H100's non-portable cluster size), which sum their partials
+# through distributed shared memory
+MAX_SPLITS = 16
+# csrc/quant.cu's tiles for dq_bmm (8 bits) and dq4_mm (4 bits): activation
+# rows and output columns per CTA, and stored weight rows (packed rows for
+# int4) per cp.async stage.  "small8" and "small16" compute out^T = W^T x^T
+# on mma.sync (rows on the MMA's 8-wide side), "large" the same on wgmma
+# (rows on its N side); "simt" is the FFMA tile (8 rows x 64 columns, all
+# of K).
+TILES = {
+    8: {"simt": (8, 64, 0), "small8": (8, 64, 64), "small16": (16, 64, 64),
+        "large": (128, 256, 64)},
+    4: {"simt": (8, 64, 0), "small8": (8, 64, 32), "small16": (16, 64, 32),
+        "large": (128, 128, 32)},
+}
+# the CTAs up to which splitting K pays on each tensor-core tile: each split
+# shortens the CTAs' walk along K but adds its share of the cluster's
+# exchange of f32 partials.  From chip_smoke.py's dq_split_ab (PERF.md §6):
+# at each of the eight shapes timed, the best split count was the largest
+# that kept the launch within 2 x SMS CTAs on the small tiles (4 CTAs an SM)
+# and within 3/4 of SMS on the large one (1-2 an SM: a split launch of 128
+# CTAs ran slower than one of 64 at each shape that allows both)
+SPLIT_CTAS = {"small8": 2 * SMS, "small16": 2 * SMS, "large": 3 * SMS // 4}
+# the C entries' `tile` argument
+TILE_CODES = {"simt": 0, "small8": 1, "small16": 2, "large": 3}
 # the head dims the attention kernel is built for; others take the plain
 # version on either device (``sdpa_int8_cache``)
 HEAD_DIMS = (64, 128, 256)
@@ -186,6 +220,66 @@ def uses_kernel(rows: int) -> bool:
     return rows <= MAX_KERNEL_ROWS
 
 
+class DqPlan(NamedTuple):
+    """How ``dq_bmm`` / ``dq4_mm`` launch: the tile (``TILES``; "matmul" for
+    more than ``MAX_KERNEL_ROWS`` rows, which launch nothing), the K splits
+    of each output tile (the kernel gives split s the units [s * units / S,
+    (s + 1) * units / S) of the stored weight rows, a unit one stage for
+    int8 and one scale group for int4), and the CTAs."""
+
+    tile: str
+    splits: int
+    ctas: int
+
+
+def _tile(bits: int, rows: int, n: int, k: int, dtype, group) -> str:
+    """The tile of a product of ``rows`` <= ``MAX_KERNEL_ROWS`` rows: a
+    tensor-core tile for bf16 with K a multiple of 16, weight rows 8-byte
+    aligned (n % 8 == 0) and, for int4, a group that the tile's stages
+    divide and that divides K/2 (every stage inside one group of each
+    plane); the SIMT tile for everything else."""
+    if dtype != torch.bfloat16 or k % 16 or n % 8:
+        return "simt"
+    tile = "small8" if rows <= 8 else "small16" if rows <= 16 else "large"
+    if bits == 4 and (group % TILES[4][tile][2] or (k // 2) % group):
+        return "simt"
+    return tile
+
+
+def dq_plan(bits: int, rows: int, n: int, k: int, dtype, group=None,
+            experts: int = 1, tile: str | None = None) -> DqPlan:
+    """The launch plan of an int8 (``bits`` 8, ``experts`` > 1 for a bank)
+    or int4 (``bits`` 4, ``group`` rows per scale) dequant-matmul of
+    ``rows`` activation rows (per expert), ``k`` contraction and ``n``
+    output columns, on the card.  The route is decided here, from shapes
+    and dtypes, never after a failed launch:
+
+    - more than ``MAX_KERNEL_ROWS`` rows: "matmul" (the plain product);
+    - f32, or a shape outside the tiles' rule (``_tile``): the SIMT tile,
+      all of K;
+    - else "small8" / "small16" for <= 8 / <= 16 rows, "large" above
+      (``tile`` names another tensor-core tile for the same shape, for
+      chip_smoke.py's A/B of the tiles).
+
+    A launch splits K, doubling the splits while the doubled count of CTAs
+    stays within the tile's ``SPLIT_CTAS``, up to ``MAX_SPLITS`` and the
+    units."""
+    if rows > MAX_KERNEL_ROWS:
+        return DqPlan("matmul", 1, 0)
+    rule = _tile(bits, rows, n, k, dtype, group)
+    tile = rule if tile is None or rule == "simt" else tile
+    tr, tc, stage = TILES[bits][tile]
+    tiles = experts * -(-rows // tr) * -(-n // tc)
+    if tile == "simt":
+        return DqPlan(tile, 1, tiles)
+    units = -(-(k // 2 if bits == 4 else k) // (group if bits == 4 else stage))
+    splits = 1
+    while (2 * tiles * splits <= SPLIT_CTAS[tile]
+           and 2 * splits <= min(units, MAX_SPLITS)):
+        splits *= 2
+    return DqPlan(tile, splits, tiles * splits)
+
+
 def _check_cuda(name: str, x, *others, dtypes):
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {x.dtype}")
@@ -240,11 +334,9 @@ def dequant_matmul_bmm(x, q, s):
     _check_cuda("dq_bmm", x, q, s, dtypes=(torch.int8, torch.float32))
     if s.shape != (e, n):
         raise ValueError(f"dq_bmm: scales {tuple(s.shape)}, expected ({e}, {n})")
-    out = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
-    if out.numel():
-        ops = [_build.operand(t) for t in (x, q, s)]
-        _launch("dq_bmm", x, (*ops, out), (e, c, n, k))
-    return out
+    if not e * c * n:
+        return torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    return _dq_tiles(x, q, s, dq_plan(8, c, n, k, x.dtype, experts=e))
 
 
 def dequant_matmul4(x, p, s):
@@ -264,11 +356,28 @@ def dequant_matmul4(x, p, s):
     if x.device.type == "cpu" or not uses_kernel(m):
         return _plain_dequant_matmul4(x, p, s)
     _check_cuda("dq4_mm", x, p, s, dtypes=(torch.int8, torch.float32))
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
-        ops = [_build.operand(t) for t in (x.reshape(m, k), p, s)]
-        _launch("dq4_mm", x, (*ops, out), (m, n, k, k // groups))
+    if not m:
+        return torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    out = _dq_tiles(x.reshape(m, k), p, s, dq_plan(4, m, n, k, x.dtype, group=k // groups))
     return out.reshape(*x.shape[:-1], n)
+
+
+def _dq_tiles(x, w, s, plan: DqPlan):
+    """``dq_bmm`` (x (E, C, K), w an int8 bank) or ``dq4_mm`` (x (M, K), w
+    packed int4, s (K/G, N)) launched by ``plan``, into a new output."""
+    bank = x.dim() == 3
+    n = w.shape[-1]
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    ops = [_build.operand(t) for t in (x, w, s)]
+    if bank:
+        e, c, k = x.shape
+        _launch("dq_bmm", x, (*ops, out),
+                (e, c, n, k, TILE_CODES[plan.tile], plan.splits))
+    else:
+        m, k = x.shape
+        _launch("dq4_mm", x, (*ops, out),
+                (m, n, k, k // s.shape[0], TILE_CODES[plan.tile], plan.splits))
+    return out
 
 
 def _grouped(q, k8, scale):
