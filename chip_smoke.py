@@ -21,10 +21,14 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    ``dq_bmm`` at the MoE model's decode and prefill banks (a C of 384
    launches nothing), ``dq4_mm`` at int4 groups 64 and 256, a ragged N
    (520) and one row, each case with the tile and K splits it launched
-   with, and the A/B of ``dq_bmm`` / ``dq4_mm`` in bf16 at the main path's
-   shapes: the tensor-core tiles against a ``-DDQ_SIMT_BF16`` build of
-   ``quant.cu`` (the SIMT tile) in turns, with the library call, and cold
-   times beside the warm ones (weights rotated over 100 MB);
+   with, and the A/B of ``dq_mm`` / ``dq_bmm`` / ``dq4_mm`` in bf16 at the
+   main path's shapes: the tensor-core tiles against a ``-DDQ_SIMT_BF16``
+   build of ``quant.cu`` (the SIMT tile) in turns, with the library call,
+   and cold times beside the warm ones (weights rotated over 100 MB); the
+   A/B of the bf16 flash forward at every bf16 shape of its cases: the
+   ``wgmma`` tile at 64 and 128 query rows per CTA against a
+   ``-DFLASH_WMMA_BF16`` build of ``flash_fwd.cu`` (the WMMA tile), in
+   turns;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -225,7 +229,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "xent_fwd_kernel", "xent_bwd_kernel", "mm_bf16_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
                   "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel",
-                  "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel")
+                  "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel",
+                  "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -331,18 +336,27 @@ DQ_BMM_AB = ([8, 128, 1024, 4096], [8, 128, 2048, 1024], [8, 8, 1024, 4096],
              [8, 8, 2048, 1024], [8, 5, 1024, 4096])
 DQ4_AB = ([128, 1024, 3072], [128, 1024, 4096], [128, 4096, 1024], [8, 1024, 3072],
           [8, 1024, 1024], [8, 1024, 4096], [8, 1024, 512], [8, 4096, 1024])
+# dq_mm ([M, K, N]): the int8 model's decode (8 rows) and bench prefill (128
+# rows) projections, QKV, out, fc1, fc2 and the head; the MoE model's
+# attention projections (8 heads over 4 KV heads) are [1024, 1024] like out
+DQ_MM_AB = [[m, k, n] for m in (BATCH, 128)
+            for k, n in ((MODEL["dim"], 3 * MODEL["dim"]), (MODEL["dim"], MODEL["dim"]),
+                         (MODEL["dim"], 4 * MODEL["dim"]), (4 * MODEL["dim"], MODEL["dim"]),
+                         (MODEL["dim"], MODEL["vocab_size"]))]
 COLD_BYTES = 100e6
 # the split A/B of phase 2 (dq_split_ab): each shape on its plan's tile at
 # 1, 2, 4, 8 and 16 K splits (as many as its units allow), the evidence for
 # dq_plan's split rule; the 128-row shapes on the large tile, the decode
-# shapes on the small one ((bits, shape) as DQ_BMM_AB / DQ4_AB)
+# shapes on the small one ((bits, shape) as DQ_BMM_AB / DQ_MM_AB / DQ4_AB)
 DQ_SPLIT_AB = ((8, [8, 128, 2048, 1024]), (8, [8, 128, 1024, 4096]),
                (4, [128, 1024, 3072]), (4, [128, 1024, 4096]), (4, [128, 4096, 1024]),
-               (8, [8, 8, 2048, 1024]), (4, [8, 4096, 1024]), (4, [8, 1024, 3072]))
+               (8, [8, 8, 2048, 1024]), (4, [8, 4096, 1024]), (4, [8, 1024, 3072]),
+               (8, [128, 1024, 3072]), (8, [128, 4096, 1024]), (8, [128, 1024, 4096]),
+               (8, [8, 4096, 1024]), (8, [8, 1024, 3072]))
 # the tile A/B at 9-16 rows (dq_tile_ab): a 16-token bucket's products on
 # each tensor-core tile, with the split rule's splits for that tile
 DQ_TILE_AB = ((8, [8, 16, 1024, 4096]), (8, [8, 16, 2048, 1024]),
-              (4, [16, 1024, 3072]), (4, [16, 4096, 1024]))
+              (4, [16, 1024, 3072]), (4, [16, 4096, 1024]), (8, [16, 1024, 3072]))
 MM_STEP_LAUNCHES = {"matmul_nn": 1, "matmul_nt": 1, "matmul_tn": 1}
 # benchmarks/mlp_bench.py's device-bound config mlp_784x4096x10_b8192:
 # batch 8192, 784 -> 4096 (relu) -> 10, f32, SGD 0.1.  Per step: layer 1's
@@ -522,6 +536,8 @@ def ptxas_report(text: str) -> list:
         elif "registers" in line and name:
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}{spills}")
             name = None
+        elif re.search(r"\(C75\d\d\)|setmaxnreg", line):
+            lines.append(line.strip())  # serialised MMAs, an ignored setmaxnreg
     return lines
 
 
@@ -537,18 +553,24 @@ def phase_kernels(torch, report):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DNORM_BLOCK_PER_ROW", "-o",
          str(block_lib), str(_build._CSRC / "layernorm.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    # quant.cu with every bf16 dq_bmm / dq4_mm on the SIMT tile (dq_route_ab)
+    # quant.cu with every bf16 dq_mm / dq_bmm / dq4_mm on the SIMT tile
+    # (dq_route_ab), flash_fwd.cu with bf16 on the WMMA tile (flash_route_ab)
     simt_lib = _build.BUILD_DIR / "quant-simt.so"
     simt_build = subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DDQ_SIMT_BF16", "-o",
          str(simt_lib), str(_build._CSRC / "quant.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    wmma_lib = _build.BUILD_DIR / "flash_fwd-wmma.so"
+    wmma_build = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_WMMA_BF16", "-o",
+         str(wmma_lib), str(_build._CSRC / "flash_fwd.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build_all()
-    block_log = block_build.communicate()[0]
-    check(block_build.returncode == 0, f"nvcc -DNORM_BLOCK_PER_ROW:\n{block_log}")
-    simt_log = simt_build.communicate()[0]
-    check(simt_build.returncode == 0, f"nvcc -DDQ_SIMT_BF16:\n{simt_log}")
-    log(f"[build] {len(_build.SOURCES) + 2} sources in "
+    for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
+                       ("-DFLASH_WMMA_BF16", wmma_build)):
+        out = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
+    log(f"[build] {len(_build.SOURCES) + 3} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -584,6 +606,7 @@ def phase_kernels(torch, report):
             f"({c['bound_by']})")
     report["kernel_cases"] = cases
     report["flash_route"] = flash_route_cases(torch, randn)
+    report["flash_route_ab"] = flash_route_ab(torch, randn, wmma_lib)
     report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
@@ -862,17 +885,10 @@ def norm_route_ab(torch, randn, block_lib) -> list:
     time of layernorm.cu's warp-per-row route against the block-per-row
     route of rowblock.cuh (``block_lib``, built with -DNORM_BLOCK_PER_ROW),
     each within tolerance of the plain version."""
-    import ctypes
-
     from minidiff_tpu_torch.kernels import _build
     from minidiff_tpu_torch.kernels import layernorm as L
 
-    block = ctypes.CDLL(str(block_lib))
-    for fn, (src, argtypes) in _build.SIGNATURES.items():
-        if src == "layernorm":
-            getattr(block, fn).argtypes = argtypes
-            getattr(block, fn).restype = ctypes.c_int
-    warp = _build._lib("layernorm")
+    block, warp = lib_at("layernorm", block_lib), _build._lib("layernorm")
     rows_out = []
     d = MODEL["dim"]
     for dtype in (torch.bfloat16, torch.float32):
@@ -893,13 +909,10 @@ def norm_route_ab(torch, randn, block_lib) -> list:
             for name, (run, ref, kinds) in runs.items():
                 us = {}
                 for route, lib in (("warp", warp), ("block", block), ("warp2", warp)):
-                    _build._libs["layernorm"] = lib
-                    try:
+                    with built_as("layernorm", lib):
                         for got, want, kind in zip(run(), ref, kinds):
                             max_err(torch, got, want, kind, dn)
                         us[route] = device_ms(torch, run) * 1e3
-                    finally:
-                        _build._libs["layernorm"] = warp
                 rows_out.append(dict(name=name, dtype=dn, shape=[rows, d],
                                      warp_us=[us["warp"], us["warp2"]],
                                      block_us=us["block"]))
@@ -909,30 +922,27 @@ def norm_route_ab(torch, randn, block_lib) -> list:
     return rows_out
 
 
-def flash_cases(torch, randn):
-    """flash_fwd at the serving path's prefill shapes and the train step's
-    (64, 1024, 128); flash_bwd_dkv / flash_bwd_dq at the train step's shape
-    and smaller ones, full, causal and windowed; all three at the options
-    train step's (256, 1024, 128), whose K and V come from ``expand_kv``
-    (each of 8 KV heads repeated over its 4 query heads), and at head dim
-    256 (the kernels' second instantiation: 32-row tiles), (16, 1024, 256)
-    in bf16 and f32."""
-    import types
-
-    import torch.nn.functional as TF
-
-    from minidiff_tpu_torch.kernels import attention as A
-    from minidiff_tpu_torch.models.transformer import MultiHeadAttention
-
-    cases = []
+def flash_shapes(torch) -> list:
+    """flash_cases' cases as (kind, (dtype, bh, s, causal, window, groups,
+    head dim)), kind "fwd" or "bwd": the serving prefill's shapes (64 x 16
+    tokens, 8 x 128 and 8 x 384: full, causal and a window of 100), the
+    train step's (64, 1024, 128), the options train step's (256, 1024,
+    128), whose K and V come from ``expand_kv``, head dim 256 (16, 1024,
+    256) and a ragged (4, 200, 256) with a window of 64; and lengths whose
+    last 128-row CTA has an empty second warpgroup while its ring of key
+    tiles wraps (64 x 576 full, causal and a window of 300, which also
+    makes the second warpgroup skip a tile the first takes; 16 x 1088)."""
     bh_train = TRAIN_BATCH * TRAIN_MODEL["num_heads"]
     bh_opt = OPT_TRAIN_BATCH * OPT_MODEL["num_heads"]
     groups = OPT_MODEL["num_heads"] // OPT_MODEL["num_kv_heads"]
-    # (dtype, bh, s, causal, window, groups, head dim)
+    # (dtype, bh, s, causal, window), head dim 128
     fwd = [(torch.bfloat16, 64, 16, True, None), (torch.bfloat16, 8, 128, True, None),
+           (torch.bfloat16, 8, 128, False, None), (torch.bfloat16, 8, 128, True, 100),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
            (torch.bfloat16, 8, 384, True, 100),
            (torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
+           (torch.bfloat16, 64, 576, True, None), (torch.bfloat16, 64, 576, False, None),
+           (torch.bfloat16, 64, 576, True, 300), (torch.bfloat16, 16, 1088, True, None),
            (torch.float32, 64, 16, True, None), (torch.float32, 8, 384, True, None),
            (torch.float32, 8, 384, True, 100)]
     bwd = [(torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
@@ -942,8 +952,23 @@ def flash_cases(torch, randn):
     hd256 = [(torch.bfloat16, HD256_BH, HD256_SEQ, True, None, 1, 256),
              (torch.float32, HD256_BH, HD256_SEQ, True, None, 1, 256),
              (torch.bfloat16, 4, 200, True, 64, 1, 256)]
-    todo = ([("fwd", c + (1, 128)) for c in fwd] + [("fwd", c) for c in gqa + hd256]
+    return ([("fwd", c + (1, 128)) for c in fwd] + [("fwd", c) for c in gqa + hd256]
             + [("bwd", c + (1, 128)) for c in bwd] + [("bwd", c) for c in gqa + hd256])
+
+
+def flash_cases(torch, randn):
+    """flash_fwd at ``flash_shapes``' forward shapes, flash_bwd_dkv /
+    flash_bwd_dq at its backward shapes on the forward's o and lse, each
+    against its plain version; bf16 and f32."""
+    import types
+
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import attention as A
+    from minidiff_tpu_torch.models.transformer import MultiHeadAttention
+
+    cases = []
+    todo = flash_shapes(torch)
     for kind, (dtype, bh, s, causal, window, g, hd) in todo:
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
@@ -958,7 +983,7 @@ def flash_cases(torch, randn):
         pairs = (int(A._keep_mask(s, s, window, "cpu").sum()) if causal
                  else s * s)
         shape = dict(dtype=dn, shape=[bh, s, hd], causal=causal, window=window,
-                     groups=g)
+                     groups=g, rows=A.flash_plan(bh, s, hd, dtype))
         o, lse = A.flash_fwd(q, k, v, scale, causal, window)
         if kind == "fwd":
             op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
@@ -1053,6 +1078,59 @@ def flash_route_cases(torch, randn) -> list:
         log(f"[kernel] flash rule head dim {hd:3d}: {out[-1]['route']:8s} "
             f"launches {counts} | err vs its plain route {err:.3g}")
     return out
+
+
+def flash_route_ab(torch, randn, wmma_lib) -> list:
+    """The bf16 flash forward at every bf16 forward shape of flash_shapes: the
+    ``wgmma`` tile at 64 and 128 query rows per CTA against the WMMA tile of
+    ``wmma_lib`` (flash_fwd.cu built with -DFLASH_WMMA_BF16), each within
+    TOL["attn"] / TOL["lse"] of the plain version, timed in turns (WMMA, 64,
+    128, then back): the readings behind flash_plan's rule.  The 128-row
+    tile is built at head dim 128 only."""
+    import types
+
+    from minidiff_tpu_torch.kernels import attention as A
+    from minidiff_tpu_torch.models.transformer import MultiHeadAttention
+
+    wmma = lib_at("flash_fwd", wmma_lib)
+    rows_out = []
+    for kind, (dtype, bh, s, causal, window, g, hd) in flash_shapes(torch):
+        if kind != "fwd" or dtype != torch.bfloat16:
+            continue
+        q, k, v = (randn(bh, s, hd, dtype=dtype) for _ in range(3))
+        if g > 1:
+            attn = types.SimpleNamespace(num_heads=bh, num_kv_heads=bh // g)
+            k, v = (MultiHeadAttention.expand_kv(attn, t[None, ::g])[0] for t in (k, v))
+        scale = hd ** -0.5
+        op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
+        routes = {"wmma": (wmma, None), "wgmma64": (None, 64)}
+        if hd == 128:
+            routes["wgmma128"] = (None, 128)
+        us, err = {r: [] for r in routes}, {}
+        for order in (list(routes), list(routes)[::-1]):
+            for r in order:
+                lib, rows = routes[r]
+
+                def run():
+                    if rows is None:  # the WMMA build takes no tile plan
+                        return A.flash_fwd(q, k, v, scale, causal, window)
+                    return A._fwd_launch(q, k, v, scale, causal, window, rows)
+
+                with contextlib.ExitStack() as stack:
+                    if lib is not None:
+                        stack.enter_context(built_as("flash_fwd", lib))
+                    if r not in err:
+                        o, lse = run()
+                        err[r] = max(max_err(torch, o, op, "attn", "bfloat16"),
+                                     max_err(torch, lse, lp, "lse", "bfloat16"))
+                    us[r].append(device_ms(torch, run, iters=20) * 1e3)
+        row = dict(shape=[bh, s, hd], causal=causal, window=window, groups=g,
+                   plan_rows=A.flash_plan(bh, s, hd, dtype), us=us, max_abs_err=err)
+        rows_out.append(row)
+        log(f"[flash ab] {str([bh, s, hd]):16s}{' causal' if causal else '':7s}"
+            f"{' w' + str(window) if window else '':5s} plan {row['plan_rows']:3d} | " + " | ".join(
+                f"{r} {v[0]:8.2f} / {v[1]:8.2f}" for r, v in us.items()) + " us")
+    return rows_out
 
 
 def xent_cases(torch, gen, randn):
@@ -1172,8 +1250,8 @@ def quant_cases(torch, gen, randn):
                           else (q8.float() * s8).to(dtype))
                     cases.append(dict(
                         name=name, dtype=dn, shape=[m, k, n],
-                        **(_plan_info(Q.dq_plan(4, m, n, k, dtype, group=128))
-                           if name == "dq4_mm" else {}),
+                        **_plan_info(Q.dq_plan(4 if name == "dq4_mm" else 8, m, n, k, dtype,
+                                               group=128)),
                         max_abs_err=max_err(torch, fn(x, wq, sq), plain(x, wq, sq),
                                             "dq", dn),
                         ms=device_ms(torch, lambda: fn(x, wq, sq)),
@@ -1257,14 +1335,30 @@ def _plan_info(plan) -> dict:
 
 
 def _dq_case(torch, randn, bits, dtype, shape, group=128):
-    """One dq_bmm ([E, C, K, N], bits 8) or dq4_mm ([M, K, N], bits 4) case:
-    its entry point on x and a quantized weight, the plain version, the
-    library call on the dequantized weight (torch.bmm / x @ w), the plan,
-    the bound's bytes and flops, and a maker of fresh weight copies."""
+    """One dq_bmm ([E, C, K, N], bits 8), dq_mm ([M, K, N], bits 8) or
+    dq4_mm ([M, K, N], bits 4) case: the kernel's name, its entry point on x
+    and a quantized weight, the plain version, the library call on the
+    dequantized weight (torch.bmm / x @ w), the plan, the bound's bytes and
+    flops, and a maker of fresh weight copies."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     size = torch.finfo(dtype).bits // 8
-    if bits == 8:
+    name = "dq4_mm" if bits == 4 else "dq_bmm" if len(shape) == 4 else "dq_mm"
+    if name == "dq_mm":
+        m, k, n = shape
+        x = randn(m, k, dtype=dtype)
+
+        def weight():
+            return Q.quantize_int8(randn(k, n, dtype=torch.float32) * k ** -0.5)
+
+        def dequant(q, s):
+            return (q.float() * s).to(dtype)
+
+        run, plain, lib = Q.dequant_matmul, Q._plain_dequant_matmul, torch.matmul
+        plan = Q.dq_plan(8, m, n, k, dtype)
+        nbytes = (m * k + m * n) * size + k * n + 4 * n
+        flops = 2 * m * n * k
+    elif bits == 8:
         e, c, k, n = shape
         x = randn(e, c, k, dtype=dtype)
 
@@ -1292,8 +1386,8 @@ def _dq_case(torch, randn, bits, dtype, shape, group=128):
         plan = Q.dq_plan(4, m, n, k, dtype, group=group)
         nbytes = (m * k + m * n) * size + k * n // 2 + 4 * (k // group) * n
         flops = 2 * m * n * k
-    return dict(x=x, weight=weight, dequant=dequant, run=run, plain=plain, lib=lib,
-                plan=plan, nbytes=nbytes, flops=flops)
+    return dict(name=name, x=x, weight=weight, dequant=dequant, run=run, plain=plain,
+                lib=lib, plan=plan, nbytes=nbytes, flops=flops)
 
 
 def dq_edge_cases(torch, randn):
@@ -1314,7 +1408,7 @@ def dq_edge_cases(torch, randn):
             q, s = d["weight"]()
             x, wd = d["x"], d["dequant"](q, s)
             cases.append(dict(
-                name="dq4_mm" if bits == 4 else "dq_bmm", dtype=dn, shape=shape,
+                name=d["name"], dtype=dn, shape=shape,
                 group=group if bits == 4 else None, **_plan_info(d["plan"]),
                 max_abs_err=max_err(torch, d["run"](x, q, s), d["plain"](x, q, s), "dq", dn),
                 ms=device_ms(torch, lambda: d["run"](x, q, s)),
@@ -1333,31 +1427,33 @@ def cold_ms(torch, fn, copies) -> float:
     return device_ms(torch, lambda: fn(next(it)))
 
 
-def _quant_lib(path):
-    """A build of quant.cu at ``path``, loaded with the C signatures."""
+def lib_at(source: str, path):
+    """A build of ``csrc/<source>.cu`` at ``path`` (an A/B variant), loaded
+    with the C signatures."""
     import ctypes
 
     from minidiff_tpu_torch.kernels import _build
 
     lib = ctypes.CDLL(str(path))
     for fn, (src, argtypes) in _build.SIGNATURES.items():
-        if src == "quant":
+        if src == source:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
 @contextlib.contextmanager
-def quant_built_as(lib):
-    """Every quant kernel launched from ``lib`` until the block ends."""
+def built_as(source: str, lib):
+    """Every kernel of ``csrc/<source>.cu`` launched from ``lib`` until the
+    block ends."""
     from minidiff_tpu_torch.kernels import _build
 
-    tiles = _build._lib("quant")
-    _build._libs["quant"] = lib
+    own = _build._lib(source)
+    _build._libs[source] = lib
     try:
         yield
     finally:
-        _build._libs["quant"] = tiles
+        _build._libs[source] = own
 
 
 def dq_route_ab(torch, randn, simt_lib) -> list:
@@ -1371,10 +1467,10 @@ def dq_route_ab(torch, randn, simt_lib) -> list:
 
     from minidiff_tpu_torch.kernels import _build
 
-    simt, tiles = _quant_lib(simt_lib), _build._lib("quant")
+    simt, tiles = lib_at("quant", simt_lib), _build._lib("quant")
     dtype, dn = torch.bfloat16, "bfloat16"
     rows = []
-    for bits, shapes in ((8, DQ_BMM_AB), (4, DQ4_AB)):
+    for bits, shapes in ((8, DQ_BMM_AB), (8, DQ_MM_AB), (4, DQ4_AB)):
         for shape in shapes:
             d = _dq_case(torch, randn, bits, dtype, shape)
             q, s = d["weight"]()
@@ -1383,7 +1479,7 @@ def dq_route_ab(torch, randn, simt_lib) -> list:
             us = {}
             for route, lib in (("simt", simt), ("tiles", tiles), ("tiles2", tiles),
                                ("simt2", simt)):
-                with quant_built_as(lib):
+                with built_as("quant", lib):
                     us[route + "_err"] = max_err(torch, run(x, q, s), ref, "dq", dn)
                     us[route] = device_ms(torch, lambda: run(x, q, s)) * 1e3
             wbytes = q.numel() * q.element_size() + s.numel() * 4
@@ -1397,7 +1493,7 @@ def dq_route_ab(torch, randn, simt_lib) -> list:
             lib_cold = cold_ms(torch, lambda c: d["lib"](x, c), lcopies) * 1e3
             del lcopies
             b = bound(d["nbytes"], d["flops"], dn)
-            row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape,
+            row = dict(name=d["name"], shape=shape,
                        **_plan_info(d["plan"]), ctas=d["plan"].ctas,
                        simt_us=[us["simt"], us["simt2"]], tiles_us=[us["tiles"], us["tiles2"]],
                        tiles_cold_us=cold, library_us=lib_us, library_cold_us=lib_cold,
@@ -1446,7 +1542,7 @@ def dq_split_ab(torch, randn) -> list:
         routes = {n: Q.DqPlan(plan.tile, n, tiles * n)
                   for n in (1, 2, 4, 8, 16) if n <= units}
         us, err = _ab_turns(torch, routes, x, q, s, d["plain"](x, q, s), dn)
-        row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape, tile=plan.tile,
+        row = dict(name=d["name"], shape=shape, tile=plan.tile,
                    tiles=tiles, plan_splits=plan.splits,
                    us={str(n): v for n, v in us.items()},
                    max_abs_err={str(n): v for n, v in err.items()})
@@ -1469,12 +1565,12 @@ def dq_tile_ab(torch, randn) -> list:
         d = _dq_case(torch, randn, bits, dtype, shape)
         q, s = d["weight"]()
         x = d["x"]
-        m, k, n = (shape[1:] if bits == 8 else shape)
+        m, k, n = shape[-3:]
         routes = {t: Q.dq_plan(bits, m, n, k, dtype, group=128 if bits == 4 else None,
-                               experts=shape[0] if bits == 8 else 1, tile=t)
+                               experts=shape[0] if len(shape) == 4 else 1, tile=t)
                   for t in ("small8", "small16", "large")}
         us, err = _ab_turns(torch, routes, x, q, s, d["plain"](x, q, s), dn)
-        row = dict(name="dq_bmm" if bits == 8 else "dq4_mm", shape=shape,
+        row = dict(name=d["name"], shape=shape,
                    plan_tile=d["plan"].tile,
                    routes={t: dict(splits=p.splits, ctas=p.ctas, us=us[t], max_abs_err=err[t])
                            for t, p in routes.items()})
@@ -2162,7 +2258,7 @@ def phase_quant(torch, seed: int, report):
         torch, "int4 generate_compiled 32 new tokens",
         lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
     if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
-        with quant_built_as(_quant_lib(report["simt_quant_lib"])):
+        with built_as("quant", lib_at("quant", report["simt_quant_lib"])):
             out["profile_int4_simt"] = profile_run(
                 torch, "int4 generate_compiled 32 new tokens, SIMT tile",
                 lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
@@ -3035,7 +3131,7 @@ def phase_moe(torch, seed: int, report):
         torch, "moe int8 generate_compiled 32 new tokens",
         lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
     if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
-        with quant_built_as(_quant_lib(report["simt_quant_lib"])):
+        with built_as("quant", lib_at("quant", report["simt_quant_lib"])):
             out["generate_profile_simt"] = profile_run(
                 torch, "moe int8 generate_compiled 32 new tokens, SIMT tile",
                 lambda: generate_compiled(q8, prompt, 32, device=DEVICE))

@@ -34,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the dtypes the kernels take, as their C entries' `dtype` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the H100's streaming multiprocessors, which the launch plans fill
+# (kernels.attention.flash_plan, kernels.quant.dq_plan)
+SMS = 132
 
 # C signatures: name -> (source, argtypes).  Every entry returns the
 # cudaError_t of its launch as an int.
@@ -49,7 +52,7 @@ SIGNATURES = {
     "rms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "addrms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "flash_fwd": ("flash_fwd",
-                  (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P)),
+                  (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
     "flash_bwd_dkv": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _F, _I, _I, _I, _P)),
     "flash_bwd_dq": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -57,7 +60,7 @@ SIGNATURES = {
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sdpa_int8": ("quant", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

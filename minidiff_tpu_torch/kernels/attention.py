@@ -6,9 +6,11 @@ through ``SdpaFn``, which saves the forward's ``o`` and per-row logsumexp
 ``lse`` for the backward, as the JAX custom VJP does.  A CUDA tensor goes to
 the hand-written kernels: ``csrc/flash_fwd.cu`` for the forward,
 ``csrc/flash_bwd.cu`` (``flash_bwd_dkv``, then ``flash_bwd_dq``) for the
-backward.  A CPU tensor goes to the plain versions, ``_plain_flash_fwd`` and
-``_plain_flash_bwd``.  A CUDA tensor the kernels do not take raises: nothing
-falls back.
+backward.  In bf16 the forward runs on ``wgmma`` with 64 or 128 query rows
+per CTA, as ``flash_plan`` decides from shapes before launch; f32 keeps the
+CUDA-core tile.  A CPU tensor goes to the plain versions,
+``_plain_flash_fwd`` and ``_plain_flash_bwd``.  A CUDA tensor the kernels
+do not take raises: nothing falls back.
 
 ``sdpa`` sends operands to ``SdpaFn`` only where ``flash_eligible`` holds,
 the rule of the JAX ``_flash_eligible`` (``attention.py:785-806``): 4-D, one
@@ -32,6 +34,11 @@ _NEG_INF = -1e30
 # the head dims the kernels are built for (the JAX kernels' d % 128 == 0
 # and d <= 256)
 HEAD_DIMS = (128, 256)
+# the query rows per CTA of the bf16 forward's tiles (``flash_plan``): one
+# or two warpgroups of 64 rows; 128 at head dim 128 where such CTAs cover
+# the card's SMs
+FLASH_ROWS = (64, 128)
+SMS = _build.SMS
 
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
@@ -125,11 +132,38 @@ def _check_cuda(name: str, q, k, v, *others):
     return bh, sq, sk, d
 
 
+def flash_plan(bh: int, sq: int, d: int, dtype) -> int:
+    """The query rows per CTA of the flash forward on the card, decided from
+    shapes and dtypes before launch.  bf16 runs ``csrc/flash_fwd.cu``'s
+    ``wgmma`` tile: 128 rows (two warpgroups sharing each K/V tile) at head
+    dim 128 where 128-row CTAs cover the card's SMs, else 64 (one
+    warpgroup: a short prefill's few tiles spread over twice the CTAs; at
+    head dim 256 the two-warpgroup tile was slower at every shape timed, so
+    it is not built).  f32 runs the CUDA-core tile of 64 rows.  A dtype or head dim the kernels are not built for
+    raises, as ``flash_fwd`` does on the card (``sdpa`` composes those)."""
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash_fwd: kernel takes float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd: kernels are built for head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if dtype != torch.bfloat16 or d != 128:
+        return 64
+    return 128 if bh * -(-sq // 128) >= SMS else 64
+
+
 def flash_fwd(q, k, v, scale: float, causal: bool, window=None):
     """q (BH, Sq, D), k/v (BH, Sk, D) -> (o (BH, Sq, D), lse (BH, Sq) f32)."""
     window = _normalize_window(window, q.shape[1], k.shape[1], causal)
     if q.device.type == "cpu":
         return _plain_flash_fwd(q, k, v, scale, causal, window)
+    bh, sq, _, d = _check_cuda("flash_fwd", q, k, v)
+    return _fwd_launch(q, k, v, scale, causal, window, flash_plan(bh, sq, d, q.dtype))
+
+
+def _fwd_launch(q, k, v, scale: float, causal: bool, window, rows: int):
+    """The CUDA forward at ``rows`` query rows per CTA: ``flash_plan``'s, or
+    the other tile of ``FLASH_ROWS`` (chip_smoke.py's A/B); ``window`` as
+    ``_normalize_window`` leaves it."""
     bh, sq, sk, d = _check_cuda("flash_fwd", q, k, v)
     ops = (q.contiguous(), k.contiguous(), v.contiguous())
     o = torch.empty_like(ops[0])
@@ -137,7 +171,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool, window=None):
     if bh == 0 or sq == 0:
         return o, lse
     _launch("flash_fwd", ops, (o, lse), (bh, sq, sk, d), scale,
-            (int(bool(causal)), 0 if window is None else window,
+            (int(bool(causal)), 0 if window is None else window, rows,
              _build.DTYPE_CODES[q.dtype]))
     return o, lse
 

@@ -11,28 +11,63 @@
 // bounds (keys >= Sk score -1e30, query rows >= Sq are not stored) instead
 // of padding the operands to 128 as the TPU path does.
 //
-// Bound on the H100: at the serving path's shapes (D = 128, S <= 512) the
-// bytes are q, k, v and o once each and the operations 4*S*Sk*D per head
-// (halved by causality), about 32-128 flop/byte, under the ~295 flop/byte
-// ridge: a perfect kernel is memory-bound, and this simple one is bound by
-// its own shared-memory round trips and the tensor-core rate it reaches
-// through WMMA.  Design: one CTA of 4 warps per (batch*head, 64-query tile);
-// K/V tiles of BK rows stream through shared memory; each warp owns 16 query
-// rows end to end (QK^T, online softmax, PV), so the only block barriers are
-// around the tile loads.  bf16 uses WMMA 16x16x16 with f32 accumulation;
-// f32 keeps full f32 on the CUDA cores (TF32 would break the f32 contract).
-// The running max and sum live in shared memory beside the f32 O tile that
-// the WMMA accumulator is reloaded from, because WMMA fragments do not expose
-// which row an element belongs to.  Head dims 128 and 256 are the two
-// instantiations, as _flash_eligible takes them: BK is 64 at D 128 and 32 at
-// D 256, where the f32 Q, K, V and O tiles of 64-row K/V tiles would need
-// 281 KB of the 227 KB a block may use.  wgmma, TMA and register-resident P
-// are later work.
+// Bound on the H100: at the train step's shapes (S 1024, D 128 or 256) the
+// operations, 4 Sq Sk D per head halved by causality, are ~250 flop per
+// byte of q, k, v and o, near the ~295 flop/byte ridge: a perfect kernel is
+// bound by the tensor cores there, and by the bytes at the serving
+// prefill's short rows.
+//
+// bf16 (namespace wg) runs on wgmma.  A CTA is one or two consumer
+// warpgroups of 64 query rows (kernels/attention.py flash_plan decides, from
+// shapes, before launch; two only at head dim 128) and one producer
+// warpgroup:
+//   - copies: the producer streams K and V tiles (128 keys at head dim 128
+//     with 128 query rows, else 64) through a ring of shared-memory stages
+//     (three at 128 x 128, else two) with cp.async, which zero-fills rows
+//     past Sk and writes the 128-byte swizzle itself; mbarriers say a stage
+//     landed (cp.async.mbarrier.arrive) and that every consumer warp is
+//     done with it, so the two consumers drift apart and one's softmax runs
+//     beside the other's MMAs.  TMA would need a tensor map from libcuda's
+//     cuTensorMapEncodeTiled, which the plain-C build does not bind;
+//     setmaxnreg moves the producer's registers to the consumers (40 /
+//     232);
+//   - S = Q K^T: wgmma with Q and K from shared memory, both K-major; S
+//     stays in registers;
+//   - softmax in registers: each thread holds two rows' values, reduced over
+//     a quad of lanes; scores in base 2 (scale log2 e folded), lse returned
+//     in natural log; the masks only on tiles that reach past Sk, the
+//     diagonal or a window's lower edge;
+//   - O += P V: P, rounded to bf16 against the running max, is the A operand
+//     from registers in the accumulator's own layout; V is an MN-major B
+//     (transposed descriptor); O (64 x D f32) stays in registers until the
+//     epilogue; shared memory carries no S, P or O tile;
+//   - S of tile n and PV of tile n - 1 are issued together, and two
+//     consumers take turns at issuing (named barriers), one turn per key
+//     tile of the CTA whether or not it is live for the warpgroup's rows,
+//     so that one's softmax runs beside the other's MMAs; at head dim 256
+//     (one consumer) tile n's softmax also overlaps that PV (at 128 ptxas
+//     would serialise every MMA of the kernel for it);
+//   - the last query tiles (the longest causal rows) are scheduled first.
+// f32 keeps the CUDA-core tile below (TF32 would break the f32 contract).
+// Built with -DFLASH_WMMA_BF16, bf16 runs that tile's WMMA form instead
+// (chip_smoke.py's A/B of the two).
+//
+// The CUDA-core / WMMA tile: one CTA of 4 warps per (batch*head, 64-query
+// tile); K/V tiles of BK rows stream through shared memory; each warp owns
+// 16 query rows end to end (QK^T, online softmax, PV), so the only block
+// barriers are around the tile loads.  bf16 uses WMMA 16x16x16 with f32
+// accumulation; f32 keeps full f32 on the CUDA cores.  The running max and
+// sum live in shared memory beside the f32 O tile that the WMMA
+// accumulator is reloaded from.  BK is 64 at D 128 and 32 at D 256, where
+// the f32 Q, K, V and O tiles of 64-row K/V tiles would need 281 KB of the
+// 227 KB a block may use.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -193,7 +228,7 @@ __device__ __forceinline__ void store_p(float* /*sP*/, float* sS, int row,
   sS[row * LDS + col] = p;
 }
 
-__device__ __forceinline__ void store_o(__nv_bfloat16* dst, float v) {
+[[maybe_unused]] __device__ __forceinline__ void store_o(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void store_o(float* dst, float v) { *dst = v; }
@@ -338,17 +373,411 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// One instantiation: head dim D, WGS consumer warpgroups of 64 query rows
+// each, key tiles of BK rows in a ring of STAGES.  The CTA is the consumer
+// warpgroups and one producer warpgroup.  Shared memory (after up to 1 KB
+// that aligns it): the Q tile, the ring of (K tile, V tile), then the
+// mbarriers; each tile D / 64 swizzle atoms of its rows x 128 bytes
+// (wgmma.cuh).
+template <int D, int WGS, int BK, int STAGES>
+struct Cfg {
+  static constexpr int BQ = 64 * WGS;
+  static constexpr int kConsumers = 128 * WGS;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kQ = BQ * D * 2;
+  static constexpr int kKV = BK * D * 2;       // K or V of one stage
+  static constexpr int kBars = kQ + STAGES * 2 * kKV;
+  static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * STAGES);
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Copy rows [r0, r0 + R) of a (rows, D) bf16 matrix into the tile at
+// shared address `dst`, zeros for rows >= limit.  Copier t of T copies the
+// 16-byte chunks i = t + j T: chunk i % 8 of row (i / 8) % R in atom
+// i / (8 R), at 16 i with the chunk index swizzled by the row: 8 copiers
+// fill one 128-byte row, read contiguously from global memory.
+template <int D, int R, int T>
+__device__ __forceinline__ void load_tile(unsigned dst, const bf16* src, int r0, int limit, int t) {
+#pragma unroll 4
+  for (int j = 0; j < R * D / 8 / T; ++j) {
+    const int i = t + j * T, r = (i / 8) % R;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + ((16 * i) ^ ((r & 7) << 4)),
+               ok ? src + static_cast<size_t>(r0 + r) * D + (i / (8 * R)) * 64 + (i % 8) * 8
+                  : src,
+               ok ? 16 : 0);
+  }
+}
+
+// S (this warpgroup's 64 rows x BK keys, f32) = Q K^T, both K-major: the
+// 16 columns kk.. of the Q rows (R rows per atom) and of K.  Issued only:
+// the caller fences before and commits after.
+template <int D, int BK, int R>
+__device__ __forceinline__ void qk(float (&s)[BK / 2], unsigned q, unsigned k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned off = (kk % 4) * 32;
+    const uint64_t a = desc_sw128(q + (kk / 4) * R * 128 + off, 16, 1024);
+    const uint64_t b = desc_sw128(k + (kk / 4) * BK * 128 + off, 16, 1024);
+    if constexpr (BK == 128) wgmma_m64n128_ss(s, a, b, kk > 0);
+    else wgmma_m64n64_ss(s, a, b, kk > 0);
+  }
+}
+
+// O (64 x D) += P (64 x BK, registers) V (BK x D, MN-major: atoms of 64
+// columns BK * 128 bytes apart, 8-key groups 1 KB apart), in blocks of 128
+// columns.  Issued only, as qk.
+template <int D, int BK>
+__device__ __forceinline__ void pv(float (&o)[D / 128][64], const unsigned (&p)[BK / 4],
+                                   unsigned v) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const unsigned a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_m64n128_rs<1>(o[h], a, desc_sw128(v + kk * 2048 + h * 2 * BK * 128, BK * 128, 1024), 1);
+  }
+}
+
+// Where a tile is masked: its column and row of S element i, relative to
+// this thread's first column k0 + c2 and row ra
+template <int I>
+struct Elem {
+  static constexpr int col = 8 * (I / 4) + I % 2;
+  static constexpr int row = 8 * ((I / 2) % 2);
+};
+
+template <int BK, bool MASK, int I = 0>
+__device__ __forceinline__ void scale_mask(float (&s)[BK / 2], float (&mx)[2][2], float sl2,
+                                           int cmax, int dbase, int causal, int window) {
+  if constexpr (I < BK / 2) {
+    float x = s[I] * sl2;
+    if constexpr (MASK) {
+      // col - row = dbase + Elem<I>::col - Elem<I>::row; col < sk
+      const int d = dbase + (Elem<I>::col - Elem<I>::row);
+      const bool keep = Elem<I>::col < cmax &&
+                        (!causal || (d <= 0 && (window <= 0 || d > -window)));
+      x = keep ? x : kNegInf;
+    }
+    s[I] = x;
+    mx[(I / 2) % 2][I % 2] = fmaxf(mx[(I / 2) % 2][I % 2], x);
+    scale_mask<BK, MASK, I + 1>(s, mx, sl2, cmax, dbase, causal, window);
+  }
+}
+
+// The online softmax of one S tile in registers: scores in base 2 (times
+// sl2 = scale log2 e), masked to -1e30 where MASK, the running max m and
+// this thread's share of the running sum l updated, alpha the factor the
+// output rescales by, and P rounded to bf16 against the new max, in the
+// accumulator's own layout (registers 4kk.. hold keys 16kk..): PV's A
+// operand.  A row's BK / 4 values lie on a quad of lanes.
+template <int BK, bool MASK>
+__device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], unsigned (&p)[BK / 4], float sl2,
+                                        int cmax, int dbase, int causal, int window) {
+  float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+  scale_mask<BK, MASK>(s, mx, sl2, cmax, dbase, causal, window);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = fmaxf(mx[r][0], mx[r][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x);
+    alpha[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float sum[2][2] = {};
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) {
+    const int r = i % 2;
+    const float p0 = exp2_approx(s[2 * i] - m[r]), p1 = exp2_approx(s[2 * i + 1] - m[r]);
+    sum[r][(i / 2) % 2] += p0 + p1;
+    p[i] = pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + (sum[r][0] + sum[r][1]);
+}
+
+template <int D, int WGS, int BK, int STAGES>
+__global__ void __launch_bounds__(128 * WGS + 128, 1)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, float scale, int causal,
+                       int window) {
+  using C = Cfg<D, WGS, BK, STAGES>;
+  // Whether a tile's softmax overlaps the PV product of the tile before:
+  // at head dim 128 ptxas serialises every MMA of the kernel when
+  // registers are defined while a group is partly retired (C7513), so
+  // there S(n) and PV(n - 1) are only issued together
+  constexpr bool kOverlap = D == 256;
+  extern __shared__ unsigned char smem[];
+  const unsigned sQ = (smem_addr(smem) + 1023) & ~1023u, sKV = sQ + C::kQ;
+  const unsigned qbar = sQ + C::kBars;  // then full[STAGES], empty[STAGES]
+  auto full = [&](int n) { return qbar + 8 + 8 * (n % STAGES); };
+  auto empty = [&](int n) { return qbar + 8 + 8 * STAGES + 8 * (n % STAGES); };
+  auto stage = [&](int n) { return sKV + (n % STAGES) * 2 * C::kKV; };
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  // the last query tiles (the longest causal rows) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
+
+  // the live key tiles [kt0, kt0 + ntiles): causal tiles wholly above the
+  // diagonal of the CTA's last row, and with a window those wholly below
+  // the band of its first, are skipped
+  const int last = min(q0 + C::BQ, sq) - 1;
+  int kt0 = 0, kt1 = (sk + BK - 1) / BK;
+  if (causal) {
+    kt1 = min(kt1, last / BK + 1);
+    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
+  }
+  const int ntiles = kt1 - kt0;
+
+  if (tid == 0) {
+    mbar_init(qbar, 128);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 128);        // the producer warpgroup's copies landed
+      mbar_init(empty(st), 4 * WGS);   // every consumer warp done with the stage
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= C::kConsumers) {
+    // the producer warpgroup: Q, then each live K/V tile into the ring, a
+    // stage refilled once every consumer warp is done with it.  Two
+    // consumers take the registers it gives up (168 each at entry: 40 here,
+    // 232 there)
+    if constexpr (WGS == 2) setmaxnreg_dec<40>();
+    const int t = tid - C::kConsumers;
+    load_tile<D, C::BQ, 128>(sQ, q + static_cast<size_t>(bh) * sq * D, q0, sq, t);
+    mbar_arrive_cp_async(qbar);
+    const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+    const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+    for (int n = 0; n < ntiles; ++n) {
+      mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
+      load_tile<D, BK, 128>(stage(n), kb, (kt0 + n) * BK, sk, t);
+      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, (kt0 + n) * BK, sk, t);
+      mbar_arrive_cp_async(full(n));
+    }
+    cp_async_wait_all();
+  } else {
+    if constexpr (WGS == 2) setmaxnreg_inc<232>();
+    const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    // this warpgroup's rows [w0, w0 + 64); this thread's rows ra, ra + 8
+    const int w0 = q0 + 64 * wgi;
+    const int ra = w0 + 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+    const unsigned wq = sQ + wgi * 64 * 128;  // its rows in each Q atom
+    const float sl2 = scale * kLog2e;  // base 2: exp2(s sl2) = exp(s scale)
+
+    // the tiles [na, nb) with a visible pair for this warpgroup's rows
+    int na = 0, nb = w0 < sq ? ntiles : 0;
+    if (w0 < sq && causal) {
+      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0);
+      if (window > 0) na = max(0, max(0, w0 - window + 1) / BK - kt0);
+    }
+    auto acquire = [&](int n) {
+      mbar_wait(full(n), (n / STAGES) & 1);
+      fence_proxy_async();
+    };
+    auto release = [&](int n) {
+      if (lane == 0) mbar_arrive(empty(n));
+    };
+    // masks only where a tile reaches past Sk, the diagonal or the
+    // window's lower edge for some row of this warpgroup
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    auto scores = [&](float (&s)[BK / 2], unsigned (&p)[BK / 4], int n) {
+      const int k0 = (kt0 + n) * BK;
+      if (k0 + BK > sk || (causal && (k0 + BK - 1 > w0 ||
+                                      (window > 0 && w0 + 63 - k0 >= window))))
+        softmax<BK, true>(s, m, l, alpha, p, sl2, sk - k0 - c2, k0 + c2 - ra, causal, window);
+      else
+        softmax<BK, false>(s, m, l, alpha, p, sl2, 0, 0, causal, window);
+    };
+
+    float oacc[D / 128][64];
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) oacc[h][i] = 0.f;
+
+    // With two consumers, their MMA bursts take turns (named barriers 1 and
+    // 2), so that one's softmax runs beside the other's MMAs, warpgroup 0
+    // first.  Each takes turn n (1 <= n < ntiles) for key tile n of the CTA,
+    // live for its rows or not, holding no tile past n and having released
+    // every tile before n - 1: the turn one waits for then never needs a
+    // stage the waiter holds, so neither can stall the ring.  Warpgroup 1's
+    // last turn hands over nothing, so that every arrive is awaited
+    const int turns = ntiles - 1;
+    int taken = 0;
+    auto my_turn = [&] {
+      if constexpr (WGS == 2) named_sync(1 + wgi, 256);
+    };
+    auto your_turn = [&] {
+      ++taken;
+      if constexpr (WGS == 2)
+        if (wgi == 0 || taken < turns) named_arrive(2 - wgi, 256);
+    };
+    auto turns_to = [&](int n) {  // the turns up to n, empty
+      while (taken < n) {
+        my_turn();
+        your_turn();
+      }
+    };
+    if (WGS == 2 && wgi == 1 && turns > 0) named_arrive(1, 256);
+    mbar_wait(qbar, 0);
+    for (int n = 0; n < na; ++n) {
+      acquire(n);
+      turns_to(n);
+      release(n);
+    }
+    if (na < nb) {
+      // S of tile n and PV of tile n - 1 issued together, one run of the
+      // tensor cores
+      float s[BK / 2];
+      unsigned p[BK / 4];
+      acquire(na);
+      turns_to(na);
+      wgmma_fence();
+      qk<D, BK, C::BQ>(s, wq, stage(na));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      scores(s, p, na);
+      for (int n = na + 1; n < nb; ++n) {
+        acquire(n);
+        float s2[BK / 2];
+        unsigned p2[BK / 4];
+        my_turn();
+        wgmma_fence();
+        qk<D, BK, C::BQ>(s2, wq, stage(n));
+        wgmma_commit();
+        pv<D, BK>(oacc, p, stage(n - 1) + C::kKV);
+        wgmma_commit();
+        your_turn();
+        // with kOverlap, tile n's softmax runs while PV(n - 1) does
+        wgmma_wait<kOverlap ? 1 : 0>();
+        fence_regs(s2);
+        scores(s2, p2, n);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h) fence_regs(oacc[h]);
+        fence_regs(p);
+        release(n - 1);
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+          for (int i = 0; i < 64; ++i) oacc[h][i] *= alpha[(i / 2) % 2];
+#pragma unroll
+        for (int i = 0; i < BK / 4; ++i) p[i] = p2[i];
+      }
+      wgmma_fence();
+      pv<D, BK>(oacc, p, stage(nb - 1) + C::kKV);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < D / 128; ++h) fence_regs(oacc[h]);
+      fence_regs(p);
+      release(nb - 1);
+    }
+    for (int n = max(na, nb); n < ntiles; ++n) {
+      acquire(n);
+      turns_to(n);
+      release(n);
+    }
+    turns_to(turns);
+
+    // o = acc / l; lse = m + log(l) in natural log; rows past sq not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = ra + 8 * r;
+      const float inv = 1.f / l[r];
+      if (row < sq) {
+        bf16* orow = o + (static_cast<size_t>(bh) * sq + row) * D + c2;
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<unsigned*>(orow + 128 * h + 8 * j) =
+                pack_bf16(oacc[h][4 * j + 2 * r] * inv, oacc[h][4 * j + 2 * r + 1] * inv);
+        if (c2 == 0) lse[static_cast<size_t>(bh) * sq + row] = m[r] * kLn2 + logf(l[r]);
+      }
+    }
+  }
+}
+
+template <int D, int WGS, int BK, int STAGES>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+           int sq, int sk, float scale, int causal, int window, cudaStream_t st) {
+  using C = Cfg<D, WGS, BK, STAGES>;
+  auto kernel = flash_fwd_wgmma_kernel<D, WGS, BK, STAGES>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + C::BQ - 1) / C::BQ);
+  kernel<<<grid, C::kThreads, C::kSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, sq, sk, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile of `rows` query rows per CTA (kernels/attention.py flash_plan):
+// 128 (two consumer warpgroups, head dim 128 only) or 64 (one).  Key tiles
+// of 128 rows at 128 query rows, in a ring of three stages; else 64 rows,
+// two stages.
+int dispatch(int d, int rows, const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int sq, int sk, float scale, int causal, int window,
+             cudaStream_t st) {
+  if (d == 128 && rows == 128)
+    return launch<128, 2, 128, 3>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+  if (d == 128 && rows == 64)
+    return launch<128, 1, 64, 2>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+  if (d == 256 && rows == 64)
+    return launch<256, 1, 64, 2>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q (bh, sq, d), k and v (bh, sk, d), o like q, lse (bh, sq) f32; d 128 or
-// 256; all contiguous and 16-byte aligned.  dtype: 0 = float32, 1 =
-// bfloat16.  window <= 0 means no sliding window.  Returns
+// 256; all contiguous and 16-byte aligned.  window <= 0 means no sliding
+// window.  rows: the query rows per CTA of the bf16 kernel (64, or 128 at
+// head dim 128; kernels/attention.py flash_plan; f32 ignores it).  dtype:
+// 0 = float32, 1 = bfloat16.  Built with -DFLASH_WMMA_BF16, bf16 runs the
+// f32 kernel's WMMA tile (chip_smoke.py's A/B of the two).  Returns
 // cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int sq, int sk, int d, float scale,
-                         int causal, int window, int dtype, void* stream) {
+                         int causal, int window, int rows, int dtype, void* stream) {
   float* l = static_cast<float*>(lse);
-  if (dtype == 1)
+  if (dtype == 1) {
+#ifdef FLASH_WMMA_BF16
     return dispatch<__nv_bfloat16>(d, q, k, v, o, l, bh, sq, sk, scale, causal, window, stream);
+#else
+    return wg::dispatch(d, rows, q, k, v, o, l, bh, sq, sk, scale, causal, window,
+                        static_cast<cudaStream_t>(stream));
+#endif
+  }
   return dispatch<float>(d, q, k, v, o, l, bh, sq, sk, scale, causal, window, stream);
 }

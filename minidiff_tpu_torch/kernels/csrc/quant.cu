@@ -18,7 +18,9 @@
 // Products of a bf16 (or f32-held integer) value and an int8 code are exact
 // in f32, so the sums differ from the plain versions only in their order.
 //
-// dq_bmm and dq4_mm in bf16 run on tensor cores (the tc namespace below).
+// dq_mm, dq_bmm and dq4_mm in bf16 run on tensor cores (the tc namespace
+// below; dq_mm's 2-D product is dq_bmm's tile with one expert, under its
+// own kernel name).
 // What bounds them on the H100: at decode (<= 16 activation rows) a
 // dequant-matmul does 2 flop per row per weight byte (4 for int4), far under
 // the ~295 flop/byte ridge, so it is bound by the weight's bytes, which it
@@ -79,10 +81,10 @@
 // The launch plan (tile, splits) is decided in Python before
 // launch (kernels/quant.py dq_plan) from shapes and dtypes; f32, and shapes
 // outside the tiles' rule (K % 16, n % 8, an int4 group the stages do not
-// divide), take the SIMT tile.  Built with -DDQ_SIMT_BF16, every dq_bmm and
-// dq4_mm runs on the SIMT tile (chip_smoke.py's A/B of the two).
+// divide), take the SIMT tile.  Built with -DDQ_SIMT_BF16, every dq_mm,
+// dq_bmm and dq4_mm runs on the SIMT tile (chip_smoke.py's A/B of the two).
 //
-// The SIMT tile (dq_mm, and the f32 dq_bmm / dq4_mm): each CTA owns a
+// The SIMT tile (f32, and bf16 outside the tiles' rule): each CTA owns a
 // 64-column tile of the output and 8 activation rows; its 8 warps split K,
 // each lane streams 16 consecutive columns of one weight row with one
 // 16-byte load and keeps 8 x 16 f32 accumulators in registers, while the x
@@ -110,6 +112,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -343,7 +347,15 @@ int launch_dq(bool int4, const void* x, const void* w, const void* s, void* out,
 
 namespace tc {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
+
+// 8 bytes from global memory into shared memory (a weight row of no whole
+// number of 16 bytes); src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
 
 struct Args {
   const bf16* x;      // (E, m, k) activations
@@ -393,28 +405,6 @@ struct Tile {
   static_assert(RB * BN % (16 * kThreads) == 0, "whole weight copies per thread");
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 8) bytes from global memory into shared memory; src_bytes 0 fills
-// the destination with zeros (rows past the split, columns past n).
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async8(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -453,11 +443,6 @@ __device__ __forceinline__ float byte_code(unsigned u, float bias) {
 // their upper halves
 __device__ __forceinline__ unsigned pack_exact(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn: round to nearest even
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // The weight operand from one register of an ldmatrix.trans of the stored
@@ -564,49 +549,6 @@ __device__ __forceinline__ void sum_slice(const float* recv, int T, int S, unsig
 // from shared memory through a matrix descriptor (x staged in 8-row x
 // 16-byte core matrices).  One stage's MMAs run while the warps wait for,
 // and copy, the next stages.
-
-__device__ __forceinline__ uint64_t xdesc(unsigned addr, unsigned sbo) {
-  // K-major, no swizzle: core matrices 128 bytes apart along K (LBO), row
-  // groups of 8 `sbo` bytes apart (SBO); fields in 16-byte units
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | static_cast<uint64_t>(128 >> 4) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the accumulators where the asynchronous MMAs write them
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, f32) = a (64 x 16 bf16, registers) . b (16 x 128 bf16, smem)
-// + (accumulate ? d : 0): the first MMA of a tile defines the accumulators,
-// so that no other instruction writes them while MMAs are in flight
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], const unsigned (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
 
 template <int P, int MODE>
 __device__ __forceinline__ void tc_body(const Args& a, bool vec16) {
@@ -871,12 +813,12 @@ __device__ __forceinline__ void tc_body(const Args& a, bool vec16) {
       wgmma_fence();
 #pragma unroll
       for (int f = 0; f < P * NS; ++f)  // x's k offset in the stage: 16 f (plane 1 from RB)
-        wgmma_m64n128(acc, af[f], xdesc(sbase + slot + L::kRaw + 2 * f * 128, KC * 128),
+        wgmma_m64n128_rs<0>(acc, af[f], desc(sbase + slot + L::kRaw + 2 * f * 128, 128, KC * 128),
                       it > 0 || f > 0);
       wgmma_commit();
     }
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_regs(acc);
     cp_async_wait<0>();
 
     // acc[4j + t]: output column c0 + 2g (+ 1 for t >= 2), activation row
@@ -915,11 +857,18 @@ __device__ __forceinline__ void tc_body(const Args& a, bool vec16) {
 
 }  // namespace tc
 
-// The kernels under their own names, so that profiles tell them apart.
-// MODE 0 / 1: the small tile for <= 8 / <= 16 rows; 2: the large tile.
+// The kernels under their own names, so that profiles tell them apart
+// (dq_mm's 2-D product is dq_bmm's tile with one expert).  MODE 0 / 1: the
+// small tile for <= 8 / <= 16 rows; 2: the large tile.
 template <int MODE>
 __global__ void __launch_bounds__(tc::Tile<1, MODE>::kThreads, tc::Tile<1, MODE>::kMinBlocks)
 dq_bmm_tc_kernel(tc::Args a, bool vec16) {
+  tc::tc_body<1, MODE>(a, vec16);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(tc::Tile<1, MODE>::kThreads, tc::Tile<1, MODE>::kMinBlocks)
+dq_mm_tc_kernel(tc::Args a, bool vec16) {
   tc::tc_body<1, MODE>(a, vec16);
 }
 
@@ -929,10 +878,12 @@ dq4_mm_tc_kernel(tc::Args a, bool vec16) {
   tc::tc_body<2, MODE>(a, vec16);
 }
 
-template <int P, int MODE>
+// BANK: dq_bmm's kernel for P 1 (else dq_mm's)
+template <int P, int MODE, bool BANK>
 int launch_tc(const tc::Args& a, int experts, cudaStream_t st) {
   using L = tc::Tile<P, MODE>;
-  auto kernel = P == 1 ? dq_bmm_tc_kernel<MODE> : dq4_mm_tc_kernel<MODE>;
+  auto kernel = P == 2 ? dq4_mm_tc_kernel<MODE>
+                       : BANK ? dq_bmm_tc_kernel<MODE> : dq_mm_tc_kernel<MODE>;
   // the kernel's attributes, once per device: its shared memory, and
   // clusters of up to 16 CTAs (the H100's non-portable size)
   static unsigned configured = 0;
@@ -980,11 +931,11 @@ bool tc_args_ok(int tile, int dtype, int n, int stored, int unit, int splits) {
          && splits >= 1 && splits <= 16 && (splits & (splits - 1)) == 0 && splits <= units;
 }
 
-template <int P>
+template <int P, bool BANK>
 int dispatch_tc(const tc::Args& a, int tile, int experts, cudaStream_t st) {
-  if (tile == 1) return launch_tc<P, 0>(a, experts, st);
-  if (tile == 2) return launch_tc<P, 1>(a, experts, st);
-  return launch_tc<P, 2>(a, experts, st);
+  if (tile == 1) return launch_tc<P, 0, BANK>(a, experts, st);
+  if (tile == 2) return launch_tc<P, 1, BANK>(a, experts, st);
+  return launch_tc<P, 2, BANK>(a, experts, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1144,11 +1095,24 @@ int sdpa_dispatch(int hd, const void* q, const void* k8, const void* ks,
 
 }  // namespace
 
+// dq_mm, dq_bmm and dq4_mm launch on the tile and K splits of `tile` and
+// `splits` (kernels/quant.py dq_plan); tile 0 is the SIMT tile.
 extern "C" int dq_mm(const void* x, const void* q, const void* s, void* out,
-                     int m, int n, int k, int dtype, void* stream) {
+                     int m, int n, int k, int tile, int splits, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, 0, m, n, k, 0, st);
-  return launch_dq<float>(false, x, q, s, out, 0, m, n, k, 0, st);
+#ifdef DQ_SIMT_BF16
+  tile = 0;
+#endif
+  if (tile == 0) {
+    if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, 0, m, n, k, 0, st);
+    return launch_dq<float>(false, x, q, s, out, 0, m, n, k, 0, st);
+  }
+  if (!tc_args_ok(tile, dtype, n, k, tc::Tile<1, 0>::RB, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+                   static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
+                   m, n, k, 0, splits};
+  return dispatch_tc<1, false>(a, tile, 1, st);
 }
 
 extern "C" int dq_bmm(const void* x, const void* q, const void* s, void* out,
@@ -1168,7 +1132,7 @@ extern "C" int dq_bmm(const void* x, const void* q, const void* s, void* out,
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
                    static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
                    c, n, k, 0, splits};
-  return dispatch_tc<1>(a, tile, e, st);
+  return dispatch_tc<1, true>(a, tile, e, st);
 }
 
 extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
@@ -1188,7 +1152,7 @@ extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(p),
                    static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
                    m, n, k, group, splits};
-  return dispatch_tc<2>(a, tile, 1, st);
+  return dispatch_tc<2, false>(a, tile, 1, st);
 }
 
 extern "C" int sdpa_int8(const void* q, const void* k8, const void* ks,

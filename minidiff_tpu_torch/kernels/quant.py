@@ -33,9 +33,10 @@ dequantized weight, a ``torch.matmul``, on either device.  ``dq_bmm`` and
 ``dq4_mm`` launch by the plan of ``dq_plan``, decided from shapes and dtypes
 before launch: bf16 inside the tensor-core tiles' rule takes a tile (and a
 split of K when its output tiles cannot fill the card), everything else the
-SIMT tile.  A CUDA tensor the kernels do not take raises: nothing falls
-back.  These ops serve decoding only and have no autograd; the tape's ops
-supply the VJPs.
+SIMT tile.  ``dq_mm`` launches by the same plan (``dq_bmm``'s int8 tiles
+with one expert).  A CUDA tensor the kernels do not take raises: nothing
+falls back.  These ops serve decoding only and have no autograd; the tape's
+ops supply the VJPs.
 """
 
 from __future__ import annotations
@@ -51,19 +52,18 @@ from minidiff_tpu_torch.kernels import _build
 LAUNCHES = {"dq_mm": 0, "dq4_mm": 0, "dq_bmm": 0, "sdpa_int8": 0}
 # the most activation rows a dequant-matmul kernel takes (quant.py:111)
 MAX_KERNEL_ROWS = 256
-# the H100's streaming multiprocessors: a launch of few output tiles splits
-# K (``dq_plan``)
-SMS = 132
+# a launch of few output tiles splits K to fill the card (``dq_plan``)
+SMS = _build.SMS
 # the most K splits of one output tile: the CTAs of a thread-block cluster
 # (16, the H100's non-portable cluster size), which sum their partials
 # through distributed shared memory
 MAX_SPLITS = 16
-# csrc/quant.cu's tiles for dq_bmm (8 bits) and dq4_mm (4 bits): activation
-# rows and output columns per CTA, and stored weight rows (packed rows for
-# int4) per cp.async stage.  "small8" and "small16" compute out^T = W^T x^T
-# on mma.sync (rows on the MMA's 8-wide side), "large" the same on wgmma
-# (rows on its N side); "simt" is the FFMA tile (8 rows x 64 columns, all
-# of K).
+# csrc/quant.cu's tiles for dq_mm / dq_bmm (8 bits) and dq4_mm (4 bits):
+# activation rows and output columns per CTA, and stored weight rows (packed
+# rows for int4) per cp.async stage.  "small8" and "small16" compute out^T =
+# W^T x^T on mma.sync (rows on the MMA's 8-wide side), "large" the same on
+# wgmma (rows on its N side); "simt" is the FFMA tile (8 rows x 64 columns,
+# all of K).
 TILES = {
     8: {"simt": (8, 64, 0), "small8": (8, 64, 64), "small16": (16, 64, 64),
         "large": (128, 256, 64)},
@@ -221,11 +221,11 @@ def uses_kernel(rows: int) -> bool:
 
 
 class DqPlan(NamedTuple):
-    """How ``dq_bmm`` / ``dq4_mm`` launch: the tile (``TILES``; "matmul" for
-    more than ``MAX_KERNEL_ROWS`` rows, which launch nothing), the K splits
-    of each output tile (the kernel gives split s the units [s * units / S,
-    (s + 1) * units / S) of the stored weight rows, a unit one stage for
-    int8 and one scale group for int4), and the CTAs."""
+    """How ``dq_mm`` / ``dq_bmm`` / ``dq4_mm`` launch: the tile (``TILES``;
+    "matmul" for more than ``MAX_KERNEL_ROWS`` rows, which launch nothing),
+    the K splits of each output tile (the kernel gives split s the units
+    [s * units / S, (s + 1) * units / S) of the stored weight rows, a unit
+    one stage for int8 and one scale group for int4), and the CTAs."""
 
     tile: str
     splits: int
@@ -248,11 +248,11 @@ def _tile(bits: int, rows: int, n: int, k: int, dtype, group) -> str:
 
 def dq_plan(bits: int, rows: int, n: int, k: int, dtype, group=None,
             experts: int = 1, tile: str | None = None) -> DqPlan:
-    """The launch plan of an int8 (``bits`` 8, ``experts`` > 1 for a bank)
-    or int4 (``bits`` 4, ``group`` rows per scale) dequant-matmul of
-    ``rows`` activation rows (per expert), ``k`` contraction and ``n``
-    output columns, on the card.  The route is decided here, from shapes
-    and dtypes, never after a failed launch:
+    """The launch plan of an int8 (``bits`` 8: ``dq_mm``, or ``dq_bmm`` for
+    a bank of ``experts``) or int4 (``bits`` 4, ``group`` rows per scale)
+    dequant-matmul of ``rows`` activation rows (per expert), ``k``
+    contraction and ``n`` output columns, on the card.  The route is
+    decided here, from shapes and dtypes, never after a failed launch:
 
     - more than ``MAX_KERNEL_ROWS`` rows: "matmul" (the plain product);
     - f32, or a shape outside the tiles' rule (``_tile``): the SIMT tile,
@@ -312,10 +312,9 @@ def dequant_matmul(x, q, s):
     _check_cuda("dq_mm", x, q, s, dtypes=(torch.int8, torch.float32))
     if s.shape != (n,):
         raise ValueError(f"dq_mm: scales {tuple(s.shape)}, expected ({n},)")
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
-        ops = [_build.operand(t) for t in (x.reshape(m, k), q, s)]
-        _launch("dq_mm", x, (*ops, out), (m, n, k))
+    if not m:
+        return torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    out = _dq_tiles(x.reshape(m, k), q, s, dq_plan(8, m, n, k, x.dtype))
     return out.reshape(*x.shape[:-1], n)
 
 
@@ -363,20 +362,22 @@ def dequant_matmul4(x, p, s):
 
 
 def _dq_tiles(x, w, s, plan: DqPlan):
-    """``dq_bmm`` (x (E, C, K), w an int8 bank) or ``dq4_mm`` (x (M, K), w
-    packed int4, s (K/G, N)) launched by ``plan``, into a new output."""
-    bank = x.dim() == 3
+    """``dq_bmm`` (x (E, C, K), w an int8 bank), ``dq_mm`` (x (M, K), w int8,
+    s (N,)) or ``dq4_mm`` (x (M, K), w packed int4, s (K/G, N)) launched by
+    ``plan``, into a new output."""
     n = w.shape[-1]
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     ops = [_build.operand(t) for t in (x, w, s)]
-    if bank:
+    tile = (TILE_CODES[plan.tile], plan.splits)
+    if x.dim() == 3:
         e, c, k = x.shape
-        _launch("dq_bmm", x, (*ops, out),
-                (e, c, n, k, TILE_CODES[plan.tile], plan.splits))
+        _launch("dq_bmm", x, (*ops, out), (e, c, n, k, *tile))
+    elif s.dim() == 1:
+        m, k = x.shape
+        _launch("dq_mm", x, (*ops, out), (m, n, k, *tile))
     else:
         m, k = x.shape
-        _launch("dq4_mm", x, (*ops, out),
-                (m, n, k, k // s.shape[0], TILE_CODES[plan.tile], plan.splits))
+        _launch("dq4_mm", x, (*ops, out), (m, n, k, k // s.shape[0], *tile))
     return out
 
 

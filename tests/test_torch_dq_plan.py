@@ -1,7 +1,9 @@
-"""The launch plan of the port's ``dq_bmm`` / ``dq4_mm`` kernels, on the CPU.
+"""The launch plan of the port's ``dq_mm`` / ``dq_bmm`` / ``dq4_mm`` kernels,
+on the CPU.
 
 ``kernels.quant.dq_plan`` decides, from shapes and dtypes before launch,
-which tile of ``csrc/quant.cu`` a product takes (the tensor-core tiles for
+which tile of ``csrc/quant.cu`` a product takes (``dq_mm``'s 2-D int8
+product takes ``dq_bmm``'s tiles with one expert) (the tensor-core tiles for
 bf16 inside their rule, the SIMT tile for the rest, the plain product above
 256 rows) and how K is split when the output tiles cannot fill the card.
 The kernels cannot run here, so these tests hold the plan: the kernel's
@@ -22,6 +24,8 @@ output, 2^-7 relative (both sides sum in f32 and round once), as in
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,14 +61,22 @@ def _close(got, ref, dtype: str):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol * np.abs(ref).max())
 
 
+# the 2-D int8 products (dq_mm) of the main path, (bits, rows, n, k, group,
+# experts): the int8 model's decode (8 rows) and bench prefill (128 rows)
+# projections at V512 d1024 (QKV, out, fc1, fc2, the head; the MoE model's
+# attention projections, 8 heads over 4 KV heads, are [1024, 1024] like out)
+DQ_MM = [(8, m, n, k, None, 1) for m in (8, 128)
+         for k, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024), (1024, 512))]
+
 # (bits, rows, n, k, group, experts): the main path's shapes (the MoE
 # model's banks at decode and at the bench prefill, the int4 model's decode
-# and prefill projections, V512 d1024), int4 groups 64 and 256, a ragged N,
-# one row, five rows per expert, and an int8 K that is no multiple of a stage
-SHAPES = [
+# and prefill projections, V512 d1024, the int8 model's 2-D products), int4
+# groups 64 and 256, a ragged N, one row, five rows per expert, and an int8
+# K that is no multiple of a stage
+SHAPES = DQ_MM + [
     (8, 8, 4096, 1024, None, 8), (8, 8, 1024, 2048, None, 8),
     (8, 128, 4096, 1024, None, 8), (8, 5, 4096, 1024, None, 8),
-    (8, 8, 520, 1024, None, 8), (8, 40, 512, 1040, None, 3),
+    (8, 8, 520, 1024, None, 8), (8, 40, 512, 1040, None, 3), (8, 1, 520, 1024, None, 1),
     (4, 8, 3072, 1024, 128, 1), (4, 8, 1024, 1024, 128, 1),
     (4, 8, 4096, 1024, 128, 1), (4, 8, 512, 1024, 128, 1),
     (4, 8, 1024, 4096, 128, 1), (4, 128, 3072, 1024, 128, 1),
@@ -165,11 +177,37 @@ def test_shapes_that_fill_the_card_are_not_split(bits, rows, n, k, group, expert
     (8, 8, 1024, 2048, None, 8, 2),     # the decode step's w2 bank: small8
     (4, 8, 1024, 4096, 128, 1, 16),     # int4 decode fc2
     (4, 8, 3072, 1024, 128, 1, 4),      # int4 decode QKV
+    (8, 128, 3072, 1024, None, 1, 8),   # int8 prefill QKV (dq_mm): large
+    (8, 128, 1024, 4096, None, 1, 16),  # its fc2
+    (8, 128, 4096, 1024, None, 1, 4),   # its fc1
 ])
 def test_split_counts_are_the_fastest_timed(bits, rows, n, k, group, experts, splits):
     # chip_smoke.py's dq_split_ab timed each of these shapes at every split
     # count its units allow (PERF.md §6): the plan takes the fastest
     assert _plan(bits, rows, n, k, group, experts).splits == splits
+
+
+# dq_mm at decode (small8), us at each split count from chip_smoke.py's
+# dq_split_ab (PERF.md §6): the rule's count is within 3% of the fastest,
+# not the fastest.  The rule stays: no cap on a launch's CTAs fits every
+# int8 small-tile reading (capping at the SMs would take fc2 to its fastest
+# x8 but cost the MoE decode's w2 bank 4%: x1 against its fastest x2)
+DECODE_READINGS = [
+    ((8, 8, 3072, 1024, None, 1), {1: 6.19, 2: 5.55, 4: 5.60, 8: 5.99, 16: 6.93}),
+    ((8, 8, 1024, 4096, None, 1), {1: 16.49, 2: 10.52, 4: 7.11, 8: 6.63, 16: 6.69}),
+    ((8, 8, 1024, 2048, None, 8), {1: 9.76, 2: 9.39, 4: 10.03, 8: 12.60, 16: 16.69}),
+]
+
+
+@pytest.mark.parametrize("shape,us", DECODE_READINGS)
+def test_decode_split_counts_within_3_percent_of_the_fastest_timed(shape, us):
+    plan = _plan(*shape)
+    k = shape[3]
+    assert set(us) == {n for n in (1, 2, 4, 8, 16) if n <= k // 64}  # every count its units allow
+    assert us[plan.splits] <= 1.03 * min(us.values())
+    # a cap at the SMs misses the w2 bank's fastest by more
+    w2 = DECODE_READINGS[2][1]
+    assert w2[1] > 1.03 * min(w2.values())
 
 
 @pytest.mark.parametrize("bits,rows,n,k,group,dtype,tile", [
@@ -191,6 +229,10 @@ def test_split_counts_are_the_fastest_timed(bits, rows, n, k, group, experts, sp
     (8, 17, 1024, 1024, None, BF16, "large"),
     (8, 256, 1024, 1024, None, BF16, "large"),
     (8, 8, 520, 1024, None, BF16, "small8"),            # ragged n, masked
+    (8, 8, 3072, 1024, None, BF16, "small8"),           # dq_mm: decode QKV
+    (8, 16, 3072, 1024, None, BF16, "small16"),         # a 16-token bucket
+    (8, 128, 1024, 4096, None, BF16, "large"),          # prefill fc2
+    (8, 128, 3072, 1024, None, torch.float32, "simt"),  # f32 dq_mm
     (8, 257, 1024, 1024, None, BF16, "matmul"),         # > 256 rows
     (4, 384, 1024, 1024, 128, torch.float32, "matmul"),
 ])
@@ -209,7 +251,8 @@ def _emulate(bits, x, w, s, plan, group):
     its stored rows (for int4, the low plane's rows against x's columns
     [b, e) and the high plane's against [K/2 + b, K/2 + e), on the weight
     rounded to x's dtype); the partials summed in split order, then scaled
-    by the column scales (int8), then cast to x's dtype."""
+    by the column scales (int8: (N,) for a 2-D product, (E, N) for a bank),
+    then cast to x's dtype."""
     f32 = torch.float32
     total = None
     if bits == 4:
@@ -218,13 +261,13 @@ def _emulate(bits, x, w, s, plan, group):
     stored = w.shape[-2]
     for b, e in _split_rows(stored, _unit(bits, group, plan.tile), plan.splits):
         if bits == 8:
-            part = torch.bmm(x[..., b:e].to(f32), w[:, b:e].to(f32))
+            part = x[..., b:e].to(f32) @ w[..., b:e, :].to(f32)
         else:
             part = (x[:, b:e].to(f32) @ wd[b:e]
                     + x[:, kh + b:kh + e].to(f32) @ wd[kh + b:kh + e])
         total = part if total is None else total + part
     if bits == 8:
-        total = total * s[:, None, :]
+        total = total * (s if s.dim() == 1 else s[:, None, :])
     return total.to(x.dtype)
 
 
@@ -263,3 +306,33 @@ def test_split_emulation_matches_plain_and_jax(bits, rows, n, k, group, experts,
     _close(got, plain, dtype)
     _close(plain, ref, dtype)
     _close(got, ref, dtype)
+
+
+# (rows, n, k) of 2-D int8 products (dq_mm) at a small size, each plan split
+# on its tile (small8, small16, large); N a multiple of the interpret-mode
+# kernel's 256-column tile
+EMULATED_2D = [(8, 256, 512), (16, 256, 256), (40, 512, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,n,k", EMULATED_2D)
+def test_dq_mm_split_emulation_matches_plain_and_jax(rows, n, k, dtype, monkeypatch):
+    from jax.experimental import pallas as pl
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    plan = _plan(8, rows, n, k, None, 1)
+    assert plan.tile != "simt" and plan.splits > 1
+    rng = np.random.RandomState(rows + n + k)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    xt = torch.from_numpy(x).to(_TORCH[dtype])
+    xj = jnp.asarray(x, _JNP[dtype])
+    qj, sj = JQ.quantize_int8(jnp.asarray(w))
+    qt, st = TQ.quantize_int8(torch.from_numpy(w))
+    plain = TQ._plain_dequant_matmul(xt, qt, st)
+    got = _emulate(8, xt, qt, st, plan, None)
+    assert got.dtype == _TORCH[dtype] and got.shape == (rows, n)
+    _close(got, plain, dtype)
+    for ref in (JQ._jnp_dequant_matmul(xj, qj, sj), JQ._pallas_dequant_matmul(xj, qj, sj)):
+        _close(plain, ref, dtype)
+        _close(got, ref, dtype)
