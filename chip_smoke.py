@@ -28,7 +28,13 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    A/B of the bf16 flash forward at every bf16 shape of its cases: the
    ``wgmma`` tile at 64 and 128 query rows per CTA against a
    ``-DFLASH_WMMA_BF16`` build of ``flash_fwd.cu`` (the WMMA tile), in
-   turns;
+   turns; the A/B of the bf16 flash backward at every bf16 shape of its
+   cases: ``flash_bwd_dkv`` and ``flash_bwd_dq`` on their ``wgmma`` tiles
+   at one and two warpgroups per CTA against a ``-DFLASH_BWD_WMMA_BF16``
+   build of ``flash_bwd.cu`` (the WMMA tile), in turns, with SDPA's
+   backward beside them; every bf16 backward case run twice and held bit
+   for bit (the kernels are deterministic); ``flash_bwd.cu`` built with no
+   spill and no ptxas C75xx note;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -230,7 +236,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "mm_f32_kernel", "dq_mm_kernel", "dq4_mm_kernel",
                   "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel",
                   "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel",
-                  "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel")
+                  "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel",
+                  "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -565,18 +572,30 @@ def phase_kernels(torch, report):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_WMMA_BF16", "-o",
          str(wmma_lib), str(_build._CSRC / "flash_fwd.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # flash_bwd.cu with bf16 on the WMMA tile (flash_bwd_route_ab)
+    bwd_wmma_lib = _build.BUILD_DIR / "flash_bwd-wmma.so"
+    bwd_wmma_build = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_BWD_WMMA_BF16", "-o",
+         str(bwd_wmma_lib), str(_build._CSRC / "flash_bwd.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
-                       ("-DFLASH_WMMA_BF16", wmma_build)):
+                       ("-DFLASH_WMMA_BF16", wmma_build),
+                       ("-DFLASH_BWD_WMMA_BF16", bwd_wmma_build)):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 3} sources in "
+    log(f"[build] {len(_build.SOURCES) + 4} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
         for line in ptxas_report(_build.build_log(name)):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
+    # the flash backward's wgmma kernels: no spill, no serialised MMAs, no
+    # ignored setmaxnreg
+    bad = [line for line in ptxas_report(_build.build_log("flash_bwd"))
+           if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
+    check(not bad, "flash_bwd.cu: ptxas reports " + "; ".join(bad))
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -607,6 +626,7 @@ def phase_kernels(torch, report):
     report["kernel_cases"] = cases
     report["flash_route"] = flash_route_cases(torch, randn)
     report["flash_route_ab"] = flash_route_ab(torch, randn, wmma_lib)
+    report["flash_bwd_route_ab"] = flash_bwd_route_ab(torch, randn, bwd_wmma_lib)
     report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
@@ -931,7 +951,11 @@ def flash_shapes(torch) -> list:
     256) and a ragged (4, 200, 256) with a window of 64; and lengths whose
     last 128-row CTA has an empty second warpgroup while its ring of key
     tiles wraps (64 x 576 full, causal and a window of 300, which also
-    makes the second warpgroup skip a tile the first takes; 16 x 1088)."""
+    makes the second warpgroup skip a tile the first takes; 16 x 1088),
+    forward and backward (where the same holds of the dK/dV CTA's 128
+    keys and its ring of query tiles), and in the backward a ragged S of 130
+    (an empty second warpgroup in the last tile of both kernels) and of 65
+    at head dim 256."""
     bh_train = TRAIN_BATCH * TRAIN_MODEL["num_heads"]
     bh_opt = OPT_TRAIN_BATCH * OPT_MODEL["num_heads"]
     groups = OPT_MODEL["num_heads"] // OPT_MODEL["num_kv_heads"]
@@ -947,19 +971,24 @@ def flash_shapes(torch) -> list:
            (torch.float32, 8, 384, True, 100)]
     bwd = [(torch.bfloat16, bh_train, TRAIN_SEQ, True, None),
            (torch.bfloat16, 8, 384, True, None), (torch.bfloat16, 8, 384, False, None),
-           (torch.bfloat16, 8, 384, True, 100), (torch.float32, 8, 256, True, None)]
+           (torch.bfloat16, 8, 384, True, 100), (torch.float32, 8, 256, True, None),
+           (torch.bfloat16, 64, 576, True, None), (torch.bfloat16, 64, 576, False, None),
+           (torch.bfloat16, 64, 576, True, 300), (torch.bfloat16, 16, 1088, True, None),
+           (torch.bfloat16, 16, 130, True, None)]
     gqa = [(torch.bfloat16, bh_opt, OPT_TRAIN_SEQ, True, None, groups, 128)]
     hd256 = [(torch.bfloat16, HD256_BH, HD256_SEQ, True, None, 1, 256),
              (torch.float32, HD256_BH, HD256_SEQ, True, None, 1, 256),
              (torch.bfloat16, 4, 200, True, 64, 1, 256)]
     return ([("fwd", c + (1, 128)) for c in fwd] + [("fwd", c) for c in gqa + hd256]
-            + [("bwd", c + (1, 128)) for c in bwd] + [("bwd", c) for c in gqa + hd256])
+            + [("bwd", c + (1, 128)) for c in bwd] + [("bwd", c) for c in gqa + hd256]
+            + [("bwd", (torch.bfloat16, 8, 65, False, None, 1, 256))])
 
 
 def flash_cases(torch, randn):
     """flash_fwd at ``flash_shapes``' forward shapes, flash_bwd_dkv /
     flash_bwd_dq at its backward shapes on the forward's o and lse, each
-    against its plain version; bf16 and f32."""
+    against its plain version; bf16 and f32.  Every bf16 backward runs twice
+    and must give the same bits (one owner per output tile, no atomics)."""
     import types
 
     import torch.nn.functional as TF
@@ -1006,6 +1035,12 @@ def flash_cases(torch, randn):
         ops, dims, flags = A._bwd_operands(q, k, v, o, lse, do, window, causal)
         dk, dv = A.flash_bwd_dkv(ops, dims, scale, flags)
         dq = A.flash_bwd_dq(ops, dims, scale, flags)
+        if dtype == torch.bfloat16:
+            again = (*A.flash_bwd_dkv(ops, dims, scale, flags),
+                     A.flash_bwd_dq(ops, dims, scale, flags))
+            check(all(torch.equal(a, b) for a, b in zip((dk, dv, dq), again)),
+                  f"flash backward {shape}: two runs differ")
+        shape["plan"] = list(A.flash_bwd_plan(bh, s, s, hd, dtype))
         pq, pk, pv = A._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window)
         plain_ms = device_ms(torch, lambda: A._plain_flash_bwd(
             q, k, v, o, lse, do, scale, causal, window), iters=10)
@@ -1130,6 +1165,82 @@ def flash_route_ab(torch, randn, wmma_lib) -> list:
         log(f"[flash ab] {str([bh, s, hd]):16s}{' causal' if causal else '':7s}"
             f"{' w' + str(window) if window else '':5s} plan {row['plan_rows']:3d} | " + " | ".join(
                 f"{r} {v[0]:8.2f} / {v[1]:8.2f}" for r, v in us.items()) + " us")
+    return rows_out
+
+
+def flash_bwd_route_ab(torch, randn, wmma_lib) -> list:
+    """The bf16 flash backward at every bf16 backward shape of flash_shapes:
+    ``flash_bwd_dkv`` and ``flash_bwd_dq`` on their ``wgmma`` tiles (at head
+    dim 128 with one and with two warpgroups per CTA, at 256 the one tile
+    of each) against the WMMA tile of ``wmma_lib`` (flash_bwd.cu built with
+    -DFLASH_BWD_WMMA_BF16), each within TOL["attn_bwd"] of the plain
+    version, timed in turns (WMMA, each tile, then back), with SDPA's
+    backward (dq, dk and dv in one autograd call) beside them where it takes
+    the mask: the readings behind flash_bwd_plan's rule."""
+    import types
+
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import attention as A
+    from minidiff_tpu_torch.models.transformer import MultiHeadAttention
+
+    wmma = lib_at("flash_bwd", wmma_lib)
+    rows_out = []
+    for kind, (dtype, bh, s, causal, window, g, hd) in flash_shapes(torch):
+        if kind != "bwd" or dtype != torch.bfloat16:
+            continue
+        q, k, v, do = (randn(bh, s, hd, dtype=dtype) for _ in range(4))
+        if g > 1:
+            attn = types.SimpleNamespace(num_heads=bh, num_kv_heads=bh // g)
+            k, v = (MultiHeadAttention.expand_kv(attn, t[None, ::g])[0] for t in (k, v))
+        scale = hd ** -0.5
+        o, lse = A.flash_fwd(q, k, v, scale, causal, window)
+        ops, dims, flags = A._bwd_operands(q, k, v, o, lse, do, window, causal)
+        ref = A._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window)
+        # (library, dK/dV warpgroups, dQ warpgroups); the WMMA build takes
+        # no tile plan
+        routes = {"wmma": (wmma, None, None)}
+        if hd == 128:
+            routes.update(wgmma1=(None, 1, 1), wgmma2=(None, 2, 2))
+        else:
+            routes["wgmma"] = (None, 2, 1)
+        us = {r: {"dkv": [], "dq": []} for r in routes}
+        err = {}
+        for order in (list(routes), list(routes)[::-1]):
+            for r in order:
+                lib, wd, wq = routes[r]
+
+                def dkv():
+                    return A.flash_bwd_dkv(ops, dims, scale, flags, wd)
+
+                def dqf():
+                    return A.flash_bwd_dq(ops, dims, scale, flags, wq)
+
+                with contextlib.ExitStack() as stack:
+                    if lib is not None:
+                        stack.enter_context(built_as("flash_bwd", lib))
+                    if r not in err:
+                        got = (dqf(), *dkv())
+                        err[r] = max(max_err(torch, a, b, "attn_bwd", "bfloat16")
+                                     for a, b in zip(got, ref))
+                    us[r]["dkv"].append(device_ms(torch, dkv, iters=20) * 1e3)
+                    us[r]["dq"].append(device_ms(torch, dqf, iters=20) * 1e3)
+        library = None
+        if window is None:
+            q4, k4, v4 = (t.reshape(1, bh, s, hd).clone().requires_grad_() for t in (q, k, v))
+            ol = TF.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            do4 = do.reshape(1, bh, s, hd)
+            library = device_ms(torch, lambda: torch.autograd.grad(
+                ol, (q4, k4, v4), do4, retain_graph=True), iters=10) * 1e3
+        plan = A.flash_bwd_plan(bh, s, s, hd, dtype)
+        row = dict(shape=[bh, s, hd], causal=causal, window=window, groups=g,
+                   plan=list(plan), us=us, library_us=library, max_abs_err=err)
+        rows_out.append(row)
+        log(f"[flash bwd ab] {str([bh, s, hd]):16s}{' causal' if causal else '':7s}"
+            f"{' w' + str(window) if window else '':5s} plan {plan.dkv_wgs}/{plan.dq_wgs} | "
+            + " | ".join(f"{r} dkv {v['dkv'][0]:8.2f} / {v['dkv'][1]:8.2f} dq "
+                         f"{v['dq'][0]:8.2f} / {v['dq'][1]:8.2f}" for r, v in us.items())
+            + f" | SDPA bwd {'-' if library is None else f'{library:8.2f}'} us")
     return rows_out
 
 

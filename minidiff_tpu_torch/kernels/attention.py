@@ -6,9 +6,11 @@ through ``SdpaFn``, which saves the forward's ``o`` and per-row logsumexp
 ``lse`` for the backward, as the JAX custom VJP does.  A CUDA tensor goes to
 the hand-written kernels: ``csrc/flash_fwd.cu`` for the forward,
 ``csrc/flash_bwd.cu`` (``flash_bwd_dkv``, then ``flash_bwd_dq``) for the
-backward.  In bf16 the forward runs on ``wgmma`` with 64 or 128 query rows
-per CTA, as ``flash_plan`` decides from shapes before launch; f32 keeps the
-CUDA-core tile.  A CPU tensor goes to the plain versions,
+backward.  In bf16 both run on ``wgmma``: the forward with 64 or 128 query
+rows per CTA, as ``flash_plan`` decides from shapes before launch, the
+backward's two kernels with one or two consumer warpgroups per CTA, as
+``flash_bwd_plan`` decides; f32 keeps the CUDA-core tiles.  A CPU tensor
+goes to the plain versions,
 ``_plain_flash_fwd`` and ``_plain_flash_bwd``.  A CUDA tensor the kernels
 do not take raises: nothing falls back.
 
@@ -24,6 +26,8 @@ Masked scores are -1e30, not -inf, in both versions, as on the TPU.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -151,6 +155,50 @@ def flash_plan(bh: int, sq: int, d: int, dtype) -> int:
     return 128 if bh * -(-sq // 128) >= SMS else 64
 
 
+class BwdPlan(NamedTuple):
+    """The tiles of the flash backward's two kernels on the card
+    (``flash_bwd_plan``).  ``dkv_wgs`` / ``dq_wgs``: consumer warpgroups per
+    CTA of the bf16 ``wgmma`` kernels (0 for f32's CUDA-core tile);
+    ``dkv_keys`` keys per dK/dV CTA, which streams query tiles of
+    ``dkv_bq`` rows; ``dq_rows`` query rows per dQ CTA, which streams key
+    tiles of ``dq_bk`` rows."""
+    dkv_wgs: int
+    dkv_keys: int
+    dkv_bq: int
+    dq_wgs: int
+    dq_rows: int
+    dq_bk: int
+
+
+def flash_bwd_plan(bh: int, sq: int, sk: int, d: int, dtype) -> BwdPlan:
+    """The tiles of the flash backward on the card, decided from shapes and
+    dtypes before launch.  bf16 runs ``csrc/flash_bwd.cu``'s ``wgmma``
+    kernels, each streaming tiles of 64 rows: at head dim 128 a dK/dV CTA
+    of two warpgroups (128 keys) and a dQ CTA of two (128 query rows) where
+    such CTAs make two waves on the card's SMs, else one (64: at about one
+    wave, as (16, 1088, 128), the causal CTAs' unequal lengths cost the
+    two-warpgroup dK/dV tile more than its shared tiles save); at head dim
+    256 a dK/dV CTA of two warpgroups on the same 64 keys (128 columns of
+    dK and dV each, which is what fits their registers) and a dQ CTA of one
+    (64 rows: two would not fit shared memory).  f32 runs the CUDA-core
+    tile (64 rows, 32 at head dim 256).  A dtype or head dim the kernels
+    are not built for raises, as ``flash_bwd`` does on the card (``sdpa``
+    composes those)."""
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash_bwd: kernel takes float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_bwd: kernels are built for head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if dtype != torch.bfloat16:
+        t = 64 if d == 128 else 32
+        return BwdPlan(0, t, t, 0, t, t)
+    if d == 256:
+        return BwdPlan(2, 64, 64, 1, 64, 64)
+    dkv = 2 if bh * -(-sk // 128) >= 2 * SMS else 1
+    dq = 2 if bh * -(-sq // 128) >= 2 * SMS else 1
+    return BwdPlan(dkv, 64 * dkv, 64, dq, 64 * dq, 64)
+
+
 def flash_fwd(q, k, v, scale: float, causal: bool, window=None):
     """q (BH, Sq, D), k/v (BH, Sk, D) -> (o (BH, Sq, D), lse (BH, Sq) f32)."""
     window = _normalize_window(window, q.shape[1], k.shape[1], causal)
@@ -179,8 +227,8 @@ def _fwd_launch(q, k, v, scale: float, causal: bool, window, rows: int):
 def _bwd_operands(q, k, v, o, lse, do, window, causal):
     """Check and prepare the CUDA backward's operands: contiguous (q, k, v,
     do, lse), delta = rowsum(do * o) in f32 (computed in plain torch, as
-    ``_flash_bwd`` computes it outside its kernels), and the launch's
-    scalar arguments after the scale."""
+    ``_flash_bwd`` computes it outside its kernels), (bh, sq, sk, d), and
+    the flags (causal, window, dtype code)."""
     bh, sq, sk, d = _check_cuda("flash_bwd", q, k, v, o, do)
     if lse.dtype != torch.float32 or lse.shape != (bh, sq):
         raise ValueError(f"flash_bwd: lse must be ({bh}, {sq}) float32")
@@ -203,18 +251,27 @@ def _launch(name: str, ops, outs, dims, scale: float, flags) -> None:
     LAUNCHES[name] += 1
 
 
-def flash_bwd_dkv(ops, dims, scale: float, flags):
-    """(dk, dv) by the ``flash_bwd_dkv`` kernel from ``_bwd_operands``."""
+def flash_bwd_dkv(ops, dims, scale: float, flags, wgs=None):
+    """(dk, dv) by the ``flash_bwd_dkv`` kernel from ``_bwd_operands``, with
+    ``flash_bwd_plan``'s warpgroups per CTA, or ``wgs`` (chip_smoke.py's
+    A/B of the tiles)."""
     k, v = ops[1], ops[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", ops, (dk, dv), dims, scale, flags)
+    if wgs is None:
+        wgs = flash_bwd_plan(*dims, k.dtype).dkv_wgs
+    causal, window, dtype = flags
+    _launch("flash_bwd_dkv", ops, (dk, dv), dims, scale, (causal, window, wgs, dtype))
     return dk, dv
 
 
-def flash_bwd_dq(ops, dims, scale: float, flags):
-    """dq by the ``flash_bwd_dq`` kernel from ``_bwd_operands``."""
+def flash_bwd_dq(ops, dims, scale: float, flags, wgs=None):
+    """dq by the ``flash_bwd_dq`` kernel from ``_bwd_operands``; ``wgs`` as
+    for ``flash_bwd_dkv``."""
     dq = torch.empty_like(ops[0])
-    _launch("flash_bwd_dq", ops, (dq,), dims, scale, flags)
+    if wgs is None:
+        wgs = flash_bwd_plan(*dims, dq.dtype).dq_wgs
+    causal, window, dtype = flags
+    _launch("flash_bwd_dq", ops, (dq,), dims, scale, (causal, window, wgs, dtype))
     return dq
 
 

@@ -10,44 +10,81 @@
 // dP = dO v^T; dS = P * (dP - delta) * scale with delta = rowsum(dO * o),
 // which the caller computes.  P and dS round to the operand dtype before
 // the products dV += P^T dO, dK += dS^T q and dQ = dS k (f32 accumulation),
-// as :369, :373 and :416 cast them.  Causal tiles with no visible pair are
-// skipped (_block_live).  Like the JAX pair the two kernels are
-// deterministic: dK/dV and dQ each have one owner block, no atomics.  Ragged
-// S is masked by bounds instead of padded.
+// as :369, :373 and :416 cast them.  Causal and window tiles with no
+// visible pair are skipped (_block_live).  Like the JAX pair the two
+// kernels are deterministic: dK/dV and dQ each have one owner CTA, no
+// atomics.  Ragged S is masked by bounds instead of padded.
 //
 // Bound on the H100: at the train step's (64, 1024, 128) causal bf16 the
-// operations (8 S*Sk*D per head for the two kernels' five products of which
-// four are distinct, halved by causality) over the 989 TFLOP/s bf16 rate
-// exceed the bytes (q, k, v, dO, dq, dk, dv, lse, delta once each) over
-// 3.35 TB/s: a perfect kernel is bound by the tensor cores.  This simple one
-// is bound by its shared-memory round trips and WMMA's rate, and by one
-// 4-warp block per SM (its tiles take ~190 KB of shared memory).
+// operations (8 S*Sk*D per head for dK/dV's four products, 6 for dQ's
+// three, halved by causality) over the 989 TFLOP/s bf16 rate exceed the
+// bytes (q, k, v, dO, dq, dk, dv, lse, delta once each) over 3.35 TB/s: a
+// perfect kernel is bound by the tensor cores.
 //
-// Design (at D 128; D 256 below).  dkv: one block per (batch*head, 64-key
-// tile); it keeps its K and V tiles and f32 dK/dV accumulators in shared
-// memory and walks the live 64-query tiles.  Each warp owns 16 KEY rows and computes the TRANSPOSED
-// scores S^T = K Q^T and dP^T = V dO^T for them, so that P^T and dS^T come
-// out row-major for its own rows and the products P^T dO and dS^T Q read dO
-// and Q in their stored layout: no transposed tile is ever loaded.  dq: one
-// block per (batch*head, 64-query tile), warps own 16 query rows, walking
-// the live key tiles; dQ += dS K.  Because P comes straight from the saved
-// lse there is no running max, so the fragment-ownership problem of the
-// forward's online softmax does not arise: S and dP pass through shared
-// memory once per tile, and every step after a tile load touches only the
-// warp's own rows (warp barriers only).  bf16 uses WMMA 16x16x16 with f32
-// accumulation; f32 stays on the CUDA cores (TF32 would break the f32
-// contract).  Head dims 128 and 256 are the two instantiations, as
-// _flash_eligible takes them.  At D 256 the tiles are 32 rows (BT), where
-// 64-row ones would need 322 KB (bf16) of the 227 KB a block may use: the
-// 4 warps then pair up on each 16-row group, splitting the columns of every
-// product between them, and the element step's rows span both warps of a
-// pair, so its warp barriers become block barriers.  wgmma, TMA and
-// register-resident accumulators are later work.
+// bf16 (namespace wg) runs on wgmma.  Each kernel's CTA is one or two
+// consumer warpgroups and one producer warpgroup (kernels/attention.py
+// flash_bwd_plan decides the count, from shapes, before launch):
+//   - flash_bwd_dkv owns one (batch*head, key tile): K and V are loaded once
+//     into 128-byte-swizzled shared memory; the producer streams the live
+//     query tiles' Q and dO (64 rows) and their lse and delta through a ring
+//     of cp.async stages (three at head dim 128, two at 256) guarded by
+//     mbarriers, rows past Sq zero-filled.  A consumer computes S^T = K Q^T
+//     and dP^T = V dO^T (Q and dO K-major B operands: no transposed tile is
+//     stored), forms P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T -
+//     delta) scale in registers, and accumulates dV += P^T dO, dK += dS^T Q
+//     with P^T and dS^T as register A operands in the accumulator's layout
+//     and dO, Q as MN-major B operands of the same stage.  At head dim 128
+//     each warpgroup owns 64 keys (128 or 64 per CTA); at 256, where dK and
+//     dV of 64 keys would need 256 f32 registers a thread, the two
+//     warpgroups own the same 64 keys and 128 columns each: both compute
+//     the whole S^T and dP^T (1.5x the products of one owner), and no tile
+//     crosses between them;
+//   - flash_bwd_dq owns one (batch*head, query tile of 64 rows per
+//     warpgroup): Q and dO resident, lse and delta in registers; the
+//     producer streams the live K and V tiles (64 keys); S = Q K^T and dP =
+//     dO V^T (K, V K-major B), dS in registers, dQ += dS K (dS the register
+//     A operand, K the MN-major B); dQ (64 x D f32) stays in registers;
+//   - every accumulator lives in registers until the epilogue: shared
+//     memory carries no S, P, dS or accumulator tile; setmaxnreg moves the
+//     producer's registers to two consumers (40 / 232, but 24 / 240 in
+//     dK/dV at head dim 128, whose consumers spilled at 232: the producer's
+//     copies are slower at 24 elsewhere);
+//   - each warpgroup issues two MMA bursts per tile (the score products,
+//     then the accumulating ones) and waits for each before it touches
+//     their registers (no register defined while a group is partly
+//     retired: ptxas C7513); two consumers take turns at issuing (named
+//     barriers), two turns per tile of the CTA whether or not the tile is
+//     live for the warpgroup's rows, so that one's element step runs beside
+//     the other's MMAs and neither can stall the ring;
+//   - masks only on tiles that reach past Sq / Sk, the diagonal or a window
+//     edge; the longest causal columns (dK/dV) and rows (dQ) first.
+// f32 keeps the CUDA-core tile below (TF32 would break the f32 contract).
+// Built with -DFLASH_BWD_WMMA_BF16, bf16 runs that tile's WMMA form instead
+// (chip_smoke.py's A/B of the two).
+//
+// The CUDA-core / WMMA tile (at D 128; D 256 below).  dkv: one block per
+// (batch*head, 64-key tile); it keeps its K and V tiles and f32 dK/dV
+// accumulators in shared memory and walks the live 64-query tiles.  Each
+// warp owns 16 KEY rows and computes the TRANSPOSED scores S^T = K Q^T and
+// dP^T = V dO^T for them, so that P^T and dS^T come out row-major for its
+// own rows and the products P^T dO and dS^T Q read dO and Q in their stored
+// layout.  dq: one block per (batch*head, 64-query tile), warps own 16
+// query rows, walking the live key tiles; dQ += dS K.  S and dP pass
+// through shared memory once per tile, and every step after a tile load
+// touches only the warp's own rows (warp barriers only).  bf16 uses WMMA
+// 16x16x16 with f32 accumulation; f32 stays on the CUDA cores.  At D 256
+// the tiles are 32 rows (BT), where 64-row ones would need 322 KB (bf16)
+// of the 227 KB a block may use: the 4 warps then pair up on each 16-row
+// group, splitting the columns of every product between them, and the
+// element step's rows span both warps of a pair, so its warp barriers
+// become block barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -283,7 +320,7 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* B,
   }
 }
 
-__device__ __forceinline__ void put(__nv_bfloat16* dst, float v) {
+[[maybe_unused]] __device__ __forceinline__ void put(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
@@ -327,8 +364,11 @@ template <int BT> struct Elems {
   static constexpr int TPR = kThreads / BT, CPT = BT / TPR;
 };
 
+// One block per SM (its shared memory allows no more at either head dim):
+// told so, ptxas stops spilling to keep registers for a second one (f32 at
+// head dim 256 spilled 12 bytes)
 template <typename T, int D, int BT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -511,22 +551,584 @@ int dispatch(int d, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The MMA turns of a CTA's consumer warpgroups (named barriers 1 and 2).
+// With two, their bursts alternate, warpgroup 0 first, so that one's
+// element step runs beside the other's MMAs.  Each warpgroup takes every
+// turn of the CTA, two per streamed tile (the score products, then the
+// accumulating ones), whether or not the tile is live for its rows: a
+// turn it skipped would leave the other waiting for a hand-over that comes
+// only after a stage the waiter holds.  Warpgroup 1's last turn hands over
+// nothing, so that every arrive is awaited.
+template <int WGS>
+struct Turns {
+  int wgi, turns, taken;
+  __device__ Turns(int wgi_, int turns_) : wgi(wgi_), turns(turns_), taken(0) {
+    if (WGS == 2 && wgi == 1 && turns > 0) named_arrive(1, 256);
+  }
+  __device__ void mine() const {
+    if constexpr (WGS == 2) named_sync(1 + wgi, 256);
+  }
+  __device__ void yours() {
+    ++taken;
+    if constexpr (WGS == 2)
+      if (wgi == 0 || taken < turns) named_arrive(2 - wgi, 256);
+  }
+  __device__ void skip() {  // a turn with no MMA
+    mine();
+    yours();
+  }
+};
+
+// P^T and dS^T of one tile of the dK/dV kernel, in registers.  s and dp
+// hold S^T and dP^T (this warpgroup's 64 keys x BQ queries, unscaled); P^T
+// = exp(s scale - lse) (base 2: exp2(s sl2 - lse log2 e)) and dS^T =
+// P^T (dP^T - delta) scale leave rounded to bf16 in the accumulator's
+// layout (registers 4kk.. hold queries 16kk..): the A operands of
+// dV += P^T dO and dK += dS^T Q.  `st` holds the tile's lse, then its
+// delta (BQ each), from this thread's first column c2 on.  MASK: pairs
+// past Sq (cmax columns are in range), above the diagonal or outside the
+// window (query - key = dbase + column - row) get P = 0.
+template <int BQ, bool MASK>
+__device__ __forceinline__ void grads_t(const float (&s)[BQ / 2], const float (&dp)[BQ / 2],
+                                        unsigned (&p)[BQ / 4], unsigned (&ds)[BQ / 4],
+                                        const float* st, float sl2, float scale, int cmax,
+                                        int dbase, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    float pe[2][2], de[2][2];  // [row][column]
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + e;
+      const float l2 = st[col] * kLog2e, dl = st[BQ + col];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r + e;
+        float pv = exp2_approx(fmaf(s[i], sl2, -l2));
+        if constexpr (MASK) {
+          const int d = dbase + col - 8 * r;
+          const bool keep = col < cmax && (!causal || (d >= 0 && (window <= 0 || d < window)));
+          pv = keep ? pv : 0.f;
+        }
+        pe[r][e] = pv;
+        de[r][e] = pv * (dp[i] - dl) * scale;
+      }
+    }
+    p[2 * j] = pack_bf16(pe[0][0], pe[0][1]);
+    p[2 * j + 1] = pack_bf16(pe[1][0], pe[1][1]);
+    ds[2 * j] = pack_bf16(de[0][0], de[0][1]);
+    ds[2 * j + 1] = pack_bf16(de[1][0], de[1][1]);
+  }
+}
+
+// dS of one tile of the dQ kernel, in registers: s and dp hold S and dP
+// (this warpgroup's 64 query rows x BK keys); this thread's two rows' lse
+// (times log2 e) and delta are l2 and dl.  dS = P (dP - delta) scale
+// leaves rounded to bf16 in the accumulator's layout, the A operand of
+// dQ += dS K.  MASK: keys past Sk (cmax columns are in range), above the
+// diagonal or outside the window (key - query = dbase + column - row) get
+// P = 0.
+template <int BK, bool MASK>
+__device__ __forceinline__ void grads(const float (&s)[BK / 2], const float (&dp)[BK / 2],
+                                      unsigned (&ds)[BK / 4], const float (&l2)[2],
+                                      const float (&dl)[2], float sl2, float scale, int cmax,
+                                      int dbase, int causal, int window) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    float de[2][2];  // [row][column]
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e, col = 8 * j + e;
+        float pv = exp2_approx(fmaf(s[i], sl2, -l2[r]));
+        if constexpr (MASK) {
+          const int d = dbase + col - 8 * r;
+          const bool keep = col < cmax && (!causal || (d <= 0 && (window <= 0 || d > -window)));
+          pv = keep ? pv : 0.f;
+        }
+        de[r][e] = pv * (dp[i] - dl[r]) * scale;
+      }
+    ds[2 * j] = pack_bf16(de[0][0], de[0][1]);
+    ds[2 * j + 1] = pack_bf16(de[1][0], de[1][1]);
+  }
+}
+
+// dK/dV: one instantiation of head dim D, WGS consumer warpgroups, query
+// tiles of BQ rows in a ring of STAGES.  At head dim 128 each warpgroup
+// owns 64 keys (KEYS = 64 WGS); at 256 the two own the same 64 keys and
+// 128 columns each of dK and dV, so that neither holds more than two
+// 64 x 128 f32 accumulators (both compute the whole S^T and dP^T).  Shared
+// memory (after up to 1 KB that aligns it): K, V, the ring of (Q tile, dO
+// tile), the ring's lse and delta, then the mbarriers.
+template <int D, int WGS, int BQ, int STAGES>
+struct DkvCfg {
+  static constexpr bool kSplitD = D == 256;
+  static_assert(!kSplitD || WGS == 2, "head dim 256 splits its columns over two warpgroups");
+  static constexpr int KEYS = kSplitD ? 64 : 64 * WGS;
+  static constexpr int kConsumers = 128 * WGS;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kKV = KEYS * D * 2;   // K or V
+  static constexpr int kQ = BQ * D * 2;      // Q or dO of one stage
+  static constexpr int kRing = STAGES * 2 * kQ;
+  static constexpr int kStats = 2 * BQ * 4;  // lse and delta of one stage
+  static constexpr int kBars = 2 * kKV + kRing + STAGES * kStats;
+  static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * STAGES);
+  static_assert(kSmem <= 232448, "shared memory of one block");
+  static_assert(2 * BQ <= 128, "one producer thread per lse or delta value");
+  // the registers of the producer and of each of two consumers: at head
+  // dim 128 the consumers spilled at 232; at 256 (no spill there) the
+  // producer's copies were slower at 24
+  static constexpr int kProducerRegs = D == 128 ? 24 : 40;
+  static constexpr int kConsumerRegs = D == 128 ? 240 : 232;
+};
+
+template <int D, int WGS, int BQ, int STAGES>
+__global__ void __launch_bounds__(128 * WGS + 128, 1)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                           float scale, int causal, int window) {
+  using C = DkvCfg<D, WGS, BQ, STAGES>;
+  extern __shared__ unsigned char smem[];
+  const unsigned base = smem_addr(smem);
+  const unsigned sK = (base + 1023) & ~1023u, sV = sK + C::kKV, sRing = sV + C::kKV;
+  const unsigned sStats = sRing + C::kRing;
+  const unsigned kvbar = sK + C::kBars;  // then full[STAGES], empty[STAGES]
+  auto full = [&](int n) { return kvbar + 8 + 8 * (n % STAGES); };
+  auto empty = [&](int n) { return kvbar + 8 + 8 * STAGES + 8 * (n % STAGES); };
+  auto stage = [&](int n) { return sRing + (n % STAGES) * 2 * C::kQ; };  // Q, then dO
+  auto stats = [&](int n) { return sStats + (n % STAGES) * C::kStats; };  // lse, then delta
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * C::KEYS;  // the first keys (the longest causal columns) first
+
+  // the live query tiles [qt0, qt0 + ntiles): causal tiles wholly above the
+  // diagonal of the CTA's first key, and with a window those wholly past
+  // the band of its last, are skipped
+  int qt0 = 0, qt1 = (sq + BQ - 1) / BQ;
+  if (causal) {
+    qt0 = min(qt1, k0 / BQ);
+    if (window > 0) qt1 = min(qt1, (min(k0 + C::KEYS, sk) - 1 + window - 1) / BQ + 1);
+  }
+  const int ntiles = qt1 - qt0;
+
+  if (tid == 0) {
+    mbar_init(kvbar, 128);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 128);       // the producer warpgroup's copies landed
+      mbar_init(empty(st), 4 * WGS);  // every consumer warp done with the stage
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= C::kConsumers) {
+    // the producer warpgroup: K and V, then each live query tile's Q, dO,
+    // lse and delta into the ring, a stage refilled once every consumer
+    // warp is done with it.  Two consumers take the registers it gives up
+    // (168 each at entry)
+    if constexpr (WGS == 2) setmaxnreg_dec<C::kProducerRegs>();
+    const int t = tid - C::kConsumers;
+    load_tile<D, C::KEYS, 128>(sK, k + static_cast<size_t>(bh) * sk * D, k0, sk, t);
+    load_tile<D, C::KEYS, 128>(sV, v + static_cast<size_t>(bh) * sk * D, k0, sk, t);
+    mbar_arrive_cp_async(kvbar);
+    const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
+    const bf16* dob = dout + static_cast<size_t>(bh) * sq * D;
+    const float* sb = (t < BQ ? lse : delta) + static_cast<size_t>(bh) * sq;
+    for (int n = 0; n < ntiles; ++n) {
+      mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
+      const int q0 = (qt0 + n) * BQ;
+      load_tile<D, BQ, 128>(stage(n), qb, q0, sq, t);
+      load_tile<D, BQ, 128>(stage(n) + C::kQ, dob, q0, sq, t);
+      if (t < 2 * BQ) {
+        const int r = q0 + t % BQ;
+        cp_async4(stats(n) + 4 * t, r < sq ? sb + r : sb, r < sq ? 4 : 0);
+      }
+      mbar_arrive_cp_async(full(n));
+    }
+    cp_async_wait_all();
+  } else {
+    if constexpr (WGS == 2) setmaxnreg_inc<C::kConsumerRegs>();
+    const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    // this warpgroup's keys [w0, w0 + 64) and columns [wd, wd + 128) of dK
+    // and dV; this thread's keys ra, ra + 8 and first column c2 of a tile
+    const int w0 = k0 + (C::kSplitD ? 0 : 64 * wgi);
+    const int wd = C::kSplitD ? 128 * wgi : 0;
+    const int ra = w0 + 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+    const unsigned wk = sK + (w0 - k0) * 128, wv = sV + (w0 - k0) * 128;
+    const unsigned wcol = (wd / 64) * BQ * 128;  // its columns' atoms in a Q or dO tile
+    const float* st0 = reinterpret_cast<const float*>(smem + (sStats - base)) + c2;
+    const float sl2 = scale * kLog2e;
+
+    // the tiles [na, nb) with a visible pair for this warpgroup's keys
+    int na = 0, nb = w0 < sk ? ntiles : 0;
+    if (w0 < sk && causal) {
+      if (window > 0) nb = min(nb, (min(w0 + 63, sk - 1) + window - 1) / BQ + 1 - qt0);
+      na = min(nb, max(0, w0 / BQ - qt0));
+    }
+    auto acquire = [&](int n) {
+      mbar_wait(full(n), (n / STAGES) & 1);
+      fence_proxy_async();
+    };
+    auto release = [&](int n) {
+      if (lane == 0) mbar_arrive(empty(n));
+    };
+
+    float dkacc[1][64], dvacc[1][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dkacc[0][i] = dvacc[0][i] = 0.f;
+
+    Turns<WGS> turn(wgi, 2 * ntiles);
+    mbar_wait(kvbar, 0);
+    for (int n = 0; n < na; ++n) {
+      acquire(n);
+      turn.skip();
+      turn.skip();
+      release(n);
+    }
+    for (int n = na; n < nb; ++n) {
+      acquire(n);
+      const int q0 = (qt0 + n) * BQ;
+      float s[BQ / 2], dp[BQ / 2];
+      turn.mine();
+      wgmma_fence();
+      qk<D, BQ, C::KEYS>(s, wk, stage(n));           // S^T = K Q^T
+      qk<D, BQ, C::KEYS>(dp, wv, stage(n) + C::kQ);  // dP^T = V dO^T
+      wgmma_commit();
+      turn.yours();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // masks only where the tile reaches past Sq, the diagonal or the
+      // window's far edge for some key of this warpgroup
+      unsigned p[BQ / 4], ds[BQ / 4];
+      const float* st = st0 + (n % STAGES) * (C::kStats / 4);
+      if (q0 + BQ > sq ||
+          (causal && (q0 < w0 + 63 || (window > 0 && q0 + BQ - 1 - w0 >= window))))
+        grads_t<BQ, true>(s, dp, p, ds, st, sl2, scale, sq - q0 - c2, q0 + c2 - ra, causal,
+                          window);
+      else
+        grads_t<BQ, false>(s, dp, p, ds, st, sl2, scale, 0, 0, causal, window);
+      turn.mine();
+      wgmma_fence();
+      pv<128, BQ>(dvacc, p, stage(n) + C::kQ + wcol);  // dV += P^T dO
+      pv<128, BQ>(dkacc, ds, stage(n) + wcol);         // dK += dS^T Q
+      wgmma_commit();
+      turn.yours();
+      wgmma_wait<0>();
+      fence_regs(dvacc[0]);
+      fence_regs(dkacc[0]);
+      fence_regs(p);
+      fence_regs(ds);
+      release(n);
+    }
+    for (int n = max(na, nb); n < ntiles; ++n) {
+      acquire(n);
+      turn.skip();
+      turn.skip();
+      release(n);
+    }
+
+    // keys past sk are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row < sk) {
+        const size_t off = (static_cast<size_t>(bh) * sk + row) * D + wd + c2;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<unsigned*>(dk + off + 8 * j) =
+              pack_bf16(dkacc[0][4 * j + 2 * r], dkacc[0][4 * j + 2 * r + 1]);
+          *reinterpret_cast<unsigned*>(dv + off + 8 * j) =
+              pack_bf16(dvacc[0][4 * j + 2 * r], dvacc[0][4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dQ: one instantiation of head dim D, WGS consumer warpgroups of 64 query
+// rows each, key tiles of BK rows in a ring of STAGES.  Shared memory
+// (after up to 1 KB that aligns it): Q, dO, the ring of (K tile, V tile),
+// then the mbarriers.
+template <int D, int WGS, int BK, int STAGES>
+struct DqCfg {
+  static constexpr int ROWS = 64 * WGS;
+  static constexpr int kConsumers = 128 * WGS;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kQ = ROWS * D * 2;  // Q or dO
+  static constexpr int kKV = BK * D * 2;   // K or V of one stage
+  static constexpr int kBars = 2 * kQ + STAGES * 2 * kKV;
+  static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * STAGES);
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+template <int D, int WGS, int BK, int STAGES>
+__global__ void __launch_bounds__(128 * WGS + 128, 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int sq, int sk, float scale, int causal,
+                          int window) {
+  using C = DqCfg<D, WGS, BK, STAGES>;
+  extern __shared__ unsigned char smem[];
+  const unsigned sQ = (smem_addr(smem) + 1023) & ~1023u, sdO = sQ + C::kQ, sKV = sdO + C::kQ;
+  const unsigned qbar = sQ + C::kBars;  // then full[STAGES], empty[STAGES]
+  auto full = [&](int n) { return qbar + 8 + 8 * (n % STAGES); };
+  auto empty = [&](int n) { return qbar + 8 + 8 * STAGES + 8 * (n % STAGES); };
+  auto stage = [&](int n) { return sKV + (n % STAGES) * 2 * C::kKV; };  // K, then V
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  // the last query tiles (the longest causal rows) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;
+
+  // the live key tiles [kt0, kt0 + ntiles), as flash_fwd.cu's
+  const int last = min(q0 + C::ROWS, sq) - 1;
+  int kt0 = 0, kt1 = (sk + BK - 1) / BK;
+  if (causal) {
+    kt1 = min(kt1, last / BK + 1);
+    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
+  }
+  const int ntiles = kt1 - kt0;
+
+  if (tid == 0) {
+    mbar_init(qbar, 128);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 128);
+      mbar_init(empty(st), 4 * WGS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= C::kConsumers) {
+    // the producer warpgroup: Q and dO, then each live K/V tile (40 / 232
+    // registers: at 24 its copies were slower)
+    if constexpr (WGS == 2) setmaxnreg_dec<40>();
+    const int t = tid - C::kConsumers;
+    load_tile<D, C::ROWS, 128>(sQ, q + static_cast<size_t>(bh) * sq * D, q0, sq, t);
+    load_tile<D, C::ROWS, 128>(sdO, dout + static_cast<size_t>(bh) * sq * D, q0, sq, t);
+    mbar_arrive_cp_async(qbar);
+    const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+    const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+    for (int n = 0; n < ntiles; ++n) {
+      mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
+      load_tile<D, BK, 128>(stage(n), kb, (kt0 + n) * BK, sk, t);
+      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, (kt0 + n) * BK, sk, t);
+      mbar_arrive_cp_async(full(n));
+    }
+    cp_async_wait_all();
+  } else {
+    if constexpr (WGS == 2) setmaxnreg_inc<232>();
+    const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    // this warpgroup's rows [w0, w0 + 64); this thread's rows ra, ra + 8
+    const int w0 = q0 + 64 * wgi;
+    const int ra = w0 + 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+    const unsigned wq = sQ + wgi * 64 * 128, wdo = sdO + wgi * 64 * 128;
+    const float sl2 = scale * kLog2e;
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      const bool ok = row < sq;
+      l2[r] = ok ? lse[static_cast<size_t>(bh) * sq + row] * kLog2e : 0.f;
+      dl[r] = ok ? delta[static_cast<size_t>(bh) * sq + row] : 0.f;
+    }
+
+    // the tiles [na, nb) with a visible pair for this warpgroup's rows
+    int na = 0, nb = w0 < sq ? ntiles : 0;
+    if (w0 < sq && causal) {
+      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0);
+      if (window > 0) na = max(0, max(0, w0 - window + 1) / BK - kt0);
+    }
+    auto acquire = [&](int n) {
+      mbar_wait(full(n), (n / STAGES) & 1);
+      fence_proxy_async();
+    };
+    auto release = [&](int n) {
+      if (lane == 0) mbar_arrive(empty(n));
+    };
+
+    float dqacc[D / 128][64];
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dqacc[h][i] = 0.f;
+
+    Turns<WGS> turn(wgi, 2 * ntiles);
+    mbar_wait(qbar, 0);
+    for (int n = 0; n < na; ++n) {
+      acquire(n);
+      turn.skip();
+      turn.skip();
+      release(n);
+    }
+    for (int n = na; n < nb; ++n) {
+      acquire(n);
+      const int k0 = (kt0 + n) * BK;
+      float s[BK / 2], dp[BK / 2];
+      turn.mine();
+      wgmma_fence();
+      qk<D, BK, C::ROWS>(s, wq, stage(n));             // S = Q K^T
+      qk<D, BK, C::ROWS>(dp, wdo, stage(n) + C::kKV);  // dP = dO V^T
+      wgmma_commit();
+      turn.yours();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // masks only where the tile reaches past Sk, the diagonal or the
+      // window's lower edge for some row of this warpgroup
+      unsigned ds[BK / 4];
+      if (k0 + BK > sk ||
+          (causal && (k0 + BK - 1 > w0 || (window > 0 && w0 + 63 - k0 >= window))))
+        grads<BK, true>(s, dp, ds, l2, dl, sl2, scale, sk - k0 - c2, k0 + c2 - ra, causal,
+                        window);
+      else
+        grads<BK, false>(s, dp, ds, l2, dl, sl2, scale, 0, 0, causal, window);
+      turn.mine();
+      wgmma_fence();
+      pv<D, BK>(dqacc, ds, stage(n));  // dQ += dS K
+      wgmma_commit();
+      turn.yours();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < D / 128; ++h) fence_regs(dqacc[h]);
+      fence_regs(ds);
+      release(n);
+    }
+    for (int n = max(na, nb); n < ntiles; ++n) {
+      acquire(n);
+      turn.skip();
+      turn.skip();
+      release(n);
+    }
+
+    // rows past sq are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row < sq) {
+        bf16* out = dq + (static_cast<size_t>(bh) * sq + row) * D + c2;
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<unsigned*>(out + 128 * h + 8 * j) =
+                pack_bf16(dqacc[h][4 * j + 2 * r], dqacc[h][4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D, int WGS, int BQ, int STAGES>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int bh, int sq, int sk, float scale,
+               int causal, int window, cudaStream_t st) {
+  using C = DkvCfg<D, WGS, BQ, STAGES>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, WGS, BQ, STAGES>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sk + C::KEYS - 1) / C::KEYS);
+  kernel<<<grid, C::kThreads, C::kSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, sk, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int WGS, int BK, int STAGES>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, void* dq, int bh, int sq, int sk, float scale, int causal,
+              int window, cudaStream_t st) {
+  using C = DqCfg<D, WGS, BK, STAGES>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, WGS, BK, STAGES>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + C::ROWS - 1) / C::ROWS);
+  kernel<<<grid, C::kThreads, C::kSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), sq, sk, scale,
+      causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles of `wgs` consumer warpgroups (kernels/attention.py
+// flash_bwd_plan): dK/dV of 128 keys (two warpgroups) or 64 (one) at head
+// dim 128, 64 keys split by columns over two at 256, query tiles of 64 in a
+// ring of three stages (two at 256); dQ of 128 query rows (two) or 64 (one)
+// at head dim 128, 64 (one) at 256, key tiles of 64 in a ring of three
+// (two at 256).
+int dispatch_dkv(int d, int wgs, const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                 int sk, float scale, int causal, int window, cudaStream_t st) {
+  if (d == 128 && wgs == 2)
+    return launch_dkv<128, 2, 64, 3>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
+                                     causal, window, st);
+  if (d == 128 && wgs == 1)
+    return launch_dkv<128, 1, 64, 3>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
+                                     causal, window, st);
+  if (d == 256 && wgs == 2)
+    return launch_dkv<256, 2, 64, 2>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
+                                     causal, window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_dq(int d, int wgs, const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+                float scale, int causal, int window, cudaStream_t st) {
+  if (d == 128 && wgs == 2)
+    return launch_dq<128, 2, 64, 3>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
+                                    window, st);
+  if (d == 128 && wgs == 1)
+    return launch_dq<128, 1, 64, 3>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
+                                    window, st);
+  if (d == 256 && wgs == 1)
+    return launch_dq<256, 1, 64, 2>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
+                                    window, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q and dout (bh, sq, d), k and v (bh, sk, d), lse and delta (bh, sq) f32;
-// dk, dv like k; d 128 or 256; all contiguous and 16-byte aligned.  dtype:
-// 0 = float32, 1 = bfloat16.  window <= 0 means no sliding window.  Returns
-// cudaGetLastError().
+// dk, dv like k; d 128 or 256; all contiguous and 16-byte aligned.  window
+// <= 0 means no sliding window.  wgs: the consumer warpgroups of the bf16
+// kernel's CTA (kernels/attention.py flash_bwd_plan; f32 ignores it).
+// dtype: 0 = float32, 1 = bfloat16.  Built with -DFLASH_BWD_WMMA_BF16, bf16
+// runs the f32 kernel's WMMA tile (chip_smoke.py's A/B of the two).
+// Returns cudaGetLastError().
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int bh,
                              int sq, int sk, int d, float scale, int causal,
-                             int window, int dtype, void* stream) {
+                             int window, int wgs, int dtype, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
+  if (dtype == 1) {
+#ifdef FLASH_BWD_WMMA_BF16
     return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, nullptr, dk, dv, bh,
                                    sq, sk, scale, causal, window, true, stream);
+#else
+    return wg::dispatch_dkv(d, wgs, q, k, v, dout, l, dl, dk, dv, bh, sq, sk, scale, causal,
+                            window, static_cast<cudaStream_t>(stream));
+#endif
+  }
   return dispatch<float>(d, q, k, v, dout, l, dl, nullptr, dk, dv, bh, sq, sk,
                          scale, causal, window, true, stream);
 }
@@ -536,12 +1138,18 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int bh, int sq,
                             int sk, int d, float scale, int causal, int window,
-                            int dtype, void* stream) {
+                            int wgs, int dtype, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
+  if (dtype == 1) {
+#ifdef FLASH_BWD_WMMA_BF16
     return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, dq, nullptr, nullptr,
                                    bh, sq, sk, scale, causal, window, false, stream);
+#else
+    return wg::dispatch_dq(d, wgs, q, k, v, dout, l, dl, dq, bh, sq, sk, scale, causal, window,
+                           static_cast<cudaStream_t>(stream));
+#endif
+  }
   return dispatch<float>(d, q, k, v, dout, l, dl, dq, nullptr, nullptr, bh, sq,
                          sk, scale, causal, window, false, stream);
 }

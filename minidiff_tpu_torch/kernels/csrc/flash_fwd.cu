@@ -380,6 +380,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 namespace wg {
 
 using namespace sm90;
+using sm90::load_tile;  // not the WMMA tile's above
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -401,68 +402,6 @@ struct Cfg {
   static constexpr int kBars = kQ + STAGES * 2 * kKV;
   static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * STAGES);
   static_assert(kSmem <= 232448, "shared memory of one block");
-};
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Copy rows [r0, r0 + R) of a (rows, D) bf16 matrix into the tile at
-// shared address `dst`, zeros for rows >= limit.  Copier t of T copies the
-// 16-byte chunks i = t + j T: chunk i % 8 of row (i / 8) % R in atom
-// i / (8 R), at 16 i with the chunk index swizzled by the row: 8 copiers
-// fill one 128-byte row, read contiguously from global memory.
-template <int D, int R, int T>
-__device__ __forceinline__ void load_tile(unsigned dst, const bf16* src, int r0, int limit, int t) {
-#pragma unroll 4
-  for (int j = 0; j < R * D / 8 / T; ++j) {
-    const int i = t + j * T, r = (i / 8) % R;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + ((16 * i) ^ ((r & 7) << 4)),
-               ok ? src + static_cast<size_t>(r0 + r) * D + (i / (8 * R)) * 64 + (i % 8) * 8
-                  : src,
-               ok ? 16 : 0);
-  }
-}
-
-// S (this warpgroup's 64 rows x BK keys, f32) = Q K^T, both K-major: the
-// 16 columns kk.. of the Q rows (R rows per atom) and of K.  Issued only:
-// the caller fences before and commits after.
-template <int D, int BK, int R>
-__device__ __forceinline__ void qk(float (&s)[BK / 2], unsigned q, unsigned k) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const unsigned off = (kk % 4) * 32;
-    const uint64_t a = desc_sw128(q + (kk / 4) * R * 128 + off, 16, 1024);
-    const uint64_t b = desc_sw128(k + (kk / 4) * BK * 128 + off, 16, 1024);
-    if constexpr (BK == 128) wgmma_m64n128_ss(s, a, b, kk > 0);
-    else wgmma_m64n64_ss(s, a, b, kk > 0);
-  }
-}
-
-// O (64 x D) += P (64 x BK, registers) V (BK x D, MN-major: atoms of 64
-// columns BK * 128 bytes apart, 8-key groups 1 KB apart), in blocks of 128
-// columns.  Issued only, as qk.
-template <int D, int BK>
-__device__ __forceinline__ void pv(float (&o)[D / 128][64], const unsigned (&p)[BK / 4],
-                                   unsigned v) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const unsigned a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-#pragma unroll
-    for (int h = 0; h < D / 128; ++h)
-      wgmma_m64n128_rs<1>(o[h], a, desc_sw128(v + kk * 2048 + h * 2 * BK * 128, BK * 128, 1024), 1);
-  }
-}
-
-// Where a tile is masked: its column and row of S element i, relative to
-// this thread's first column k0 + c2 and row ra
-template <int I>
-struct Elem {
-  static constexpr int col = 8 * (I / 4) + I % 2;
-  static constexpr int row = 8 * ((I / 2) % 2);
 };
 
 template <int BK, bool MASK, int I = 0>

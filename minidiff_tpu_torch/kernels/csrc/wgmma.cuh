@@ -1,11 +1,12 @@
-// Hopper building blocks shared by quant.cu and flash_fwd.cu: cp.async
-// copies into shared memory, the matrix descriptors of operands staged
-// there, and the warpgroup MMAs (wgmma) the kernels issue.
+// Hopper building blocks shared by quant.cu, flash_fwd.cu and flash_bwd.cu:
+// cp.async copies into shared memory, the matrix descriptors of operands
+// staged there, the warpgroup MMAs (wgmma) the kernels issue, and the
+// flash kernels' swizzled tile copy and product loops.
 //
 // Operands live in shared memory in one of two layouts.  quant.cu stores
 // them unswizzled (desc), as 8-row x 16-byte core matrices (128 contiguous
-// bytes: 8 rows of 8 bf16); flash_fwd.cu stores them in 128-byte swizzle
-// atoms (desc_sw128, below).  For the unswizzled layout: a K-major operand
+// bytes: 8 rows of 8 bf16); the flash kernels store them in 128-byte
+// swizzle atoms (desc_sw128, below).  For the unswizzled layout: a K-major operand
 // (the contraction dimension contiguous: A = Q, B = K or x) and an
 // MN-major one (B = V, whose output dimension is contiguous) are both
 // described by the byte distance between core matrices adjacent along K
@@ -32,6 +33,11 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int sr
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4 bytes (one f32) likewise, through L1 (.cg takes only 16)
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -205,5 +211,73 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn
   return *reinterpret_cast<const unsigned*>(&v);
 }
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The flash kernels' tiles: R rows x D bf16 columns in D / 64 swizzle atoms
+// of R rows x 128 bytes, one atom after the other (atom a holds columns
+// 64a..64a+63).
+//
+// Copy rows [r0, r0 + R) of a (rows, D) bf16 matrix into the tile at
+// shared address `dst`, zeros for rows >= limit.  Copier t of T copies the
+// 16-byte chunks i = t + j T: chunk i % 8 of row (i / 8) % R in atom
+// i / (8 R), at 16 i with the chunk index swizzled by the row: 8 copiers
+// fill one 128-byte row, read contiguously from global memory.
+template <int D, int R, int T>
+__device__ __forceinline__ void load_tile(unsigned dst, const __nv_bfloat16* src, int r0,
+                                          int limit, int t) {
+#pragma unroll 4
+  for (int j = 0; j < R * D / 8 / T; ++j) {
+    const int i = t + j * T, r = (i / 8) % R;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + ((16 * i) ^ ((r & 7) << 4)),
+               ok ? src + static_cast<size_t>(r0 + r) * D + (i / (8 * R)) * 64 + (i % 8) * 8
+                  : src,
+               ok ? 16 : 0);
+  }
+}
+
+// S (a warpgroup's 64 rows x N, f32) = A B^T over D, both K-major tiles:
+// A's 64 rows at shared address `a` inside a tile of R rows, B a tile of N
+// rows at `b`.  Issued only: the caller fences before and commits after.
+template <int D, int N, int R>
+__device__ __forceinline__ void qk(float (&s)[N / 2], unsigned a, unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned off = (kk % 4) * 32;
+    const uint64_t da = desc_sw128(a + (kk / 4) * R * 128 + off, 16, 1024);
+    const uint64_t db = desc_sw128(b + (kk / 4) * N * 128 + off, 16, 1024);
+    if constexpr (N == 128) wgmma_m64n128_ss(s, da, db, kk > 0);
+    else wgmma_m64n64_ss(s, da, db, kk > 0);
+  }
+}
+
+// O (64 x D) += P (64 x K, registers in the accumulator's layout: registers
+// 4kk.. hold columns 16kk..) B (K x D at shared address `b`, a tile of K
+// rows read MN-major: atoms of 64 columns K * 128 bytes apart, 8-row groups
+// 1 KB apart), in blocks of 128 columns.  Issued only, as qk.
+template <int D, int K>
+__device__ __forceinline__ void pv(float (&o)[D / 128][64], const unsigned (&p)[K / 4],
+                                   unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const unsigned a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+      wgmma_m64n128_rs<1>(o[h], a, desc_sw128(b + kk * 2048 + h * 2 * K * 128, K * 128, 1024), 1);
+  }
+}
+
+// Where element i of a warpgroup's accumulator lies, relative to this
+// thread's first column (+ 2 (lane % 4)) and first row (16 warp + lane / 4)
+template <int I>
+struct Elem {
+  static constexpr int col = 8 * (I / 4) + I % 2;
+  static constexpr int row = 8 * ((I / 2) % 2);
+};
 
 }  // namespace sm90
