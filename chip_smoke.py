@@ -33,8 +33,14 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    at one and two warpgroups per CTA against a ``-DFLASH_BWD_WMMA_BF16``
    build of ``flash_bwd.cu`` (the WMMA tile), in turns, with SDPA's
    backward beside them; every bf16 backward case run twice and held bit
-   for bit (the kernels are deterministic); ``flash_bwd.cu`` built with no
-   spill and no ptxas C75xx note;
+   for bit (the kernels are deterministic); the bf16 matmuls at 1032^3 and
+   at one K-tile and part of one (8192 x 8192 x 64 and x 16) beside the
+   main path's shapes, each run twice and held bit for bit, and their A/Bs
+   at those shapes: the ``wgmma`` tile against a ``-DMM_WMMA_BF16`` build
+   of ``matmul.cu`` (the WMMA tile), in turns, with the library call, and
+   the ``wgmma`` tile at 128 x 256 and 128 x 128, in bands of 8 tile-rows
+   and of 1; ``flash_bwd.cu`` and ``matmul.cu`` built with no spill, no
+   ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -237,7 +243,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "sdpa_int8_kernel", "paged_attn_kernel", "scan_kernel",
                   "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel",
                   "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel",
-                  "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+                  "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                  "mm_wgmma_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -330,6 +337,9 @@ MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS, MOE_TRAIN_ROUNDS = 8, 512, 5, 2
 # the f32 gates: one layer, a prompt of 16 and 8 cached steps, one
 # sequence of 128 tokens for the loss and gradients
 MOE_GATE_PROMPT, MOE_GATE_STEPS, MOE_GATE_SEQ = 16, 8, 128
+# the idle host time on each side of a profiled run (profile_run), far
+# beyond the profiler's error in placing kernels on the host's clock
+PROFILE_PAD_S = 0.02
 
 # the tape path.  bench.py:196-234's matmul step: 4096^2 bf16, lr 1e-6, 2
 # warm-up and 10 timed steps; each step's forward is one nn product and its
@@ -365,6 +375,9 @@ DQ_SPLIT_AB = ((8, [8, 128, 2048, 1024]), (8, [8, 128, 1024, 4096]),
 DQ_TILE_AB = ((8, [8, 16, 1024, 4096]), (8, [8, 16, 2048, 1024]),
               (4, [16, 1024, 3072]), (4, [16, 4096, 1024]), (8, [16, 1024, 3072]))
 MM_STEP_LAUNCHES = {"matmul_nn": 1, "matmul_nt": 1, "matmul_tn": 1}
+# the bf16 matmuls' edges in phase 2 ([m, n, k], each layout): no dimension
+# a multiple of a tile, one K-tile and part of one (2^31 flops or more)
+MM_EDGES = ([1032, 1032, 1032], [8192, 8192, 64], [8192, 8192, 16])
 # benchmarks/mlp_bench.py's device-bound config mlp_784x4096x10_b8192:
 # batch 8192, 784 -> 4096 (relu) -> 10, f32, SGD 0.1.  Per step: layer 1's
 # forward (nn) and dW1 (tn) are 52.6 GFLOP each and launch the kernels; x
@@ -373,6 +386,12 @@ MM_STEP_LAUNCHES = {"matmul_nn": 1, "matmul_nt": 1, "matmul_tn": 1}
 # xent_fwd and its first-order VJP xent_bwd
 MLP_BATCH, MLP_IN, MLP_HIDDEN, MLP_OUT, MLP_LR, MLP_STEPS = 8192, 784, 4096, 10, 0.1, 10
 MLP_STEP_LAUNCHES = {"matmul_nn": 1, "matmul_tn": 1, "xent_fwd": 1, "xent_bwd": 1}
+# the matmul A/Bs of phase 2 (matmul_route_ab, matmul_tile_ab): [variant,
+# m, n, k] at the tape's matmul step, the MLP's bf16 layer-1 forward and
+# dW1, and MM_EDGES
+MM_AB = ([[v, MM_N, MM_N, MM_N] for v in ("nn", "nt", "tn")]
+         + [["nn", MLP_BATCH, MLP_HIDDEN, MLP_IN], ["tn", MLP_IN, MLP_HIDDEN, MLP_BATCH]]
+         + [[v, *e] for e in MM_EDGES for v in ("nn", "nt", "tn")])
 # the f32 gate's size (the CPU runs it too) and the Hessian's dimension
 # (benchmarks/hessian_bench.py)
 TAPE_GATE_N, HESS_N = 2048, 64
@@ -578,24 +597,32 @@ def phase_kernels(torch, report):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DFLASH_BWD_WMMA_BF16", "-o",
          str(bwd_wmma_lib), str(_build._CSRC / "flash_bwd.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # matmul.cu with every bf16 product on the WMMA tile (matmul_route_ab)
+    mm_wmma_lib = _build.BUILD_DIR / "matmul-wmma.so"
+    mm_wmma_build = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DMM_WMMA_BF16", "-o",
+         str(mm_wmma_lib), str(_build._CSRC / "matmul.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
-                       ("-DFLASH_BWD_WMMA_BF16", bwd_wmma_build)):
+                       ("-DFLASH_BWD_WMMA_BF16", bwd_wmma_build),
+                       ("-DMM_WMMA_BF16", mm_wmma_build)):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 4} sources in "
+    log(f"[build] {len(_build.SOURCES) + 5} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
         for line in ptxas_report(_build.build_log(name)):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
-    # the flash backward's wgmma kernels: no spill, no serialised MMAs, no
-    # ignored setmaxnreg
-    bad = [line for line in ptxas_report(_build.build_log("flash_bwd"))
-           if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
-    check(not bad, "flash_bwd.cu: ptxas reports " + "; ".join(bad))
+    # the flash backward's and the matmuls' kernels: no spill, no
+    # serialised MMAs, no ignored setmaxnreg
+    for name in ("flash_bwd", "matmul"):
+        bad = [line for line in ptxas_report(_build.build_log(name))
+               if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
+        check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -613,7 +640,8 @@ def phase_kernels(torch, report):
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
-        tile = (f" {c['tile']}x{c['splits']}" if c.get("tile") else "")
+        tile = (f" {c['tile']}" + (f"x{c['splits']}" if "splits" in c else "")
+                if c.get("tile") else "")
         log(f"[kernel] {c['name']:13s} {c['dtype']:8s} {str(c['shape']):18s}{tile}"
             f"{' g' + str(c['group']) if c.get('group') else ''}"
             f"{' causal' if c.get('causal') else '':7s}"
@@ -627,6 +655,8 @@ def phase_kernels(torch, report):
     report["flash_route"] = flash_route_cases(torch, randn)
     report["flash_route_ab"] = flash_route_ab(torch, randn, wmma_lib)
     report["flash_bwd_route_ab"] = flash_bwd_route_ab(torch, randn, bwd_wmma_lib)
+    report["matmul_route_ab"] = matmul_route_ab(torch, randn, mm_wmma_lib)
+    report["matmul_tile_ab"] = matmul_tile_ab(torch, randn)
     report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
@@ -1294,9 +1324,13 @@ def xent_cases(torch, gen, randn):
 def matmul_cases(torch, randn):
     """matmul_nn / _nt / _tn at the tape's matmul step (4096^3 bf16), at
     2048^3 in f32, the MLP's ragged layer-1 products (its forward
-    (8192, 784) @ (784, 4096) and its dW1 (8192, 784)^T @ (8192, 4096)),
-    and 1030^3, whose rows are no multiple of 16 bytes (edge tiles in every
-    dimension, the bf16 kernels' predicated loads)."""
+    (8192, 784) @ (784, 4096) and its dW1 (8192, 784)^T @ (8192, 4096): K
+    784 is 12 K-tiles of 64 and a part, M 784 in tn), 1030^3, whose rows are
+    no multiple of 16 bytes (the WMMA tile's predicated loads), and in bf16
+    1032^3 (no dimension a multiple of a tile) and 8192 x 8192 x 64 and x 16
+    (one K-tile, part of one): each within TOL["matmul"] of its plain
+    version, on the tile kernels.matmul.mm_plan gives it, and every bf16 case
+    the same bits on a second run (one owner per output tile)."""
     from minidiff_tpu_torch.kernels import matmul as M
 
     fns = {"nn": M.matmul, "nt": M.matmul_nt, "tn": M.matmul_tn}
@@ -1305,7 +1339,8 @@ def matmul_cases(torch, randn):
               + [(v, TAPE_GATE_N, TAPE_GATE_N, TAPE_GATE_N, f32) for v in fns]
               + [(v, m, MLP_HIDDEN, k, dt) for dt in (bf16, f32)
                  for v, m, k in (("nn", MLP_BATCH, MLP_IN), ("tn", MLP_IN, MLP_BATCH))]
-              + [(v, 1030, 1030, 1030, dt) for dt in (bf16, f32) for v in fns])
+              + [(v, 1030, 1030, 1030, dt) for dt in (bf16, f32) for v in fns]
+              + [(v, m, n, k, bf16) for m, n, k in MM_EDGES for v in fns])
     cases = []
     for variant, m, n, k, dtype in shapes:
         dn = str(dtype).split(".")[1]
@@ -1317,15 +1352,106 @@ def matmul_cases(torch, randn):
         fn = fns[variant]
         library = {"nn": lambda: x @ y, "nt": lambda: x @ y.T,
                    "tn": lambda: x.T @ y}[variant]
+        out = fn(x, y)
+        if dtype == bf16:
+            check(torch.equal(out, fn(x, y)),
+                  f"matmul_{variant} {[m, n, k]}: a second run gave other bits")
+        plan = M.mm_plan(variant, m, n, k, dtype)
         cases.append(dict(
             name=f"matmul_{variant}", dtype=dn, shape=[m, n, k],
-            max_abs_err=max_err(torch, fn(x, y), M._plain(variant, x, y),
-                                "matmul", dn),
+            tile=plan.route + (f"{plan.tile_n}" if plan.tile_n else ""),
+            max_abs_err=max_err(torch, out, M._plain(variant, x, y), "matmul", dn),
             ms=device_ms(torch, lambda: fn(x, y), iters=20),
             plain_ms=device_ms(torch, lambda: M._plain(variant, x, y), iters=20),
             library_ms=device_ms(torch, library, iters=20),
             **bound((m * k + k * n + m * n) * size, 2 * m * n * k, dn)))
     return cases
+
+
+def _mm_operands(torch, randn, variant, m, n, k):
+    """bf16 operands of one product in their stored layouts, its plain
+    version, and the library call that computes it."""
+    from minidiff_tpu_torch.kernels import matmul as M
+
+    x = randn(*((k, m) if variant == "tn" else (m, k)), dtype=torch.bfloat16)
+    y = randn(*((n, k) if variant == "nt" else (k, n)), dtype=torch.bfloat16)
+    library = {"nn": lambda: x @ y, "nt": lambda: x @ y.T, "tn": lambda: x.T @ y}[variant]
+    return x, y, M._plain(variant, x, y), library
+
+
+def _mm_turns(torch, routes, variant, x, y, ref):
+    """Each of ``routes`` ({label: (library or None, plan or None)}) within
+    TOL["matmul"] of ``ref``, then timed in turns, forward and back: us per
+    route as [forward, back] and the max |err|."""
+    from minidiff_tpu_torch.kernels import matmul as M
+
+    us, err = {r: [] for r in routes}, {}
+    for order in (list(routes), list(routes)[::-1]):
+        for r in order:
+            lib, plan = routes[r]
+            with contextlib.ExitStack() as stack:
+                if lib is not None:
+                    stack.enter_context(built_as("matmul", lib))
+                if r not in err:
+                    err[r] = max_err(torch, M._launch(variant, x, y, plan), ref, "matmul",
+                                     "bfloat16")
+                us[r].append(device_ms(torch, lambda: M._launch(variant, x, y, plan),
+                                       iters=20) * 1e3)
+    return us, err
+
+
+def matmul_route_ab(torch, randn, wmma_lib) -> list:
+    """The bf16 matmuls at MM_AB's shapes: the wgmma tile on mm_plan's tile
+    against the WMMA tile of ``wmma_lib`` (matmul.cu built with
+    -DMM_WMMA_BF16), each within TOL["matmul"] of the plain version, timed
+    in turns (WMMA, wgmma, wgmma, WMMA), with the library call beside."""
+    from minidiff_tpu_torch.kernels import matmul as M
+
+    wmma = lib_at("matmul", wmma_lib)
+    rows = []
+    for variant, m, n, k in MM_AB:
+        x, y, ref, library = _mm_operands(torch, randn, variant, m, n, k)
+        us, err = _mm_turns(torch, {"wmma": (wmma, None), "wgmma": (None, None)},
+                            variant, x, y, ref)
+        plan = M.mm_plan(variant, m, n, k, torch.bfloat16)
+        b = bound((m * k + k * n + m * n) * 2, 2 * m * n * k, "bfloat16")
+        row = dict(name=f"matmul_{variant}", shape=[m, n, k], tile=plan.tile_n,
+                   wmma_us=us["wmma"], wgmma_us=us["wgmma"],
+                   library_us=device_ms(torch, library, iters=20) * 1e3,
+                   bound_us=b["bound_ms"] * 1e3, max_abs_err=err)
+        rows.append(row)
+        log(f"[mm ab] {row['name']} {str([m, n, k]):20s} tile {plan.tile_n:3d} | WMMA "
+            f"{us['wmma'][0]:8.2f} / {us['wmma'][1]:8.2f} us | wgmma {us['wgmma'][0]:7.2f} / "
+            f"{us['wgmma'][1]:7.2f} us | library {row['library_us']:7.2f} us | bound "
+            f"{row['bound_us']:6.2f} us")
+    return rows
+
+
+def matmul_tile_ab(torch, randn) -> list:
+    """The bf16 wgmma tile at MM_AB's shapes: 128 x 256 (one CTA per SM)
+    and 128 x 128 (two), CTAs in bands of 8 tile-rows and of 1, each within
+    TOL["matmul"] of the plain version, timed in turns: the readings behind
+    mm_plan's tile and order."""
+    from minidiff_tpu_torch.kernels import matmul as M
+
+    routes = {"t256g8": (None, M.MmPlan("wgmma", 256, 8)),
+              "t128g8": (None, M.MmPlan("wgmma", 128, 8)),
+              "t256g1": (None, M.MmPlan("wgmma", 256, 1)),
+              "t128g1": (None, M.MmPlan("wgmma", 128, 1))}
+    rows = []
+    for variant, m, n, k in MM_AB:
+        x, y, ref, _ = _mm_operands(torch, randn, variant, m, n, k)
+        us, err = _mm_turns(torch, routes, variant, x, y, ref)
+        plan = M.mm_plan(variant, m, n, k, torch.bfloat16)
+        fastest = min(us, key=lambda r: sum(us[r]))
+        row = dict(name=f"matmul_{variant}", shape=[m, n, k],
+                   plan=f"t{plan.tile_n}g{plan.group}", fastest=fastest, us=us,
+                   max_abs_err=err)
+        rows.append(row)
+        log(f"[mm tile ab] {row['name']} {str([m, n, k]):20s} plan {row['plan']} fastest "
+            f"{fastest} | " + " | ".join(f"{r} {v[0]:7.2f} / {v[1]:7.2f}" for r, v in us.items())
+            + " us")
+    return rows
 
 
 def quant_cases(torch, gen, randn):
@@ -1871,28 +1997,43 @@ def profile_run(torch, label, run):
     torch.profiler (kernels on one stream never overlap, so the sum of their
     device times is the busy time).  A first run warms the tracer up and is
     discarded: a window that opens cold loses the device events of its
-    first milliseconds."""
+    first milliseconds.  The profiler places each kernel on the host's
+    clock through a mapping that can be off by most of a millisecond (a
+    kernel stamped before its own launch) and drops the kernels that then
+    fall outside its window, which lost every kernel of a one-step window
+    of a few milliseconds: so the profiled run sits between two idle
+    pauses of PROFILE_PAD_S, outside its wall time.  A window that still
+    sees no device time is profiled once more, then fails the run."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 acc_events=True) as prof:
-        run()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    # device-side kernel events only: operator events carry their kernels'
-    # time too, and counting both would count it twice; the schedule's step
-    # annotation spans the whole window and is no kernel
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+    def window():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        # device-side kernel events only: operator events carry their
+        # kernels' time too, and counting both would count it twice; the
+        # schedule's step annotation spans the whole window and is no kernel
+        return wall_us, [(e.key, e.self_device_time_total, e.count)
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0
+                         and not e.key.startswith("ProfilerStep")]
+
+    wall_us, rows = window()
+    if not rows:
+        log(f"[profile] {label}: the profiler saw no device time; once more")
+        wall_us, rows = window()
+    check(bool(rows), f"profile of {label}: the profiler saw no device time")
     busy_us = sum(r[1] for r in rows)
     calls = sum(r[2] for r in rows)
     by_kind: dict = {}
@@ -1910,8 +2051,7 @@ def profile_run(torch, label, run):
     top = [dict(kernel=k[:90], device_us=t, calls=n) for k, t, n in rows[:12]]
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, "
         f"device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}) in "
-        f"{calls} device calls"
-        + ("" if rows else " -- the profiler saw no device time"))
+        f"{calls} device calls")
     log("[profile]   by kind: " + ", ".join(
         f"{kind} {t / 1e3:.2f} ms" for kind, t in sorted(by_kind.items())))
     for r in top:

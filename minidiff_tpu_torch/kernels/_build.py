@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the dtypes the kernels take, as their C entries' `dtype` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the H100's streaming multiprocessors, which the launch plans fill
-# (kernels.attention.flash_plan and flash_bwd_plan, kernels.quant.dq_plan)
+# (kernels.attention.flash_plan and flash_bwd_plan, kernels.quant.dq_plan,
+# kernels.matmul.mm_plan)
 SMS = 132
 
 # C signatures: name -> (source, argtypes).  Every entry returns the
@@ -59,7 +60,7 @@ SIGNATURES = {
                                    _I, _F, _I, _I, _I, _I, _P)),
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

@@ -11,8 +11,17 @@ goes to the hand-written CUDA kernels of ``csrc/matmul.cu`` (``matmul_nn``,
 float32 or bfloat16, and it costs at least ``_MIN_FLOPS`` (2·m·n·k ≥ 2³¹,
 the JAX package's threshold, below which launch overhead dominates).
 Anything else goes to ``torch.matmul``, as the JAX package leaves it to
-``jnp.matmul``.  There is no tile-alignment rule (the kernels guard their own
-edges) and no race against cuBLAS.
+``jnp.matmul``.  There is no race against cuBLAS.
+
+Which tile a launch takes (``mm_plan``, also a pure function of shapes and
+dtypes, decided before launch and passed to the C entry): bf16 whose
+operands' contiguous dimensions are multiples of 8 (a 16-byte copy never
+straddles a row) runs the ``wgmma`` tile (a producer streaming both
+operands by TMA through a ring of shared-memory stages, two consumer
+warpgroups of 64 rows), 128 x 256 or 128 x 128 output columns per CTA;
+other bf16 shapes run the WMMA tile by rule (its predicated loads take
+any row); f32 runs the FFMA tile (TF32 would break the f32 contract).  The
+kernels guard their own edges, so no shape is padded.
 
 A product that meets the rule launches its kernel when its operands lie on a
 CUDA device, or raises; on the CPU it runs the plain version,
@@ -23,6 +32,8 @@ supplies the VJPs, which re-enter these functions.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from minidiff_tpu_torch.kernels import _build
@@ -32,6 +43,46 @@ LAUNCHES = {"matmul_nn": 0, "matmul_nt": 0, "matmul_tn": 0}
 _MIN_FLOPS = 2 * 1024 * 1024 * 1024
 # the C entry's `variant` argument
 _VARIANTS = {"nn": 0, "nt": 1, "tn": 2}
+# the wgmma tile's rows per CTA and K per stage, and the tile-rows a band of
+# CTAs walks column by column before the next band (operand tiles shared in
+# L2)
+_TILE_M, _TILE_K = 128, 64
+_GROUP = 8
+
+
+class MmPlan(NamedTuple):
+    """How ``csrc/matmul.cu`` runs one product on the card (``mm_plan``).
+    ``route``: "wgmma" (bf16, rows of whole 16-byte copies), "wmma" (other
+    bf16) or "ffma" (f32); ``tile_n``: the wgmma tile's output columns per
+    CTA (256, one CTA per SM, or 128, two; 0 on the other routes: the C
+    entry's ``tile``); ``group``: the tile-rows each band of CTAs walks (1
+    off wgmma)."""
+    route: str
+    tile_n: int
+    group: int
+
+
+def mm_plan(variant: str, m: int, n: int, k: int, dtype) -> MmPlan:
+    """The tile of one product x' (m, k) @ y' (k, n) on the card, from
+    shapes and dtype alone.  bf16 takes the ``wgmma`` tile when x's and y's
+    contiguous dimensions (k, or m for tn; n, or k for nt) are multiples of
+    8, else the WMMA tile.  The ``wgmma`` tile is 128 x 128 (two CTAs per
+    SM) where K is one K-tile (the CTA's work is its epilogue, which the
+    other CTA's loads overlap) or where 128 x 128 CTAs make at most one
+    wave on the card's SMs (twice the SMs busy), else 128 x 256 (half the
+    operand traffic per flop): the faster tile at every shape of
+    ``chip_smoke.py``'s ``matmul_tile_ab``.  f32 takes the FFMA tile."""
+    if dtype == torch.float32:
+        return MmPlan("ffma", 0, 1)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"matmul_{variant}: kernel takes float32 or bfloat16, got {dtype}")
+    contiguous_x = m if variant == "tn" else k
+    contiguous_y = k if variant == "nt" else n
+    if contiguous_x % 8 or contiguous_y % 8:
+        return MmPlan("wmma", 0, 1)
+    one_k_tile = k <= _TILE_K
+    one_wave_128 = -(-m // _TILE_M) * -(-n // 128) <= _build.SMS
+    return MmPlan("wgmma", 128 if one_k_tile or one_wave_128 else 256, _GROUP)
 
 
 def _mnk(variant: str, xs: tuple, ys: tuple) -> tuple:
@@ -80,16 +131,18 @@ def _library(variant: str, x, y):
     return torch.matmul(a, b)
 
 
-def _launch(variant: str, x, y):
+def _launch(variant: str, x, y, plan: MmPlan | None = None):
+    """The kernel on the card, on ``plan`` (``mm_plan``'s by default)."""
     if y.device != x.device:
         raise TypeError(f"matmul_{variant}: operands on {x.device} and {y.device}")
     m, n, k = _mnk(variant, tuple(x.shape), tuple(y.shape))
+    plan = plan or mm_plan(variant, m, n, k, x.dtype)
     xc, yc = _build.operand(x), _build.operand(y)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.function("matmul")(
             *_build.ptrs(xc, yc, out), m, n, k, _VARIANTS[variant],
-            _build.DTYPE_CODES[x.dtype], _build.stream())
+            _build.DTYPE_CODES[x.dtype], plan.tile_n, plan.group, _build.stream())
     _build.check(err, f"matmul_{variant}")
     LAUNCHES[f"matmul_{variant}"] += 1
     return out

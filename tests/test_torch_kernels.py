@@ -627,6 +627,17 @@ def test_matmul_dispatch_rule(monkeypatch):
     assert not rule("nn", (2, 4096, 4096), (4096, 4096), f32, f32)
     assert not rule("nt", (4096, 4096), (4096, 4095), f32, f32)  # k differs
     assert rule("nt", (4096, 4096), (4096, 4096), f32, f32)
+    # the plan picks a tile inside the kernel: which products launch does
+    # not depend on it, at any of its routes, at and under 2^31 flops
+    for variant, (m, n, k), dtype, route in (
+            ("nn", (4096,) * 3, bf16, "wgmma"), ("nt", (1030,) * 3, bf16, "wmma"),
+            ("tn", (2048,) * 3, f32, "ffma"), ("nt", (8192, 8192, 16), bf16, "wgmma"),
+            ("tn", (784, 4096, 8192), f32, "ffma"), ("nn", (512,) * 3, bf16, "wgmma")):
+        assert TMM.mm_plan(variant, m, n, k, dtype).route == route
+        xs = (k, m) if variant == "tn" else (m, k)
+        ys = (n, k) if variant == "nt" else (k, n)
+        assert rule(variant, xs, ys, dtype, dtype) == (2 * m * n * k >= 2 ** 31)
+    assert set(TMM.LAUNCHES) == {"matmul_nn", "matmul_nt", "matmul_tn"}
     # a product that meets the rule runs the plain version on the CPU and
     # launches nothing; one that does not goes to torch.matmul
     from minidiff_tpu_torch import kernels
@@ -643,3 +654,30 @@ def test_matmul_dispatch_rule(monkeypatch):
     TMM.matmul(x[:4], y[:, :4].double())  # mixed dtypes: numpy promotion
     assert plain == ["nn", "nt", "tn"]
     assert set(kernels.launch_counts().values()) == {0}
+    # a launch passes the plan's tile and group to the C entry and counts
+    # one launch under its variant's name, whatever the tile
+    import contextlib
+
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(TMM._build, "function", lambda name: entry)
+    monkeypatch.setattr(TMM._build, "stream", lambda: 0)
+    monkeypatch.setattr(TMM.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    for variant, (m, n, k), dtype in (("nn", (64, 64, 64), bf16), ("nt", (40, 24, 1030), bf16),
+                                      ("tn", (24, 40, 16), f32)):
+        before = dict(TMM.LAUNCHES)
+        xs = (k, m) if variant == "tn" else (m, k)
+        ys = (n, k) if variant == "nt" else (k, n)
+        out = TMM._launch(variant, torch.zeros(xs, dtype=dtype), torch.zeros(ys, dtype=dtype))
+        assert out.shape == (m, n) and out.dtype == dtype
+        plan = TMM.mm_plan(variant, m, n, k, dtype)
+        assert calls[-1][3:-1] == (m, n, k, TMM._VARIANTS[variant],
+                                   TMM._build.DTYPE_CODES[dtype], plan.tile_n, plan.group)
+        assert {name: TMM.LAUNCHES[name] - before[name] for name in before} == {
+            name: int(name == f"matmul_{variant}") for name in before}
+    kernels.reset_launch_counts()
+
