@@ -13,8 +13,7 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the serving, train and tape paths' shapes, in bf16 and f32, with times for
    the kernel, the plain version and the library call, and the card's lower
-   bound; the flash kernels at head dim 256, ``sdpa_int8`` and
-   ``paged_attn`` at head dim 256, the scan at the SSM train step's,
+   bound; the flash kernels at head dim 256, the scan at the SSM train step's,
    backward's and server prefill's shapes, an RMSNorm at d 16,384 (wider
    than the kernels: composed, no launch), the flash rule at head dims
    32, 64, 128 and 256 (the route each takes, counted by launches),
@@ -39,8 +38,14 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    at those shapes: the ``wgmma`` tile against a ``-DMM_WMMA_BF16`` build
    of ``matmul.cu`` (the WMMA tile), in turns, with the library call, and
    the ``wgmma`` tile at 128 x 256 and 128 x 128, in bands of 8 tile-rows
-   and of 1; ``flash_bwd.cu`` and ``matmul.cu`` built with no spill, no
-   ptxas C75xx note and no ignored setmaxnreg;
+   and of 1; ``sdpa_int8`` (SDPA_CASES, Mistral-7B's grouping at L 16,384
+   among them) and ``paged_attn`` (PAGED_CASES, g 4 among them) on their
+   split plans, each bf16 case run twice and held bit for bit, their A/B
+   against the one-CTA kernels of a ``-DDECODE_ATTN_ONE_CTA`` build of
+   ``quant.cu`` and ``paged.cu`` in turns, and each case at 1, 2, 4, 8 and
+   16 splits with the clusters the card holds at once;
+   ``flash_bwd.cu``, ``matmul.cu``, ``quant.cu`` and ``paged.cu`` built
+   with no spill, no ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
@@ -244,7 +249,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "dq_bmm_kernel", "dq_bmm_tc_kernel", "dq4_mm_tc_kernel",
                   "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel",
                   "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                  "mm_wgmma_kernel")
+                  "mm_wgmma_kernel", "sdpa_int8_split_kernel",
+                  "paged_attn_split_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -268,6 +274,21 @@ SDPA8_PER_STEP = MODEL["num_layers"]
 # the paged server against the dense one (serving_bench.paged_vs_dense):
 # 8 slots, window 1024, bf16, prompts of 16 tokens, timed in turns
 PAGED_SEQ, PAGED_SLOTS, PAGED_PROMPT, PAGED_STEPS, PAGED_ROUNDS = 1024, 8, 16, 32, 3
+# decode attention over a cache in phase 2 (decode_attn_cases and its A/Bs).
+# sdpa_int8 at [B, heads, kv heads, hd, L, pos]: the bench decode's last
+# step, the long-context one, head dim 256 (2 heads) at the bench decode's,
+# and Mistral-7B's grouping (32 heads over 8 KV heads) at L 16,384, which
+# the one-CTA kernel refused (its scores overflowed the block).
+# paged_attn at [kv heads, g, hd, pages used] of PAGED_SLOTS slots of
+# PAGED_SEQ // 128 pages: the paged server's step at 1 and 8 pages, head
+# dim 256 (2 heads), and the Mistral-7B grouping
+SDPA_CASES = ([BATCH, MODEL["num_heads"], MODEL["num_heads"], 128, 256, PROMPT + NEW - 1],
+              [LC_BATCH, MODEL["num_heads"], MODEL["num_heads"], 128, LC_SEQ,
+               LC_PROMPT + LC_NEW - 1],
+              [BATCH, 2, 2, 256, 256, PROMPT + NEW - 1],
+              [1, 32, 8, 128, 16384, 16000])
+PAGED_CASES = ([MODEL["num_heads"], 1, 128, 1], [MODEL["num_heads"], 1, 128, 8],
+               [2, 1, 256, 8], [8, 4, 128, 8])
 # launches per server step: ln1 of each block and ln_f, add+LN of each
 # block; the paged step adds one paged_attn per layer
 DENSE_STEP_LAUNCHES = {"ln_fwd": 5, "addln_fwd": 4}
@@ -537,9 +558,13 @@ def max_err(torch, out, ref, kind, dtype_name, g=None):
         atol *= g.abs().max().item()
     err = (out - ref).abs()
     check(bool(torch.isfinite(out).all()), f"{kind}: non-finite output")
-    check(bool((err <= atol + rtol * ref.abs()).all()),
-          f"{kind} {dtype_name}: max |err| {err.max().item():.3g} beyond "
-          f"rtol {rtol} atol {atol}")
+    over = err - (atol + rtol * ref.abs())
+    if bool((over > 0).any()):
+        i = int(torch.argmax(over))
+        check(False, f"{kind} {dtype_name}: max |err| {err.max().item():.3g} beyond "
+              f"rtol {rtol} atol {atol}; {int((over > 0).sum())} of {err.numel()} beyond, "
+              f"the worst at flat index {i}: {out.flatten()[i].item()!r} against "
+              f"{ref.flatten()[i].item()!r}")
     return err.max().item()
 
 
@@ -603,23 +628,33 @@ def phase_kernels(torch, report):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-DMM_WMMA_BF16", "-o",
          str(mm_wmma_lib), str(_build._CSRC / "matmul.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # quant.cu's sdpa_int8 and paged.cu on their one-CTA kernels
+    # (decode_attn_route_ab)
+    one_cta_libs = {src: _build.BUILD_DIR / f"{src}-one-cta.so" for src in ("quant", "paged")}
+    one_cta_builds = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DDECODE_ATTN_ONE_CTA", "-o", str(lib),
+         str(_build._CSRC / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, lib in one_cta_libs.items()}
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
                        ("-DFLASH_BWD_WMMA_BF16", bwd_wmma_build),
-                       ("-DMM_WMMA_BF16", mm_wmma_build)):
+                       ("-DMM_WMMA_BF16", mm_wmma_build),
+                       *((f"-DDECODE_ATTN_ONE_CTA {src}.cu", proc)
+                         for src, proc in one_cta_builds.items())):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 5} sources in "
+    log(f"[build] {len(_build.SOURCES) + 7} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
         for line in ptxas_report(_build.build_log(name)):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
-    # the flash backward's and the matmuls' kernels: no spill, no
-    # serialised MMAs, no ignored setmaxnreg
-    for name in ("flash_bwd", "matmul"):
+    # the flash backward's, the matmuls', the quantized kernels' and the
+    # paged kernel's: no spill, no serialised MMAs, no ignored setmaxnreg
+    for name in ("flash_bwd", "matmul", "quant", "paged"):
         bad = [line for line in ptxas_report(_build.build_log(name))
                if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
         check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
@@ -634,7 +669,7 @@ def phase_kernels(torch, report):
                           (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ,))
              + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
-             + quant_cases(torch, gen, randn) + paged_cases(torch, gen, randn)
+             + quant_cases(torch, gen, randn) + decode_attn_cases(torch, gen, randn)
              + scan_cases(torch, gen) + dq_bmm_cases(torch, randn)
              + dq_edge_cases(torch, randn))
     torch.cuda.synchronize()
@@ -663,6 +698,8 @@ def phase_kernels(torch, report):
     report["dq_route_ab"] = dq_route_ab(torch, randn, simt_lib)
     report["dq_split_ab"] = dq_split_ab(torch, randn)
     report["dq_tile_ab"] = dq_tile_ab(torch, randn)
+    report["decode_attn_route_ab"] = decode_attn_route_ab(torch, gen, randn, one_cta_libs)
+    report["decode_split_ab"] = decode_split_ab(torch, gen, randn)
     report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
 
     # the kernels line reports the serving kernels at the shape the bf16
@@ -1458,12 +1495,7 @@ def quant_cases(torch, gen, randn):
     """dq_mm / dq4_mm at a decode step's projections (m = 8: QKV [1024,
     3072], out [1024, 1024], fc1 [1024, 4096], fc2 [4096, 1024], the head
     [1024, 512]) and at m = 128 (the bench prefill of 8 x 16 tokens), against
-    torch.matmul on the dequantized weight; sdpa_int8 at the bench decode's
-    last step (B 8, kv 8, hd 128, L 256, pos 143) and the long-context one
-    (B 4, L 4096, pos 4031), and at head dim 256 (B 8, 2 heads, L 256),
-    against SDPA over the dequantized cache."""
-    import torch.nn.functional as TF
-
+    torch.matmul on the dequantized weight."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     cases = []
@@ -1495,32 +1527,6 @@ def quant_cases(torch, gen, randn):
                         plain_ms=device_ms(torch, lambda: plain(x, wq, sq)),
                         library_ms=device_ms(torch, lambda: x @ wd),
                         **bound((m * k + m * n) * size + wbytes, 2 * m * n * k, dn)))
-        # the bench decode's last step, the long-context one, and head dim
-        # 256 (2 heads) at the bench decode's
-        for h, hd, b, L, pos in (
-                (MODEL["num_heads"], 128, BATCH, 256, PROMPT + NEW - 1),
-                (MODEL["num_heads"], 128, LC_BATCH, LC_SEQ, LC_PROMPT + LC_NEW - 1),
-                (2, 256, BATCH, 256, PROMPT + NEW - 1)):
-            q = randn(b, h, 1, hd, dtype=dtype)
-            k8, ks = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
-            v8, vs = Q.quantize_int8_rows(randn(b, h, L, hd, dtype=torch.float32))
-            posv = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
-            args = (q, k8, ks, v8, vs, posv)
-            kd = (k8.float() * ks[..., None]).to(dtype)
-            vd = (v8.float() * vs[..., None]).to(dtype)
-            mask = (torch.arange(L, device=DEVICE) <= pos).reshape(1, L)
-            live = pos + 1  # keys this step reads: the rest are masked
-            cases.append(dict(
-                name="sdpa_int8", dtype=dn, shape=[b, h, 1, hd, L], pos=pos,
-                max_abs_err=max_err(torch, Q.sdpa_int8_cache(*args),
-                                    Q._plain_sdpa_int8_cache(*args), "attn", dn),
-                ms=device_ms(torch, lambda: Q.sdpa_int8_cache(*args)),
-                plain_ms=device_ms(torch, lambda: Q._plain_sdpa_int8_cache(*args)),
-                library_ms=device_ms(torch, lambda: TF.scaled_dot_product_attention(
-                    q, kd, vd, attn_mask=mask)),
-                # K and V lines with their scales, q and o; QK^T and PV
-                **bound(2 * b * h * live * (hd + 4) + 2 * b * h * hd * size + 4 * b,
-                        4 * b * h * live * hd, dn)))
     return cases
 
 
@@ -1751,8 +1757,12 @@ def _ab_turns(torch, routes, x, q, s, ref, dn):
     from minidiff_tpu_torch.kernels import quant as Q
 
     us = {r: [] for r in routes}
-    err = {r: max_err(torch, Q._dq_tiles(x, q, s, p), ref, "dq", dn)
-           for r, p in routes.items()}
+    err = {}
+    for r, p in routes.items():
+        try:
+            err[r] = max_err(torch, Q._dq_tiles(x, q, s, p), ref, "dq", dn)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{Q.__name__} {tuple(x.shape)} x {tuple(q.shape)} on {p}: {e}")
     for order in (list(routes), list(routes)[::-1]):
         for r in order:
             p = routes[r]
@@ -1762,9 +1772,10 @@ def _ab_turns(torch, routes, x, q, s, ref, dn):
 
 def dq_split_ab(torch, randn) -> list:
     """dq_bmm and dq4_mm in bf16 at DQ_SPLIT_AB's shapes, each on its plan's
-    tile at 1, 2, 4, 8 and 16 K splits (no more than its units), in turns:
-    the readings behind dq_plan's split rule, and a check of every split
-    count's K ranges (tc_body's) against the plain version."""
+    tile at 1, 2, 4, 8 and 16 K splits (no more than its units, and no
+    fewer than the tile's min_splits), in turns: the readings behind
+    dq_plan's split rule, and a check of every split count's K ranges
+    (tc_body's) against the plain version."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     dtype, dn = torch.bfloat16, "bfloat16"
@@ -1777,7 +1788,7 @@ def dq_split_ab(torch, randn) -> list:
         units = (k // 2 // 128) if bits == 4 else k // Q.TILES[8][plan.tile][2]
         tiles = plan.ctas // plan.splits
         routes = {n: Q.DqPlan(plan.tile, n, tiles * n)
-                  for n in (1, 2, 4, 8, 16) if n <= units}
+                  for n in (1, 2, 4, 8, 16) if Q.min_splits(k, plan.tile) <= n <= units}
         us, err = _ab_turns(torch, routes, x, q, s, d["plain"](x, q, s), dn)
         row = dict(name=d["name"], shape=shape, tile=plan.tile,
                    tiles=tiles, plan_splits=plan.splits,
@@ -1818,53 +1829,205 @@ def dq_tile_ab(torch, randn) -> list:
     return rows
 
 
-def paged_cases(torch, gen, randn):
-    """paged_attn at the paged server's decode step (8 slots, 8 heads, hd
-    128, window 1024) with 1 and 8 pages used per slot, and at head dim 256
-    (2 heads, 8 pages; in f32 the kernel's one-tile path), against SDPA over
-    the gathered logical view."""
+def _decode_attn(torch, gen, randn, name, dtype, spec) -> dict:
+    """One sdpa_int8 ([B, heads, kv heads, hd, L, pos], SDPA_CASES) or
+    paged_attn ([kv heads, g, hd, pages used], PAGED_CASES) case: the
+    kernel on a launch plan (the wrapper's own by default), its plain
+    version, the library call (SDPA over the dequantized cache or the
+    gathered view), the plan of each split count, the arguments of the
+    kernel's cluster query, and the bound's bytes and flops."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import paged as P
+    from minidiff_tpu_torch.kernels import quant as Q
 
-    cases = []
-    b = PAGED_SLOTS
-    maxp = PAGED_SEQ // P.PAGE
-    npages = b * maxp + 1
-    for dtype, h, hd, used_pages in (
-            (torch.bfloat16, MODEL["num_heads"], 128, (1, maxp)),
-            (torch.float32, MODEL["num_heads"], 128, (1, maxp)),
-            (torch.bfloat16, 2, 256, (maxp,)), (torch.float32, 2, 256, (maxp,))):
-        dn = str(dtype).split(".")[1]
-        size = torch.finfo(dtype).bits // 8
-        pk = randn(npages, h, P.PAGE, hd, dtype=dtype)
-        pv = randn(npages, h, P.PAGE, hd, dtype=dtype)
-        table = (1 + torch.randperm(npages - 1, generator=gen, device=DEVICE)).reshape(
-            b, maxp).to(torch.int32)
+    size = torch.finfo(dtype).bits // 8
+    if name == "sdpa_int8":
+        b, h, kv, hd, L, pos = spec
         q = randn(b, h, 1, hd, dtype=dtype)
-        for used in used_pages:
-            live = used * P.PAGE - 20
-            pos = torch.full((b,), live - 1, device=DEVICE, dtype=torch.int32)
-            args = (q, pk, pv, table, pos)
-            view = table[:, :used].long()
-            kd = pk[view].transpose(1, 2).reshape(b, h, used * P.PAGE, hd)
-            vd = pv[view].transpose(1, 2).reshape(b, h, used * P.PAGE, hd)
-            mask = (torch.arange(used * P.PAGE, device=DEVICE) < live).reshape(1, -1)
-            cases.append(dict(
-                name="paged_attn", dtype=dn, shape=[b, h, 1, hd, used],
-                max_abs_err=max_err(torch, P.paged_attention(*args),
-                                    P.paged_attention_reference(*args, hd ** -0.5),
-                                    "attn", dn),
-                ms=device_ms(torch, lambda: P.paged_attention(*args)),
-                plain_ms=device_ms(torch, lambda: P.paged_attention_reference(
-                    *args, hd ** -0.5)),
-                library_ms=device_ms(torch, lambda: TF.scaled_dot_product_attention(
-                    q, kd, vd, attn_mask=mask)),
-                # the live K and V rows (l <= pos), q, o and the table rows
-                # and positions; QK^T and PV over the live rows
-                **bound(2 * b * h * live * hd * size + 2 * b * h * hd * size
-                        + 4 * b * (used + 1), 4 * b * h * live * hd, dn)))
+        k8, ks = Q.quantize_int8_rows(randn(b, kv, L, hd, dtype=torch.float32))
+        v8, vs = Q.quantize_int8_rows(randn(b, kv, L, hd, dtype=torch.float32))
+        posv = torch.full((b,), pos, device=DEVICE, dtype=torch.int32)
+        args = (q, k8, ks, v8, vs, posv)
+        kd = (k8.float() * ks[..., None]).to(dtype)
+        vd = (v8.float() * vs[..., None]).to(dtype)
+        mask = (torch.arange(L, device=DEVICE) <= pos).reshape(1, L)
+        qg, c, scale = Q._grouped(q, k8, None)
+        gc, live = qg.shape[2], pos + 1  # keys this step reads: the rest are masked
+
+        def run(plan=None):
+            if plan is None:
+                return Q.sdpa_int8_cache(*args)
+            return Q._sdpa_launch(qg, k8, ks, v8, vs, posv, c, scale, plan).reshape(q.shape)
+
+        return dict(
+            shape=[b, h, 1, hd, L], extra=dict(pos=pos, groups=h // kv), run=run,
+            plain=lambda: Q._plain_sdpa_int8_cache(*args),
+            library=lambda: TF.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask, enable_gqa=h != kv),
+            plan_of=lambda n=None: Q.sdpa_int8_plan(b, kv, gc, hd, L, dtype, splits=n),
+            clusters=("sdpa_int8_clusters", (gc, hd, L)),
+            # K and V lines with their scales, q and o; QK^T and PV
+            nbytes=2 * b * kv * live * (hd + 4) + 2 * b * h * hd * size + 4 * b,
+            flops=4 * b * h * live * hd)
+    kv, g, hd, used = spec
+    b, maxp = PAGED_SLOTS, PAGED_SEQ // P.PAGE
+    npages = b * maxp + 1
+    pk = randn(npages, kv, P.PAGE, hd, dtype=dtype)
+    pv = randn(npages, kv, P.PAGE, hd, dtype=dtype)
+    table = (1 + torch.randperm(npages - 1, generator=gen, device=DEVICE)).reshape(
+        b, maxp).to(torch.int32)
+    q = randn(b, kv, g, hd, dtype=dtype)
+    live = used * P.PAGE - 20
+    pos = torch.full((b,), live - 1, device=DEVICE, dtype=torch.int32)
+    args = (q, pk, pv, table, pos)
+    view = table[:, :used].long()
+    kd = pk[view].transpose(1, 2).reshape(b, kv, used * P.PAGE, hd)
+    vd = pv[view].transpose(1, 2).reshape(b, kv, used * P.PAGE, hd)
+    mask = (torch.arange(used * P.PAGE, device=DEVICE) < live).reshape(1, -1)
+    scale = hd ** -0.5
+
+    def run(plan=None):
+        if plan is None:
+            return P.paged_attention(*args)
+        return P._launch(*args, scale, None, 0, plan)
+
+    return dict(
+        shape=[b, kv, g, hd, used], extra=dict(groups=g), run=run,
+        plain=lambda: P.paged_attention_reference(*args, scale),
+        library=lambda: TF.scaled_dot_product_attention(
+            q.reshape(b, kv * g, 1, hd), kd, vd, attn_mask=mask, enable_gqa=g > 1),
+        plan_of=lambda n=None: P.paged_plan(b, kv, g, hd, maxp, dtype, splits=n),
+        clusters=("paged_attn_clusters", (g, hd)),
+        # the live K and V rows (l <= pos), q, o and the table rows and
+        # positions; QK^T and PV over the live rows
+        nbytes=2 * b * kv * live * hd * size + 2 * b * kv * g * hd * size
+        + 4 * b * (used + 1),
+        flops=4 * b * kv * g * live * hd)
+
+
+def _same_bits(torch, a, b) -> bool:
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def decode_attn_cases(torch, gen, randn) -> list:
+    """sdpa_int8 at SDPA_CASES and paged_attn at PAGED_CASES, in bf16 and
+    f32, each on its plan against its plain version within TOL["attn"] and
+    every bf16 output the same bits on a second run, with the times of the
+    kernel, the plain version and the library call, and the bound."""
+    cases = []
+    for name, specs in (("sdpa_int8", SDPA_CASES), ("paged_attn", PAGED_CASES)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            for spec in specs:
+                d = _decode_attn(torch, gen, randn, name, dtype, spec)
+                out = d["run"]()
+                err = max_err(torch, out, d["plain"](), "attn", dn)
+                if dtype == torch.bfloat16:
+                    check(_same_bits(torch, out, d["run"]()),
+                          f"{name} {d['shape']}: a second run gave other bits")
+                cases.append(dict(
+                    name=name, dtype=dn, shape=d["shape"], **d["extra"],
+                    splits=d["plan_of"]().splits, max_abs_err=err,
+                    ms=device_ms(torch, d["run"]), plain_ms=device_ms(torch, d["plain"]),
+                    library_ms=device_ms(torch, d["library"]),
+                    **bound(d["nbytes"], d["flops"], dn)))
+                del d, out
     return cases
+
+
+def decode_attn_route_ab(torch, gen, randn, one_cta_libs) -> list:
+    """sdpa_int8 and paged_attn at every case of decode_attn_cases: the split
+    kernels on their plans against the one-CTA kernels of ``one_cta_libs``
+    ({source: path}: quant.cu and paged.cu built with -DDECODE_ATTN_ONE_CTA),
+    each within TOL["attn"] of the plain version, timed in turns (one CTA,
+    split, split, one CTA), with the library call beside.  A shape the
+    one-CTA kernel refuses is recorded with its error."""
+    from minidiff_tpu_torch.kernels import _build
+
+    rows = []
+    for name, specs, source in (("sdpa_int8", SDPA_CASES, "quant"),
+                                ("paged_attn", PAGED_CASES, "paged")):
+        old = lib_at(source, one_cta_libs[source])
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            for spec in specs:
+                d = _decode_attn(torch, gen, randn, name, dtype, spec)
+                ref = d["plain"]()
+                us, err = {"one_cta": [], "split": []}, {}
+                for route in ("one_cta", "split", "split", "one_cta"):
+                    with contextlib.ExitStack() as stack:
+                        if route == "one_cta":
+                            stack.enter_context(built_as(source, old))
+                        try:
+                            if route not in err:
+                                err[route] = max_err(torch, d["run"](), ref, "attn", dn)
+                            us[route].append(device_ms(torch, d["run"]) * 1e3)
+                        except _build.KernelLaunchError as e:
+                            check(route == "one_cta", f"{name} {d['shape']}: {e}")
+                            err[route] = f"refused: {e}"
+                b = bound(d["nbytes"], d["flops"], dn)
+                row = dict(name=name, dtype=dn, shape=d["shape"], **d["extra"],
+                           splits=d["plan_of"]().splits, one_cta_us=us["one_cta"],
+                           split_us=us["split"],
+                           library_us=device_ms(torch, d["library"]) * 1e3,
+                           bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"],
+                           max_abs_err=err)
+                rows.append(row)
+                old_us = (" / ".join(f"{v:8.2f}" for v in us["one_cta"]) + " us"
+                          if us["one_cta"] else err["one_cta"])
+                log(f"[decode ab] {name:10s} {dn:8s} {str(d['shape']):26s} x{row['splits']:<2d} "
+                    f"| one CTA {old_us} | split {us['split'][0]:7.2f} / {us['split'][1]:7.2f} us "
+                    f"| library {row['library_us']:7.2f} us | bound {row['bound_us']:6.2f} us")
+                del d, ref
+    return rows
+
+
+def decode_split_ab(torch, gen, randn) -> list:
+    """sdpa_int8 and paged_attn in bf16 at every case of decode_attn_cases at
+    1, 2, 4, 8 and 16 splits (those whose scores fit a CTA), each within
+    TOL["attn"] of the plain version, timed in turns forward and back, with
+    the whole clusters the card holds at once at each count
+    (cudaOccupancyMaxActiveClusters): the readings behind paged_plan's and
+    sdpa_int8_plan's split rules."""
+    import ctypes
+
+    from minidiff_tpu_torch.kernels import _build
+
+    dtype, dn = torch.bfloat16, "bfloat16"
+    rows = []
+    for name, specs in (("sdpa_int8", SDPA_CASES), ("paged_attn", PAGED_CASES)):
+        for spec in specs:
+            d = _decode_attn(torch, gen, randn, name, dtype, spec)
+            ref = d["plain"]()
+            plans = {n: d["plan_of"](n) for n in (1, 2, 4, 8, 16)}
+            plans = {n: p for n, p in plans.items() if p.smem <= _build.SMEM_LIMIT}
+            err = {n: max_err(torch, d["run"](p), ref, "attn", dn) for n, p in plans.items()}
+            us = {n: [] for n in plans}
+            for order in (list(plans), list(plans)[::-1]):
+                for n in order:
+                    us[n].append(device_ms(torch, lambda: d["run"](plans[n])) * 1e3)
+            clusters = {}
+            fn, dims = d["clusters"]
+            for n, p in plans.items():
+                got = ctypes.c_int(0)
+                code = _build.function(fn)(*dims, p.rows, p.splits, p.smem,
+                                           _build.DTYPE_CODES[dtype], ctypes.addressof(got))
+                clusters[n] = got.value if code == 0 else f"error {code}"
+            plan = d["plan_of"]()
+            row = dict(name=name, shape=d["shape"], **d["extra"], plan_splits=plan.splits,
+                       us={str(n): v for n, v in us.items()},
+                       max_abs_err={str(n): v for n, v in err.items()},
+                       clusters={str(n): v for n, v in clusters.items()})
+            rows.append(row)
+            check(isinstance(clusters[plan.splits], int) and clusters[plan.splits] > 0,
+                  f"{name} {d['shape']}: the card holds no cluster of the plan's "
+                  f"{plan.splits} CTAs ({clusters[plan.splits]})")
+            log(f"[decode splits] {name:10s} {str(d['shape']):26s} plan x{plan.splits:<2d} | "
+                + " | ".join(f"x{n} {v[0]:7.2f} / {v[1]:7.2f} ({clusters[n]})"
+                             for n, v in us.items()) + " us")
+            del d, ref
+    return rows
 
 
 def scan_cases(torch, gen) -> list:

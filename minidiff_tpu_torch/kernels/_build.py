@@ -35,9 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the dtypes the kernels take, as their C entries' `dtype` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the H100's streaming multiprocessors, which the launch plans fill
-# (kernels.attention.flash_plan and flash_bwd_plan, kernels.quant.dq_plan,
-# kernels.matmul.mm_plan)
+# (kernels.attention.flash_plan and flash_bwd_plan, kernels.quant.dq_plan
+# and sdpa_int8_plan, kernels.matmul.mm_plan, kernels.paged.paged_plan)
 SMS = 132
+# the shared memory one H100 CTA may use, in bytes (kernels.quant.sdpa_int8_plan)
+SMEM_LIMIT = 232448
 
 # C signatures: name -> (source, argtypes).  Every entry returns the
 # cudaError_t of its launch as an int.
@@ -65,9 +67,11 @@ SIGNATURES = {
     "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq4_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sdpa_int8": ("quant", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P)),
+                            _I, _F, _I, _I, _I, _I, _P)),
+    "sdpa_int8_clusters": ("quant", (_I, _I, _I, _I, _I, _I, _I, _P)),
     "paged_attn": ("paged", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _I, _I, _I, _P)),
+                             _I, _I, _I, _I, _I, _I, _P)),
+    "paged_attn_clusters": ("paged", (_I, _I, _I, _I, _I, _I, _P)),
     "linear_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _P)),
 }
 

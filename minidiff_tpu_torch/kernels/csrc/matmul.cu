@@ -458,11 +458,6 @@ __device__ __forceinline__ uint4 ld_shared16(unsigned addr) {
                : "memory");
   return v;
 }
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
 
 // d (64 x TN) += a b over 16 of K: x's tile K-major (TA 0) or MN-major (1),
 // y's likewise (TB)

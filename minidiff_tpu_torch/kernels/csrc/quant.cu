@@ -99,15 +99,36 @@
 // dq_mm's tile with the expert as a third grid axis.
 //
 // sdpa_int8 at decode reads the int8 cache lines and their f32 scales once:
-// (hd + 4) bytes per key for K and for V, bound by bytes.  Design: one CTA
-// per (batch row, kv head); keys past the last visible one (pos + c - 1) are
-// never read, since their probabilities are exactly 0.  Phase 1 streams key
-// rows with 16-byte loads (hd / 16 lanes per row) and writes the f32 scores
-// to shared memory; phase 2 runs each row's softmax with one warp and
-// rewrites the scores as the rounded (p * vs); phase 3 streams the V rows the
-// same way and sums across lanes and warps.  Head dims 64, 128 and 256 are
-// instantiated (the JAX kernel takes any multiple of 128).  Splitting L
-// across CTAs and wgmma are later work.
+// (hd + 4) bytes per key for K and for V, bound by bytes.  Keys past the
+// last visible one (pos + c - 1) are never read, since their probabilities
+// are exactly 0.  One CTA per (batch row, kv head), the first kernel
+// (kept below for -DDECODE_ATTN_ONE_CTA, chip_smoke.py's
+// decode_attn_route_ab), left the card idle (32 CTAs at 4 rows x 8 heads),
+// and it kept every f32 score of its (row, head) in shared memory, so that
+// it refused L above 13,376 at g 4.  The design (namespace dattn):
+//   - split L: the S CTAs of one thread-block cluster (grid (S, kv, B),
+//     S = 1..16 by kernels/quant.py sdpa_int8_plan, from shapes only: one
+//     wave of the card, and never fewer than its scores' shared memory
+//     needs) share one (row, kv head); split s takes the keys of [0, l_end)
+//     on 16-key boundaries, units [s U / S, (s + 1) U / S) of the U
+//     16-key units, and holds its scores only;
+//   - the ring: each split's K lines, then its V lines, stream through 4
+//     stages of 16 KB copied by the TMA (cp.async.bulk, one mbarrier per
+//     stage); V's first stages copy while the cluster exchanges;
+//   - the JAX arithmetic, which rounds the normalised p * vs, so no split
+//     rounds before the global max and sum are known: phase 1 scores its
+//     keys, hd / 16 lanes per key (16 codes each, made exact in f32 by a
+//     byte permute, the query rows in registers), and takes each row's max;
+//     a cluster exchange (st.shared::cluster into every peer, then the
+//     cluster barrier) gives the global max, a second the global sum, each
+//     reduced in rank order; phase 3 rounds p * vs of its keys and sums
+//     them against v8 (4 codes per thread, 4 keys per step), the key groups
+//     summed through the freed ring, and the S partials are summed in rank
+//     order through distributed shared memory (slice r of the rows to CTA
+//     r), as dq_bmm's split-K does.  The result is the one-CTA kernel's up
+//     to the order of f32 sums, and the same bits on every run.
+// Head dims 64, 128 and 256 are instantiated (the JAX kernel takes any
+// multiple of 128), each with query rows in blocks of 1, 2, 4 or 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,7 +309,9 @@ dq4_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ p,
     stage_x(xs[0], KC4, x, row0, m, k, k0, len);
     stage_x(xs[1], KC4, x, row0, m, k, kh + k0, len);
     __syncthreads();
-#pragma unroll 2
+    // one weight row at a time: two in flight took all 255 registers and
+    // spilled
+#pragma unroll 1
     for (int kk = warp * KR + kr; kk < len; kk += KSTEP) {
       int8_t b[16];
       load16<VEC>(p + static_cast<size_t>(k0 + kk) * n, c0, n, b);
@@ -488,15 +511,7 @@ __device__ __forceinline__ Pair weight_pair(unsigned w, float2 s) {
 // at row `rank` of the owner's receive buffer [S][T/S] (remote stores need
 // no round trip), and after the cluster barrier each owner sums its S rows
 // in rank order: deterministic, no atomics.
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_barrier() {  // every thread of the cluster
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+// (sm90::cluster_rank and cluster_barrier, wgmma.cuh)
 // elements i.. (4 or 2) of this CTA's partial into its owner's receive
 // buffer at shared-memory offset `recv` (the same in every CTA of the
 // cluster); a slice is 2^lslice elements
@@ -921,14 +936,21 @@ int launch_tc(const tc::Args& a, int experts, cudaStream_t st) {
 // The tile codes of kernels/quant.py ``TILE_CODES``: 0 the SIMT tile above,
 // 1 / 2 the small tile for <= 8 / <= 16 rows, 3 the large tile.  Which tile
 // and how many splits a product takes is the wrapper's plan (dq_plan); the
-// entry points refuse only what the tiles cannot run at all: a dtype other
-// than bf16, weight rows of no whole 8 bytes, stored rows of no whole k16
-// steps, or splits that are no cluster of 1-16 CTAs each given at least one
-// unit (tc_body) of the `stored` weight rows.
-bool tc_args_ok(int tile, int dtype, int n, int stored, int unit, int splits) {
+// entry points refuse only what the tiles cannot run at all, or not within
+// chip_smoke.py's tolerance: a dtype other than bf16, weight rows of no whole
+// 8 bytes, stored rows of no whole k16 steps, splits that are no cluster of
+// 1-16 CTAs each given at least one unit (tc_body) of the `stored` weight
+// rows, or large-tile splits of more than kLargeSteps k16 steps.
+// The large tile keeps at most kLargeSteps k16 steps (of the `planes` x
+// `stored` rows of K) in one split's accumulator, whose f32 sums do not round
+// as f32 additions do: at 256 an output that cancelled strayed beyond
+// chip_smoke.py's tolerance (kernels/quant.py LARGE_STEPS).
+constexpr int kLargeSteps = 128;
+bool tc_args_ok(int tile, int dtype, int n, int stored, int planes, int unit, int splits) {
   const int units = (stored + unit - 1) / unit;
   return tile >= 1 && tile <= 3 && dtype == 1 && n % 8 == 0 && stored % 16 == 0
-         && splits >= 1 && splits <= 16 && (splits & (splits - 1)) == 0 && splits <= units;
+         && splits >= 1 && splits <= 16 && (splits & (splits - 1)) == 0 && splits <= units
+         && (tile != 3 || planes * stored / 16 <= kLargeSteps * splits);
 }
 
 template <int P, bool BANK>
@@ -941,6 +963,16 @@ int dispatch_tc(const tc::Args& a, int tile, int experts, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 // sdpa_int8
 // ---------------------------------------------------------------------------
+
+// A runtime call's error code for the wrapper, cleared from the runtime's
+// last error, which the next launch's cudaGetLastError would report again
+inline int refused(cudaError_t e) {
+  cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+#ifdef DECODE_ATTN_ONE_CTA
+namespace one_cta {
 
 constexpr int RT = 4;  // query rows per pass of the PV phase
 
@@ -1073,7 +1105,7 @@ int launch_sdpa(const void* q, const void* k8, const void* ks, const void* v8,
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return refused(e);
   }
   kernel<<<dim3(kvh, b), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k8),
@@ -1093,6 +1125,425 @@ int sdpa_dispatch(int hd, const void* q, const void* k8, const void* ks,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+}  // namespace one_cta
+#else
+
+namespace dattn {
+
+using namespace sm90;
+
+constexpr int UNIT = 16;       // a split's keys start on 16-key boundaries
+constexpr int NST = 4;         // ring stages
+constexpr int kStage = 16384;  // bytes per stage: 16384 / hd cache lines
+
+template <int HD>
+struct Cfg {
+  static constexpr int KC = kStage / HD;     // keys per stage: 256, 128, 64
+  static constexpr int KL = HD / 16;         // lanes per key in the scores (16 codes each)
+  static constexpr int KPP = kThreads / KL;  // keys per pass of the scores: 64, 32, 16
+  static constexpr int CG = HD / 4;          // threads per key in the PV (4 codes each)
+  static constexpr int KP = kThreads / CG;   // keys in parallel in the PV: 16, 8, 4
+  static_assert(KC % KPP == 0 && KC % (4 * KP) == 0, "thread layouts");
+  static_assert(KP * 8 * HD * 4 <= NST * kStage, "the PV reduction within the ring");
+};
+
+// keys per split: UNIT * ceil(ceil(L / UNIT) / S)
+__host__ __device__ constexpr int split_keys(int L, int splits) {
+  return UNIT * (((L + UNIT - 1) / UNIT + splits - 1) / splits);
+}
+
+// Shared memory: the ring, the receive buffer [RB * HD], q [gc][HD] in f32,
+// the scores [gc][split_keys], the splits' row maxima and sums [S][gc]
+// each, this CTA's and the global ones [4][gc], then the stages' mbarriers
+// (kernels/quant.py sdpa_int8_plan states the same sum)
+template <int HD, int RB>
+constexpr long long smem_bytes(int gc, int L, int splits) {
+  return NST * kStage
+         + (4ll * (RB * HD + gc * HD + static_cast<long long>(gc) * split_keys(L, splits)
+                   + 2 * splits * gc + 4 * gc) + 7) / 8 * 8
+         + 8 * NST;
+}
+
+// the 4 codes of w as floats, exactly (tc::byte_code)
+__device__ __forceinline__ void codes4(unsigned w, float* f) {
+  const unsigned u = w ^ 0x80808080u;  // code + 128 in each byte
+  constexpr float kBias = 8388736.f;   // 2^23 + 128
+  f[0] = tc::byte_code<0>(u, kBias);
+  f[1] = tc::byte_code<1>(u, kBias);
+  f[2] = tc::byte_code<2>(u, kBias);
+  f[3] = tc::byte_code<3>(u, kBias);
+}
+
+template <typename T, int HD, int RB>
+__global__ void __launch_bounds__(kThreads, 1)
+sdpa_int8_split_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
+                       const float* __restrict__ ks, const int8_t* __restrict__ v8,
+                       const float* __restrict__ vs, const int* __restrict__ pos,
+                       T* __restrict__ out, int kvh, int gc, int c, int L, float scale) {
+  using C = Cfg<HD>;
+  constexpr int RS = RB < 4 ? RB : 4;  // query rows per block of the scores
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int S = gridDim.x, s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int SL = split_keys(L, S);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  float* recv = reinterpret_cast<float*>(smem + NST * kStage);  // [S][RB * HD / S]
+  float* qs = recv + RB * HD;   // [gc][HD]
+  float* sc = qs + gc * HD;     // [gc][SL]: scores, then round(p * vs)
+  float* xm = sc + static_cast<size_t>(gc) * SL;  // [S][gc]: each split's row maxima
+  float* xs = xm + S * gc;      // [S][gc]: each split's row sums
+  float* lmax = xs + S * gc;    // [gc] this split's
+  float* gmax = lmax + gc;      // [gc] the cluster's
+  float* lsum = gmax + gc;
+  float* gsum = lsum + gc;
+  const unsigned bars = (smem_addr(gsum + gc) + 7) & ~7u;
+  const unsigned ring_s = smem_addr(ring);
+
+  if (tid < NST) mbar_init(bars + 8 * tid, 1);
+  mbar_init_fence();
+  __syncthreads();
+  if (S > 1) cluster_arrive_relaxed();  // this CTA's shared memory is there for its peers
+
+  const size_t bh = static_cast<size_t>(b) * kvh + h;
+  const int p = pos[b];
+  // keys past pos + c - 1 are masked for every row: exactly zero weight.
+  // A negative pos may leave a row with no visible key, whose softmax is
+  // uniform over all L, so then every key is read.
+  const int l_end = p >= 0 ? min(L, p + c) : L;
+  const int units = (l_end + UNIT - 1) / UNIT;
+  const int k0 = UNIT * (s * units / S);
+  const int nk = max(min(UNIT * ((s + 1) * units / S), l_end) - k0, 0);
+  const int chunks = (nk + C::KC - 1) / C::KC;
+
+  // stage u % NST takes chunk t of this split's K or V lines
+  auto issue = [&](const int8_t* lines, int t, int u) {
+    const int kb = t * C::KC, n = min(C::KC, nk - kb);
+    const unsigned bar = bars + 8 * (u % NST);
+    mbar_expect_tx(bar, n * HD);
+    bulk_load(ring_s + (u % NST) * kStage, lines + (bh * L + k0 + kb) * HD, n * HD, bar);
+  };
+  // this CTA's row values into row `s` of every peer's [S][gc], then the
+  // cluster barrier
+  auto exchange = [&](const float* mine, float* peers) {
+    for (int i = tid; i < S * gc; i += kThreads) {
+      const unsigned j = i / gc;
+      const int r = i % gc;
+      st_cluster(cluster_map(smem_addr(peers + s * gc + r), j), mine[r]);
+    }
+    cluster_barrier();
+  };
+
+  if (tid == 0)
+    for (int t = 0; t < NST - 1 && t < chunks; ++t) issue(k8, t, t);
+  for (int i = tid; i < gc * HD; i += kThreads) qs[i] = to_f(q[bh * gc * HD + i]);
+
+  // phase 1: scores (q . k8) * ks * scale of this split's keys, KL lanes per
+  // key, the query rows in blocks of RS held in registers
+  const int kl = tid % C::KL, kq = tid / C::KL, d0 = 16 * kl;
+  const float* ksb = ks + bh * L + k0;
+  int u = 0;  // this CTA's tiles so far
+  for (int t = 0; t < chunks; ++t, ++u) {
+    __syncthreads();  // tile t - 1's stage is free (and q is staged)
+    if (tid == 0 && t + NST - 1 < chunks) issue(k8, t + NST - 1, u + NST - 1);
+    mbar_wait(bars + 8 * (u % NST), (u / NST) & 1);
+    const int8_t* tile = ring + (u % NST) * kStage;
+    const int kb = t * C::KC, n = min(C::KC, nk - kb);
+    for (int r0 = 0; r0 < gc; r0 += RS) {
+      float qr[RS][16];
+#pragma unroll
+      for (int r = 0; r < RS; ++r)
+#pragma unroll
+        for (int j = 0; j < 16; j += 4) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r0 + r < gc) v = *reinterpret_cast<const float4*>(qs + (r0 + r) * HD + d0 + j);
+          qr[r][j] = v.x;
+          qr[r][j + 1] = v.y;
+          qr[r][j + 2] = v.z;
+          qr[r][j + 3] = v.w;
+        }
+      // every pass of the stage, those past a short last stage on a clamped
+      // key whose score is not stored: no branch between the passes
+#pragma unroll
+      for (int kk0 = 0; kk0 < C::KC; kk0 += C::KPP) {
+        const int kk = min(kk0 + kq, n - 1);
+        const uint4 raw = *reinterpret_cast<const uint4*>(tile + kk * HD + d0);
+        float kf[16];
+        codes4(raw.x, kf);
+        codes4(raw.y, kf + 4);
+        codes4(raw.z, kf + 8);
+        codes4(raw.w, kf + 12);
+        float part[RS];
+#pragma unroll
+        for (int r = 0; r < RS; ++r) {
+          float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < 16; j += 2) {
+            a0 = fmaf(qr[r][j], kf[j], a0);
+            a1 = fmaf(qr[r][j + 1], kf[j + 1], a1);
+          }
+          part[r] = a0 + a1;
+        }
+#pragma unroll
+        for (int off = C::KL / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int r = 0; r < RS; ++r) part[r] += __shfl_xor_sync(kFull, part[r], off);
+        const int li = kb + kk, l = k0 + li;
+        const float sk = __ldg(ksb + li) * scale;  // a clamped key: loads may issue early
+        if (kl == 0 && kk0 + kq < n) {
+#pragma unroll
+          for (int r = 0; r < RS; ++r)
+            if (r0 + r < gc)
+              sc[static_cast<size_t>(r0 + r) * SL + li] =
+                  l <= p + (r0 + r) % c ? part[r] * sk : kNegInf;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every score is written; the ring is free
+  // V's first stages copy while the cluster exchanges the softmax statistics
+  if (tid == 0)
+    for (int t = 0; t < NST - 1 && t < chunks; ++t) issue(v8, t, u + t);
+
+  // phase 2: the softmax over the cluster's keys.  The global max, then the
+  // global sum, each from the splits' values in rank order
+  for (int r = warp; r < gc; r += kWarps) {
+    const float* row = sc + static_cast<size_t>(r) * SL;
+    float mx = kNegInf;
+    for (int l = lane; l < nk; l += 32) mx = fmaxf(mx, row[l]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    if (lane == 0) lmax[r] = mx;
+  }
+  __syncthreads();
+  if (S > 1) {
+    cluster_wait();  // every peer has started
+    exchange(lmax, xm);
+    for (int r = tid; r < gc; r += kThreads) {
+      float m = xm[r];
+      for (int j = 1; j < S; ++j) m = fmaxf(m, xm[j * gc + r]);
+      gmax[r] = m;
+    }
+  } else {
+    for (int r = tid; r < gc; r += kThreads) gmax[r] = lmax[r];
+  }
+  __syncthreads();
+  for (int r = warp; r < gc; r += kWarps) {
+    const float* row = sc + static_cast<size_t>(r) * SL;
+    const float m = gmax[r];
+    float sum = 0.f;
+    for (int l = lane; l < nk; l += 32) sum += expf(row[l] - m);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+    if (lane == 0) lsum[r] = sum;
+  }
+  __syncthreads();
+  if (S > 1) {
+    exchange(lsum, xs);
+    for (int r = tid; r < gc; r += kThreads) {
+      float sum = xs[r];
+      for (int j = 1; j < S; ++j) sum += xs[j * gc + r];
+      gsum[r] = sum;
+    }
+  } else {
+    for (int r = tid; r < gc; r += kThreads) gsum[r] = lsum[r];
+  }
+  __syncthreads();
+  // each score becomes round(p * vs), as the plain version rounds it; zeros
+  // up to the next 16 keys, which the PV reads 4 at a time
+  const int nk16 = (nk + 15) / 16 * 16;
+  const float* vsb = vs + bh * L + k0;
+  for (int l0 = 0; l0 < nk16; l0 += 4 * kThreads) {
+    float v[4];  // four keys' scales in flight at once
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int l = l0 + j * kThreads + tid;
+      v[j] = l < nk ? __ldg(vsb + l) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int l = l0 + j * kThreads + tid;
+      if (l < nk16)
+        for (int r = 0; r < gc; ++r) {
+          float* e = sc + static_cast<size_t>(r) * SL + l;
+          *e = l < nk ? round_to<T>(expf(*e - gmax[r]) / gsum[r] * v[j]) : 0.f;
+        }
+    }
+  }
+
+  // phase 3: this split's sum_l pv[r, l] * v8[l, :], 4 codes per thread, the
+  // query rows in blocks of RB (V streamed once per block)
+  const int cg = tid % C::CG, kp = tid / C::CG;
+  for (int r0 = 0; r0 < gc; r0 += RB) {
+    const int nr = min(RB, gc - r0);
+    float acc[RB][4];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    if (r0 > 0 && tid == 0)
+      for (int t = 0; t < NST - 1 && t < chunks; ++t) issue(v8, t, u + t);
+    for (int t = 0; t < chunks; ++t, ++u) {
+      __syncthreads();  // tile t - 1's stage is free (and the p * vs are written)
+      if (tid == 0 && t + NST - 1 < chunks) issue(v8, t + NST - 1, u + NST - 1);
+      mbar_wait(bars + 8 * (u % NST), (u / NST) & 1);
+      const int8_t* tile = ring + (u % NST) * kStage;
+      const int kb = t * C::KC, n = min(C::KC, nk - kb);
+      // every step of the stage; past a short last stage p is 0
+#pragma unroll
+      for (int kk0 = 0; kk0 < C::KC; kk0 += 4 * C::KP) {
+        const int kk = kk0 + 4 * kp;
+        const bool live = kk < n;
+        float vf[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          codes4(*reinterpret_cast<const unsigned*>(tile + (kk + i) * HD + 4 * cg), vf[i]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (r < nr) {
+            const float4 pv =
+                live ? *reinterpret_cast<const float4*>(sc + static_cast<size_t>(r0 + r) * SL + kb + kk)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[r][e] = fmaf(pv.x, vf[0][e], acc[r][e]);
+              acc[r][e] = fmaf(pv.y, vf[1][e], acc[r][e]);
+              acc[r][e] = fmaf(pv.z, vf[2][e], acc[r][e]);
+              acc[r][e] = fmaf(pv.w, vf[3][e], acc[r][e]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every tile is used: the ring takes the key groups' partials
+    float* red = reinterpret_cast<float*>(smem);  // [KP][RB][HD]
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      *reinterpret_cast<float4*>(red + (kp * RB + r) * HD + 4 * cg) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    fence_proxy_async();  // before the next block's copies into the ring
+    __syncthreads();
+
+    const int T_ = nr * HD;
+    T* ob = out + (bh * gc + r0) * HD;
+    if (S == 1) {
+      for (int i = tid; i < T_; i += kThreads) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::KP; ++j) sum += red[(j * RB + i / HD) * HD + i % HD];
+        ob[i] = from_f<T>(sum);
+      }
+    } else {
+      // the splits' partials summed in rank order: slice r of the rows to
+      // CTA r (row s of its [S][T / S]), then each CTA writes its slice
+      const int slice = T_ / S;
+      for (int i = 4 * tid; i < T_; i += 4 * kThreads) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < C::KP; ++j) {
+          const float4 a = *reinterpret_cast<const float4*>(red + (j * RB + i / HD) * HD + i % HD);
+          v.x += a.x;
+          v.y += a.y;
+          v.z += a.z;
+          v.w += a.w;
+        }
+        const int owner = i / slice;
+        st_cluster4(cluster_map(smem_addr(recv + s * slice + i - owner * slice), owner), v);
+      }
+      cluster_barrier();
+      for (int k = 4 * tid; k < slice; k += 4 * kThreads) {
+        float4 o = *reinterpret_cast<const float4*>(recv + k);
+        for (int j = 1; j < S; ++j) {
+          const float4 a = *reinterpret_cast<const float4*>(recv + j * slice + k);
+          o.x += a.x;
+          o.y += a.y;
+          o.z += a.z;
+          o.w += a.w;
+        }
+        T* o4 = ob + s * slice + k;
+        o4[0] = from_f<T>(o.x);
+        o4[1] = from_f<T>(o.y);
+        o4[2] = from_f<T>(o.z);
+        o4[3] = from_f<T>(o.w);
+      }
+      if (r0 + RB < gc) cluster_barrier();  // the receive buffer is read before reuse
+    }
+    __syncthreads();
+  }
+}
+
+// The launch, or with `clusters` the count of whole clusters the card can
+// hold at once (cudaOccupancyMaxActiveClusters) written there instead.
+// `smem` is the plan's (kernels/quant.py sdpa_int8_plan), held to the
+// kernel's; the kernel's attributes are set once per device.
+template <typename T, int HD, int RB>
+int launch(const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
+           const void* pos, void* out, int b, int kvh, int gc, int c, int L, float scale,
+           int splits, int smem, int* clusters, cudaStream_t st) {
+  if (splits < 1 || splits > 16 || (splits & (splits - 1)) || smem > 232448
+      || smem != smem_bytes<HD, RB>(gc, L, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sdpa_int8_split_kernel<T, HD, RB>;
+  static unsigned configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= 32 || !(configured >> dev & 1u))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && dev < 32) configured |= 1u << dev;
+  }
+  if (err != cudaSuccess) return refused(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = split_config(dim3(splits, kvh, b), kThreads, smem, st, attr);
+  if (clusters)
+    return refused(
+        cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kernel), &cfg));
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const int8_t*>(k8),
+                           static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
+                           static_cast<const float*>(vs), static_cast<const int*>(pos),
+                           static_cast<T*>(out), kvh, gc, c, L, scale);
+  if (err != cudaSuccess) return refused(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int by_rows(const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
+            const void* pos, void* out, int b, int kvh, int gc, int c, int L, float scale,
+            int rows, int splits, int smem, int* clusters, cudaStream_t st) {
+  if (rows == 1)
+    return launch<T, HD, 1>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, splits, smem,
+                            clusters, st);
+  if (rows == 2)
+    return launch<T, HD, 2>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, splits, smem,
+                            clusters, st);
+  if (rows == 4)
+    return launch<T, HD, 4>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, splits, smem,
+                            clusters, st);
+  if (rows == 8)
+    return launch<T, HD, 8>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, splits, smem,
+                            clusters, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch(int hd, const void* q, const void* k8, const void* ks, const void* v8,
+             const void* vs, const void* pos, void* out, int b, int kvh, int gc, int c, int L,
+             float scale, int rows, int splits, int smem, int* clusters, cudaStream_t st) {
+  if (hd == 128)
+    return by_rows<T, 128>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, rows, splits,
+                           smem, clusters, st);
+  if (hd == 64)
+    return by_rows<T, 64>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, rows, splits,
+                          smem, clusters, st);
+  if (hd == 256)
+    return by_rows<T, 256>(q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, rows, splits,
+                           smem, clusters, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace dattn
+#endif
+
 }  // namespace
 
 // dq_mm, dq_bmm and dq4_mm launch on the tile and K splits of `tile` and
@@ -1107,7 +1558,7 @@ extern "C" int dq_mm(const void* x, const void* q, const void* s, void* out,
     if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, 0, m, n, k, 0, st);
     return launch_dq<float>(false, x, q, s, out, 0, m, n, k, 0, st);
   }
-  if (!tc_args_ok(tile, dtype, n, k, tc::Tile<1, 0>::RB, splits))
+  if (!tc_args_ok(tile, dtype, n, k, 1, tc::Tile<1, 0>::RB, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
                    static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
@@ -1127,7 +1578,7 @@ extern "C" int dq_bmm(const void* x, const void* q, const void* s, void* out,
     if (dtype == 1) return launch_dq<__nv_bfloat16>(false, x, q, s, out, e, c, n, k, 0, st);
     return launch_dq<float>(false, x, q, s, out, e, c, n, k, 0, st);
   }
-  if (!tc_args_ok(tile, dtype, n, k, tc::Tile<1, 0>::RB, splits))
+  if (!tc_args_ok(tile, dtype, n, k, 1, tc::Tile<1, 0>::RB, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
                    static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
@@ -1147,7 +1598,7 @@ extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
     if (dtype == 1) return launch_dq<__nv_bfloat16>(true, x, p, s, out, 0, m, n, k, group, st);
     return launch_dq<float>(true, x, p, s, out, 0, m, n, k, group, st);
   }
-  if (!tc_args_ok(tile, dtype, n, k / 2, group, splits))
+  if (!tc_args_ok(tile, dtype, n, k / 2, 2, group, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(p),
                    static_cast<const float*>(s), static_cast<__nv_bfloat16*>(out),
@@ -1155,13 +1606,45 @@ extern "C" int dq4_mm(const void* x, const void* p, const void* s, void* out,
   return dispatch_tc<2, false>(a, tile, 1, st);
 }
 
+// sdpa_int8 on the launch plan of kernels/quant.py sdpa_int8_plan: query
+// rows in blocks of `rows` (1, 2, 4 or 8), `splits` CTAs per (batch row, kv
+// head) and `smem` bytes of shared memory each (ignored by the
+// -DDECODE_ATTN_ONE_CTA build).
 extern "C" int sdpa_int8(const void* q, const void* k8, const void* ks,
                          const void* v8, const void* vs, const void* pos, void* out,
                          int b, int kvh, int gc, int c, int hd, int L, float scale,
-                         int dtype, void* stream) {
+                         int rows, int splits, int smem, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+#ifdef DECODE_ATTN_ONE_CTA
+  (void)rows, (void)splits, (void)smem;
   if (dtype == 1)
-    return sdpa_dispatch<__nv_bfloat16>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, st);
-  return sdpa_dispatch<float>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, st);
+    return one_cta::sdpa_dispatch<__nv_bfloat16>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c,
+                                                 L, scale, st);
+  return one_cta::sdpa_dispatch<float>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale,
+                                       st);
+#else
+  if (dtype == 1)
+    return dattn::dispatch<__nv_bfloat16>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L,
+                                          scale, rows, splits, smem, nullptr, st);
+  return dattn::dispatch<float>(hd, q, k8, ks, v8, vs, pos, out, b, kvh, gc, c, L, scale, rows,
+                                splits, smem, nullptr, st);
+#endif
+}
+
+// How many clusters of the plan the card holds at once (into *clusters),
+// for chip_smoke.py's split A/B; an error code where the plan is refused.
+extern "C" int sdpa_int8_clusters(int gc, int hd, int L, int rows, int splits, int smem,
+                                  int dtype, int* clusters) {
+#ifdef DECODE_ATTN_ONE_CTA
+  (void)gc, (void)hd, (void)L, (void)rows, (void)splits, (void)smem, (void)dtype, (void)clusters;
+  return static_cast<int>(cudaErrorNotSupported);
+#else
+  if (dtype == 1)
+    return dattn::dispatch<__nv_bfloat16>(hd, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, 1, 1, gc, 1, L, 1.f, rows, splits,
+                                          smem, clusters, 0);
+  return dattn::dispatch<float>(hd, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, 1, 1, gc, 1, L, 1.f, rows, splits, smem, clusters, 0);
+#endif
 }

@@ -1,7 +1,9 @@
-// Hopper building blocks shared by quant.cu, flash_fwd.cu, flash_bwd.cu and
-// matmul.cu: cp.async copies into shared memory, the matrix descriptors of
-// operands staged there, the warpgroup MMAs (wgmma) the kernels run, and
-// the flash kernels' swizzled tile copy and product loops.
+// Hopper building blocks shared by quant.cu, flash_fwd.cu, flash_bwd.cu,
+// matmul.cu and paged.cu: cp.async and TMA bulk copies into shared memory,
+// mbarriers, thread-block clusters and their distributed shared memory,
+// the matrix descriptors of operands staged there, the warpgroup MMAs
+// (wgmma) the kernels run, and the flash kernels' swizzled tile copy and
+// product loops.
 //
 // Operands live in shared memory in one of two layouts.  quant.cu stores
 // them unswizzled (desc), as 8-row x 16-byte core matrices (128 contiguous
@@ -17,6 +19,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -78,6 +81,73 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// the next arrival on mbarrier `bar` also expects `bytes` of copies (TMA)
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory
+// by the TMA, completing a transaction of mbarrier `bar`
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Thread-block clusters.  A CTA's rank in its cluster, and the cluster's
+// barrier (every thread of every CTA), whole or as its two halves: a CTA
+// arrives once it has started (its shared memory may then be written by
+// its peers) and waits before its first store into a peer's.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared address `addr` of this CTA, as the same offset in CTA `rank`
+// of the cluster
+__device__ __forceinline__ unsigned cluster_map(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+// A launch of `grid` whose x extent is one cluster (the splits of one
+// output), with its attribute in attr[0]
+inline cudaLaunchConfig_t split_config(dim3 grid, int threads, int smem, cudaStream_t st,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+__device__ __forceinline__ void st_cluster4(unsigned addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads:

@@ -34,7 +34,10 @@ dequantized weight, a ``torch.matmul``, on either device.  ``dq_bmm`` and
 before launch: bf16 inside the tensor-core tiles' rule takes a tile (and a
 split of K when its output tiles cannot fill the card), everything else the
 SIMT tile.  ``dq_mm`` launches by the same plan (``dq_bmm``'s int8 tiles
-with one expert).  A CUDA tensor the kernels do not take raises: nothing
+with one expert).  ``sdpa_int8`` splits each (batch row, kv head) over the
+CTAs of one thread-block cluster by the plan of ``sdpa_int8_plan``, from
+shapes before launch, and raises there when even 16 splits cannot hold a
+split's scores.  A CUDA tensor the kernels do not take raises: nothing
 falls back.  These ops serve decoding only and have no autograd; the tape's
 ops supply the VJPs.
 """
@@ -78,11 +81,28 @@ TILES = {
 # and within 3/4 of SMS on the large one (1-2 an SM: a split launch of 128
 # CTAs ran slower than one of 64 at each shape that allows both)
 SPLIT_CTAS = {"small8": 2 * SMS, "small16": 2 * SMS, "large": 3 * SMS // 4}
+# the most k16 tensor-core steps (16 of K each) one split of the large tile
+# accumulates: its f32 accumulator does not round as an f32 sum does.  At
+# 256 steps (dq4_mm's K 4,096 at one split) an output of chip_smoke.py's
+# dq_split_ab that cancels to 6.70e-6 came out 4.9e-6 off its f64 value,
+# beyond TOL["dq"]'s 1e-6 of the largest output (4.47e-6); at 128 steps
+# 2.0e-6 (PERF.md §6)
+LARGE_STEPS = 128
 # the C entries' `tile` argument
 TILE_CODES = {"simt": 0, "small8": 1, "small16": 2, "large": 3}
 # the head dims the attention kernel is built for; others take the plain
 # version on either device (``sdpa_int8_cache``)
 HEAD_DIMS = (64, 128, 256)
+# csrc/quant.cu's sdpa_int8 (namespace dattn): a split's keys start on
+# KEY_UNIT boundaries; its ring holds SDPA_STAGES stages of SDPA_STAGE bytes
+KEY_UNIT, SDPA_STAGES, SDPA_STAGE = 16, 4, 16384
+# a launch splits each (batch row, kv head) until its CTAs reach FILL_CTAS,
+# then further while the doubled count of CTAs stays within SDPA_SPLIT_CTAS
+# and each split keeps MIN_SPLIT_KEYS keys (``sdpa_int8_plan``).  From
+# chip_smoke.py's decode_split_ab (PERF.md §6): one split at 64 (row, head)
+# pairs of 256 keys, 4 at 16 pairs of 256, 8 at 32 pairs of 4,096 and 16
+# at 8 pairs of 16,384 were the fastest
+FILL_CTAS, SDPA_SPLIT_CTAS, MIN_SPLIT_KEYS = 64, 2 * SMS, 512
 _NEG_INF = -1e30
 
 
@@ -263,21 +283,37 @@ def dq_plan(bits: int, rows: int, n: int, k: int, dtype, group=None,
 
     A launch splits K, doubling the splits while the doubled count of CTAs
     stays within the tile's ``SPLIT_CTAS``, up to ``MAX_SPLITS`` and the
-    units."""
+    units, and never below ``min_splits`` (a K the large tile cannot split
+    that far takes the SIMT tile)."""
     if rows > MAX_KERNEL_ROWS:
         return DqPlan("matmul", 1, 0)
     rule = _tile(bits, rows, n, k, dtype, group)
     tile = rule if tile is None or rule == "simt" else tile
-    tr, tc, stage = TILES[bits][tile]
+    units = 0
+    if tile != "simt":
+        units = -(-(k // 2 if bits == 4 else k) // (group if bits == 4 else TILES[bits][tile][2]))
+        if min_splits(k, tile) > min(units, MAX_SPLITS):
+            tile = "simt"
+    tr, tc, _ = TILES[bits][tile]
     tiles = experts * -(-rows // tr) * -(-n // tc)
     if tile == "simt":
         return DqPlan(tile, 1, tiles)
-    units = -(-(k // 2 if bits == 4 else k) // (group if bits == 4 else stage))
     splits = 1
     while (2 * tiles * splits <= SPLIT_CTAS[tile]
            and 2 * splits <= min(units, MAX_SPLITS)):
         splits *= 2
+    splits = max(splits, min_splits(k, tile))
     return DqPlan(tile, splits, tiles * splits)
+
+
+def min_splits(k: int, tile: str) -> int:
+    """The fewest K splits ``tile`` takes for a contraction of ``k``: the
+    large tile keeps at most ``LARGE_STEPS`` k16 steps in each split's
+    accumulator (csrc/quant.cu's tc_args_ok refuses more)."""
+    splits = 1
+    while tile == "large" and k > 16 * LARGE_STEPS * splits:
+        splits *= 2
+    return splits
 
 
 def _check_cuda(name: str, x, *others, dtypes):
@@ -381,6 +417,74 @@ def _dq_tiles(x, w, s, plan: DqPlan):
     return out
 
 
+class SdpaPlan(NamedTuple):
+    """How ``sdpa_int8`` launches: query rows per block of its PV phase (1,
+    2, 4 or 8; the scores take blocks of up to 4), the CTAs per (batch row,
+    kv head) (one cluster), the shared memory of each CTA in bytes, and the
+    CTAs."""
+
+    rows: int
+    splits: int
+    smem: int
+    ctas: int
+
+
+def split_keys(L: int, splits: int) -> int:
+    """The most keys of one split: ``KEY_UNIT`` * ceil(ceil(L / KEY_UNIT) /
+    splits) (split s takes units [s U / S, (s + 1) U / S) of the U 16-key
+    units of its live range)."""
+    return KEY_UNIT * -(-(-(-L // KEY_UNIT)) // splits)
+
+
+def _sdpa_smem(rows: int, gc: int, hd: int, L: int, splits: int) -> int:
+    """csrc/quant.cu's dattn::smem_bytes: the ring, the receive buffer
+    [rows * hd], q [gc][hd] in f32, the scores [gc][split_keys], the splits'
+    row maxima and sums [S][gc], the row statistics [4][gc], then one
+    mbarrier per stage."""
+    floats = rows * hd + gc * hd + gc * split_keys(L, splits) + 2 * splits * gc + 4 * gc
+    return SDPA_STAGES * SDPA_STAGE + -(-4 * floats // 8) * 8 + 8 * SDPA_STAGES
+
+
+def sdpa_int8_plan(b: int, kv: int, gc: int, hd: int, L: int, dtype,
+                   splits=None) -> SdpaPlan:
+    """The launch plan of ``sdpa_int8`` for ``b`` rows of ``kv`` KV heads,
+    ``gc`` query rows per KV head (group x chunk), head dim ``hd`` and a
+    cache of ``L`` lines, from shapes only (a read of ``pos`` would
+    synchronise every step).  A split holds the f32 scores of its keys, so
+    the splits are at least the least power of two whose share fits the
+    block (``_build.SMEM_LIMIT``); past ``MAX_SPLITS`` this raises a
+    ValueError before launch.  At 16 splits the plan takes gc x L up to
+    595,968-664,832 (L 74,496 at hd 256 and gc 8, 162,048 at hd 128 and gc
+    4), so every g <= 8 at c = 1 and L <= 65,536.  Above that least count the
+    splits double while the CTAs are fewer than ``FILL_CTAS`` (and each
+    split gets a 16-key unit of L), then while the doubled count of CTAs
+    stays within ``SDPA_SPLIT_CTAS`` and each split keeps
+    ``MIN_SPLIT_KEYS`` keys (``splits`` names another count, for
+    chip_smoke.py's split A/B; the dtype does not change the plan: q is
+    staged in f32)."""
+    del dtype
+    rows = 1 if gc == 1 else 2 if gc == 2 else 4 if gc <= 4 else 8
+    least = 1
+    while _sdpa_smem(rows, gc, hd, L, least) > _build.SMEM_LIMIT:
+        least *= 2
+        if least > MAX_SPLITS:
+            raise ValueError(
+                f"sdpa_int8: {gc} query rows over {L} cache lines need "
+                f"{_sdpa_smem(rows, gc, hd, L, MAX_SPLITS)} bytes of shared "
+                f"memory per CTA at MAX_SPLITS = {MAX_SPLITS} splits, beyond "
+                f"the {_build.SMEM_LIMIT} a CTA may use")
+    if splits is None:
+        splits, units = 1, -(-L // KEY_UNIT)
+        while 2 * splits <= min(MAX_SPLITS, units) and b * kv * splits < FILL_CTAS:
+            splits *= 2
+        while (2 * splits <= MAX_SPLITS and 2 * b * kv * splits <= SDPA_SPLIT_CTAS
+               and split_keys(L, 2 * splits) >= MIN_SPLIT_KEYS):
+            splits *= 2
+        splits = max(splits, least)
+    return SdpaPlan(rows, splits, _sdpa_smem(rows, gc, hd, L, splits),
+                    b * kv * splits)
+
+
 def _grouped(q, k8, scale):
     """q (B, h, c, hd) as (B, kv, g*c, hd) rows (head-in-group, chunk
     position), its chunk size and the scale."""
@@ -417,12 +521,21 @@ def sdpa_int8_cache(q, k8, ks, v8, vs, pos, scale=None):
             or gc * kv != q.shape[1] * c):
         raise ValueError(f"sdpa_int8: q {tuple(q.shape)}, cache "
                          f"{tuple(k8.shape)}, scales {tuple(ks.shape)}")
+    plan = sdpa_int8_plan(bq, kv, gc, hd, L, q.dtype)
+    return _sdpa_launch(qg, k8, ks, v8, vs, pos, c, scale, plan).reshape(q.shape)
+
+
+def _sdpa_launch(qg, k8, ks, v8, vs, pos, c: int, scale: float, plan: SdpaPlan):
+    """``sdpa_int8`` on qg (B, kv, g*c, hd) launched by ``plan``, into a
+    new output."""
+    bq, kv, gc, hd = qg.shape
     out = torch.empty_like(qg)
-    if q.numel():
-        posc = pos.to(device=q.device, dtype=torch.int32)
+    if qg.numel():
+        posc = pos.to(device=qg.device, dtype=torch.int32)
         ops = [_build.operand(t) for t in (qg, k8, ks, v8, vs, posc)]
-        _launch("sdpa_int8", q, (*ops, out), (bq, kv, gc, c, hd, L, scale))
-    return out.reshape(q.shape)
+        _launch("sdpa_int8", qg, (*ops, out), (bq, kv, gc, c, hd, k8.shape[2], scale,
+                                               plan.rows, plan.splits, plan.smem))
+    return out
 
 
 def for_tape(name: str):

@@ -13,10 +13,13 @@ evicted.
 Page 0 is the reserved garbage page and never handed out: released slots
 keep stepping, and their zeroed table rows send both their writes and their
 (masked) reads there, so a live slot's pages are never touched.  The page
-table lives on the host; each step sends it and the write positions to the
-device.  The prefill writes its rows page by page into the slot's pages; a
-step appends each slot's new KV line with ``append_kv`` and attends through
-the ``paged_attn`` kernel (``kernels/paged.py``) with ``q`` cast to the pool
+table lives on the host; each step sends the write positions and the
+table's columns up to the furthest page a live slot reads, so that the
+kernel's launch plan (``kernels.paged.paged_plan``, which reads shapes
+only) splits each slot over the pages in use and not over the window.
+The prefill writes its rows page by page into the slot's pages; a step
+appends each slot's new KV line with ``append_kv`` and attends through the
+``paged_attn`` kernel (``kernels/paged.py``) with ``q`` cast to the pool
 dtype.
 
 Greedy outputs are token-identical to ``generate_compiled``.  Prefix caching
@@ -156,7 +159,12 @@ class PagedDecodeServer(DecodeServer):
         page_ids = torch.as_tensor(self._table_np[np.arange(b), pidx].astype(np.int64),
                                    device=self.device)
         offsets = torch.as_tensor(pos_np % PAGE, device=self.device)
-        table = torch.as_tensor(self._table_np, device=self.device)
+        # the columns up to the furthest page a live slot reads: a slot reads
+        # pages 0 .. pos // PAGE, and a released slot (a zeroed row) any
+        live = [s for s in range(b) if s not in self._free and self._budget[s] > 0]
+        width = max((int(pidx[s]) + 1 for s in live), default=1)
+        table = torch.as_tensor(np.ascontiguousarray(self._table_np[:, :width]),
+                                device=self.device)
         pos32 = pos.to(torch.int32)
         pos2d = pos.reshape(b, 1)
         x = model.tok_emb[toks]
