@@ -43,11 +43,20 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    split plans, each bf16 case run twice and held bit for bit, their A/B
    against the one-CTA kernels of a ``-DDECODE_ATTN_ONE_CTA`` build of
    ``quant.cu`` and ``paged.cu`` in turns, and each case at 1, 2, 4, 8 and
-   16 splits with the clusters the card holds at once;
-   ``flash_bwd.cu``, ``matmul.cu``, ``quant.cu`` and ``paged.cu`` built
+   16 splits with the clusters the card holds at once; ``rms_fwd`` and
+   ``ln_fwd`` on the launch plan's route against the earlier forward (a
+   ``-DNORM_FWD_V1`` build of ``rmsnorm.cu`` and ``layernorm.cu``) in
+   turns at decode and train rows, beside the empty kernel ``norm_null``'s
+   time at each route's grid and block (the launch floor), the one-wave
+   kernel against the old route at 1-8,192 rows, and every norm at every
+   width at 8 rows and past the plan's crossover, ``rms_fwd`` and
+   ``ln_fwd`` the same bits twice; ``flash_bwd.cu``, ``matmul.cu``,
+   ``quant.cu``, ``paged.cu``, ``layernorm.cu`` and ``rmsnorm.cu`` built
    with no spill, no ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
-   bf16, batch 8, prompt 16, 128 new tokens);
+   bf16, batch 8, prompt 16, 128 new tokens), profiled once, and once more
+   on the ``-DNORM_FWD_V1`` norms (each profile reports the forward norms'
+   device time per call);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
    prompt buckets, slot reuse): in f32 every request must equal its solo
    ``generate_compiled`` decode token for token, and the f32 logits of the
@@ -87,10 +96,11 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    32 layers, max_seq_len 1024): ``generate_compiled`` (batch 8, prompt
    16, 128 new tokens) with exact launches, ``DecodeServer`` (the
    staggered requests of phase 4 on 8 slots, window 1024) with its KV
-   bytes against the multi-head equivalent, one profiled decode, and the
-   train step (batch 8 x 1024, ``make_train_step(model, SGD(1e-3),
-   lm_loss)``) with the exact RMSNorm, flash and cross-entropy launches
-   per step derived from the model, and one profiled step; then f32 gates
+   bytes against the multi-head equivalent, one profiled decode (again on
+   the ``-DNORM_FWD_V1`` norms), and the train step (batch 8 x 1024,
+   ``make_train_step(model, SGD(1e-3), lm_loss)``) with the exact RMSNorm,
+   flash and cross-entropy launches per step derived from the model, and
+   one profiled step; then f32 gates
    at full width and one layer against the plain path on the CPU: the
    logits of a prefill and 8 cached decode steps, the loss and every
    parameter's gradient;
@@ -250,7 +260,9 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel",
                   "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "mm_wgmma_kernel", "sdpa_int8_split_kernel",
-                  "paged_attn_split_kernel")
+                  "paged_attn_split_kernel", "norm_wave_kernel")
+# the forward norms' kernels, whose device time per call each profile reports
+NORM_FWD_SYMBOLS = ("norm_wave_kernel", "ln_rows_kernel", "norm_fwd_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -636,25 +648,36 @@ def phase_kernels(torch, report):
          str(_build._CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, lib in one_cta_libs.items()}
+    # layernorm.cu's and rmsnorm.cu's forwards on their earlier routes at
+    # every row count (norm_fwd_route_ab)
+    v1_libs = {src: _build.BUILD_DIR / f"{src}-fwd-v1.so" for src in ("layernorm", "rmsnorm")}
+    v1_builds = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DNORM_FWD_V1", "-o", str(lib),
+         str(_build._CSRC / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, lib in v1_libs.items()}
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
                        ("-DFLASH_BWD_WMMA_BF16", bwd_wmma_build),
                        ("-DMM_WMMA_BF16", mm_wmma_build),
                        *((f"-DDECODE_ATTN_ONE_CTA {src}.cu", proc)
-                         for src, proc in one_cta_builds.items())):
+                         for src, proc in one_cta_builds.items()),
+                       *((f"-DNORM_FWD_V1 {src}.cu", proc)
+                         for src, proc in v1_builds.items())):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 7} sources in "
+    log(f"[build] {len(_build.SOURCES) + 9} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
         for line in ptxas_report(_build.build_log(name)):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
-    # the flash backward's, the matmuls', the quantized kernels' and the
-    # paged kernel's: no spill, no serialised MMAs, no ignored setmaxnreg
-    for name in ("flash_bwd", "matmul", "quant", "paged"):
+    # the flash backward's, the matmuls', the quantized kernels', the paged
+    # kernel's and the norms': no spill, no serialised MMAs, no ignored
+    # setmaxnreg
+    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm"):
         bad = [line for line in ptxas_report(_build.build_log(name))
                if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
         check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
@@ -695,12 +718,16 @@ def phase_kernels(torch, report):
     report["wide_norm"] = wide_norm_case(torch, randn)
     report["norm_width_sweep"] = norm_width_sweep(torch, randn)
     report["norm_route_ab"] = norm_route_ab(torch, randn, block_lib)
+    report["norm_fwd_route_ab"] = norm_fwd_route_ab(torch, randn, v1_libs)
+    report["norm_rows_ab"] = norm_rows_ab(torch, randn)
     report["dq_route_ab"] = dq_route_ab(torch, randn, simt_lib)
     report["dq_split_ab"] = dq_split_ab(torch, randn)
     report["dq_tile_ab"] = dq_tile_ab(torch, randn)
     report["decode_attn_route_ab"] = decode_attn_route_ab(torch, gen, randn, one_cta_libs)
     report["decode_split_ab"] = decode_split_ab(torch, gen, randn)
     report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
+    # phases 3 and 9 profile their decodes on the earlier forward norms too
+    report["norm_fwd_v1_libs"] = {src: str(path) for src, path in v1_libs.items()}
 
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
@@ -849,17 +876,19 @@ def rms_cases(torch, randn):
     """rms_fwd / addrms_fwd at a decode step's 8 rows and at the options
     train step's 8192 rows of d = 4096, and rms_bwd / addrms_bwd at the
     latter, against their plain versions and F.rms_norm (forward, and its
-    autograd backward)."""
+    autograd backward); rms_fwd also at 8 rows of d = 1024, the SSM's and
+    MoE's decode shape."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import layernorm as L
 
     cases = []
-    d, eps = OPT_MODEL["dim"], OPT_MODEL["norm_eps"]
+    eps = OPT_MODEL["norm_eps"]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
-        for rows in (8, OPT_TRAIN_BATCH * OPT_TRAIN_SEQ):
+        for rows, d in ((8, SSM_MODEL["dim"]), (8, OPT_MODEL["dim"]),
+                        (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["dim"])):
             x = randn(rows, d, dtype=dtype) * 3 + 1
             a = randn(rows, d, dtype=dtype)
             g = 1 + 0.1 * randn(d, dtype=dtype)
@@ -873,6 +902,8 @@ def rms_cases(torch, randn):
                 plain_ms=device_ms(torch, lambda: L._plain_rmsnorm(x, g, eps)),
                 library_ms=device_ms(torch, lambda: TF.rms_norm(x, (d,), g, eps)),
                 **bound((2 * rows * d + d) * size, flops, dn)))
+            if d != OPT_MODEL["dim"]:
+                continue  # at d 1024 rms_fwd alone
             pair = L.add_rmsnorm(x, a, g, eps)
             plain = L._plain_add_rmsnorm(x, a, g, eps)
             check(torch.equal(pair[0], plain[0]), "addrms: t = x + a must be exact")
@@ -928,10 +959,13 @@ def rms_cases(torch, randn):
 
 def norm_width_sweep(torch, randn) -> dict:
     """Every norm kernel at every width d <= 8192 that is a multiple of 128,
-    37 rows, in bf16 and f32, against its plain version (correctness only:
-    the narrow rows take layernorm.cu's warp-per-row kernels, the wide ones
-    and every RMSNorm the block-per-row kernels).  Returns the largest
-    error of each kernel."""
+    at a decode step's 8 rows and at 2 * WAVE_MAX_ROWS + 1 rows, past the
+    forward plan's crossover, in bf16 and f32, against its plain version
+    (correctness only: so rms_fwd and ln_fwd pass through both of their
+    routes at every width; the other narrow LayerNorm rows take
+    layernorm.cu's warp-per-row kernels, the wide ones and the other
+    RMSNorms the block-per-row kernels).  rms_fwd and ln_fwd run twice and
+    must give the same bits.  Returns the largest error of each kernel."""
     from minidiff_tpu_torch.kernels import layernorm as L
 
     worst: dict = {}
@@ -939,30 +973,42 @@ def norm_width_sweep(torch, randn) -> dict:
     def hold(name, got, ref, kind, dn):
         worst[name] = max(worst.get(name, 0.0), max_err(torch, got, ref, kind, dn))
 
+    routes = set()
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        for d in range(128, L.MAX_WIDTH + 1, 128):
-            x, a, dy, g0 = (randn(37, d, dtype=dtype) for _ in range(4))
-            g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
-            hold("ln_fwd", L.layernorm(x, g, b), L._plain_layernorm(x, g, b), "ln", dn)
-            hold("addln_fwd", L.add_layernorm(x, a, g, b),
-                 L._plain_add_layernorm(x, a, g, b), "ln", dn)
-            hold("rms_fwd", L.rmsnorm(x, g), L._plain_rmsnorm(x, g), "ln", dn)
-            hold("addrms_fwd", L.add_rmsnorm(x, a, g), L._plain_add_rmsnorm(x, a, g),
-                 "ln", dn)
-            for name, got, ref in (
-                    ("ln_bwd", L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy)),
-                    ("addln_bwd", L.addln_grads(x, g, dy, g0),
-                     L._plain_addln_grads(x, g, dy, g0)),
-                    ("rms_bwd", L.rms_grads(x, g, dy), L._plain_rms_grads(x, g, dy)),
-                    ("addrms_bwd", L.addrms_grads(x, g, dy, g0),
-                     L._plain_addrms_grads(x, g, dy, g0))):
-                hold(name, got[0], ref[0], "addln_dx" if "add" in name else "ln", dn)
-                for i in range(1, len(got)):
-                    hold(name, got[i], ref[i], "lnsum", dn)
-    log(f"[kernel] norms at every d in 128..{L.MAX_WIDTH} step 128, 37 rows, "
-        "bf16 and f32, within tolerance of their plain versions; largest "
-        "errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        for rows in (8, 2 * L.WAVE_MAX_ROWS + 1):
+            for d in range(128, L.MAX_WIDTH + 1, 128):
+                x, a, dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(4))
+                g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+                for name, run, ref in (
+                        ("ln_fwd", lambda: L.layernorm(x, g, b), L._plain_layernorm(x, g, b)),
+                        ("rms_fwd", lambda: L.rmsnorm(x, g), L._plain_rmsnorm(x, g))):
+                    got = run()
+                    hold(name, got, ref, "ln", dn)
+                    check(torch.equal(got, run()),
+                          f"{name} {dn} {[rows, d]}: a second run gave other bits")
+                    routes.add((name, L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd").route))
+                hold("addln_fwd", L.add_layernorm(x, a, g, b),
+                     L._plain_add_layernorm(x, a, g, b), "ln", dn)
+                hold("addrms_fwd", L.add_rmsnorm(x, a, g), L._plain_add_rmsnorm(x, a, g),
+                     "ln", dn)
+                for name, got, ref in (
+                        ("ln_bwd", L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy)),
+                        ("addln_bwd", L.addln_grads(x, g, dy, g0),
+                         L._plain_addln_grads(x, g, dy, g0)),
+                        ("rms_bwd", L.rms_grads(x, g, dy), L._plain_rms_grads(x, g, dy)),
+                        ("addrms_bwd", L.addrms_grads(x, g, dy, g0),
+                         L._plain_addrms_grads(x, g, dy, g0))):
+                    hold(name, got[0], ref[0], "addln_dx" if "add" in name else "ln", dn)
+                    for i in range(1, len(got)):
+                        hold(name, got[i], ref[i], "lnsum", dn)
+    check(routes == {("ln_fwd", "wave"), ("ln_fwd", "warp"), ("ln_fwd", "block"),
+                     ("rms_fwd", "wave"), ("rms_fwd", "block")},
+          f"norm_width_sweep: routes {sorted(routes)}")
+    log(f"[kernel] norms at every d in 128..{L.MAX_WIDTH} step 128, 8 and "
+        f"{2 * L.WAVE_MAX_ROWS + 1} rows, bf16 and f32, within tolerance of their "
+        "plain versions (rms_fwd and ln_fwd on both routes, the same bits twice); "
+        "largest errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return worst
 
 
@@ -983,8 +1029,12 @@ def norm_route_ab(torch, randn, block_lib) -> list:
         for rows in (8, TRAIN_BATCH * TRAIN_SEQ):
             x, a, dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(4))
             g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+            # ln_fwd on its route before the one-wave kernel (the warp per
+            # row, or every row block-per-row in block_lib)
+            warp_plan = L.norm_fwd_plan(rows, d, dtype, False, wave=False)
             runs = {
-                "ln_fwd": (lambda: (L.layernorm(x, g, b),),
+                "ln_fwd": (lambda: (L._fwd_kernel("ln_fwd", x, (g, b), 1e-5, x.shape,
+                                                  warp_plan),),
                            (L._plain_layernorm(x, g, b),), ("ln",)),
                 "addln_fwd": (lambda: (L.add_layernorm(x, a, g, b),),
                               (L._plain_add_layernorm(x, a, g, b),), ("ln",)),
@@ -1007,6 +1057,146 @@ def norm_route_ab(torch, randn, block_lib) -> list:
                     f"{us['warp']:8.2f} / {us['warp2']:8.2f} us | block per row "
                     f"{us['block']:8.2f} us")
     return rows_out
+
+
+def _norm_fwd_run(L, name, x, g, b, plan=None):
+    """rms_fwd or ln_fwd on x by ``plan`` (the wrapper's rule when None)."""
+    operands = (g,) if name == "rms_fwd" else (g, b)
+    eps = OPT_MODEL["norm_eps"] if name == "rms_fwd" else 1e-5
+    return L._fwd_kernel(name, x, operands, eps, x.shape, plan)
+
+
+def _norm_fwd_plain(L, name, x, g, b):
+    if name == "rms_fwd":
+        return L._plain_rmsnorm(x, g, OPT_MODEL["norm_eps"])
+    return L._plain_layernorm(x, g, b, 1e-5)
+
+
+def _floor_us(torch, plan) -> float:
+    """The empty kernel norm_null at ``plan``'s grid and block: the least
+    device time a launch of that shape takes."""
+    from minidiff_tpu_torch.kernels import _build
+
+    null = _build.function("norm_null")
+    return device_ms(torch, lambda: _build.check(
+        null(plan.ctas, plan.threads, _build.stream()), "norm_null")) * 1e3
+
+
+# rms_fwd and ln_fwd shapes of norm_fwd_route_ab: (name, rows, d) at the
+# decode steps' 8 rows and the train steps' 8192
+NORM_FWD_AB = (("rms_fwd", 8, 1024), ("rms_fwd", 8, 4096), ("rms_fwd", 8192, 4096),
+               ("ln_fwd", 8, 1024), ("ln_fwd", 8192, 1024))
+
+
+def norm_fwd_route_ab(torch, randn, v1_libs) -> list:
+    """rms_fwd and ln_fwd at NORM_FWD_AB's shapes, bf16 and f32: the route
+    the plan picks against the earlier forward of ``v1_libs`` ({source:
+    path}: layernorm.cu and rmsnorm.cu built with -DNORM_FWD_V1), each
+    within TOL["ln"] of the plain version, timed in turns (old, new, new,
+    old), with the empty kernel's time at each route's grid and block (its
+    launch floor) and F.rms_norm / F.layer_norm beside.  At a decode shape
+    in bf16 the new route must be faster than the old in both turns; at
+    8192 rows the plan's route within 3% of the old.  addrms_fwd and
+    addln_fwd, which keep their routes, are timed the same way at the
+    decode shapes."""
+    import torch.nn.functional as TF
+
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    old = {src: lib_at(src, path) for src, path in v1_libs.items()}
+    rows_out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for name, rows, d in NORM_FWD_AB + (("addrms_fwd", 8, 4096), ("addln_fwd", 8, 1024)):
+            x = randn(rows, d, dtype=dtype) * 3 + 1
+            a = randn(rows, d, dtype=dtype)
+            g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+            rms = "rms" in name
+            src = "rmsnorm" if rms else "layernorm"
+            eps = OPT_MODEL["norm_eps"] if rms else 1e-5
+            if name.startswith("add"):
+                plan = None
+                run = ((lambda: L.add_rmsnorm(x, a, g, eps)) if rms
+                       else (lambda: L.add_layernorm(x, a, g, b, eps)))
+                ref = (L._plain_add_rmsnorm(x, a, g, eps) if rms
+                       else L._plain_add_layernorm(x, a, g, b, eps))
+                library = None
+            else:
+                plan = L.norm_fwd_plan(rows, d, dtype, rms)
+                run = lambda: _norm_fwd_run(L, name, x, g, b)  # noqa: E731
+                ref = _norm_fwd_plain(L, name, x, g, b)
+                library = ((lambda: TF.rms_norm(x, (d,), g, eps)) if rms
+                           else (lambda: TF.layer_norm(x, (d,), g, b, eps)))
+            us, err = {"old": [], "new": []}, {}
+            for route in ("old", "new", "new", "old"):
+                with built_as(src, old[src]) if route == "old" else contextlib.nullcontext():
+                    if route not in err:
+                        err[route] = max_err(torch, run(), ref, "ln", dn)
+                    us[route].append(device_ms(torch, run) * 1e3)
+            row = dict(name=name, dtype=dn, shape=[rows, d], old_us=us["old"],
+                       new_us=us["new"], max_abs_err=err)
+            if plan is not None:
+                old_plan = L.norm_fwd_plan(rows, d, dtype, rms, wave=False)
+                row.update(route=plan.route, threads=plan.threads, vecs=plan.vecs,
+                           floor_us=_floor_us(torch, plan),
+                           old_floor_us=_floor_us(torch, old_plan),
+                           library_us=device_ms(torch, library) * 1e3)
+                if rows <= L.WAVE_MAX_ROWS and dtype == torch.bfloat16:
+                    check(max(us["new"]) < min(us["old"]),
+                          f"{name} {[rows, d]} bf16: the new route {us['new']} us is not "
+                          f"faster than the old {us['old']} us")
+                if rows > L.WAVE_MAX_ROWS:
+                    check(max(us["new"]) <= 1.03 * min(us["old"]),
+                          f"{name} {[rows, d]} {dn}: the plan's route {us['new']} us is "
+                          f"more than 3% slower than the old {us['old']} us")
+            rows_out.append(row)
+            extra = (f" | floor {row['floor_us']:6.2f} (old {row['old_floor_us']:6.2f}) us "
+                     f"| library {row['library_us']:7.2f} us | {plan.route} "
+                     f"{plan.threads}x{plan.vecs}" if plan is not None else " | route kept")
+            log(f"[norm ab] {name:10s} {dn:8s} {str([rows, d]):12s} old "
+                f"{us['old'][0]:7.2f} / {us['old'][1]:7.2f} us | new {us['new'][0]:7.2f} / "
+                f"{us['new'][1]:7.2f} us{extra}")
+    return rows_out
+
+
+NORM_ROWS_AB = (1, 8, 32, 128, 512, 8192)
+
+
+def norm_rows_ab(torch, randn) -> list:
+    """rms_fwd and ln_fwd in bf16 at NORM_ROWS_AB's rows of d 1024 and 4096:
+    the one-wave kernel against the route before it, both forced through
+    norm_fwd_plan, in turns (old, wave, wave, old), each within TOL["ln"]
+    of the plain version, with each route's launch floor: the readings
+    behind kernels.layernorm.WAVE_MAX_ROWS."""
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    dtype, dn = torch.bfloat16, "bfloat16"
+    out = []
+    for d in (1024, 4096):
+        for rows in NORM_ROWS_AB:
+            x = randn(rows, d, dtype=dtype) * 3 + 1
+            g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
+            for name in ("rms_fwd", "ln_fwd"):
+                plans = {wave: L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd", wave=wave)
+                         for wave in (False, True)}
+                ref = _norm_fwd_plain(L, name, x, g, b)
+                us = {False: [], True: []}
+                for wave in (False, True, True, False):
+                    run = lambda: _norm_fwd_run(L, name, x, g, b, plans[wave])  # noqa: E731
+                    if not us[wave]:
+                        max_err(torch, run(), ref, "ln", dn)
+                    us[wave].append(device_ms(torch, run) * 1e3)
+                row = dict(name=name, shape=[rows, d], old_route=plans[False].route,
+                           old_us=us[False], wave_us=us[True],
+                           old_floor_us=_floor_us(torch, plans[False]),
+                           wave_floor_us=_floor_us(torch, plans[True]),
+                           plan=L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd").route)
+                out.append(row)
+                log(f"[norm rows] {name:8s} {str([rows, d]):12s} plan {row['plan']:5s} | "
+                    f"{row['old_route']} {us[False][0]:7.2f} / {us[False][1]:7.2f} us "
+                    f"(floor {row['old_floor_us']:5.2f}) | wave {us[True][0]:7.2f} / "
+                    f"{us[True][1]:7.2f} us (floor {row['wave_floor_us']:5.2f})")
+    return out
 
 
 def flash_shapes(torch) -> list:
@@ -1699,6 +1889,16 @@ def built_as(source: str, lib):
         _build._libs[source] = own
 
 
+@contextlib.contextmanager
+def norm_fwd_v1(report):
+    """Every norm kernel launched from the -DNORM_FWD_V1 builds of phase 2
+    (the earlier forwards) until the block ends."""
+    with contextlib.ExitStack() as stack:
+        for src, path in report["norm_fwd_v1_libs"].items():
+            stack.enter_context(built_as(src, lib_at(src, path)))
+        yield
+
+
 def dq_route_ab(torch, randn, simt_lib) -> list:
     """dq_bmm and dq4_mm in bf16 at the main path's shapes (DQ_BMM_AB,
     DQ4_AB): the tensor-core tiles against the SIMT tile of ``simt_lib``
@@ -2153,6 +2353,11 @@ def phase_generate(torch, seed: int, report):
     report["generate_profile"] = profile_run(
         torch, "generate_compiled 32 new tokens",
         lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+    if "norm_fwd_v1_libs" in report:  # phase 2 built them (absent in a CPU rehearsal)
+        with norm_fwd_v1(report):
+            report["generate_profile_norm_fwd_v1"] = profile_run(
+                torch, "generate_compiled 32 new tokens, -DNORM_FWD_V1 norms",
+                lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
 
 def profile_run(torch, label, run):
@@ -2221,8 +2426,14 @@ def profile_run(torch, label, run):
         log(f"[profile]   {r['device_us']:9.1f} us {r['calls']:5d} calls  {r['kernel']}")
     log("[profile]   ported: " + ", ".join(
         f"{sym} {us:.1f} us in {n}" for sym, (us, n) in sorted(ported.items())))
+    norms = {sym: ported[sym][0] / ported[sym][1] for sym in NORM_FWD_SYMBOLS
+             if sym in ported}
+    if norms:
+        log("[profile]   forward norms, device us a call: " + ", ".join(
+            f"{sym} {us:.2f}" for sym, us in norms.items()))
     return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
-                device_us_by_kind=by_kind, top=top, ported=ported)
+                device_us_by_kind=by_kind, top=top, ported=ported,
+                norm_us_per_call=norms)
 
 
 # ---------------------------------------------------------------------------
@@ -2958,6 +3169,11 @@ def phase_options(torch, seed: int, report):
     out["generate_profile"] = profile_run(
         torch, "options generate_compiled 32 new tokens",
         lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+    if "norm_fwd_v1_libs" in report:  # phase 2 built them (absent in a CPU rehearsal)
+        with norm_fwd_v1(report):
+            out["generate_profile_norm_fwd_v1"] = profile_run(
+                torch, "options generate_compiled 32 new tokens, -DNORM_FWD_V1 norms",
+                lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
     # the server: phase 4's staggered schedule on 8 slots, window 1024
     rng = np.random.RandomState(seed + 8)

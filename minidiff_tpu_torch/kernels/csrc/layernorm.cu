@@ -43,6 +43,13 @@
 // rmsnorm.cu shares, up to the JAX kernels' d <= 8192.  A build with
 // -DNORM_BLOCK_PER_ROW sends every row there (chip_smoke.py times the two
 // routes against each other at the flagship's widths).
+//
+// ln_fwd at decode-sized row counts takes rowblock.cuh's norm_wave_kernel
+// instead, as its launch plan (kernels.layernorm.norm_fwd_plan) says: one
+// CTA per row, x, g and b fetched in one wave, one exchange per row.  The
+// warp-per-row kernel's serial chain (x, two dependent shuffle reductions,
+// only then g and b) made it slower at 8 rows of 1,024 than rms_fwd at 8
+// rows of 4,096.  addln_fwd keeps its routes.
 
 #include "rowblock.cuh"
 
@@ -283,13 +290,19 @@ int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The widest row of the warp-per-row backward: 1,024 values in either
+// dtype.  A bf16 lane of 8 vectors (d up to 2,048) held x, dy and the dg /
+// db sums in 255 registers and spilled 356 bytes; those rows go to the
+// block-per-row kernel, as the wider ones do.
+constexpr int kBwdWarpRowWidth = 1024;
+
 // the smallest register width (vectors per lane) that holds a row; wider
 // rows go to the block-per-row kernel
 template <typename T, bool ADD>
 int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
                  void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
                  float eps, void* stream) {
-  if (kBlockPerRow || d > kWarpRowWidth<T>)
+  if (kBlockPerRow || d > kBwdWarpRowWidth)
     return rowblock::launch_bwd<T, false, ADD>(x, g, dy, g0, dx, dgp, dbp, rows,
                                                d, blocks, eps, stream);
   const int per_lane = (d / Vec<T>::N + 31) / 32;
@@ -297,18 +310,32 @@ int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
     return launch_bwd<T, 1, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
   if (per_lane <= 2)
     return launch_bwd<T, 2, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
-  if (per_lane <= 4)
+  constexpr int widest = kBwdWarpRowWidth / (32 * Vec<T>::N);  // 4 bf16, 8 f32
+  if (widest == 4 || per_lane <= 4)
     return launch_bwd<T, 4, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
-  return launch_bwd<T, 8, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps, stream);
+  return launch_bwd<T, widest, ADD>(x, g, dy, g0, dx, dgp, dbp, rows, d, blocks, eps,
+                                    stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The caller has checked that every
 // pointer is 16-byte aligned, d is a multiple of the vector width (8 bf16,
-// 4 f32) and d <= 8192, and rows >= 1.  Returns cudaGetLastError().
+// 4 f32) and d <= 8192, and rows >= 1.  threads, vecs: the launch plan's
+// (kernels.layernorm.norm_fwd_plan); vecs > 0 takes rowblock.cuh's
+// norm_wave_kernel (refused unless they are its own configuration), 0 the
+// routes above, as does every row of a -DNORM_FWD_V1 or
+// -DNORM_BLOCK_PER_ROW build.  Returns cudaGetLastError().
 extern "C" int ln_fwd(const void* x, const void* g, const void* b, void* y,
-                      int rows, int d, float eps, int dtype, void* stream) {
+                      int rows, int d, float eps, int dtype, int threads,
+                      int vecs, void* stream) {
+  if (vecs > 0 && !rowblock::kFwdV1 && !kBlockPerRow) {
+    if (dtype == 1)
+      return rowblock::launch_wave<__nv_bfloat16, false>(x, g, b, y, rows, d, eps,
+                                                         threads, vecs, stream);
+    return rowblock::launch_wave<float, false>(x, g, b, y, rows, d, eps, threads,
+                                               vecs, stream);
+  }
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(x, nullptr, g, b, nullptr, y, rows, d, eps, stream);
   return launch<float, false>(x, nullptr, g, b, nullptr, y, rows, d, eps, stream);

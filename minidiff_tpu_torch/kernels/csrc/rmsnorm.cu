@@ -28,15 +28,41 @@
 // once; a row statistic costs one block reduction (two shared-memory
 // barriers).  The backward writes per-block f32 dg partial rows that the
 // caller sums, as ln_bwd does.  At a decode step's 8 rows the launch is
-// latency-bound.
+// latency-bound: rms_fwd there takes rowblock.cuh's norm_wave_kernel, as
+// its launch plan (kernels.layernorm.norm_fwd_plan) says, which fetches x
+// and g in one wave and makes one exchange per row, where the block-per-row
+// kernel loaded g only after its reduction's two barriers.  addrms_fwd
+// keeps its route.
 
 #include "rowblock.cuh"
 
+namespace {
+
+// Replaces no TPU kernel: an empty kernel with the one-wave forward's
+// parameters, which chip_smoke.py launches at each norm's grid and block
+// to measure the least time a launch of that shape takes on the card (the
+// floor beside every decode-row norm time).
+__global__ void norm_null_kernel(const void*, const void*, const void*, void*,
+                                 int, float) {}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16.  The caller has checked that every
 // pointer is 16-byte aligned, d is a multiple of the vector width (8 bf16,
-// 4 f32) and d <= 8192, and rows >= 1.  Returns cudaGetLastError().
+// 4 f32) and d <= 8192, and rows >= 1.  threads, vecs: the launch plan's
+// (kernels.layernorm.norm_fwd_plan); vecs > 0 takes rowblock.cuh's
+// norm_wave_kernel (refused unless they are its own configuration), 0 the
+// block-per-row kernel, as does every row of a -DNORM_FWD_V1 build.
+// Returns cudaGetLastError().
 extern "C" int rms_fwd(const void* x, const void* g, void* y, int rows, int d,
-                       float eps, int dtype, void* stream) {
+                       float eps, int dtype, int threads, int vecs, void* stream) {
+  if (vecs > 0 && !rowblock::kFwdV1) {
+    if (dtype == 1)
+      return rowblock::launch_wave<__nv_bfloat16, true>(x, g, nullptr, y, rows, d,
+                                                        eps, threads, vecs, stream);
+    return rowblock::launch_wave<float, true>(x, g, nullptr, y, rows, d, eps,
+                                              threads, vecs, stream);
+  }
   if (dtype == 1)
     return rowblock::launch_fwd<__nv_bfloat16, true, false>(
         x, nullptr, g, nullptr, nullptr, y, rows, d, eps, stream);
@@ -80,4 +106,11 @@ extern "C" int addrms_bwd(const void* t, const void* g, const void* dy,
         t, g, dy, g0, dx, dgp, nullptr, rows, d, blocks, eps, stream);
   return rowblock::launch_bwd<float, true, true>(
       t, g, dy, g0, dx, dgp, nullptr, rows, d, blocks, eps, stream);
+}
+
+// The empty kernel at a grid of ctas and blocks of threads.
+extern "C" int norm_null(int ctas, int threads, void* stream) {
+  norm_null_kernel<<<ctas, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, nullptr, nullptr, nullptr, 0, 0.f);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,11 @@
 // owns the same columns in every row, so it keeps its dg (and db) sums in
 // registers and writes them once as its block's f32 partial row.  The
 // caller sums the partial rows: no atomics, the same result on every run.
+//
+// norm_wave_kernel is the forward of rms_fwd and ln_fwd at decode-sized row
+// counts (kernels.layernorm.norm_fwd_plan sends them there; see the kernel).
+// A build with -DNORM_FWD_V1 takes the routes above for every row, as
+// before the one-wave kernel (chip_smoke.py times the two in turns).
 #pragma once
 
 #include "rowwise.cuh"
@@ -287,6 +292,191 @@ int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
         static_cast<float*>(dbp), rows, d, rows_per_block, eps);
     return static_cast<int>(cudaGetLastError());
   }
+}
+
+#ifdef NORM_FWD_V1
+constexpr bool kFwdV1 = true;
+#else
+constexpr bool kFwdV1 = false;
+#endif
+
+// The one-wave forward's widest CTA, and its 16-byte vectors a thread: the
+// fewest (a power of two) with which kWaveMaxThreads threads hold the row,
+// so that every load of a thread is in flight at once.
+constexpr int kWaveMaxThreads = 512;
+
+template <typename T>
+constexpr int wave_max_vecs() {
+  return kMaxWidth / (kWaveMaxThreads * Vec<T>::N);  // 2 for bf16, 4 for f32
+}
+
+inline int wave_vecs(int nvec) {
+  int n = 1;
+  while (n * kWaveMaxThreads < nvec) n *= 2;
+  return n;
+}
+
+inline int wave_threads(int nvec, int vecs) {
+  return ((nvec + vecs - 1) / vecs + 31) / 32 * 32;
+}
+
+// warp_sum over groups of `span` lanes (a power of two): lane l adds lane
+// l ^ o for each o < span, so every group whose lanes hold the same values
+// ends with the same bits.
+__device__ __forceinline__ float group_sum(float v, int span) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < span) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One CTA per row, at decode-sized row counts, where a launch's latency and
+// not its bytes bounds the forward (an (8, 4096) bf16 row block is 128 KB:
+// 0.04 us at the HBM rate, against ~3 us per launch of the kernels above).
+// The design takes the serial steps out of the latency chain:
+// - one load wave: each thread fetches its vectors of x, g (and b) before
+//   any reduction, so the weights' round trip overlaps x's instead of
+//   following a barrier;
+// - width over depth: a row spread over up to kWaveMaxThreads threads of
+//   one vector each where it fits (wave_vecs), all loads of a thread in
+//   flight at once;
+// - one exchange per row: warp shuffles, then each warp's partial through
+//   shared memory and one barrier, after which every warp combines the
+//   warps' partials by the same shuffles (group_sum over the fewest lanes,
+//   a power of two, that hold one partial each, lane l taking warp l's), so
+//   every thread gets the same bits.  A CTA makes one exchange, so its
+//   scratch is written once and needs no trailing barrier.
+// RMS: the partial is a sum of squares.  LN: each part of the row (a
+// thread's values, a warp's) carries its count c, mean m and centred sum of
+// squares q, and parts combine by Chan's formula in its k-part form,
+//   q = sum_k [q_k + c_k (m_k - m)^2],  m = (sum of the values) / c,
+// so the statistics are those of the centred row (no cancelling one-pass
+// sum of squares), and the combination is two sums of independent terms
+// (shuffles within a warp, shuffles over the warps' partials after the
+// exchange), not a chain of pairwise merges.  Sums are taken in a fixed
+// order, so every run gets the same bits.  Statistics in f32; y rounded
+// once to T.
+template <typename T, int NV, bool RMS>
+__global__ void __launch_bounds__(kWaveMaxThreads)
+norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                 const T* __restrict__ b, T* __restrict__ y, int d, float eps) {
+  constexpr int V = Vec<T>::N;
+  using Raw = typename Vec<T>::Raw;
+  // each warp's partial: RMS its sum of squares; LN (sum, mean, centred sum
+  // of squares, count)
+  __shared__ float4 red[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int span = 1;  // the lanes that combine the warps' partials
+  while (span < warps) span *= 2;
+  const int part = lane & (span - 1);  // the warp whose partial this lane takes
+  const int nvec = d / V;
+  const size_t base = static_cast<size_t>(blockIdx.x) * d;
+
+  Raw xr[NV], gr[NV], br[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      xr[i] = Vec<T>::fetch(x + base + c * V);
+      gr[i] = Vec<T>::fetch(g + c * V);
+      if (!RMS) br[i] = Vec<T>::fetch(b + c * V);
+    }
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  float v[NV][V];
+  int held = 0;  // this thread's vectors of the row
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + i * blockDim.x < nvec) {
+      Vec<T>::unpack(xr[i], v[i]);
+      ++held;
+#pragma unroll
+      for (int j = 0; j < V; ++j) s += RMS ? v[i][j] * v[i][j] : v[i][j];
+    }
+  }
+
+  float rsig, mean = 0.f;
+  if (RMS) {
+    s = warp_sum(s);
+    if (lane == 0) red[warp].x = s;
+    __syncthreads();
+    rsig = rsqrtf(group_sum(part < warps ? red[part].x : 0.f, span) * inv_d + eps);
+  } else {
+    // this thread's part: count, mean, centred sum of squares (a count of
+    // NV * V, a power of two, divides as a product by its reciprocal)
+    const float c = static_cast<float>(held * V);
+    const float m = held == NV ? s * (1.f / (NV * V)) : held > 0 ? s / c : 0.f;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i < held) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float e = v[i][j] - m;
+          q += e * e;
+        }
+      }
+    }
+    // the warp's part (every warp holds a vector of the row): its count is
+    // V for each vector its lanes hold
+    int wv = 0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      wv += min(32, max(0, nvec - i * static_cast<int>(blockDim.x) - 32 * warp));
+    const float cw = static_cast<float>(wv * V);
+    const float sw = warp_sum(s);
+    const float mw = wv == 32 * NV ? sw * (1.f / (32 * NV * V)) : sw / cw;
+    const float e = m - mw;
+    const float qw = warp_sum(q + c * e * e);
+    if (lane == 0) red[warp] = make_float4(sw, mw, qw, cw);
+    __syncthreads();
+    // the row's (lanes past the last warp hold an empty part)
+    const float4 p = part < warps ? red[part] : make_float4(0.f, 0.f, 0.f, 0.f);
+    mean = group_sum(p.x, span) * inv_d;
+    const float ew = p.y - mean;
+    rsig = rsqrtf(group_sum(p.z + p.w * ew * ew, span) * inv_d + eps);
+  }
+
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      float gv[V], bv[V];
+      Vec<T>::unpack(gr[i], gv);
+      if (!RMS) Vec<T>::unpack(br[i], bv);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        v[i][j] = RMS ? v[i][j] * rsig * gv[j]
+                      : (v[i][j] - mean) * rsig * gv[j] + bv[j];
+      Vec<T>::store(y + base + c * V, v[i]);
+    }
+  }
+}
+
+// Launch the one-wave forward at the plan's (threads, vecs), refused with
+// cudaErrorInvalidValue unless that is the kernel's own configuration for
+// a row of d values (wave_vecs vectors a thread, the fewest whole warps
+// that cover the row with them).
+template <typename T, bool RMS>
+int launch_wave(const void* x, const void* g, const void* b, void* y, int rows,
+                int d, float eps, int threads, int vecs, void* stream) {
+  const int nvec = d / Vec<T>::N;
+  if (d > kMaxWidth || vecs != wave_vecs(nvec) ||
+      threads != wave_threads(nvec, vecs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = norm_wave_kernel<T, 1, RMS>;
+  if (vecs == 2) kernel = norm_wave_kernel<T, 2, RMS>;
+  if constexpr (wave_max_vecs<T>() > 2) {
+    if (vecs == 4) kernel = norm_wave_kernel<T, 4, RMS>;
+  }
+  kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(b), static_cast<T*>(y), d, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rowblock

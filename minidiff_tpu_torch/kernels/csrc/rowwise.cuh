@@ -15,10 +15,13 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    float4 v = *reinterpret_cast<const float4*>(p);
+  // the 16 bytes as loaded, unpacked later (a load issued apart from its use)
+  using Raw = float4;
+  __device__ static Raw fetch(const float* p) { return *reinterpret_cast<const float4*>(p); }
+  __device__ static void unpack(const Raw& v, float* out) {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
+  __device__ static void load(const float* p, float* out) { unpack(fetch(p), out); }
   __device__ static void store(float* p, const float* in) {
     *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
@@ -29,8 +32,11 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
+  using Raw = uint4;
+  __device__ static Raw fetch(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ static void unpack(const Raw& raw, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -39,6 +45,7 @@ struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
+  __device__ static void load(const __nv_bfloat16* p, float* out) { unpack(fetch(p), out); }
   __device__ static void store(__nv_bfloat16* p, const float* in) {
     uint4 raw;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);

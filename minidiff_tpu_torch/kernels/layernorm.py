@@ -39,11 +39,20 @@ device, as the JAX package composes them (``layernorm.py:67-69``), by the
 rule ``uses_kernel`` decided before launch.  A CUDA tensor that the rule
 sends to the kernels and that they do not take (operands of mixed dtypes)
 raises: nothing falls back.
+
+``ln_fwd`` and ``rms_fwd`` launch by ``norm_fwd_plan``, decided from shapes
+before launch: at decode-sized row counts (up to ``WAVE_MAX_ROWS``) the
+one-wave kernel of ``csrc/rowblock.cuh`` (``norm_wave_kernel``: one CTA per
+row, x, g and b fetched together, one exchange per row, LayerNorm's
+statistics merged by Chan's formula in a fixed order), else their earlier
+routes (``ln_rows_kernel``, a warp per row, for LayerNorm rows a warp's
+registers hold; ``norm_fwd_kernel``, a block per row, for the rest).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -56,6 +65,54 @@ LAUNCHES = {"ln_fwd": 0, "addln_fwd": 0, "ln_bwd": 0, "addln_bwd": 0,
 
 # the widest row the kernels take (the JAX kernels' limit)
 MAX_WIDTH = 8192
+# the forward kernels' launch shapes, restated from csrc/rowblock.cuh
+# (kWaveMaxThreads, kMaxThreads) and csrc/layernorm.cu (kWarpsPerBlock,
+# kMaxVecsPerLane) for norm_fwd_plan
+WAVE_MAX_THREADS = 512
+BLOCK_MAX_THREADS = 256
+WARP_ROWS = 4
+WARP_MAX_VECS = 8
+# ln_fwd and rms_fwd take the one-wave kernel at up to this many rows:
+# chip_smoke.py's norm_rows_ab found it faster than the old routes at 1-128
+# bf16 rows of 1,024 and 4,096 for both, and slower for ln_fwd at 512 rows
+# of 4,096 and at 8,192 of either
+WAVE_MAX_ROWS = 128
+
+
+class NormPlan(NamedTuple):
+    """How ``ln_fwd`` / ``rms_fwd`` launch: the route ("wave":
+    ``norm_wave_kernel``, one CTA per row; "warp": ``ln_rows_kernel``,
+    ``WARP_ROWS`` rows per CTA, a warp each; "block": ``norm_fwd_kernel``,
+    one CTA per row), the CTAs, the threads of a CTA, and the 16-byte
+    vectors of a row that one thread holds (a lane, on the warp route)."""
+
+    route: str
+    ctas: int
+    threads: int
+    vecs: int
+
+
+def norm_fwd_plan(rows: int, d: int, dtype, rms: bool, wave=None) -> NormPlan:
+    """The launch plan of ``rms_fwd`` (``rms``) or ``ln_fwd`` for ``rows``
+    rows of ``d`` values, from shapes only: the one-wave kernel at up to
+    ``WAVE_MAX_ROWS`` rows (``wave`` forces the choice, for chip_smoke.py's
+    A/B), with the fewest vectors a thread (a power of two) with which
+    ``WAVE_MAX_THREADS`` threads hold the row, on the fewest whole warps
+    that cover it; else the warp-per-row kernel for LayerNorm rows of at
+    most ``32 * WARP_MAX_VECS`` vectors, and the block-per-row kernel (the
+    fewest vectors a thread, a power of two, at ``BLOCK_MAX_THREADS``
+    threads at most) for the others."""
+    nvec = d // (16 // (torch.finfo(dtype).bits // 8))
+    if wave is None:
+        wave = rows <= WAVE_MAX_ROWS
+    if not wave and not rms and nvec <= 32 * WARP_MAX_VECS:
+        return NormPlan("warp", -(-rows // WARP_ROWS), 32 * WARP_ROWS, -(-nvec // 32))
+    most = WAVE_MAX_THREADS if wave else BLOCK_MAX_THREADS
+    vecs = 1
+    while vecs * most < nvec:
+        vecs *= 2
+    return NormPlan("wave" if wave else "block", rows,
+                    (-(-nvec // vecs) + 31) // 32 * 32, vecs)
 
 
 def uses_kernel(x) -> bool:
@@ -170,10 +227,15 @@ def _same_shape(name: str, x, *others):
                              f"{tuple(t.shape)}")
 
 
-def _fwd_kernel(name: str, x, operands, eps: float, out_shape):
+# the forwards that launch by norm_fwd_plan, and whether each is RMSNorm
+_PLANNED = {"ln_fwd": False, "rms_fwd": True}
+
+
+def _fwd_kernel(name: str, x, operands, eps: float, out_shape, plan=None):
     """Launch the forward ``name`` on x and its other operands (same dtype
     and device; the residual, if any, of x's shape) into a new tensor of
-    ``out_shape``."""
+    ``out_shape``; ``ln_fwd`` and ``rms_fwd`` by ``plan``, or by
+    ``norm_fwd_plan``'s rule when it is None."""
     _check_cuda(name, x, *operands)
     if name.startswith("add"):
         _same_shape(name, x, operands[0])
@@ -183,10 +245,14 @@ def _fwd_kernel(name: str, x, operands, eps: float, out_shape):
     rows = x.numel() // d
     if rows == 0:
         return out
+    route = ()
+    if name in _PLANNED:
+        plan = plan or norm_fwd_plan(rows, d, x.dtype, _PLANNED[name])
+        route = (plan.threads, plan.vecs) if plan.route == "wave" else (0, 0)
     with torch.cuda.device(x.device):
         err = _build.function(name)(
             *_build.ptrs(*ins, out), rows, d, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream())
+            _build.DTYPE_CODES[x.dtype], *route, _build.stream())
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out
