@@ -43,20 +43,24 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    split plans, each bf16 case run twice and held bit for bit, their A/B
    against the one-CTA kernels of a ``-DDECODE_ATTN_ONE_CTA`` build of
    ``quant.cu`` and ``paged.cu`` in turns, and each case at 1, 2, 4, 8 and
-   16 splits with the clusters the card holds at once; ``rms_fwd`` and
-   ``ln_fwd`` on the launch plan's route against the earlier forward (a
-   ``-DNORM_FWD_V1`` build of ``rmsnorm.cu`` and ``layernorm.cu``) in
-   turns at decode and train rows, beside the empty kernel ``norm_null``'s
-   time at each route's grid and block (the launch floor), the one-wave
-   kernel against the old route at 1-8,192 rows, and every norm at every
-   width at 8 rows and past the plan's crossover, ``rms_fwd`` and
-   ``ln_fwd`` the same bits twice; ``flash_bwd.cu``, ``matmul.cu``,
+   16 splits with the clusters the card holds at once; the four forward
+   norms (``rms_fwd``, ``ln_fwd``, ``addrms_fwd``, ``addln_fwd``) on the
+   launch plan's route against the earlier forward (a ``-DNORM_FWD_V1``
+   build of ``rmsnorm.cu`` and ``layernorm.cu``) in turns at decode and
+   train rows, beside the empty kernel ``norm_null``'s time at each
+   route's grid and block (the launch floor) and the library call (after
+   ``x + a`` for the fused ones), the fused ones at decode rows the same
+   bits twice and their y bit-equal to the plain forward of their t, the
+   one-wave kernel against the old route at 1-8,192 rows, and every norm
+   at every width at 8 rows and past the plan's crossover, the forwards
+   the same bits twice; ``flash_bwd.cu``, ``matmul.cu``,
    ``quant.cu``, ``paged.cu``, ``layernorm.cu`` and ``rmsnorm.cu`` built
    with no spill, no ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens), profiled once, and once more
    on the ``-DNORM_FWD_V1`` norms (each profile reports the forward norms'
-   device time per call);
+   device time, and per call for the plain and the fused instantiations
+   apart);
 4. ``DecodeServer`` (8 slots, window 512, staggered requests over 1-3
    prompt buckets, slot reuse): in f32 every request must equal its solo
    ``generate_compiled`` decode token for token, and the f32 logits of the
@@ -262,6 +266,7 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "mm_wgmma_kernel", "sdpa_int8_split_kernel",
                   "paged_attn_split_kernel", "norm_wave_kernel")
 # the forward norms' kernels, whose device time per call each profile reports
+# for the plain and the fused (ADD) instantiations apart
 NORM_FWD_SYMBOLS = ("norm_wave_kernel", "ln_rows_kernel", "norm_fwd_kernel")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -876,8 +881,8 @@ def rms_cases(torch, randn):
     """rms_fwd / addrms_fwd at a decode step's 8 rows and at the options
     train step's 8192 rows of d = 4096, and rms_bwd / addrms_bwd at the
     latter, against their plain versions and F.rms_norm (forward, and its
-    autograd backward); rms_fwd also at 8 rows of d = 1024, the SSM's and
-    MoE's decode shape."""
+    autograd backward); the forwards also at 8 rows of d = 1024, the SSM's
+    and MoE's decode shape."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import layernorm as L
@@ -902,8 +907,6 @@ def rms_cases(torch, randn):
                 plain_ms=device_ms(torch, lambda: L._plain_rmsnorm(x, g, eps)),
                 library_ms=device_ms(torch, lambda: TF.rms_norm(x, (d,), g, eps)),
                 **bound((2 * rows * d + d) * size, flops, dn)))
-            if d != OPT_MODEL["dim"]:
-                continue  # at d 1024 rms_fwd alone
             pair = L.add_rmsnorm(x, a, g, eps)
             plain = L._plain_add_rmsnorm(x, a, g, eps)
             check(torch.equal(pair[0], plain[0]), "addrms: t = x + a must be exact")
@@ -961,11 +964,11 @@ def norm_width_sweep(torch, randn) -> dict:
     """Every norm kernel at every width d <= 8192 that is a multiple of 128,
     at a decode step's 8 rows and at 2 * WAVE_MAX_ROWS + 1 rows, past the
     forward plan's crossover, in bf16 and f32, against its plain version
-    (correctness only: so rms_fwd and ln_fwd pass through both of their
-    routes at every width; the other narrow LayerNorm rows take
-    layernorm.cu's warp-per-row kernels, the wide ones and the other
-    RMSNorms the block-per-row kernels).  rms_fwd and ln_fwd run twice and
-    must give the same bits.  Returns the largest error of each kernel."""
+    (correctness only: so the four forwards pass through both of their
+    routes at every width; the backwards' narrow LayerNorm rows take
+    layernorm.cu's warp-per-row kernels, the wide ones and the RMSNorms
+    the block-per-row kernels).  The forwards run twice and must give the
+    same bits.  Returns the largest error of each kernel."""
     from minidiff_tpu_torch.kernels import layernorm as L
 
     worst: dict = {}
@@ -982,16 +985,16 @@ def norm_width_sweep(torch, randn) -> dict:
                 g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
                 for name, run, ref in (
                         ("ln_fwd", lambda: L.layernorm(x, g, b), L._plain_layernorm(x, g, b)),
-                        ("rms_fwd", lambda: L.rmsnorm(x, g), L._plain_rmsnorm(x, g))):
+                        ("rms_fwd", lambda: L.rmsnorm(x, g), L._plain_rmsnorm(x, g)),
+                        ("addln_fwd", lambda: L.add_layernorm(x, a, g, b),
+                         L._plain_add_layernorm(x, a, g, b)),
+                        ("addrms_fwd", lambda: L.add_rmsnorm(x, a, g),
+                         L._plain_add_rmsnorm(x, a, g))):
                     got = run()
                     hold(name, got, ref, "ln", dn)
                     check(torch.equal(got, run()),
                           f"{name} {dn} {[rows, d]}: a second run gave other bits")
-                    routes.add((name, L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd").route))
-                hold("addln_fwd", L.add_layernorm(x, a, g, b),
-                     L._plain_add_layernorm(x, a, g, b), "ln", dn)
-                hold("addrms_fwd", L.add_rmsnorm(x, a, g), L._plain_add_rmsnorm(x, a, g),
-                     "ln", dn)
+                    routes.add((name, L.norm_fwd_plan(rows, d, dtype, "rms" in name).route))
                 for name, got, ref in (
                         ("ln_bwd", L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy)),
                         ("addln_bwd", L.addln_grads(x, g, dy, g0),
@@ -1002,12 +1005,13 @@ def norm_width_sweep(torch, randn) -> dict:
                     hold(name, got[0], ref[0], "addln_dx" if "add" in name else "ln", dn)
                     for i in range(1, len(got)):
                         hold(name, got[i], ref[i], "lnsum", dn)
-    check(routes == {("ln_fwd", "wave"), ("ln_fwd", "warp"), ("ln_fwd", "block"),
-                     ("rms_fwd", "wave"), ("rms_fwd", "block")},
+    check(routes == {(name, route) for name in ("ln_fwd", "addln_fwd")
+                     for route in ("wave", "warp", "block")}
+          | {(name, route) for name in ("rms_fwd", "addrms_fwd") for route in ("wave", "block")},
           f"norm_width_sweep: routes {sorted(routes)}")
     log(f"[kernel] norms at every d in 128..{L.MAX_WIDTH} step 128, 8 and "
         f"{2 * L.WAVE_MAX_ROWS + 1} rows, bf16 and f32, within tolerance of their "
-        "plain versions (rms_fwd and ln_fwd on both routes, the same bits twice); "
+        "plain versions (the four forwards on both routes, the same bits twice); "
         "largest errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return worst
 
@@ -1029,14 +1033,14 @@ def norm_route_ab(torch, randn, block_lib) -> list:
         for rows in (8, TRAIN_BATCH * TRAIN_SEQ):
             x, a, dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(4))
             g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
-            # ln_fwd on its route before the one-wave kernel (the warp per
-            # row, or every row block-per-row in block_lib)
+            # ln_fwd and addln_fwd on their route before the one-wave kernel
+            # (the warp per row, or every row block-per-row in block_lib)
             warp_plan = L.norm_fwd_plan(rows, d, dtype, False, wave=False)
             runs = {
-                "ln_fwd": (lambda: (L._fwd_kernel("ln_fwd", x, (g, b), 1e-5, x.shape,
-                                                  warp_plan),),
+                "ln_fwd": (lambda: (_norm_fwd_run(L, "ln_fwd", x, g, b, a, warp_plan),),
                            (L._plain_layernorm(x, g, b),), ("ln",)),
-                "addln_fwd": (lambda: (L.add_layernorm(x, a, g, b),),
+                "addln_fwd": (lambda: (_norm_fwd_run(L, "addln_fwd", x, g, b, a,
+                                                     warp_plan),),
                               (L._plain_add_layernorm(x, a, g, b),), ("ln",)),
                 "ln_bwd": (lambda: L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy),
                            ("ln", "lnsum", "lnsum")),
@@ -1059,17 +1063,36 @@ def norm_route_ab(torch, randn, block_lib) -> list:
     return rows_out
 
 
-def _norm_fwd_run(L, name, x, g, b, plan=None):
-    """rms_fwd or ln_fwd on x by ``plan`` (the wrapper's rule when None)."""
-    operands = (g,) if name == "rms_fwd" else (g, b)
-    eps = OPT_MODEL["norm_eps"] if name == "rms_fwd" else 1e-5
-    return L._fwd_kernel(name, x, operands, eps, x.shape, plan)
+def _norm_fwd_run(L, name, x, g, b, a, plan=None):
+    """One of the four forward norms on x (and the residual a) by ``plan``
+    (the wrapper's rule when None)."""
+    rms = "rms" in name
+    operands = ((a,) if name.startswith("add") else ()) + ((g,) if rms else (g, b))
+    eps = OPT_MODEL["norm_eps"] if rms else 1e-5
+    out_shape = ((2,) if name.startswith("add") else ()) + tuple(x.shape)
+    return L._fwd_kernel(name, x, operands, eps, out_shape, plan)
 
 
-def _norm_fwd_plain(L, name, x, g, b):
-    if name == "rms_fwd":
-        return L._plain_rmsnorm(x, g, OPT_MODEL["norm_eps"])
-    return L._plain_layernorm(x, g, b, 1e-5)
+def _norm_fwd_plain(L, name, x, g, b, a):
+    eps = OPT_MODEL["norm_eps"] if "rms" in name else 1e-5
+    return {"rms_fwd": lambda: L._plain_rmsnorm(x, g, eps),
+            "ln_fwd": lambda: L._plain_layernorm(x, g, b, eps),
+            "addrms_fwd": lambda: L._plain_add_rmsnorm(x, a, g, eps),
+            "addln_fwd": lambda: L._plain_add_layernorm(x, a, g, b, eps)}[name]()
+
+
+def _norm_fwd_library(TF, name, x, g, b, a):
+    """The library yardstick: F.rms_norm / F.layer_norm, after x + a for
+    the fused forwards (two calls composed: no single call adds and norms)."""
+    d = x.shape[-1]
+    if "rms" in name:
+        eps = OPT_MODEL["norm_eps"]
+        norm = lambda t: TF.rms_norm(t, (d,), g, eps)  # noqa: E731
+    else:
+        norm = lambda t: TF.layer_norm(t, (d,), g, b, 1e-5)  # noqa: E731
+    if name.startswith("add"):
+        return lambda: norm(x + a)
+    return lambda: norm(x)
 
 
 def _floor_us(torch, plan) -> float:
@@ -1082,23 +1105,28 @@ def _floor_us(torch, plan) -> float:
         null(plan.ctas, plan.threads, _build.stream()), "norm_null")) * 1e3
 
 
-# rms_fwd and ln_fwd shapes of norm_fwd_route_ab: (name, rows, d) at the
+# the forward norms' shapes of norm_fwd_route_ab: (name, rows, d) at the
 # decode steps' 8 rows and the train steps' 8192
 NORM_FWD_AB = (("rms_fwd", 8, 1024), ("rms_fwd", 8, 4096), ("rms_fwd", 8192, 4096),
-               ("ln_fwd", 8, 1024), ("ln_fwd", 8192, 1024))
+               ("ln_fwd", 8, 1024), ("ln_fwd", 8192, 1024),
+               ("addln_fwd", 8, 1024), ("addln_fwd", 8192, 1024),
+               ("addrms_fwd", 8, 1024), ("addrms_fwd", 8, 4096),
+               ("addrms_fwd", 8192, 4096))
 
 
 def norm_fwd_route_ab(torch, randn, v1_libs) -> list:
-    """rms_fwd and ln_fwd at NORM_FWD_AB's shapes, bf16 and f32: the route
-    the plan picks against the earlier forward of ``v1_libs`` ({source:
-    path}: layernorm.cu and rmsnorm.cu built with -DNORM_FWD_V1), each
-    within TOL["ln"] of the plain version, timed in turns (old, new, new,
-    old), with the empty kernel's time at each route's grid and block (its
-    launch floor) and F.rms_norm / F.layer_norm beside.  At a decode shape
-    in bf16 the new route must be faster than the old in both turns; at
-    8192 rows the plan's route within 3% of the old.  addrms_fwd and
-    addln_fwd, which keep their routes, are timed the same way at the
-    decode shapes."""
+    """The four forward norms at NORM_FWD_AB's shapes, bf16 and f32: the
+    route the plan picks against the earlier forward of ``v1_libs``
+    ({source: path}: layernorm.cu and rmsnorm.cu built with
+    -DNORM_FWD_V1), each within TOL["ln"] of the plain version (t = x + a
+    exact), timed in turns (old, new, new, old), with the empty kernel's
+    time at each route's grid and block (its launch floor) and the library
+    beside (F.rms_norm / F.layer_norm, after x + a for the fused forwards).
+    At a decode shape in bf16 the new route must be faster than the old in
+    both turns; at 8192 rows the plan's route within 3% of the old.  At
+    decode rows a fused forward must give the same bits on a second run,
+    and its y must equal the plain forward (rms_fwd / ln_fwd) of its t bit
+    for bit."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import layernorm as L
@@ -1107,55 +1135,54 @@ def norm_fwd_route_ab(torch, randn, v1_libs) -> list:
     rows_out = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        for name, rows, d in NORM_FWD_AB + (("addrms_fwd", 8, 4096), ("addln_fwd", 8, 1024)):
+        for name, rows, d in NORM_FWD_AB:
             x = randn(rows, d, dtype=dtype) * 3 + 1
             a = randn(rows, d, dtype=dtype)
             g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
-            rms = "rms" in name
+            rms, add = "rms" in name, name.startswith("add")
             src = "rmsnorm" if rms else "layernorm"
-            eps = OPT_MODEL["norm_eps"] if rms else 1e-5
-            if name.startswith("add"):
-                plan = None
-                run = ((lambda: L.add_rmsnorm(x, a, g, eps)) if rms
-                       else (lambda: L.add_layernorm(x, a, g, b, eps)))
-                ref = (L._plain_add_rmsnorm(x, a, g, eps) if rms
-                       else L._plain_add_layernorm(x, a, g, b, eps))
-                library = None
-            else:
-                plan = L.norm_fwd_plan(rows, d, dtype, rms)
-                run = lambda: _norm_fwd_run(L, name, x, g, b)  # noqa: E731
-                ref = _norm_fwd_plain(L, name, x, g, b)
-                library = ((lambda: TF.rms_norm(x, (d,), g, eps)) if rms
-                           else (lambda: TF.layer_norm(x, (d,), g, b, eps)))
+            plan = L.norm_fwd_plan(rows, d, dtype, rms)
+            run = lambda: _norm_fwd_run(L, name, x, g, b, a)  # noqa: E731
+            ref = _norm_fwd_plain(L, name, x, g, b, a)
             us, err = {"old": [], "new": []}, {}
             for route in ("old", "new", "new", "old"):
                 with built_as(src, old[src]) if route == "old" else contextlib.nullcontext():
                     if route not in err:
-                        err[route] = max_err(torch, run(), ref, "ln", dn)
+                        got = run()
+                        if add:
+                            check(torch.equal(got[0], ref[0]),
+                                  f"{name} {[rows, d]} {dn} ({route}): t = x + a must be exact")
+                        err[route] = max_err(torch, got, ref, "ln", dn)
                     us[route].append(device_ms(torch, run) * 1e3)
+            old_plan = L.norm_fwd_plan(rows, d, dtype, rms, wave=False)
             row = dict(name=name, dtype=dn, shape=[rows, d], old_us=us["old"],
-                       new_us=us["new"], max_abs_err=err)
-            if plan is not None:
-                old_plan = L.norm_fwd_plan(rows, d, dtype, rms, wave=False)
-                row.update(route=plan.route, threads=plan.threads, vecs=plan.vecs,
-                           floor_us=_floor_us(torch, plan),
-                           old_floor_us=_floor_us(torch, old_plan),
-                           library_us=device_ms(torch, library) * 1e3)
-                if rows <= L.WAVE_MAX_ROWS and dtype == torch.bfloat16:
-                    check(max(us["new"]) < min(us["old"]),
-                          f"{name} {[rows, d]} bf16: the new route {us['new']} us is not "
-                          f"faster than the old {us['old']} us")
-                if rows > L.WAVE_MAX_ROWS:
-                    check(max(us["new"]) <= 1.03 * min(us["old"]),
-                          f"{name} {[rows, d]} {dn}: the plan's route {us['new']} us is "
-                          f"more than 3% slower than the old {us['old']} us")
+                       new_us=us["new"], max_abs_err=err, route=plan.route,
+                       threads=plan.threads, vecs=plan.vecs,
+                       floor_us=_floor_us(torch, plan),
+                       old_floor_us=_floor_us(torch, old_plan),
+                       library_us=device_ms(torch, _norm_fwd_library(
+                           TF, name, x, g, b, a)) * 1e3)
+            if rows <= L.WAVE_MAX_ROWS and dtype == torch.bfloat16:
+                check(max(us["new"]) < min(us["old"]),
+                      f"{name} {[rows, d]} bf16: the new route {us['new']} us is not "
+                      f"faster than the old {us['old']} us")
+            if rows > L.WAVE_MAX_ROWS:
+                check(max(us["new"]) <= 1.03 * min(us["old"]),
+                      f"{name} {[rows, d]} {dn}: the plan's route {us['new']} us is "
+                      f"more than 3% slower than the old {us['old']} us")
+            if add and rows <= L.WAVE_MAX_ROWS:
+                pair = run()
+                check(torch.equal(pair, run()),
+                      f"{name} {[rows, d]} {dn}: a second run gave other bits")
+                alone = _norm_fwd_run(L, name[3:], pair[0], g, b, None)
+                check(torch.equal(pair[1], alone),
+                      f"{name} {[rows, d]} {dn}: y is not {name[3:]} of t bit for bit")
             rows_out.append(row)
-            extra = (f" | floor {row['floor_us']:6.2f} (old {row['old_floor_us']:6.2f}) us "
-                     f"| library {row['library_us']:7.2f} us | {plan.route} "
-                     f"{plan.threads}x{plan.vecs}" if plan is not None else " | route kept")
             log(f"[norm ab] {name:10s} {dn:8s} {str([rows, d]):12s} old "
                 f"{us['old'][0]:7.2f} / {us['old'][1]:7.2f} us | new {us['new'][0]:7.2f} / "
-                f"{us['new'][1]:7.2f} us{extra}")
+                f"{us['new'][1]:7.2f} us | floor {row['floor_us']:6.2f} (old "
+                f"{row['old_floor_us']:6.2f}) us | library {row['library_us']:7.2f} us | "
+                f"{plan.route} {plan.threads}x{plan.vecs}")
     return rows_out
 
 
@@ -1163,11 +1190,11 @@ NORM_ROWS_AB = (1, 8, 32, 128, 512, 8192)
 
 
 def norm_rows_ab(torch, randn) -> list:
-    """rms_fwd and ln_fwd in bf16 at NORM_ROWS_AB's rows of d 1024 and 4096:
-    the one-wave kernel against the route before it, both forced through
-    norm_fwd_plan, in turns (old, wave, wave, old), each within TOL["ln"]
-    of the plain version, with each route's launch floor: the readings
-    behind kernels.layernorm.WAVE_MAX_ROWS."""
+    """The four forward norms in bf16 at NORM_ROWS_AB's rows of d 1024 and
+    4096: the one-wave kernel against the route before it, both forced
+    through norm_fwd_plan, in turns (old, wave, wave, old), each within
+    TOL["ln"] of the plain version, with each route's launch floor: the
+    readings behind kernels.layernorm.WAVE_MAX_ROWS."""
     from minidiff_tpu_torch.kernels import layernorm as L
 
     dtype, dn = torch.bfloat16, "bfloat16"
@@ -1175,14 +1202,16 @@ def norm_rows_ab(torch, randn) -> list:
     for d in (1024, 4096):
         for rows in NORM_ROWS_AB:
             x = randn(rows, d, dtype=dtype) * 3 + 1
+            a = randn(rows, d, dtype=dtype)
             g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
-            for name in ("rms_fwd", "ln_fwd"):
-                plans = {wave: L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd", wave=wave)
+            for name in ("rms_fwd", "ln_fwd", "addrms_fwd", "addln_fwd"):
+                rms = "rms" in name
+                plans = {wave: L.norm_fwd_plan(rows, d, dtype, rms, wave=wave)
                          for wave in (False, True)}
-                ref = _norm_fwd_plain(L, name, x, g, b)
+                ref = _norm_fwd_plain(L, name, x, g, b, a)
                 us = {False: [], True: []}
                 for wave in (False, True, True, False):
-                    run = lambda: _norm_fwd_run(L, name, x, g, b, plans[wave])  # noqa: E731
+                    run = lambda: _norm_fwd_run(L, name, x, g, b, a, plans[wave])  # noqa: E731
                     if not us[wave]:
                         max_err(torch, run(), ref, "ln", dn)
                     us[wave].append(device_ms(torch, run) * 1e3)
@@ -1190,9 +1219,9 @@ def norm_rows_ab(torch, randn) -> list:
                            old_us=us[False], wave_us=us[True],
                            old_floor_us=_floor_us(torch, plans[False]),
                            wave_floor_us=_floor_us(torch, plans[True]),
-                           plan=L.norm_fwd_plan(rows, d, dtype, name == "rms_fwd").route)
+                           plan=L.norm_fwd_plan(rows, d, dtype, rms).route)
                 out.append(row)
-                log(f"[norm rows] {name:8s} {str([rows, d]):12s} plan {row['plan']:5s} | "
+                log(f"[norm rows] {name:10s} {str([rows, d]):12s} plan {row['plan']:5s} | "
                     f"{row['old_route']} {us[False][0]:7.2f} / {us[False][1]:7.2f} us "
                     f"(floor {row['old_floor_us']:5.2f}) | wave {us[True][0]:7.2f} / "
                     f"{us[True][1]:7.2f} us (floor {row['wave_floor_us']:5.2f})")
@@ -2360,6 +2389,26 @@ def phase_generate(torch, seed: int, report):
                 lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
 
+def norm_fwd_instance(key: str):
+    """The forward norm a profiler key names, as its symbol, with \"+add\"
+    for the instantiation that adds the residual (each of NORM_FWD_SYMBOLS
+    takes ADD as its last template argument), or None for another kernel.
+    The key is demangled (``norm_wave_kernel<__nv_bfloat16, 1, true,
+    false>``) or mangled (``norm_wave_kernelI13__nv_bfloat16Li1ELb1ELb0E``)."""
+    for sym in NORM_FWD_SYMBOLS:
+        m = re.search(rf"(?<![A-Za-z_]){sym}(<[^<>]*>|I.*)", key)
+        if m is None:
+            continue
+        args = m.group(1)
+        if args.startswith("<"):
+            add = args[1:-1].split(",")[-1].strip() in ("true", "(bool)1")
+        else:
+            bools = re.findall(r"Lb([01])E", args)
+            add = bool(bools) and bools[-1] == "1"
+        return sym + ("+add" if add else "")
+    return None
+
+
 def profile_run(torch, label, run):
     """Device-busy share and device time by kernel over one run, from
     torch.profiler (kernels on one stream never overlap, so the sum of their
@@ -2426,14 +2475,21 @@ def profile_run(torch, label, run):
         log(f"[profile]   {r['device_us']:9.1f} us {r['calls']:5d} calls  {r['kernel']}")
     log("[profile]   ported: " + ", ".join(
         f"{sym} {us:.1f} us in {n}" for sym, (us, n) in sorted(ported.items())))
-    norms = {sym: ported[sym][0] / ported[sym][1] for sym in NORM_FWD_SYMBOLS
-             if sym in ported}
+    # the forward norms by instantiation: device us and calls of each
+    norm_fwd: dict = {}
+    for k, t, n in rows:
+        inst = norm_fwd_instance(k)
+        if inst is not None:
+            us, c = norm_fwd.get(inst, (0.0, 0))
+            norm_fwd[inst] = [us + t, c + n]
+    norms = {inst: us / n for inst, (us, n) in norm_fwd.items()}
     if norms:
-        log("[profile]   forward norms, device us a call: " + ", ".join(
-            f"{sym} {us:.2f}" for sym, us in norms.items()))
+        log(f"[profile]   forward norms {sum(us for us, _ in norm_fwd.values()):.1f} us; "
+            "device us a call: " + ", ".join(
+                f"{inst} {norms[inst]:.2f} in {n}" for inst, (_, n) in sorted(norm_fwd.items())))
     return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
                 device_us_by_kind=by_kind, top=top, ported=ported,
-                norm_us_per_call=norms)
+                norm_fwd=norm_fwd, norm_us_per_call=norms)
 
 
 # ---------------------------------------------------------------------------

@@ -44,12 +44,13 @@
 // -DNORM_BLOCK_PER_ROW sends every row there (chip_smoke.py times the two
 // routes against each other at the flagship's widths).
 //
-// ln_fwd at decode-sized row counts takes rowblock.cuh's norm_wave_kernel
-// instead, as its launch plan (kernels.layernorm.norm_fwd_plan) says: one
-// CTA per row, x, g and b fetched in one wave, one exchange per row.  The
-// warp-per-row kernel's serial chain (x, two dependent shuffle reductions,
-// only then g and b) made it slower at 8 rows of 1,024 than rms_fwd at 8
-// rows of 4,096.  addln_fwd keeps its routes.
+// ln_fwd and addln_fwd at decode-sized row counts take rowblock.cuh's
+// norm_wave_kernel instead, as their launch plan
+// (kernels.layernorm.norm_fwd_plan) says: one CTA per row, x, a (addln),
+// g and b fetched in one wave, t = x + a stored before the row's one
+// exchange.  The warp-per-row kernel's serial chain (x, then a, two
+// dependent shuffle reductions, only then g and b) made it slower at 8
+// rows of 1,024 than rms_fwd at 8 rows of 4,096.
 
 #include "rowblock.cuh"
 
@@ -133,9 +134,16 @@ ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
+// The forward by the plan's (threads, vecs): vecs > 0 on rowblock.cuh's
+// norm_wave_kernel, else (and on every row of a -DNORM_FWD_V1 or
+// -DNORM_BLOCK_PER_ROW build) a warp per row or a block per row.
 template <typename T, bool ADD>
 int launch(const void* x, const void* a, const void* g, const void* b,
-           void* t_out, void* y, int rows, int d, float eps, void* stream) {
+           void* t_out, void* y, int rows, int d, float eps, int threads,
+           int vecs, void* stream) {
+  if (vecs > 0 && !rowblock::kFwdV1 && !kBlockPerRow)
+    return rowblock::launch_wave<T, false, ADD>(x, a, g, b, t_out, y, rows, d,
+                                                eps, threads, vecs, stream);
   if (kBlockPerRow || d > kWarpRowWidth<T>)
     return rowblock::launch_fwd<T, false, ADD>(x, a, g, b, t_out, y, rows, d,
                                                eps, stream);
@@ -329,29 +337,27 @@ int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
 extern "C" int ln_fwd(const void* x, const void* g, const void* b, void* y,
                       int rows, int d, float eps, int dtype, int threads,
                       int vecs, void* stream) {
-  if (vecs > 0 && !rowblock::kFwdV1 && !kBlockPerRow) {
-    if (dtype == 1)
-      return rowblock::launch_wave<__nv_bfloat16, false>(x, g, b, y, rows, d, eps,
-                                                         threads, vecs, stream);
-    return rowblock::launch_wave<float, false>(x, g, b, y, rows, d, eps, threads,
-                                               vecs, stream);
-  }
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(x, nullptr, g, b, nullptr, y, rows, d, eps, stream);
-  return launch<float, false>(x, nullptr, g, b, nullptr, y, rows, d, eps, stream);
+    return launch<__nv_bfloat16, false>(x, nullptr, g, b, nullptr, y, rows, d,
+                                        eps, threads, vecs, stream);
+  return launch<float, false>(x, nullptr, g, b, nullptr, y, rows, d, eps,
+                              threads, vecs, stream);
 }
 
-// out holds (2, rows, d): out[0] = x + a, out[1] = LN(x + a).
+// out holds (2, rows, d): out[0] = x + a, out[1] = LN(x + a).  threads,
+// vecs: the launch plan's, routed as ln_fwd's.
 extern "C" int addln_fwd(const void* x, const void* a, const void* g,
                          const void* b, void* out, int rows, int d, float eps,
-                         int dtype, void* stream) {
+                         int dtype, int threads, int vecs, void* stream) {
   const size_t n = static_cast<size_t>(rows) * d;
   if (dtype == 1) {
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    return launch<__nv_bfloat16, true>(x, a, g, b, o, o + n, rows, d, eps, stream);
+    return launch<__nv_bfloat16, true>(x, a, g, b, o, o + n, rows, d, eps,
+                                       threads, vecs, stream);
   }
   float* o = static_cast<float*>(out);
-  return launch<float, true>(x, a, g, b, o, o + n, rows, d, eps, stream);
+  return launch<float, true>(x, a, g, b, o, o + n, rows, d, eps, threads, vecs,
+                             stream);
 }
 
 // dx like x; dgp and dbp (blocks, d) f32 partials, blocks >= 1 (the

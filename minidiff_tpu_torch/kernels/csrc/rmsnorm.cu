@@ -28,11 +28,11 @@
 // once; a row statistic costs one block reduction (two shared-memory
 // barriers).  The backward writes per-block f32 dg partial rows that the
 // caller sums, as ln_bwd does.  At a decode step's 8 rows the launch is
-// latency-bound: rms_fwd there takes rowblock.cuh's norm_wave_kernel, as
-// its launch plan (kernels.layernorm.norm_fwd_plan) says, which fetches x
-// and g in one wave and makes one exchange per row, where the block-per-row
-// kernel loaded g only after its reduction's two barriers.  addrms_fwd
-// keeps its route.
+// latency-bound: rms_fwd and addrms_fwd there take rowblock.cuh's
+// norm_wave_kernel, as their launch plan (kernels.layernorm.norm_fwd_plan)
+// says, which fetches x, a (addrms) and g in one wave, stores t = x + a
+// before its one exchange per row, where the block-per-row kernel loaded g
+// only after its reduction's two barriers.
 
 #include "rowblock.cuh"
 
@@ -42,8 +42,21 @@ namespace {
 // parameters, which chip_smoke.py launches at each norm's grid and block
 // to measure the least time a launch of that shape takes on the card (the
 // floor beside every decode-row norm time).
-__global__ void norm_null_kernel(const void*, const void*, const void*, void*,
-                                 int, float) {}
+__global__ void norm_null_kernel(const void*, const void*, const void*,
+                                 const void*, void*, void*, int, float, float) {}
+
+// The forward by the plan's (threads, vecs): vecs > 0 on rowblock.cuh's
+// norm_wave_kernel, else (and on every row of a -DNORM_FWD_V1 build) a
+// block per row.
+template <typename T, bool ADD>
+int launch(const void* x, const void* a, const void* g, void* t_out, void* y,
+           int rows, int d, float eps, int threads, int vecs, void* stream) {
+  if (vecs > 0 && !rowblock::kFwdV1)
+    return rowblock::launch_wave<T, true, ADD>(x, a, g, nullptr, t_out, y, rows,
+                                               d, eps, threads, vecs, stream);
+  return rowblock::launch_fwd<T, true, ADD>(x, a, g, nullptr, t_out, y, rows, d,
+                                            eps, stream);
+}
 
 }  // namespace
 
@@ -56,33 +69,27 @@ __global__ void norm_null_kernel(const void*, const void*, const void*, void*,
 // Returns cudaGetLastError().
 extern "C" int rms_fwd(const void* x, const void* g, void* y, int rows, int d,
                        float eps, int dtype, int threads, int vecs, void* stream) {
-  if (vecs > 0 && !rowblock::kFwdV1) {
-    if (dtype == 1)
-      return rowblock::launch_wave<__nv_bfloat16, true>(x, g, nullptr, y, rows, d,
-                                                        eps, threads, vecs, stream);
-    return rowblock::launch_wave<float, true>(x, g, nullptr, y, rows, d, eps,
-                                              threads, vecs, stream);
-  }
   if (dtype == 1)
-    return rowblock::launch_fwd<__nv_bfloat16, true, false>(
-        x, nullptr, g, nullptr, nullptr, y, rows, d, eps, stream);
-  return rowblock::launch_fwd<float, true, false>(
-      x, nullptr, g, nullptr, nullptr, y, rows, d, eps, stream);
+    return launch<__nv_bfloat16, false>(x, nullptr, g, nullptr, y, rows, d, eps,
+                                        threads, vecs, stream);
+  return launch<float, false>(x, nullptr, g, nullptr, y, rows, d, eps, threads,
+                              vecs, stream);
 }
 
 // out holds (2, rows, d): out[0] = x + a, out[1] = RMSNorm(x + a).
+// threads, vecs: the launch plan's, routed as rms_fwd's.
 extern "C" int addrms_fwd(const void* x, const void* a, const void* g,
                           void* out, int rows, int d, float eps, int dtype,
-                          void* stream) {
+                          int threads, int vecs, void* stream) {
   const size_t n = static_cast<size_t>(rows) * d;
   if (dtype == 1) {
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    return rowblock::launch_fwd<__nv_bfloat16, true, true>(
-        x, a, g, nullptr, o, o + n, rows, d, eps, stream);
+    return launch<__nv_bfloat16, true>(x, a, g, o, o + n, rows, d, eps, threads,
+                                       vecs, stream);
   }
   float* o = static_cast<float*>(out);
-  return rowblock::launch_fwd<float, true, true>(x, a, g, nullptr, o, o + n,
-                                                 rows, d, eps, stream);
+  return launch<float, true>(x, a, g, o, o + n, rows, d, eps, threads, vecs,
+                             stream);
 }
 
 // dx like x; dgp (blocks, d) f32 partial rows, blocks >= 1.
@@ -111,6 +118,6 @@ extern "C" int addrms_bwd(const void* t, const void* g, const void* dy,
 // The empty kernel at a grid of ctas and blocks of threads.
 extern "C" int norm_null(int ctas, int threads, void* stream) {
   norm_null_kernel<<<ctas, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nullptr, nullptr, nullptr, nullptr, 0, 0.f);
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.f, 0.f);
   return static_cast<int>(cudaGetLastError());
 }

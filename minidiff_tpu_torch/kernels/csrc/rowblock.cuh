@@ -17,10 +17,11 @@
 // registers and writes them once as its block's f32 partial row.  The
 // caller sums the partial rows: no atomics, the same result on every run.
 //
-// norm_wave_kernel is the forward of rms_fwd and ln_fwd at decode-sized row
-// counts (kernels.layernorm.norm_fwd_plan sends them there; see the kernel).
-// A build with -DNORM_FWD_V1 takes the routes above for every row, as
-// before the one-wave kernel (chip_smoke.py times the two in turns).
+// norm_wave_kernel is the forward of rms_fwd, ln_fwd, addrms_fwd and
+// addln_fwd at decode-sized row counts (kernels.layernorm.norm_fwd_plan
+// sends them there; see the kernel).  A build with -DNORM_FWD_V1 takes the
+// routes above for every row, as before the one-wave kernel (chip_smoke.py
+// times the two in turns).
 #pragma once
 
 #include "rowwise.cuh"
@@ -310,6 +311,25 @@ constexpr int wave_max_vecs() {
   return kMaxWidth / (kWaveMaxThreads * Vec<T>::N);  // 2 for bf16, 4 for f32
 }
 
+// The correctly rounded f32 reciprocals of the counts 1..kWaveMaxCount (the
+// most values a warp of the one-wave kernel holds; 0 maps to 0): a ragged
+// part's mean is its sum times the reciprocal of its count.  The kernel
+// divides nowhere, 1/d comes from the host: an IEEE division's slow path is
+// a called subroutine, and ptxas spilled the registers it saved around it.
+constexpr int kWaveMaxCount = 32 * kMaxWidth / kWaveMaxThreads;
+
+struct RcpTable {
+  float r[kWaveMaxCount + 1];
+};
+
+constexpr RcpTable rcp_table() {
+  RcpTable t{};
+  for (int n = 1; n <= kWaveMaxCount; ++n) t.r[n] = 1.f / static_cast<float>(n);
+  return t;
+}
+
+__constant__ RcpTable kRcp = rcp_table();
+
 inline int wave_vecs(int nvec) {
   int n = 1;
   while (n * kWaveMaxThreads < nvec) n *= 2;
@@ -334,12 +354,17 @@ __device__ __forceinline__ float group_sum(float v, int span) {
 // not its bytes bounds the forward (an (8, 4096) bf16 row block is 128 KB:
 // 0.04 us at the HBM rate, against ~3 us per launch of the kernels above).
 // The design takes the serial steps out of the latency chain:
-// - one load wave: each thread fetches its vectors of x, g (and b) before
-//   any reduction, so the weights' round trip overlaps x's instead of
-//   following a barrier;
+// - one load wave: each thread fetches its vectors of x, a (ADD), g (and b)
+//   before any reduction, so the weights' and the residual's round trips
+//   overlap x's instead of following it or a barrier;
 // - width over depth: a row spread over up to kWaveMaxThreads threads of
 //   one vector each where it fits (wave_vecs), all loads of a thread in
 //   flight at once;
+// - ADD: t = round_T(x + a) is formed in registers, packed as it is
+//   stored (Vec::add), and stored to t_out before the exchange, so its
+//   write drains under the reduction; the statistics and y are then those
+//   of the rounded t, in the order below, so y equals the plain kernel's
+//   on t bit for bit;
 // - one exchange per row: warp shuffles, then each warp's partial through
 //   shared memory and one barrier, after which every warp combines the
 //   warps' partials by the same shuffles (group_sum over the fewest lanes,
@@ -356,10 +381,12 @@ __device__ __forceinline__ float group_sum(float v, int span) {
 // exchange), not a chain of pairwise merges.  Sums are taken in a fixed
 // order, so every run gets the same bits.  Statistics in f32; y rounded
 // once to T.
-template <typename T, int NV, bool RMS>
+template <typename T, int NV, bool RMS, bool ADD>
 __global__ void __launch_bounds__(kWaveMaxThreads)
-norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                 const T* __restrict__ b, T* __restrict__ y, int d, float eps) {
+norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ a,
+                 const T* __restrict__ g, const T* __restrict__ b,
+                 T* __restrict__ t_out, T* __restrict__ y, int d, float inv_d,
+                 float eps) {
   constexpr int V = Vec<T>::N;
   using Raw = typename Vec<T>::Raw;
   // each warp's partial: RMS its sum of squares; LN (sum, mean, centred sum
@@ -374,25 +401,33 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int nvec = d / V;
   const size_t base = static_cast<size_t>(blockIdx.x) * d;
 
-  Raw xr[NV], gr[NV], br[NV];
+  Raw xr[NV], ar[NV], gr[NV], br[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = threadIdx.x + i * blockDim.x;
     if (c < nvec) {
       xr[i] = Vec<T>::fetch(x + base + c * V);
+      if (ADD) ar[i] = Vec<T>::fetch(a + base + c * V);
       gr[i] = Vec<T>::fetch(g + c * V);
       if (!RMS) br[i] = Vec<T>::fetch(b + c * V);
     }
   }
-  const float inv_d = 1.f / static_cast<float>(d);
 
   float v[NV][V];
   int held = 0;  // this thread's vectors of the row
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    if (threadIdx.x + i * blockDim.x < nvec) {
-      Vec<T>::unpack(xr[i], v[i]);
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      if (ADD) {
+        // t packed as stored: one rounded add per value, no repacking
+        const Raw t = Vec<T>::add(xr[i], ar[i]);
+        Vec<T>::store_raw(t_out + base + c * V, t);
+        Vec<T>::unpack(t, v[i]);
+      } else {
+        Vec<T>::unpack(xr[i], v[i]);
+      }
       ++held;
 #pragma unroll
       for (int j = 0; j < V; ++j) s += RMS ? v[i][j] * v[i][j] : v[i][j];
@@ -406,10 +441,10 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
     __syncthreads();
     rsig = rsqrtf(group_sum(part < warps ? red[part].x : 0.f, span) * inv_d + eps);
   } else {
-    // this thread's part: count, mean, centred sum of squares (a count of
-    // NV * V, a power of two, divides as a product by its reciprocal)
+    // this thread's part: count, mean, centred sum of squares (the mean of
+    // NV * V values, a power of two, by a constant reciprocal)
     const float c = static_cast<float>(held * V);
-    const float m = held == NV ? s * (1.f / (NV * V)) : held > 0 ? s / c : 0.f;
+    const float m = held == NV ? s * (1.f / (NV * V)) : s * kRcp.r[held * V];
     float q = 0.f;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -429,7 +464,7 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
       wv += min(32, max(0, nvec - i * static_cast<int>(blockDim.x) - 32 * warp));
     const float cw = static_cast<float>(wv * V);
     const float sw = warp_sum(s);
-    const float mw = wv == 32 * NV ? sw * (1.f / (32 * NV * V)) : sw / cw;
+    const float mw = wv == 32 * NV ? sw * (1.f / (32 * NV * V)) : sw * kRcp.r[wv * V];
     const float e = m - mw;
     const float qw = warp_sum(q + c * e * e);
     if (lane == 0) red[warp] = make_float4(sw, mw, qw, cw);
@@ -460,22 +495,26 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ g,
 // Launch the one-wave forward at the plan's (threads, vecs), refused with
 // cudaErrorInvalidValue unless that is the kernel's own configuration for
 // a row of d values (wave_vecs vectors a thread, the fewest whole warps
-// that cover the row with them).
-template <typename T, bool RMS>
-int launch_wave(const void* x, const void* g, const void* b, void* y, int rows,
-                int d, float eps, int threads, int vecs, void* stream) {
+// that cover the row with them).  a and t_out are read and written only
+// with ADD.
+template <typename T, bool RMS, bool ADD>
+int launch_wave(const void* x, const void* a, const void* g, const void* b,
+                void* t_out, void* y, int rows, int d, float eps, int threads,
+                int vecs, void* stream) {
   const int nvec = d / Vec<T>::N;
   if (d > kMaxWidth || vecs != wave_vecs(nvec) ||
       threads != wave_threads(nvec, vecs))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = norm_wave_kernel<T, 1, RMS>;
-  if (vecs == 2) kernel = norm_wave_kernel<T, 2, RMS>;
+  auto kernel = norm_wave_kernel<T, 1, RMS, ADD>;
+  if (vecs == 2) kernel = norm_wave_kernel<T, 2, RMS, ADD>;
   if constexpr (wave_max_vecs<T>() > 2) {
-    if (vecs == 4) kernel = norm_wave_kernel<T, 4, RMS>;
+    if (vecs == 4) kernel = norm_wave_kernel<T, 4, RMS, ADD>;
   }
   kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const T*>(b), static_cast<T*>(y), d, eps);
+      static_cast<const T*>(x), static_cast<const T*>(a),
+      static_cast<const T*>(g), static_cast<const T*>(b),
+      static_cast<T*>(t_out), static_cast<T*>(y), d,
+      1.f / static_cast<float>(d), eps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,6 +27,13 @@ struct Vec<float> {
   }
   // a value rounded to the model dtype: f32 is already f32
   __device__ static float round(float v) { return v; }
+  // the 16 bytes of x + a, as stored
+  __device__ static Raw add(const Raw& x, const Raw& a) {
+    return make_float4(x.x + a.x, x.y + a.y, x.z + a.z, x.w + a.w);
+  }
+  __device__ static void store_raw(float* p, const Raw& v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
 };
 
 template <>
@@ -57,6 +64,20 @@ struct Vec<__nv_bfloat16> {
   // f32 followed by this equals the add in bf16)
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  // the 16 bytes of x + a, each pair added and rounded once to bf16 (the
+  // correctly rounded bf16 sum: round(x + a) of the values in f32)
+  __device__ static Raw add(const Raw& x, const Raw& a) {
+    Raw t;
+    const __nv_bfloat162* hx = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+    __nv_bfloat162* ht = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ht[i] = __hadd2(hx[i], ha[i]);
+    return t;
+  }
+  __device__ static void store_raw(__nv_bfloat16* p, const Raw& v) {
+    *reinterpret_cast<uint4*>(p) = v;
   }
 };
 

@@ -40,13 +40,15 @@ rule ``uses_kernel`` decided before launch.  A CUDA tensor that the rule
 sends to the kernels and that they do not take (operands of mixed dtypes)
 raises: nothing falls back.
 
-``ln_fwd`` and ``rms_fwd`` launch by ``norm_fwd_plan``, decided from shapes
-before launch: at decode-sized row counts (up to ``WAVE_MAX_ROWS``) the
-one-wave kernel of ``csrc/rowblock.cuh`` (``norm_wave_kernel``: one CTA per
-row, x, g and b fetched together, one exchange per row, LayerNorm's
-statistics merged by Chan's formula in a fixed order), else their earlier
-routes (``ln_rows_kernel``, a warp per row, for LayerNorm rows a warp's
-registers hold; ``norm_fwd_kernel``, a block per row, for the rest).
+The four forwards (``ln_fwd``, ``addln_fwd``, ``rms_fwd``, ``addrms_fwd``)
+launch by ``norm_fwd_plan``, decided from shapes before launch: at
+decode-sized row counts (up to ``WAVE_MAX_ROWS``) the one-wave kernel of
+``csrc/rowblock.cuh`` (``norm_wave_kernel``: one CTA per row, x, the
+residual a, g and b fetched together, t = x + a stored before the row's one
+exchange, LayerNorm's statistics merged by Chan's formula in a fixed
+order), else their earlier routes (``ln_rows_kernel``, a warp per row, for
+LayerNorm rows a warp's registers hold; ``norm_fwd_kernel``, a block per
+row, for the rest).
 """
 
 from __future__ import annotations
@@ -72,15 +74,16 @@ WAVE_MAX_THREADS = 512
 BLOCK_MAX_THREADS = 256
 WARP_ROWS = 4
 WARP_MAX_VECS = 8
-# ln_fwd and rms_fwd take the one-wave kernel at up to this many rows:
+# the forwards take the one-wave kernel at up to this many rows:
 # chip_smoke.py's norm_rows_ab found it faster than the old routes at 1-128
-# bf16 rows of 1,024 and 4,096 for both, and slower for ln_fwd at 512 rows
-# of 4,096 and at 8,192 of either
+# bf16 rows of 1,024 and 4,096 for all four, and slower for ln_fwd and
+# addln_fwd at 512 rows of 4,096 (the fused forwards cross where the plain
+# ones do)
 WAVE_MAX_ROWS = 128
 
 
 class NormPlan(NamedTuple):
-    """How ``ln_fwd`` / ``rms_fwd`` launch: the route ("wave":
+    """How a forward norm launches: the route ("wave":
     ``norm_wave_kernel``, one CTA per row; "warp": ``ln_rows_kernel``,
     ``WARP_ROWS`` rows per CTA, a warp each; "block": ``norm_fwd_kernel``,
     one CTA per row), the CTAs, the threads of a CTA, and the 16-byte
@@ -93,8 +96,9 @@ class NormPlan(NamedTuple):
 
 
 def norm_fwd_plan(rows: int, d: int, dtype, rms: bool, wave=None) -> NormPlan:
-    """The launch plan of ``rms_fwd`` (``rms``) or ``ln_fwd`` for ``rows``
-    rows of ``d`` values, from shapes only: the one-wave kernel at up to
+    """The launch plan of ``rms_fwd`` and ``addrms_fwd`` (``rms``) or
+    ``ln_fwd`` and ``addln_fwd`` for ``rows`` rows of ``d`` values, from
+    shapes only (the residual add changes no route): the one-wave kernel at up to
     ``WAVE_MAX_ROWS`` rows (``wave`` forces the choice, for chip_smoke.py's
     A/B), with the fewest vectors a thread (a power of two) with which
     ``WAVE_MAX_THREADS`` threads hold the row, on the fewest whole warps
@@ -228,14 +232,14 @@ def _same_shape(name: str, x, *others):
 
 
 # the forwards that launch by norm_fwd_plan, and whether each is RMSNorm
-_PLANNED = {"ln_fwd": False, "rms_fwd": True}
+_PLANNED = {"ln_fwd": False, "addln_fwd": False, "rms_fwd": True, "addrms_fwd": True}
 
 
 def _fwd_kernel(name: str, x, operands, eps: float, out_shape, plan=None):
     """Launch the forward ``name`` on x and its other operands (same dtype
     and device; the residual, if any, of x's shape) into a new tensor of
-    ``out_shape``; ``ln_fwd`` and ``rms_fwd`` by ``plan``, or by
-    ``norm_fwd_plan``'s rule when it is None."""
+    ``out_shape``, by ``plan``, or by ``norm_fwd_plan``'s rule when it is
+    None."""
     _check_cuda(name, x, *operands)
     if name.startswith("add"):
         _same_shape(name, x, operands[0])
@@ -245,10 +249,8 @@ def _fwd_kernel(name: str, x, operands, eps: float, out_shape, plan=None):
     rows = x.numel() // d
     if rows == 0:
         return out
-    route = ()
-    if name in _PLANNED:
-        plan = plan or norm_fwd_plan(rows, d, x.dtype, _PLANNED[name])
-        route = (plan.threads, plan.vecs) if plan.route == "wave" else (0, 0)
+    plan = plan or norm_fwd_plan(rows, d, x.dtype, _PLANNED[name])
+    route = (plan.threads, plan.vecs) if plan.route == "wave" else (0, 0)
     with torch.cuda.device(x.device):
         err = _build.function(name)(
             *_build.ptrs(*ins, out), rows, d, float(eps),

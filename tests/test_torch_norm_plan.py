@@ -2,16 +2,19 @@
 reduction order, on the CPU.
 
 ``kernels.layernorm.norm_fwd_plan`` decides, from shapes only and before
-launch, whether ``csrc/rmsnorm.cu``'s ``rms_fwd`` and ``csrc/layernorm.cu``'s
-``ln_fwd`` take ``csrc/rowblock.cuh``'s ``norm_wave_kernel`` (one CTA per
-row, x, g and b fetched in one wave, one exchange per row) or their earlier
-routes, and with how many threads and vectors.  The kernels cannot run
-here, so these tests hold:
+launch, whether ``csrc/rmsnorm.cu``'s ``rms_fwd`` and ``addrms_fwd`` and
+``csrc/layernorm.cu``'s ``ln_fwd`` and ``addln_fwd`` take
+``csrc/rowblock.cuh``'s ``norm_wave_kernel`` (one CTA per row, x, the
+residual a, g and b fetched in one wave, t = x + a stored before the row's
+one exchange) or their earlier routes, and with how many threads and
+vectors.  The kernels cannot run here, so these tests hold:
 
 - the plan, for every width ``uses_kernel`` takes, at rows 1, 8, 37 and
   8192, in bf16 and f32: its route by the rows rule, whole warps of at most
   1,024 threads (128 on the warp route) that cover the row, and the
   vectors each thread holds, as the C entries and kernels compute them;
+  and that ``_fwd_kernel`` hands every forward's C entry its plan's
+  (threads, vectors), in the argument count of its ctypes signature;
 - the wave kernel's arithmetic, restated in torch in its order
   (``_wave_norm``): each thread's partial over its vectors, warp shuffles in
   the butterfly's pairs, the warps' partials in warp order, and for
@@ -20,6 +23,13 @@ here, so these tests hold:
   and the JAX package's Pallas kernels in interpret mode at the decode
   shapes (8, 1024) and (8, 4096), a ragged width (1000) and rows whose mean
   is large beside their spread, where a one-pass sum of squares cancels;
+  and with the residual (``ADD``): t = x + a rounded to the model dtype
+  first, then the same order on t, against the plain fused versions (t
+  exact), the unfused JAX pipeline and ``_pallas_addln_fwd`` /
+  ``_pallas_addrms_fwd`` in interpret mode (t exact; in bf16 XLA's CPU
+  backend keeps their x + a in f32, so their y is held to the same order
+  on the unrounded sum), at the decode shapes and a ragged f32 width
+  (5000);
 - the crossover in rows that ``chip_smoke.py``'s ``norm_rows_ab`` read.
 
 Tolerances: float32 1e-6 relative plus 1e-6 of the largest magnitude (the
@@ -29,6 +39,8 @@ rounding can move).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,10 +123,68 @@ def test_plan_can_be_forced_either_way():
 
 
 # rows at which chip_smoke.py's norm_rows_ab (bf16, d 1024 and 4096) found
-# the wave route faster than the old one for both kernels, and rows at which
-# it did not for at least one of them
+# the wave route faster than the old one for all four forwards (the fused
+# ones cross where the plain ones do, so one constant serves them), and
+# rows at which it did not for at least one of them
 WAVE_FASTER_ROWS = (1, 8, 32, 128)
 OLD_FASTER_ROWS = (512, 8192)
+
+
+# the four forwards as _fwd_kernel launches them: whether each is RMSNorm,
+# whether it adds the residual
+FORWARDS = {"ln_fwd": (False, False), "addln_fwd": (False, True),
+            "rms_fwd": (True, False), "addrms_fwd": (True, True)}
+
+
+def test_every_forward_launches_by_the_plan():
+    assert L._PLANNED == {name: rms for name, (rms, _) in FORWARDS.items()}
+
+
+@pytest.mark.parametrize("name", sorted(FORWARDS))
+@pytest.mark.parametrize("dt,d", [("bfloat16", 1024), ("bfloat16", 4096),
+                                  ("float32", 5000)])
+def test_fwd_kernel_passes_the_plan(name, dt, d, monkeypatch):
+    # the C entry is replaced by a recorder: what _fwd_kernel hands it
+    calls = []
+
+    def entry(n):
+        def run(*args):
+            calls.append((n, args))
+            return 0
+        return run
+
+    monkeypatch.setattr(L._build, "function", entry)
+    monkeypatch.setattr(L._build, "stream", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(L, "LAUNCHES", dict.fromkeys(L.LAUNCHES, 0))
+    rms, add = FORWARDS[name]
+    dtype = _TORCH[dt]
+    for rows in (1, 8, L.WAVE_MAX_ROWS, L.WAVE_MAX_ROWS + 1, 300):
+        x = torch.zeros(rows, d, dtype=dtype)
+        g = torch.ones(d, dtype=dtype)
+        operands = ((x,) if add else ()) + ((g,) if rms else (g, g))
+        out_shape = (2, rows, d) if add else (rows, d)
+        out = L._fwd_kernel(name, x, operands, 1e-5, out_shape)
+        assert tuple(out.shape) == out_shape
+        got, args = calls.pop()
+        assert got == name and not calls
+        # the C signature's argument count: the pointers, rows, d, eps,
+        # dtype, threads, vecs, the stream
+        assert len(args) == len(L._build.SIGNATURES[name][1])
+        assert len(args) == 1 + len(operands) + 1 + 7
+        assert args[-7:-3] == (rows, d, 1e-5, L._build.DTYPE_CODES[dtype])
+        plan = L.norm_fwd_plan(rows, d, dtype, rms)
+        if rows <= L.WAVE_MAX_ROWS:
+            assert plan.route == "wave" and args[-3:-1] == (plan.threads, plan.vecs)
+        else:
+            assert plan.route != "wave" and args[-3:-1] == (0, 0)
+        # a forced plan reaches the entry as it is
+        forced = L.norm_fwd_plan(rows, d, dtype, rms, wave=rows > L.WAVE_MAX_ROWS)
+        L._fwd_kernel(name, x, operands, 1e-5, out_shape, forced)
+        args = calls.pop()[1]
+        want = (forced.threads, forced.vecs) if forced.route == "wave" else (0, 0)
+        assert args[-3:-1] == want
+    assert L.LAUNCHES[name] == 10
 
 
 def test_crossover_is_the_rows_ab_reading():
@@ -136,16 +206,29 @@ def _butterfly(t):
     return t
 
 
-def _wave_norm(x, g, b, eps: float, rms: bool):
+def _rcp(c):
+    """The kernel's ``kRcp``: the correctly rounded f32 reciprocal of each
+    count (0 for 0), by which a part's sum becomes its mean (the kernel
+    divides nowhere; for a power of two it is the division)."""
+    return torch.where(c > 0, (1.0 / c.double().clamp(min=1)).float(), 0.0)
+
+
+def _wave_norm(x, g, b, eps: float, rms: bool, a=None):
     """``norm_wave_kernel`` on rows x (rows, d) in f32, step by step in its
-    order: thread t holds vectors t, t + threads, ... of the row (the plan's
-    vecs) and sums its values (or squares) in that order, the warp sums by
-    shuffles, and after the exchange every warp sums the warps' partials by
-    shuffles, lane w holding warp w's.  LayerNorm: each thread's (count,
-    mean, centred sum of squares), the warp's mean from its sum and count
-    and its centred sum as sum_t [q_t + c_t (m_t - m_w)^2], then the row's
-    mean from the warps' sums and its centred sum as sum_w [q_w + c_w (m_w -
-    mean)^2].  Returns y in x's dtype."""
+    order (with the residual ``a``, ``ADD``: first t = x + a, added in f32
+    and rounded once to the model dtype, and then the rows are t): thread t
+    holds vectors t, t + threads, ... of the row (the plan's vecs) and sums
+    its values (or squares) in that order, the warp sums by shuffles, and
+    after the exchange every warp sums the warps' partials by shuffles,
+    lane w holding warp w's.  LayerNorm: each thread's (count, mean,
+    centred sum of squares), each mean a sum times the reciprocal of its
+    count (``_rcp``), the warp's mean from its sum and count and its
+    centred sum as sum_t [q_t + c_t (m_t - m_w)^2], then the row's mean
+    from the warps' sums and its centred sum as sum_w [q_w + c_w (m_w -
+    mean)^2].  Returns y in x's dtype, or with ``a`` the stacked (t, y)."""
+    if a is not None:
+        t = (x.float() + a.float()).to(x.dtype)
+        return torch.stack([t, _wave_norm(t, g, b, eps, rms)])
     rows, d = x.shape
     v = _vec(x.dtype)
     plan = L.norm_fwd_plan(rows, d, x.dtype, rms, wave=True)
@@ -177,14 +260,14 @@ def _wave_norm(x, g, b, eps: float, rms: bool):
         rsig = torch.rsqrt(tot * inv_d + eps)[:, None]
         return (xf * rsig * g.float()).to(x.dtype)
     c = (have.sum(1).float() * v).expand(rows, threads)
-    m = torch.where(c > 0, s / c, 0.0)
+    m = s * _rcp(c)
     q = torch.zeros(rows, threads)
     for i in range(nv):
         for j in range(v):
             e = held[:, :, i, j] - m
             q = q + torch.where(have[:, i], e * e, 0.0)
     sw, cw = _butterfly(lanes(s)), _butterfly(lanes(c))
-    mw = sw / cw
+    mw = sw * _rcp(cw)
     e = lanes(m) - mw
     qw = _butterfly(lanes(q) + lanes(c) * e * e)
     sw, mw, qw, cw = (t[..., 0] for t in (sw, mw, qw, cw))
@@ -265,3 +348,52 @@ def test_wave_statistics_are_centred_at_a_large_mean():
     one_pass = (xm * xm).mean(1) - xm.mean(1) ** 2
     assert ((one_pass.double() - x64.var(1, unbiased=False)).abs()
             / x64.var(1, unbiased=False)).max() > 1e-3
+
+
+# (dtype, rows, d) of the fused residual-add forwards: the decode shapes
+# (the flagship's addln at d 1024, the options' addrms at 4096 and the MoE
+# model's at 1024) and a ragged f32 width whose last threads hold fewer
+# vectors
+ADD_CASES = [(dt, 8, d) for dt in ("float32", "bfloat16") for d in (1024, 4096)]
+ADD_CASES += [("float32", 8, 5000)]
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("dt,rows,d", ADD_CASES)
+def test_wave_add_order_matches_plain_and_jax_kernels(dt, rows, d, kind):
+    x, g, b = _inputs(rows, d, dt, 1.0, seed=d + 11)
+    res = np.random.RandomState(d).standard_normal((rows, d)).astype(np.float32)
+    tx, ta, tg, tb = (torch.from_numpy(v).to(_TORCH[dt]) for v in (x, res, g, b))
+    rms = kind == "rms"
+    eps = EPS[kind]
+    got = _wave_norm(tx, tg, tb, eps, rms, a=ta)
+    assert got.shape == (2, rows, d) and got.dtype == _TORCH[dt]
+    # y is the plain wave norm of the rounded t, bit for bit (chip_smoke.py
+    # holds the kernels to the same)
+    assert torch.equal(got[1], _wave_norm(got[0], tg, tb, eps, rms))
+    plain = (L._plain_add_rmsnorm(tx, ta, tg, eps) if rms
+             else L._plain_add_layernorm(tx, ta, tg, tb, eps))
+    assert torch.equal(got[0], plain[0])
+    _hold(got[1], plain[1].float().numpy(), dt)
+
+    jx, ja, jg, jb = (jnp.asarray(v).astype(_JNP[dt]) for v in (x, res, g, b))
+    if rms:
+        fused = JLN._pallas_addrms_fwd(jx, ja, jg, eps, 8, interpret=True)
+        unfused = JLN._pallas_rms_fwd(fused[0], jg, eps, 8, interpret=True)
+    else:
+        fused = JLN._pallas_addln_fwd(jx, ja, jg, jb, eps, 8, interpret=True)
+        unfused = JLN._pallas_ln_fwd(fused[0], jg, jb, eps, 8, interpret=True)
+    fused, unfused = (np.asarray(v.astype(jnp.float32)) for v in (fused, unfused))
+    assert np.array_equal(got[0].float().numpy(), fused[0])
+    # the JAX kernel's contract: its outputs equal the unfused add, then the
+    # norm (layernorm.py:126-130)
+    _hold(got[1], unfused, dt)
+    if dt == "float32":
+        _hold(got[1], fused[1], dt)
+    else:
+        # in bf16 XLA's CPU backend keeps the interpret-mode kernel's x + a
+        # in f32 (excess precision), so its y is the norm of the unrounded
+        # sum: the wave order on that sum, rounded once, gives it
+        tf = tx.float() + ta.float()
+        _hold(_wave_norm(tf, tg.float(), tb.float(), eps, rms).to(tx.dtype),
+              fused[1], dt)
