@@ -53,9 +53,17 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    bits twice and their y bit-equal to the plain forward of their t, the
    one-wave kernel against the old route at 1-8,192 rows, and every norm
    at every width at 8 rows and past the plan's crossover, the forwards
-   the same bits twice; ``flash_bwd.cu``, ``matmul.cu``,
-   ``quant.cu``, ``paged.cu``, ``layernorm.cu`` and ``rmsnorm.cu`` built
-   with no spill, no ptxas C75xx note and no ignored setmaxnreg;
+   the same bits twice; ``xent_bwd`` on the launch plan's route and
+   on every row-kernel shape it tried against a ``-DXENT_BWD_V1`` build of
+   ``xent.cu`` (the warp kernel) in turns at 8,192 rows of V 512 to 65,536,
+   and ``rms_bwd`` on the plan's ring and every ring depth and CTAs per SM
+   it tried against a ``-DNORM_BWD_V1`` build of ``rmsnorm.cu`` (the
+   block-per-row kernel) at (8192, 1024), (8192, 4096) and (1024, 4096),
+   each new route the same bits twice, ``xent_fwd`` and ``addrms_bwd`` the
+   same bits as those builds and within 3% of their times;
+   ``flash_bwd.cu``, ``matmul.cu``, ``quant.cu``, ``paged.cu``,
+   ``layernorm.cu``, ``rmsnorm.cu`` and ``xent.cu`` built with no spill, no
+   ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens), profiled once, and once more
    on the ``-DNORM_FWD_V1`` norms (each profile reports the forward norms'
@@ -104,7 +112,10 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    the ``-DNORM_FWD_V1`` norms), and the train step (batch 8 x 1024,
    ``make_train_step(model, SGD(1e-3), lm_loss)``) with the exact RMSNorm,
    flash and cross-entropy launches per step derived from the model, and
-   one profiled step; then f32 gates
+   one profiled step, and again on the ``-DXENT_BWD_V1`` and
+   ``-DNORM_BWD_V1`` builds (each profile reports ``xent_bwd``'s and
+   ``rms_bwd``'s device time per step, which must be below the old
+   builds'); then f32 gates
    at full width and one layer against the plain path on the CPU: the
    logits of a prefill and 8 cached decode steps, the loss and every
    parameter's gradient;
@@ -116,7 +127,8 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    every request token-identical to its solo decode, then bf16 tok/s and
    the state bytes beside the flagship's KV cache), the train step (batch
    8 x 1024, ``make_train_step(model, SGD(1e-4), lm_loss)``: ms/step,
-   tokens/s, model TFLOP/s, peak memory, one profiled step), exact scan,
+   tokens/s, model TFLOP/s, peak memory, one profiled step, and one on
+   the ``-DXENT_BWD_V1`` and ``-DNORM_BWD_V1`` builds), exact scan,
    RMSNorm and cross-entropy launches on each, f32 gates at full width and
    one layer against the plain path on the CPU (prefill + 8 steps' logits,
    a ragged prefill's states, the loss and every gradient), and the tape's
@@ -264,10 +276,17 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "dq_mm_tc_kernel", "flash_fwd_wgmma_kernel",
                   "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "mm_wgmma_kernel", "sdpa_int8_split_kernel",
-                  "paged_attn_split_kernel", "norm_wave_kernel")
+                  "paged_attn_split_kernel", "norm_wave_kernel",
+                  "xent_row_bwd_kernel", "rms_ring_bwd_kernel", "rms_dg_sum_kernel")
 # the forward norms' kernels, whose device time per call each profile reports
 # for the plain and the fused (ADD) instantiations apart
 NORM_FWD_SYMBOLS = ("norm_wave_kernel", "ln_rows_kernel", "norm_fwd_kernel")
+# the redesigned backwards whose device time per step the train profiles
+# report on their new and old kernels: xent_bwd's (the row kernel and the
+# warp kernel) and rms_bwd's (the ring and its partial rows' sum, and the
+# block-per-row kernel with RMS and without ADD, whose partial rows the
+# caller sums with PyTorch kernels not counted here)
+BWD_REDESIGNED = ("xent_bwd", "rms_bwd")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -661,6 +680,16 @@ def phase_kernels(torch, report):
          str(_build._CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, lib in v1_libs.items()}
+    # xent.cu's backward on the warp kernel and rmsnorm.cu's rms_bwd on the
+    # block-per-row kernel at every row (xent_bwd_route_ab,
+    # norm_bwd_route_ab, the train profiles)
+    bwd_v1_libs = {"xent": _build.BUILD_DIR / "xent-bwd-v1.so",
+                   "rmsnorm": _build.BUILD_DIR / "rmsnorm-bwd-v1.so"}
+    bwd_v1_builds = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-o", str(bwd_v1_libs[src]),
+         str(_build._CSRC / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, flag in (("xent", "-DXENT_BWD_V1"), ("rmsnorm", "-DNORM_BWD_V1"))}
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
@@ -669,10 +698,12 @@ def phase_kernels(torch, report):
                        *((f"-DDECODE_ATTN_ONE_CTA {src}.cu", proc)
                          for src, proc in one_cta_builds.items()),
                        *((f"-DNORM_FWD_V1 {src}.cu", proc)
-                         for src, proc in v1_builds.items())):
+                         for src, proc in v1_builds.items()),
+                       *((f"{src}.cu V1 backward", proc)
+                         for src, proc in bwd_v1_builds.items())):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 9} sources in "
+    log(f"[build] {len(_build.SOURCES) + 11} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -680,9 +711,9 @@ def phase_kernels(torch, report):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
     # the flash backward's, the matmuls', the quantized kernels', the paged
-    # kernel's and the norms': no spill, no serialised MMAs, no ignored
-    # setmaxnreg
-    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm"):
+    # kernel's, the norms' and the cross-entropy's: no spill, no serialised
+    # MMAs, no ignored setmaxnreg
+    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm", "xent"):
         bad = [line for line in ptxas_report(_build.build_log(name))
                if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
         check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
@@ -692,6 +723,14 @@ def phase_kernels(torch, report):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    # the MoE and SSM train shapes' cases and the backwards' A/Bs draw from a
+    # generator of their own, so that adding them left the inputs of every
+    # other case and A/B as they were
+    gen_bwd = torch.Generator(device="cuda").manual_seed(1235)
+
+    def randn_bwd(*shape, dtype):
+        return torch.randn(shape, generator=gen_bwd, device="cuda").to(dtype)
+
     cases = (norm_cases(torch, randn)
              + norm_cases(torch, randn, OPT_MODEL["dim"],
                           (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ,))
@@ -699,7 +738,13 @@ def phase_kernels(torch, report):
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
              + quant_cases(torch, gen, randn) + decode_attn_cases(torch, gen, randn)
              + scan_cases(torch, gen) + dq_bmm_cases(torch, randn)
-             + dq_edge_cases(torch, randn))
+             + dq_edge_cases(torch, randn)
+             + norm_cases(torch, randn_bwd, MOE_TRAIN["dim"],
+                          (MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,))
+             + rms_cases(torch, randn_bwd, ((SSM_TRAIN_BATCH * SSM_TRAIN_SEQ,
+                                              SSM_MODEL["dim"]),))
+             + xent_cases(torch, gen_bwd, randn_bwd, ((MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,
+                                                       MOE_TRAIN["vocab_size"]),)))
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
@@ -730,9 +775,15 @@ def phase_kernels(torch, report):
     report["dq_tile_ab"] = dq_tile_ab(torch, randn)
     report["decode_attn_route_ab"] = decode_attn_route_ab(torch, gen, randn, one_cta_libs)
     report["decode_split_ab"] = decode_split_ab(torch, gen, randn)
+    report["xent_width_sweep"] = xent_width_sweep(torch, gen_bwd, randn_bwd)
+    report["xent_bwd_route_ab"] = xent_bwd_route_ab(torch, gen_bwd, randn_bwd,
+                                                    bwd_v1_libs["xent"])
+    report["norm_bwd_route_ab"] = norm_bwd_route_ab(torch, randn_bwd, bwd_v1_libs["rmsnorm"])
     report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
     # phases 3 and 9 profile their decodes on the earlier forward norms too
     report["norm_fwd_v1_libs"] = {src: str(path) for src, path in v1_libs.items()}
+    # phases 9 and 10 profile their train steps on the old backwards too
+    report["bwd_v1_libs"] = {src: str(path) for src, path in bwd_v1_libs.items()}
 
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
@@ -877,12 +928,13 @@ def norm_cases(torch, randn, d=None, row_counts=None):
     return cases
 
 
-def rms_cases(torch, randn):
+def rms_cases(torch, randn, shapes=None):
     """rms_fwd / addrms_fwd at a decode step's 8 rows and at the options
     train step's 8192 rows of d = 4096, and rms_bwd / addrms_bwd at the
     latter, against their plain versions and F.rms_norm (forward, and its
     autograd backward); the forwards also at 8 rows of d = 1024, the SSM's
-    and MoE's decode shape."""
+    and MoE's decode shape (or at ``shapes``' (rows, d): all four at more
+    than 8 rows)."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import layernorm as L
@@ -892,8 +944,8 @@ def rms_cases(torch, randn):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
-        for rows, d in ((8, SSM_MODEL["dim"]), (8, OPT_MODEL["dim"]),
-                        (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["dim"])):
+        for rows, d in shapes or ((8, SSM_MODEL["dim"]), (8, OPT_MODEL["dim"]),
+                                  (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["dim"])):
             x = randn(rows, d, dtype=dtype) * 3 + 1
             a = randn(rows, d, dtype=dtype)
             g = 1 + 0.1 * randn(d, dtype=dtype)
@@ -1228,6 +1280,238 @@ def norm_rows_ab(torch, randn) -> list:
     return out
 
 
+# xent_bwd_route_ab's row widths, at 8,192 rows: the flagship's and MoE's
+# vocabulary, three between, the options model's, and the JAX kernels'
+# widest (xent.py's _MAX_V), which the row kernel does not hold
+XENT_AB_V = (512, 2048, 8192, 32768, 65536)
+XENT_AB_ROWS = 8192
+# xent_width_sweep's row widths: every multiple of 8 to 512, and ragged
+# and round widths on both sides of the row kernel's limits and past them
+XENT_SWEEP_V = (tuple(range(8, 513, 8)) + (10, 1000, 1024, 2040, 4104, 8200, 16376, 32760,
+                                           32768, 32776, 50257, 65536))
+
+
+def _turns(torch, names, run, first):
+    """Device us of ``run(name)`` for each name in turns (names, then the
+    same names in reverse), ``first(name, out)`` called once per name on a
+    run's output before its first timing."""
+    us = {n: [] for n in names}
+    for n in (*names, *reversed(names)):
+        if not us[n]:
+            first(n, run(n))
+        us[n].append(device_ms(torch, lambda: run(n)) * 1e3)
+    return us
+
+
+def xent_bwd_route_ab(torch, gen, randn, v1_lib) -> list:
+    """xent_bwd at 8,192 rows of XENT_AB_V in bf16 and f32: the plan's
+    route, and the row kernel at each of its shapes the plan did not pick
+    (its default vectors a thread, and half as many on twice the threads),
+    against the warp kernel of ``v1_lib`` (xent.cu built with
+    -DXENT_BWD_V1), in turns (old, plan, the others, then back), each within
+    TOL["xent_dz"] of the plain version and the new routes the same bits on
+    a second run; and xent_fwd against the same build, the same bits and
+    within 3% of its time.  The plan's route must be no more than 3% slower
+    than the old in either turn at every V: the readings behind
+    kernels.xent.ROW_MIN_V."""
+    from minidiff_tpu_torch.kernels import xent as X
+
+    old = lib_at("xent", v1_lib)
+    rows, out = XENT_AB_ROWS, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        w = 16 // (torch.finfo(dtype).bits // 8)
+        for v in XENT_AB_V:
+            z = randn(rows, v, dtype=dtype) * 3
+            lab = torch.randint(0, v, (rows,), generator=gen, device=DEVICE)
+            g = randn(rows, dtype=torch.float32)
+            ref = X._plain_xent_grad(z, lab, g)
+            plan = X.xent_bwd_plan(rows, v, dtype)
+            plans = {"plan": plan}
+            if v % w == 0 and v <= X.ROW_MAX_V:
+                tried = [X.xent_bwd_plan(rows, v, dtype, route="row")]
+                if tried[0].vecs > 1 and 2 * tried[0].threads <= X.ROW_MAX_THREADS:
+                    tried.append(X.xent_bwd_plan(rows, v, dtype, route="row",
+                                                 vecs=tried[0].vecs // 2))
+                plans.update((f"row {p.threads}x{p.vecs}", p) for p in tried if p != plan)
+            err = {}
+
+            def run(name):
+                if name == "old":
+                    with built_as("xent", old):
+                        return X.xent_grad(z, lab, g)
+                if name == "plan":
+                    return X.xent_grad(z, lab, g)
+                return X._bwd_kernel(z, lab, g, plans[name])
+
+            def first(name, got):
+                err[name] = max_err(torch, got, ref, "xent_dz", dn, g=g)
+                if name != "old":
+                    check(_same_bits(torch, got, run(name)),
+                          f"xent_bwd {name} {[rows, v]} {dn}: a second run gave other bits")
+
+            us = _turns(torch, ("old", *plans), run, first)
+            check(max(us["plan"]) <= 1.03 * min(us["old"]),
+                  f"xent_bwd {[rows, v]} {dn}: the plan's {plan.route} route {us['plan']} us "
+                  f"is more than 3% slower than the old {us['old']} us")
+            del ref
+            # the forward is untouched: the same bits and time as the old build
+            with built_as("xent", old):
+                fwd_old = X.xent_fwd(z, lab)
+            check(torch.equal(X.xent_fwd(z, lab), fwd_old),
+                  f"xent_fwd {[rows, v]} {dn}: other bits than the -DXENT_BWD_V1 build")
+            fwd = _old_new_turns(torch, "xent", old, lambda: X.xent_fwd(z, lab))
+            check(min(fwd["new"]) <= 1.03 * min(fwd["old"]),
+                  f"xent_fwd {[rows, v]} {dn}: {fwd['new']} us against the old build's "
+                  f"{fwd['old']} us")
+            rec = dict(dtype=dn, shape=[rows, v], route=plan.route, threads=plan.threads,
+                       vecs=plan.vecs, us=us, max_abs_err=err, fwd_us=fwd)
+            out.append(rec)
+            log(f"[xent ab] {dn:8s} {str([rows, v]):14s} plan {plan.route} "
+                f"{plan.threads}x{plan.vecs} | " + " | ".join(
+                    f"{n} {t[0]:8.2f} / {t[1]:8.2f}" for n, t in us.items())
+                + f" us | xent_fwd new {fwd['new'][0]:.2f} / {fwd['new'][1]:.2f}, old "
+                f"{fwd['old'][0]:.2f} / {fwd['old'][1]:.2f} us")
+    return out
+
+
+def _old_new_turns(torch, source, old_lib, run) -> dict:
+    """Device us of ``run`` in turns (old, new, new, old), the old turns
+    launching ``csrc/<source>.cu``'s kernels from ``old_lib``."""
+    def turn(name):
+        with built_as(source, old_lib) if name == "old" else contextlib.nullcontext():
+            return run()
+
+    return _turns(torch, ("old", "new"), turn, lambda name, out: None)
+
+
+def xent_width_sweep(torch, gen, randn) -> dict:
+    """xent_bwd at every width of XENT_SWEEP_V, 37 rows, bf16 and f32, by
+    the plan and, where the row kernel holds the row, forced onto it, with
+    labels outside [0, V) (-1 and V) among the rows, against the plain
+    version, and the plan's routes the same bits on a second run
+    (correctness only, so the row kernel meets every count of vectors a
+    thread and of warps).  Returns the largest error of each route."""
+    from minidiff_tpu_torch.kernels import xent as X
+
+    worst: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        w = 16 // (torch.finfo(dtype).bits // 8)
+        for v in XENT_SWEEP_V:
+            z = randn(37, v, dtype=dtype) * 3
+            lab = torch.randint(0, v, (37,), generator=gen, device=DEVICE)
+            lab[3], lab[4] = -1, v
+            g = randn(37, dtype=torch.float32)
+            ref = X._plain_xent_grad(z, lab, g)
+            plans = [X.xent_bwd_plan(37, v, dtype)]
+            if v % w == 0 and v <= X.ROW_MAX_V:
+                plans.append(X.xent_bwd_plan(37, v, dtype, route="row"))
+            for plan in plans:
+                got = X._bwd_kernel(z, lab, g, plan)
+                err = max_err(torch, got, ref, "xent_dz", dn, g=g)
+                worst[plan.route] = max(worst.get(plan.route, 0.0), err)
+                check(_same_bits(torch, got, X._bwd_kernel(z, lab, g, plan)),
+                      f"xent_bwd {plan.route} {[37, v]} {dn}: a second run gave other bits")
+    log(f"[kernel] xent_bwd at {len(XENT_SWEEP_V)} widths 8..65,536, 37 rows, bf16 and "
+        "f32, labels outside [0, V) included, within tolerance of the plain version on "
+        "every route (the same bits twice); largest errors " + ", ".join(
+            f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    return worst
+
+
+# norm_bwd_route_ab's rms_bwd shapes (rows, d): the SSM and the options
+# train steps' and a tenth of the latter's rows; and the ring choices it
+# times beside the plan's: (CTAs per SM, stages), each cut to what shared
+# memory holds
+NORM_BWD_AB = ((8192, 1024), (8192, 4096), (1024, 4096))
+RING_AB = tuple((per_sm, stages) for per_sm in (1, 2, 4, 8) for stages in (2, 4, 8))
+
+
+def norm_bwd_route_ab(torch, randn, v1_lib) -> list:
+    """rms_bwd at NORM_BWD_AB's shapes in bf16 and f32: the plan's ring and
+    every other ring of RING_AB against the block-per-row kernel of
+    ``v1_lib`` (rmsnorm.cu built with -DNORM_BWD_V1), in turns (old, plan,
+    the others, then back), dx within TOL["ln"] and dg within
+    TOL["lnsum"] of the plain version, the new routes the same bits on a
+    second run.  The plan's route must be faster than the old in both turns
+    at the train steps' 8,192 bf16 rows, and no more than 3% slower
+    anywhere.  addrms_bwd (which keeps the block-per-row kernel) at the
+    options train step's shape against the same build: the same bits, and
+    within 3% of its time.  The readings behind kernels.layernorm's
+    RING_CTAS_BY_ROW_BYTES and RING_BYTES."""
+    from minidiff_tpu_torch.kernels import _build
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    old = lib_at("rmsnorm", v1_lib)
+    eps = OPT_MODEL["norm_eps"]
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for rows, d in NORM_BWD_AB:
+            x = randn(rows, d, dtype=dtype) * 3 + 1
+            g = 1 + 0.1 * randn(d, dtype=dtype)
+            dy = randn(rows, d, dtype=dtype)
+            ref = L._plain_rms_grads(x, g, dy, eps)
+            plan = L.norm_bwd_plan(rows, d, dtype, True, False)
+            plans = {"plan": plan}
+            for per_sm, stages in RING_AB:
+                p = L.norm_bwd_plan(rows, d, dtype, True, False, stages=stages, per_sm=per_sm)
+                key = f"ring {-(-p.ctas // _build.SMS)}x{p.stages}"
+                if p not in plans.values() and key not in plans:
+                    plans[key] = p
+            err = {}
+
+            def run(name):
+                if name == "old":
+                    with built_as("rmsnorm", old):
+                        return L.rms_grads(x, g, dy, eps)
+                if name == "plan":
+                    return L.rms_grads(x, g, dy, eps)
+                return L._bwd_kernel("rms_bwd", x, g, dy, None, eps, plans[name])
+
+            def first(name, got):
+                err[name] = max(max_err(torch, got[0], ref[0], "ln", dn),
+                                max_err(torch, got[1], ref[1], "lnsum", dn))
+                if name != "old":
+                    again = run(name)
+                    check(all(_same_bits(torch, a, b) for a, b in zip(got, again)),
+                          f"rms_bwd {name} {[rows, d]} {dn}: a second run gave other bits")
+
+            us = _turns(torch, ("old", *plans), run, first)
+            check(max(us["plan"]) <= 1.03 * min(us["old"]),
+                  f"rms_bwd {[rows, d]} {dn}: the plan's ring {us['plan']} us is more "
+                  f"than 3% slower than the old {us['old']} us")
+            if rows == 8192 and dtype == torch.bfloat16:
+                check(max(us["plan"]) < min(us["old"]),
+                      f"rms_bwd {[rows, d]} bf16: the plan's ring {us['plan']} us is not "
+                      f"faster than the old {us['old']} us")
+            rec = dict(dtype=dn, shape=[rows, d], ctas=plan.ctas, threads=plan.threads,
+                       vecs=plan.vecs, stages=plan.stages, us=us, max_abs_err=err,
+                       rings={k: [p.ctas, p.stages] for k, p in plans.items()})
+            if rows == OPT_TRAIN_BATCH * OPT_TRAIN_SEQ and d == OPT_MODEL["dim"]:
+                # addrms_bwd keeps its kernel: the same bits and time
+                g0 = randn(rows, d, dtype=dtype)
+                new = L.addrms_grads(x, g, dy, g0, eps)
+                with built_as("rmsnorm", old):
+                    was = L.addrms_grads(x, g, dy, g0, eps)
+                check(all(_same_bits(torch, a, b) for a, b in zip(new, was)),
+                      f"addrms_bwd {[rows, d]} {dn}: other bits than the -DNORM_BWD_V1 build")
+                rec["addrms_us"] = _old_new_turns(
+                    torch, "rmsnorm", old, lambda: L.addrms_grads(x, g, dy, g0, eps))
+                check(min(rec["addrms_us"]["new"]) <= 1.03 * min(rec["addrms_us"]["old"]),
+                      f"addrms_bwd {[rows, d]} {dn}: {rec['addrms_us']} us, more than 3% "
+                      "slower than the -DNORM_BWD_V1 build")
+            out.append(rec)
+            log(f"[norm bwd ab] {dn:8s} {str([rows, d]):12s} plan {plan.ctas} CTAs x "
+                f"{plan.threads} x{plan.vecs}, {plan.stages} stages | " + " | ".join(
+                    f"{n} {t[0]:7.2f} / {t[1]:7.2f}" for n, t in us.items()) + " us"
+                + (" | addrms_bwd new {0[0]:.2f} / {0[1]:.2f}, old {1[0]:.2f} / "
+                   "{1[1]:.2f} us".format(rec["addrms_us"]["new"], rec["addrms_us"]["old"])
+                   if "addrms_us" in rec else ""))
+    return out
+
+
 def flash_shapes(torch) -> list:
     """flash_cases' cases as (kind, (dtype, bh, s, causal, window, groups,
     head dim)), kind "fwd" or "bwd": the serving prefill's shapes (64 x 16
@@ -1530,20 +1814,20 @@ def flash_bwd_route_ab(torch, randn, wmma_lib) -> list:
     return rows_out
 
 
-def xent_cases(torch, gen, randn):
+def xent_cases(torch, gen, randn, shapes=None):
     """xent_fwd / xent_bwd at the train step's (8192, 512) and (1024, 512),
     at the options train step's (8192, 32768), and at the tape MLP's
     (8192, 10), whose rows are no whole number of 16-byte vectors (the
-    kernels' one-element-per-lane route)."""
+    kernels' one-element-per-lane route); or at ``shapes``' (rows, V)."""
     import torch.nn.functional as TF
 
     from minidiff_tpu_torch.kernels import xent as X
 
     cases = []
-    shapes = [(TRAIN_BATCH * TRAIN_SEQ, TRAIN_MODEL["vocab_size"]),
-              (1024, TRAIN_MODEL["vocab_size"]),
-              (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["vocab_size"]),
-              (MLP_BATCH, MLP_OUT)]
+    shapes = shapes or [(TRAIN_BATCH * TRAIN_SEQ, TRAIN_MODEL["vocab_size"]),
+                        (1024, TRAIN_MODEL["vocab_size"]),
+                        (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ, OPT_MODEL["vocab_size"]),
+                        (MLP_BATCH, MLP_OUT)]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
@@ -1926,6 +2210,33 @@ def norm_fwd_v1(report):
         for src, path in report["norm_fwd_v1_libs"].items():
             stack.enter_context(built_as(src, lib_at(src, path)))
         yield
+
+
+@contextlib.contextmanager
+def bwd_v1(report):
+    """Every kernel of xent.cu and rmsnorm.cu launched from their
+    -DXENT_BWD_V1 and -DNORM_BWD_V1 builds of phase 2 (the old backwards)
+    until the block ends."""
+    with contextlib.ExitStack() as stack:
+        for src, path in report["bwd_v1_libs"].items():
+            stack.enter_context(built_as(src, lib_at(src, path)))
+        yield
+
+
+def profile_bwd_v1(torch, report, out, label, run):
+    """Profile ``run`` once more on the old backwards (phase 2 built them;
+    a CPU rehearsal has no ``bwd_v1_libs`` and skips it) into
+    ``out["train_profile_bwd_v1"]``, and log each redesigned backward's
+    device time per step on both."""
+    if "bwd_v1_libs" not in report:
+        return
+    with bwd_v1(report):
+        out["train_profile_bwd_v1"] = profile_run(
+            torch, f"{label}, -DXENT_BWD_V1 / -DNORM_BWD_V1", run)
+    new, old = out["train_profile"]["bwd"], out["train_profile_bwd_v1"]["bwd"]
+    log(f"[profile]   {label}: device us per step new / old: " + ", ".join(
+        f"{k} {new.get(k, [0.0])[0]:.1f} / {old.get(k, [0.0])[0]:.1f}"
+        for k in BWD_REDESIGNED))
 
 
 def dq_route_ab(torch, randn, simt_lib) -> list:
@@ -2409,6 +2720,27 @@ def norm_fwd_instance(key: str):
     return None
 
 
+def bwd_instance(key: str):
+    """The redesigned backward (BWD_REDESIGNED) a profiler key's kernel
+    serves, or None: xent_bwd for the row and warp kernels, rms_bwd for the
+    ring, its partial rows' sum and norm_bwd_kernel with RMS and without
+    ADD (its last two template arguments), demangled or mangled as
+    norm_fwd_instance reads them."""
+    if re.search(r"(?<![A-Za-z_])xent_(row_)?bwd_kernel", key):
+        return "xent_bwd"
+    if re.search(r"(?<![A-Za-z_])rms_(ring_bwd|dg_sum)_kernel", key):
+        return "rms_bwd"
+    m = re.search(r"(?<![A-Za-z_])norm_bwd_kernel(<[^<>]*>|I.*)", key)
+    if m is None:
+        return None
+    args = m.group(1)
+    if args.startswith("<"):
+        flags = [a.strip() in ("true", "(bool)1") for a in args[1:-1].split(",")[-2:]]
+    else:
+        flags = [b == "1" for b in re.findall(r"Lb([01])E", args)[-2:]]
+    return "rms_bwd" if flags == [True, False] else None
+
+
 def profile_run(torch, label, run):
     """Device-busy share and device time by kernel over one run, from
     torch.profiler (kernels on one stream never overlap, so the sum of their
@@ -2487,9 +2819,19 @@ def profile_run(torch, label, run):
         log(f"[profile]   forward norms {sum(us for us, _ in norm_fwd.values()):.1f} us; "
             "device us a call: " + ", ".join(
                 f"{inst} {norms[inst]:.2f} in {n}" for inst, (_, n) in sorted(norm_fwd.items())))
+    # the redesigned backwards: device us and calls of each
+    bwd: dict = {}
+    for k, t, n in rows:
+        inst = bwd_instance(k)
+        if inst is not None:
+            us, c = bwd.get(inst, (0.0, 0))
+            bwd[inst] = [us + t, c + n]
+    if bwd:
+        log("[profile]   redesigned backwards: " + ", ".join(
+            f"{inst} {us:.1f} us in {n}" for inst, (us, n) in sorted(bwd.items())))
     return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
                 device_us_by_kind=by_kind, top=top, ported=ported,
-                norm_fwd=norm_fwd, norm_us_per_call=norms)
+                norm_fwd=norm_fwd, norm_us_per_call=norms, bwd=bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -3297,6 +3639,14 @@ def phase_options(torch, seed: int, report):
         f"per step {want} | losses " + " ".join(f"{x:.4f}" for x in losses))
     out["train_profile"] = profile_run(
         torch, "one options train step", lambda: step(train_toks, train_toks))
+    profile_bwd_v1(torch, report, out, "one options train step",
+                   lambda: step(train_toks, train_toks))
+    if "train_profile_bwd_v1" in out:
+        new, was = out["train_profile"]["bwd"], out["train_profile_bwd_v1"]["bwd"]
+        for k in BWD_REDESIGNED:
+            check(k in new and k in was and new[k][0] < was[k][0],
+                  f"options train step: {k}'s device time per step {new.get(k)} is not "
+                  f"below the old build's {was.get(k)}")
     del model, step
 
     # f32 gates, full width and one layer: the kernel path on the card
@@ -3564,6 +3914,7 @@ def phase_ssm(torch, seed: int, report):
         f"peak memory {peak / 2 ** 30:.2f} GiB | launches per step {want} | "
         "losses " + " ".join(f"{v:.4f}" for v in losses))
     out["train_profile"] = profile_run(torch, "one ssm train step", lambda: step(x, y))
+    profile_bwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y))
     del model, step, x, y
 
     # the tape: md.value_and_grad of a linear_scan loss; an f32 gate against

@@ -36,10 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the H100's streaming multiprocessors, which the launch plans fill
 # (kernels.attention.flash_plan and flash_bwd_plan, kernels.quant.dq_plan
-# and sdpa_int8_plan, kernels.matmul.mm_plan, kernels.paged.paged_plan)
+# and sdpa_int8_plan, kernels.matmul.mm_plan, kernels.paged.paged_plan,
+# kernels.layernorm.norm_bwd_plan)
 SMS = 132
-# the shared memory one H100 CTA may use, in bytes (kernels.quant.sdpa_int8_plan)
+# the shared memory one H100 CTA may use, in bytes (kernels.quant.sdpa_int8_plan),
+# and one SM holds for all its CTAs, each of which also takes 1 KB for the
+# system (kernels.layernorm.norm_bwd_plan)
 SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
 
 # C signatures: name -> (source, argtypes).  Every entry returns the
 # cudaError_t of its launch as an int.
@@ -52,7 +56,9 @@ SIGNATURES = {
                   (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "rms_fwd": ("rmsnorm", (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
     "addrms_fwd": ("rmsnorm", (_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
-    "rms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "rms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
+                            _P)),
+    "rms_bwd_ring": ("rmsnorm", ()),
     "addrms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "norm_null": ("rmsnorm", (_I, _I, _P)),
     "flash_fwd": ("flash_fwd",
@@ -62,7 +68,7 @@ SIGNATURES = {
     "flash_bwd_dq": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _F, _I, _I, _I, _I, _P)),
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
-    "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "dq_bmm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

@@ -33,10 +33,28 @@
 // says, which fetches x, a (addrms) and g in one wave, stores t = x + a
 // before its one exchange per row, where the block-per-row kernel loaded g
 // only after its reduction's two barriers.
+//
+// rms_bwd runs rowblock.cuh's rms_ring_bwd_kernel at every row count, as
+// its launch plan (kernels.layernorm.norm_bwd_plan) says: a persistent CTA
+// whose thread 0 keeps the x and dy of the next rows in flight by TMA bulk
+// copies into a ring of shared-memory stages, g read once into registers,
+// and one exchange (one barrier) a row carrying both row sums, sum(x^2) and
+// sum(dy g x).  The block-per-row kernel it replaces walked each row as a
+// chain of two device-memory round trips and four barriers with nothing of
+// the next row in flight.  Bound: bytes (x, dy read once, dx written
+// once).  A build with -DNORM_BWD_V1 takes the block-per-row kernel for
+// rms_bwd, as before the ring (chip_smoke.py times the two in turns);
+// addrms_bwd keeps it in every build.
 
 #include "rowblock.cuh"
 
 namespace {
+
+#ifdef NORM_BWD_V1
+constexpr bool kBwdV1 = true;
+#else
+constexpr bool kBwdV1 = false;
+#endif
 
 // Replaces no TPU kernel: an empty kernel with the one-wave forward's
 // parameters, which chip_smoke.py launches at each norm's grid and block
@@ -92,16 +110,33 @@ extern "C" int addrms_fwd(const void* x, const void* a, const void* g,
                              stream);
 }
 
-// dx like x; dgp (blocks, d) f32 partial rows, blocks >= 1.
+// dx like x; dgp (blocks, d) f32 partial rows, blocks >= 1.  threads,
+// vecs, stages: the launch plan's (kernels.layernorm.norm_bwd_plan);
+// stages > 0 takes rowblock.cuh's rms_ring_bwd_kernel over `blocks` CTAs
+// (refused unless threads and vecs are its configuration for d and the
+// stages fit), then sums the partial rows into dg (g's dtype); 0 takes the
+// block-per-row kernel, whose partial rows the caller sums (dg unused), as
+// does every row of a -DNORM_BWD_V1 build.
 extern "C" int rms_bwd(const void* x, const void* g, const void* dy, void* dx,
-                       void* dgp, int rows, int d, int blocks, float eps,
-                       int dtype, void* stream) {
+                       void* dgp, void* dg, int rows, int d, int blocks, float eps,
+                       int dtype, int threads, int vecs, int stages, void* stream) {
+  if (stages > 0 && !kBwdV1) {
+    if (dtype == 1)
+      return rowblock::launch_ring<__nv_bfloat16>(x, g, dy, dx, dgp, dg, rows, d, blocks,
+                                                  threads, vecs, stages, eps, stream);
+    return rowblock::launch_ring<float>(x, g, dy, dx, dgp, dg, rows, d, blocks, threads,
+                                        vecs, stages, eps, stream);
+  }
   if (dtype == 1)
     return rowblock::launch_bwd<__nv_bfloat16, true, false>(
         x, g, dy, nullptr, dx, dgp, nullptr, rows, d, blocks, eps, stream);
   return rowblock::launch_bwd<float, true, false>(
       x, g, dy, nullptr, dx, dgp, nullptr, rows, d, blocks, eps, stream);
 }
+
+// Whether this build has rms_bwd's ring (1), or only the block-per-row
+// kernel (0: -DNORM_BWD_V1), which the wrapper then plans for.
+extern "C" int rms_bwd_ring() { return kBwdV1 ? 0 : 1; }
 
 // t = x + a as addrms_fwd wrote it; g0 the cotangent of t;
 // dx = round(RMS_dx) + g0.

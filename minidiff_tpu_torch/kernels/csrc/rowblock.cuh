@@ -17,17 +17,27 @@
 // registers and writes them once as its block's f32 partial row.  The
 // caller sums the partial rows: no atomics, the same result on every run.
 //
+// That backward walks its rows as one chain: load x, reduce (two
+// barriers), load dy and g, reduce again (two more), load g again, store
+// dx.  Two dependent device-memory round trips and four barriers a row,
+// with nothing of the next row in flight, and a few KB in flight per SM
+// where the HBM rate asks ~25-40 KB (Little's law at ~1-2 us): at (8192,
+// 4096) bf16 it ran at twice its bound.
+//
 // norm_wave_kernel is the forward of rms_fwd, ln_fwd, addrms_fwd and
 // addln_fwd at decode-sized row counts (kernels.layernorm.norm_fwd_plan
 // sends them there; see the kernel).  A build with -DNORM_FWD_V1 takes the
 // routes above for every row, as before the one-wave kernel (chip_smoke.py
-// times the two in turns).
+// times the two in turns).  rms_ring_bwd_kernel is rms_bwd's backward at
+// every row count (kernels.layernorm.norm_bwd_plan; see the kernel).
 #pragma once
 
 #include "rowwise.cuh"
+#include "wgmma.cuh"
 
 namespace rowblock {
 
+using rowwise::group_sum;
 using rowwise::Vec;
 using rowwise::warp_sum;
 
@@ -340,16 +350,6 @@ inline int wave_threads(int nvec, int vecs) {
   return ((nvec + vecs - 1) / vecs + 31) / 32 * 32;
 }
 
-// warp_sum over groups of `span` lanes (a power of two): lane l adds lane
-// l ^ o for each o < span, so every group whose lanes hold the same values
-// ends with the same bits.
-__device__ __forceinline__ float group_sum(float v, int span) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    if (o < span) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // One CTA per row, at decode-sized row counts, where a launch's latency and
 // not its bytes bounds the forward (an (8, 4096) bf16 row block is 128 KB:
 // 0.04 us at the HBM rate, against ~3 us per launch of the kernels above).
@@ -395,8 +395,7 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ a,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  int span = 1;  // the lanes that combine the warps' partials
-  while (span < warps) span *= 2;
+  const int span = rowwise::warp_span(warps);  // the lanes that combine the warps' partials
   const int part = lane & (span - 1);  // the warp whose partial this lane takes
   const int nvec = d / V;
   const size_t base = static_cast<size_t>(blockIdx.x) * d;
@@ -516,6 +515,230 @@ int launch_wave(const void* x, const void* a, const void* g, const void* b,
       static_cast<T*>(t_out), static_cast<T*>(y), d,
       1.f / static_cast<float>(d), eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// RMSNorm's backward, rms_bwd, at every row count: persistent CTAs walk
+// the rows interleaved (CTA b takes rows b, b + CTAs, ...: at any moment
+// the CTAs stream neighbouring rows, which measured faster than each
+// walking a contiguous run), and the design takes the old kernel's chain
+// apart.
+// - Rows in flight: thread 0 keeps the x and dy rows of the next `stages`
+//   rows in flight, each row one TMA bulk copy (cp.async.bulk, completing
+//   on the stage's mbarrier) into a ring of shared-memory stages, so the
+//   loads of later rows run under this row's arithmetic.  The plan
+//   (kernels.layernorm.norm_bwd_plan) sizes the ring and the CTAs an SM
+//   holds from chip_smoke.py's norm_bwd_route_ab.
+// - g is read once per CTA, kept packed in registers: a thread owns the
+//   same columns in every row.
+// - One exchange a row: RMSNorm needs two row sums, sum(x^2) and
+//   sum(w x) with w = dy g, since mean(w xhat) = rsig sum(w x) / d.  Both
+//   go through one warp shuffle, the warps' partials through shared
+//   memory, one barrier, and every warp combines the partials by the same
+//   shuffles (group_sum, lane l taking warp l's), so every thread gets the
+//   same bits on every run.  Then rsig = rsqrt(sum(x^2) / d + eps),
+//   m2 = rsig sum(w x) / d, xhat = x rsig and dx = (w - xhat m2) rsig,
+//   stored from registers.
+// - One barrier a row: the exchange scratch is double-buffered (row k
+//   writes red[k & 1]; a thread writes it again only after the barrier of
+//   row k + 1, by which every thread has read it), and the barrier also
+//   frees the row's stage (every thread has copied its vectors to
+//   registers before it), so thread 0 refills that stage with the row
+//   `stages` ahead right after it.
+// - The dg partial row stays in registers and is written once per CTA as
+//   an f32 partial row; rms_dg_sum_kernel, launched next, sums the
+//   partial rows in a fixed order (no atomics: the same bits every run)
+//   and writes dg in g's dtype: one short launch where the caller's sum
+//   and cast were two PyTorch kernels, whose cost beside a 20-80 us ring
+//   was large enough to matter.
+// - The row's columns are spread as in norm_bwd_kernel (row_shape: at
+//   most kMaxThreads threads; 512-thread CTAs measured no faster on the
+//   H100).  Small rows take several CTAs an SM, so that other CTAs' rows
+//   overlap each CTA's per-row chain (the plan's table, from
+//   chip_smoke.py's norm_bwd_route_ab).
+// Bound: bytes (x and dy read once, dx written once).
+constexpr int kRingMaxStages = 8;
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kMaxThreads)
+rms_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const T* __restrict__ dy, T* __restrict__ dx,
+                    float* __restrict__ dgp, int rows, int d, int stages,
+                    float inv_d, float eps) {
+  constexpr int V = Vec<T>::N;
+  using Raw = typename Vec<T>::Raw;
+  extern __shared__ __align__(16) unsigned char ring[];  // stages x [x row | dy row]
+  __shared__ __align__(8) uint64_t full[kRingMaxStages];
+  __shared__ float2 red[2][32];  // each warp's (sum x^2, sum w x), two rows apart
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int span = rowwise::warp_span(warps);
+  const int part = lane & (span - 1);  // the warp whose partials this lane takes
+  const int nvec = d / V;
+  const unsigned row_bytes = static_cast<unsigned>(d) * sizeof(T);
+  // this CTA's rows: blockIdx.x, + gridDim.x, ... (n of them)
+  const int b = blockIdx.x, ctas = gridDim.x;
+  const int n = (rows - b + ctas - 1) / ctas;
+  auto row_of = [&](int k) { return b + k * ctas; };
+  const unsigned ring0 = sm90::smem_addr(ring);
+  const unsigned bar0 = sm90::smem_addr(full);
+
+  // the CTA's k-th row into stage k % stages (thread 0 only)
+  auto issue = [&](int k) {
+    const int st = k % stages;
+    const size_t off = static_cast<size_t>(row_of(k)) * d;
+    sm90::mbar_expect_tx(bar0 + 8 * st, 2 * row_bytes);
+    sm90::bulk_load(ring0 + st * 2 * row_bytes, x + off, row_bytes, bar0 + 8 * st);
+    sm90::bulk_load(ring0 + st * 2 * row_bytes + row_bytes, dy + off, row_bytes,
+                    bar0 + 8 * st);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) sm90::mbar_init(bar0 + 8 * st, 1);
+    sm90::mbar_init_fence();
+    for (int k = 0; k < min(stages, n); ++k) issue(k);
+  }
+
+  Raw gr[NV];
+  float dg[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) gr[i] = Vec<T>::fetch(g + c * V);
+#pragma unroll
+    for (int j = 0; j < V; ++j) dg[i][j] = 0.f;
+  }
+  __syncthreads();  // the barriers' inits, before any thread waits on them
+
+  for (int k = 0; k < n; ++k) {
+    const int st = k % stages;
+    sm90::mbar_wait(bar0 + 8 * st, (k / stages) & 1);
+    const T* xs = reinterpret_cast<const T*>(ring + st * 2 * row_bytes);
+    const T* ds = xs + d;
+    float xv[NV][V], dv[NV][V];
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < nvec) {
+        float gv[V];
+        Vec<T>::load(xs + c * V, xv[i]);
+        Vec<T>::load(ds + c * V, dv[i]);
+        Vec<T>::unpack(gr[i], gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          s0 += xv[i][j] * xv[i][j];
+          s1 += dv[i][j] * gv[j] * xv[i][j];
+        }
+      }
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    float2* r = red[k & 1];
+    if (lane == 0) r[warp] = make_float2(s0, s1);
+    __syncthreads();
+    if (threadIdx.x == 0 && k + stages < n) issue(k + stages);
+    const float2 p = part < warps ? r[part] : make_float2(0.f, 0.f);
+    const float rsig = rsqrtf(group_sum(p.x, span) * inv_d + eps);
+    const float m2 = rsig * (group_sum(p.y, span) * inv_d);
+    const size_t base = static_cast<size_t>(row_of(k)) * d;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = threadIdx.x + i * blockDim.x;
+      if (c < nvec) {
+        float gv[V], o[V];
+        Vec<T>::unpack(gr[i], gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = xv[i][j] * rsig;
+          o[j] = (dv[i][j] * gv[j] - xh * m2) * rsig;
+          dg[i][j] += dv[i][j] * xh;
+        }
+        Vec<T>::store(dx + base + c * V, o);
+      }
+    }
+  }
+
+  // this CTA's partial row: each column has one owner thread
+  const size_t pbase = static_cast<size_t>(b) * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; j += 4) Vec<float>::store(dgp + pbase + c * V + j, &dg[i][j]);
+    }
+  }
+}
+
+// dg = the column sums of the `p` f32 partial rows of d values, rounded
+// once to T.  A CTA takes 32 columns, a lane one column (each warp's loads
+// of a row are one 128-byte line); warp w sums rows w, w + kSumWarps, ...
+// in order, and warp 0 adds the warps' sums in warp order.
+constexpr int kSumWarps = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kSumWarps * 32)
+rms_dg_sum_kernel(const float* __restrict__ parts, T* __restrict__ dg, int p, int d) {
+  __shared__ float red[kSumWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < d) {
+#pragma unroll 8
+    for (int r = warp; r < p; r += kSumWarps) s += parts[static_cast<size_t>(r) * d + c];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSumWarps; ++w) t += red[w][lane];
+    rowwise::put(dg + c, t);
+  }
+}
+
+// Launch rms_ring_bwd_kernel over `ctas` CTAs with a ring of `stages`, at
+// the plan's (threads, vecs), refused with cudaErrorInvalidValue unless
+// those are row_shape's for a row of d values and the stages fit; then
+// rms_dg_sum_kernel from its `ctas` partial rows (dgp) into dg.
+template <typename T, int NV = 1>
+int launch_ring(const void* x, const void* g, const void* dy, void* dx, void* dgp,
+                void* dg, int rows, int d, int ctas, int threads, int vecs, int stages,
+                float eps, void* stream) {
+  if constexpr (NV > max_nv<T>()) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    int nv, th;
+    row_shape(d / Vec<T>::N, &nv, &th);
+    if (nv > NV)
+      return launch_ring<T, 2 * NV>(x, g, dy, dx, dgp, dg, rows, d, ctas, threads, vecs,
+                                    stages, eps, stream);
+    if (d > kMaxWidth || vecs != nv || threads != th || stages < 1 ||
+        stages > kRingMaxStages || ctas < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = stages * 2 * d * static_cast<int>(sizeof(T));
+    auto kernel = rms_ring_bwd_kernel<T, NV>;
+    // past 48 KB with the static scratch (under 1 KB) only by the attribute
+    if (smem + 1024 > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) {
+        cudaGetLastError();  // a refused attribute stays the last error
+        return static_cast<int>(err);
+      }
+    }
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    kernel<<<ctas, threads, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(dgp), rows, d, stages,
+        1.f / static_cast<float>(d), eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rms_dg_sum_kernel<T><<<(d + 31) / 32, kSumWarps * 32, 0, st>>>(
+        static_cast<const float*>(dgp), static_cast<T*>(dg), ctas, d);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace rowblock

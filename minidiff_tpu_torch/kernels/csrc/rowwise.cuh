@@ -1,4 +1,4 @@
-// Helpers shared by the row-per-warp kernels (layernorm.cu, xent.cu):
+// Helpers shared by the row kernels (layernorm.cu, rmsnorm.cu, xent.cu):
 // 16-byte vector loads and stores of a row's elements as f32, and warp
 // reductions by shuffle.
 #pragma once
@@ -84,6 +84,10 @@ struct Vec<__nv_bfloat16> {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// one f32 value stored in the row's dtype, rounded once
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -94,6 +98,32 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// warp_sum over groups of `span` lanes (a power of two): lane l adds lane
+// l ^ o for each o < span, so every group whose lanes hold the same values
+// ends with the same bits.
+__device__ __forceinline__ float group_sum(float v, int span) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < span) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// warp_max over groups of `span` lanes, as group_sum
+__device__ __forceinline__ float group_max(float v, int span) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < span) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// the lanes that combine a CTA's warps' partials after an exchange: the
+// fewest (a power of two) that hold one partial each
+__device__ __forceinline__ int warp_span(int warps) {
+  int span = 1;
+  while (span < warps) span *= 2;
+  return span;
 }
 
 }  // namespace rowwise

@@ -16,22 +16,72 @@
 //
 // Bound on the H100: bytes.  The forward reads the logits once and writes
 // one f32 per row; the backward reads them once and writes them once; about
-// 5 flops and one exp per element, far under the ridge.  Design: one warp
-// per row, lanes on neighbouring 16-byte vectors.  The passes over the row
-// (max, sum of exps, and for the backward the output) re-read it from L1:
-// a row of the train step's V = 512 is 1 KB in bf16, so device memory sees
-// it once.  A row that is no whole number of aligned vectors (V = 10 in
-// the tape's MLP) is read one element per lane instead, so any V works.
+// 5 flops and one exp per element, far under the ridge.
+//
+// The forward, and the backward's rows that the row kernel below does not
+// take: one warp per row (4 rows a CTA), lanes on neighbouring 16-byte
+// vectors, a pass over the row for its max, one for its sum of exps and,
+// in the backward, one for the output.  Each pass reads the row again.
+// That costs nothing at the train step's V = 512 (a 1 KB bf16 row stays in
+// L1 between passes) and everything at the options step's V = 32,768: a
+// 64 KB row does not stay in L1, and with a warp per row thousands of rows
+// are in flight at once, hundreds of MB of logits against the 50 MB L2, so
+// each pass reads device memory again (three reads and one write of the
+// logits, where the bound counts one of each).  A row that is no whole
+// number of 16-byte vectors (V = 10 in the tape's MLP) is read one element
+// per lane instead, so any V works.
+//
+// The backward's row kernel (xent_row_bwd_kernel; kernels.xent.xent_bwd_plan
+// sends rows of whole vectors to it, by V, before launch): one CTA per row,
+// of up to kRowMaxThreads threads, holds its row on chip, so the logits
+// cross device memory once and dz once.
+// - One load wave: every thread fetches its NV 16-byte vectors of the row
+//   (vector t, t + threads, ...), kept packed as loaded, with the row's
+//   label and cotangent, before any arithmetic.
+// - Each thread takes the max m_t of its own values and replaces each z_i
+//   by e_i = exp(z_i - m_t) in f32 registers, summing them into s_t: one
+//   exp per element.
+// - One exchange: each warp merges its lanes' (m_t, s_t) into
+//   (m_w = max m_t, s_w = sum s_t exp(m_t - m_w)) by shuffles, writes it to
+//   shared memory, one barrier, and every warp merges the warps' pairs the
+//   same way (lane l taking warp l's), so every thread gets the same m and
+//   s, and the same bits on every run.
+// - dz_i = (e_i c_t - [i == label]) g with c_t = exp(m_t - m) / s: the
+//   division is one approximate reciprocal of s per thread (s >= 1: the
+//   element at the row's max contributes exp(0)); the kernel divides
+//   nowhere else (a division's slow-path call is what made ptxas spill the
+//   norm kernels).  One 16-byte store per vector.
+// Exps issued: one per element, and three per thread (its warp's merge, the
+// lane's share of the warps' merge, c_t): V + 3 x threads a row, 1.09 per
+// element at V 32,768 on 1,024 threads, where the warp kernel issued two
+// per element.  The row is held as f32 in registers: at most
+// kRowMaxValues values a thread (64 registers at 1,024 threads), so V up
+// to 32,768 in either dtype; wider rows keep the warp kernel.  A build with
+// -DXENT_BWD_V1 sends every backward row to the warp (or one-element)
+// kernel, as before the row kernel (chip_smoke.py times the two in turns).
 
 #include "rowwise.cuh"
 
 namespace {
 
+using rowwise::group_max;
+using rowwise::group_sum;
+using rowwise::put;
 using rowwise::Vec;
 using rowwise::warp_max;
 using rowwise::warp_sum;
 
+#ifdef XENT_BWD_V1
+constexpr bool kBwdV1 = true;
+#else
+constexpr bool kBwdV1 = false;
+#endif
+
 constexpr int kWarpsPerBlock = 4;
+// the row kernel's widest CTA, and the most values (f32 registers) a
+// thread holds: at 1,024 threads a thread has 64 registers
+constexpr int kRowMaxThreads = 1024;
+constexpr int kRowMaxValues = 32;
 
 // W consecutive columns of a row as f32: one 16-byte vector (W = Vec::N)
 // when every row is a whole number of aligned vectors, else one element.
@@ -44,9 +94,6 @@ struct Chunk<T, true> {
   __device__ static void load(const T* p, float* out) { Vec<T>::load(p, out); }
   __device__ static void store(T* p, const float* in) { Vec<T>::store(p, in); }
 };
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <typename T>
 struct Chunk<T, false> {
@@ -124,6 +171,80 @@ xent_bwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
   }
 }
 
+// One CTA per row (see the header).  NV vectors a thread: vector c of the
+// row is held by thread c % blockDim.x; every warp holds at least one.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kRowMaxThreads)
+xent_row_bwd_kernel(const T* __restrict__ z, const int* __restrict__ lab,
+                    const float* __restrict__ g, T* __restrict__ dz, int v) {
+  constexpr int W = Vec<T>::N;
+  using Raw = typename Vec<T>::Raw;
+  // each warp's (m_w, s_w)
+  __shared__ float2 red[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int span = rowwise::warp_span(warps);
+  const int part = lane & (span - 1);  // the warp whose pair this lane takes
+  const int nvec = v / W;
+  const size_t base = static_cast<size_t>(blockIdx.x) * v;
+
+  Raw zr[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) zr[i] = Vec<T>::fetch(z + base + c * W);
+  }
+  const int l = lab[blockIdx.x];
+  const float gr = g[blockIdx.x];
+
+  float e[NV][W];
+  float mt = -3.402823466e38f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + i * blockDim.x < nvec) {
+      Vec<T>::unpack(zr[i], e[i]);
+#pragma unroll
+      for (int j = 0; j < W; ++j) mt = fmaxf(mt, e[i][j]);
+    }
+  }
+  float st = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + i * blockDim.x < nvec) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        e[i][j] = expf(e[i][j] - mt);
+        st += e[i][j];
+      }
+    }
+  }
+
+  // the exchange: a lane that holds nothing has s_t = 0 and adds 0
+  const float mw = warp_max(mt);
+  const float sw = warp_sum(st * expf(mt - mw));
+  if (lane == 0) red[warp] = make_float2(mw, sw);
+  __syncthreads();
+  const float2 p = part < warps ? red[part] : make_float2(-3.402823466e38f, 0.f);
+  const float m = group_max(p.x, span);
+  const float s = group_sum(p.y * expf(p.x - m), span);
+  float rs;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(s));
+  const float ct = expf(mt - m) * rs;
+
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < nvec) {
+      const int lj = l - c * W;  // the label's place in this vector, if any
+      float o[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) o[j] = (e[i][j] * ct - (j == lj ? 1.f : 0.f)) * gr;
+      Vec<T>::store(dz + base + c * W, o);
+    }
+  }
+}
+
 inline int blocks_for(int rows) {
   return (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
@@ -147,17 +268,47 @@ void launch_fwd(const void* z, const int* lab, float* loss, int rows, int v,
         zt, lab, loss, rows, v);
 }
 
+// The row kernel's launch for the plan's (threads, vecs), or nullptr unless
+// they are a configuration it takes for a row of v values: whole vectors,
+// vecs in {1, 2, 4, 8} with at most kRowMaxValues values a thread, and the
+// fewest whole warps, at most kRowMaxThreads threads, that cover the row.
 template <typename T>
-void launch_bwd(const void* z, const int* lab, const float* g, void* dz,
-                int rows, int v, cudaStream_t st) {
+auto row_kernel(int v, int threads, int vecs) -> decltype(&xent_row_bwd_kernel<T, 1>) {
+  constexpr int W = Vec<T>::N;
+  const int nvec = v / W;
+  if (v % W || vecs * W > kRowMaxValues || threads % 32 || threads > kRowMaxThreads ||
+      threads * vecs < nvec || (threads - 32) * vecs >= nvec)
+    return nullptr;
+  if (vecs == 1) return xent_row_bwd_kernel<T, 1>;
+  if (vecs == 2) return xent_row_bwd_kernel<T, 2>;
+  if (vecs == 4) return xent_row_bwd_kernel<T, 4>;
+  if constexpr (kRowMaxValues / W >= 8) {
+    if (vecs == 8) return xent_row_bwd_kernel<T, 8>;
+  }
+  return nullptr;
+}
+
+// vecs > 0: the row kernel at (threads, vecs), refused with
+// cudaErrorInvalidValue unless row_kernel takes them; 0 (and every row of a
+// -DXENT_BWD_V1 build): the warp kernel, or one element a lane for rows
+// that are no whole number of vectors.
+template <typename T>
+cudaError_t launch_bwd(const void* z, const int* lab, const float* g, void* dz,
+                       int rows, int v, int threads, int vecs, cudaStream_t st) {
   const T* zt = static_cast<const T*>(z);
   T* dzt = static_cast<T*>(dz);
-  if (vector_rows<T>(v, z, dz))
+  if (vecs > 0 && !kBwdV1) {
+    auto kernel = row_kernel<T>(v, threads, vecs);
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    kernel<<<rows, threads, 0, st>>>(zt, lab, g, dzt, v);
+  } else if (vector_rows<T>(v, z, dz)) {
     xent_bwd_kernel<T, true><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
         zt, lab, g, dzt, rows, v);
-  else
+  } else {
     xent_bwd_kernel<T, false><<<blocks_for(rows), kWarpsPerBlock * 32, 0, st>>>(
         zt, lab, g, dzt, rows, v);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -176,15 +327,18 @@ extern "C" int xent_fwd(const void* z, const void* lab, void* loss, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (rows,) f32, the cotangent of each row's loss; dz like z.
+// g (rows,) f32, the cotangent of each row's loss; dz like z.  threads,
+// vecs: the launch plan's (kernels.xent.xent_bwd_plan); vecs > 0 takes the
+// row kernel (refused unless they are a configuration it takes), 0 the warp
+// kernel, as does every row of a -DXENT_BWD_V1 build.
 extern "C" int xent_bwd(const void* z, const void* lab, const void* g,
-                        void* dz, int rows, int v, int dtype, void* stream) {
+                        void* dz, int rows, int v, int dtype, int threads,
+                        int vecs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lb = static_cast<const int*>(lab);
   const float* gr = static_cast<const float*>(g);
   if (dtype == 1)
-    launch_bwd<__nv_bfloat16>(z, lb, gr, dz, rows, v, st);
-  else
-    launch_bwd<float>(z, lb, gr, dz, rows, v, st);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        launch_bwd<__nv_bfloat16>(z, lb, gr, dz, rows, v, threads, vecs, st));
+  return static_cast<int>(launch_bwd<float>(z, lb, gr, dz, rows, v, threads, vecs, st));
 }

@@ -49,11 +49,23 @@ exchange, LayerNorm's statistics merged by Chan's formula in a fixed
 order), else their earlier routes (``ln_rows_kernel``, a warp per row, for
 LayerNorm rows a warp's registers hold; ``norm_fwd_kernel``, a block per
 row, for the rest).
+
+The four backwards launch by ``norm_bwd_plan``: ``rms_bwd`` on the ring
+kernel of ``csrc/rowblock.cuh`` (``rms_ring_bwd_kernel``: persistent CTAs,
+the x and dy of the next rows in flight by TMA bulk copies into a ring of
+shared-memory stages, g read once, one exchange a row for both row sums);
+``ln_bwd``, ``addln_bwd`` and ``addrms_bwd`` on their earlier kernels
+(``ln_bwd_kernel``, a warp per row, for LayerNorm rows of up to
+``BWD_WARP_WIDTH`` values; ``norm_bwd_kernel``, a block per row, for the
+rest), two CTAs per SM.  Each backward's CTAs write f32 partial rows of dg
+(and db), summed in a fixed order: on the ring by ``rms_bwd``'s second
+kernel (``rms_dg_sum_kernel``, which writes dg in g's dtype), elsewhere here.
+A build of ``rmsnorm.cu`` without the ring (``-DNORM_BWD_V1``) says so
+(``rms_bwd_ring``), and ``rms_bwd`` then launches as it did before it.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -80,6 +92,24 @@ WARP_MAX_VECS = 8
 # addln_fwd at 512 rows of 4,096 (the fused forwards cross where the plain
 # ones do)
 WAVE_MAX_ROWS = 128
+# the backward kernels' launch shapes, restated from csrc/layernorm.cu
+# (kBwdWarpRowWidth, kBwdWarps) and csrc/rowblock.cuh (kRingMaxStages) for
+# norm_bwd_plan
+BWD_WARP_WIDTH = 1024
+BWD_WARPS = 8
+RING_MAX_STAGES = 8
+# rms_bwd's ring: the CTAs an SM runs by the bytes of one x row (up to each
+# count; 1 past the last), and the x and dy bytes an SM keeps in flight,
+# which set the stages (at least 2).  chip_smoke.py's norm_bwd_route_ab
+# timed 1-8 CTAs an SM at 2-8 stages at (8192, 1024), (8192, 4096) and
+# (1024, 4096) in bf16 and f32: 2 KB rows were fastest at 4 CTAs an SM
+# and 2 stages, 4 and 8 KB rows at 2 and 2, 16 KB rows within 1% of their
+# best at 1 and 2
+RING_CTAS_BY_ROW_BYTES = ((2048, 4), (8192, 2))
+RING_BYTES = 32 * 1024
+# a ring CTA's shared memory beside its stages: the system's 1 KB, the
+# stages' mbarriers and the exchange scratch
+RING_SMEM_EXTRA = 2048
 
 
 class NormPlan(NamedTuple):
@@ -117,6 +147,73 @@ def norm_fwd_plan(rows: int, d: int, dtype, rms: bool, wave=None) -> NormPlan:
         vecs *= 2
     return NormPlan("wave" if wave else "block", rows,
                     (-(-nvec // vecs) + 31) // 32 * 32, vecs)
+
+
+def _row_shape(nvec: int):
+    """rowblock.cuh's row_shape: the fewest vectors a thread (a power of
+    two) with which ``BLOCK_MAX_THREADS`` threads hold ``nvec`` vectors, and
+    the fewest whole warps that cover them."""
+    vecs = 1
+    while vecs * BLOCK_MAX_THREADS < nvec:
+        vecs *= 2
+    return vecs, (-(-nvec // vecs) + 31) // 32 * 32
+
+
+class NormBwdPlan(NamedTuple):
+    """How a backward norm launches: the route ("ring":
+    ``rms_ring_bwd_kernel``, persistent CTAs over a ring of ``stages``
+    shared-memory stages; "warp": ``ln_bwd_kernel``, ``BWD_WARPS`` warps a
+    CTA, a warp a row; "block": ``norm_bwd_kernel``, a CTA walks its rows
+    one at a time), the CTAs (each writes one partial row), the threads of a
+    CTA, the 16-byte vectors of a row one thread (a lane, on the warp route)
+    holds, and the ring's stages (0 off the ring)."""
+
+    route: str
+    ctas: int
+    threads: int
+    vecs: int
+    stages: int
+
+
+def norm_bwd_plan(rows: int, d: int, dtype, rms: bool, add: bool, stages=None,
+                  per_sm=None, ring=None) -> NormBwdPlan:
+    """The launch plan of ``rms_bwd`` (``rms`` and not ``add``),
+    ``addrms_bwd``, ``ln_bwd`` or ``addln_bwd`` (``add``: the fused
+    residual's) for ``rows`` rows of ``d`` values, from shapes only.
+    ``rms_bwd`` takes the ring: ``row_shape``'s threads and vectors,
+    ``per_sm`` CTAs an SM (by ``RING_CTAS_BY_ROW_BYTES``), the fewest stages
+    (at least 2, at most ``RING_MAX_STAGES``) that keep ``RING_BYTES`` of x
+    and dy in flight per SM, both cut to what shared memory holds, and at
+    most one CTA a row.  ``stages`` and ``per_sm`` force the choice, for
+    chip_smoke.py's A/B, and ``ring=False`` the launch ``rms_bwd`` had
+    before the ring.  The others keep the launch they had before the plan:
+    two CTAs an SM or one per 8 rows, whichever is fewer, on the warp
+    kernel for LayerNorm rows of up to ``BWD_WARP_WIDTH`` values (its lane
+    vectors the next power of two over the row's share), else on the
+    block-per-row kernel."""
+    size = torch.finfo(dtype).bits // 8
+    nvec = d // (16 // size)
+    if ring is None:
+        ring = rms and not add
+    if ring:
+        vecs, threads = _row_shape(nvec)
+        if per_sm is None:
+            per_sm = next((n for most, n in RING_CTAS_BY_ROW_BYTES if d * size <= most), 1)
+        stage = 2 * d * size
+        if stages is None:
+            stages = max(2, min(RING_MAX_STAGES, -(-RING_BYTES // (per_sm * stage))))
+        stages = min(stages, RING_MAX_STAGES, _build.SMEM_LIMIT // stage)
+        while per_sm > 1 and per_sm * (stages * stage + RING_SMEM_EXTRA) > _build.SMEM_PER_SM:
+            per_sm -= 1
+        return NormBwdPlan("ring", min(per_sm * _build.SMS, rows), threads, vecs, stages)
+    ctas = max(1, min(-(-rows // 8), 2 * _build.SMS))
+    if not rms and d <= BWD_WARP_WIDTH:
+        vecs = 1
+        while 32 * vecs < nvec:
+            vecs *= 2
+        return NormBwdPlan("warp", ctas, 32 * BWD_WARPS, vecs, 0)
+    vecs, threads = _row_shape(nvec)
+    return NormBwdPlan("block", ctas, threads, vecs, 0)
 
 
 def uses_kernel(x) -> bool:
@@ -284,34 +381,42 @@ def _add_rmsnorm_fwd(x, a, g, eps: float):
     return _fwd_kernel("addrms_fwd", x, (a, g), eps, (2,) + tuple(x.shape))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _bwd_kernel(name: str, x, g, dy, g0, eps: float):
-    """Launch a backward (g0 None for ``ln_bwd`` / ``rms_bwd``); the f32
-    partial rows of its blocks (dg, and db for LayerNorm) are summed here,
-    then cast to g's dtype.  Returns (dx, dg[, db])."""
+def _bwd_kernel(name: str, x, g, dy, g0, eps: float, plan=None):
+    """Launch a backward (g0 None for ``ln_bwd`` / ``rms_bwd``) by
+    ``plan`` (``norm_bwd_plan``'s rule when None); the f32 partial rows of
+    its CTAs (dg, and db for LayerNorm) are summed here, then cast to g's
+    dtype.  Returns (dx, dg[, db])."""
     operands = (x, g, dy) if g0 is None else (x, g, dy, g0)
     _check_cuda(name, *operands)
     _same_shape(name, *((x, dy) if g0 is None else (x, dy, g0)))
     d = x.shape[-1]
     rows = x.numel() // d
-    sums = 1 if "rms" in name else 2
+    rms = "rms" in name
+    sums = 1 if rms else 2
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if rows == 0:
         return (dx,) + (torch.zeros_like(g),) * sums
-    # two blocks per SM, or fewer when there are fewer than 8 rows a block
-    blocks = max(1, min(-(-rows // 8), 2 * _sm_count(x.device.index)))
-    parts = torch.empty((sums, blocks, d), dtype=torch.float32, device=x.device)
-    ins = [t.contiguous() for t in operands]
+    plan = plan or norm_bwd_plan(rows, d, x.dtype, rms, g0 is not None)
     with torch.cuda.device(x.device):
+        if plan.route == "ring" and not _build.function("rms_bwd_ring")():
+            # a build without the ring (-DNORM_BWD_V1) launches as before it
+            plan = norm_bwd_plan(rows, d, x.dtype, True, False, ring=False)
+        parts = torch.empty((sums, plan.ctas, d), dtype=torch.float32, device=x.device)
+        # rms_bwd's entry takes dg and the ring's (threads, vecs, stages):
+        # on the ring it sums the partial rows into dg itself
+        route, dg = (), None
+        if name == "rms_bwd":
+            dg = torch.empty(g.shape, dtype=g.dtype, device=g.device)
+            route = ((plan.threads, plan.vecs, plan.stages) if plan.route == "ring"
+                     else (0, 0, 0))
+        ins = [t.contiguous() for t in operands]
         err = _build.function(name)(
-            *_build.ptrs(*ins, dx, *parts), rows, d, blocks, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream())
+            *_build.ptrs(*ins, dx, *parts, *(() if dg is None else (dg,))), rows, d,
+            plan.ctas, float(eps), _build.DTYPE_CODES[x.dtype], *route, _build.stream())
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if plan.route == "ring":
+        return dx, dg
     return (dx, *parts.sum(dim=1).to(g.dtype))
 
 

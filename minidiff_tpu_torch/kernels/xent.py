@@ -12,12 +12,19 @@ The kernels write the loss in f32, which is acc for the two dtypes they take.
 goes to the hand-written kernels of ``csrc/xent.cu`` (``xent_fwd``,
 ``xent_bwd``); a CPU tensor goes to the plain versions.  A CUDA tensor the
 kernels do not take raises: nothing falls back.  The kernels take any row
-width V.  The tape's ``softmax_xent`` enters through ``loss`` and
+width V.  ``xent_bwd`` launches by ``xent_bwd_plan``, decided from shapes
+before launch: rows of whole 16-byte vectors from ``ROW_MIN_V`` to
+``ROW_MAX_V`` values take the row kernel (one CTA per row, the row held on
+chip: one read of the logits, one write of dz), the others the warp kernel
+(a warp per row) or, for rows that are no whole number of vectors, one
+element a lane.  The tape's ``softmax_xent`` enters through ``loss`` and
 ``loss_grad``, which send f32 and bf16 logits to the kernels (their plain
 versions on the CPU) and other dtypes to the plain versions.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -27,6 +34,73 @@ from minidiff_tpu_torch.kernels.layernorm import _acc_dtype
 
 # launches of each kernel since the last reset (kernels.reset_launch_counts)
 LAUNCHES = {"xent_fwd": 0, "xent_bwd": 0}
+
+
+# the row kernel's launch shapes, restated from csrc/xent.cu (kRowMaxThreads,
+# kRowMaxValues, kWarpsPerBlock) for xent_bwd_plan
+ROW_MAX_THREADS = 1024
+ROW_MAX_VALUES = 32
+WARP_ROWS = 4
+# the row kernel takes rows of ROW_MIN_V to ROW_MAX_V values.  ROW_MAX_V is
+# what it holds: ROW_MAX_VALUES f32 a thread on ROW_MAX_THREADS threads.
+# ROW_MIN_V is the crossover that chip_smoke.py's xent_bwd_route_ab read
+# (8,192 rows, bf16 and f32, against the warp kernel of a -DXENT_BWD_V1
+# build in the same call)
+ROW_MAX_V = ROW_MAX_THREADS * ROW_MAX_VALUES
+ROW_MIN_V = 512
+
+
+class XentPlan(NamedTuple):
+    """How ``xent_bwd`` launches: the route ("row": ``xent_row_bwd_kernel``,
+    one CTA per row; "warp": ``xent_bwd_kernel``, ``WARP_ROWS`` rows a CTA,
+    a warp each, on 16-byte vectors; "scalar": the same, one element a
+    lane), the CTAs, the threads of a CTA, and the 16-byte vectors of the
+    row each thread holds (row route; 0 on the others, whose lanes loop)."""
+
+    route: str
+    ctas: int
+    threads: int
+    vecs: int
+
+
+def _vec(dtype) -> int:
+    """Values in one 16-byte vector."""
+    return 16 // (torch.finfo(dtype).bits // 8)
+
+
+def xent_bwd_plan(rows: int, v: int, dtype, route=None, vecs=None) -> XentPlan:
+    """The launch plan of ``xent_bwd`` for ``rows`` rows of ``v`` logits
+    of ``dtype``, from shapes only.  Rows of whole 16-byte vectors of
+    ``ROW_MIN_V`` to ``ROW_MAX_V`` values take the row kernel, each thread
+    holding ``ROW_MAX_VALUES`` values (``vecs`` vectors, a power of two) or,
+    for a row of fewer than one warp's worth, the most with which a whole
+    warp holds it, on the fewest whole warps that cover the row; other rows
+    of whole vectors the warp kernel, the rest the one-element route.
+    ``route`` ("row" or "warp") and ``vecs`` force the choice, for
+    chip_smoke.py's A/B; a forced row route raises where the row kernel
+    cannot hold the row."""
+    w = _vec(dtype)
+    nvec = v // w
+    whole = v % w == 0
+    if route is None:
+        route = "row" if whole and ROW_MIN_V <= v <= ROW_MAX_V else "warp"
+    if route == "row":
+        if not whole or v > ROW_MAX_V:
+            raise ValueError(f"xent_bwd_plan: the row kernel does not hold V {v} "
+                             f"of {dtype}")
+        if vecs is None:
+            vecs = ROW_MAX_VALUES // w
+            while vecs > 1 and 32 * vecs > nvec:
+                vecs //= 2
+        if vecs * w > ROW_MAX_VALUES or vecs & (vecs - 1):
+            raise ValueError(f"xent_bwd_plan: {vecs} vectors a thread")
+        threads = (-(-nvec // vecs) + 31) // 32 * 32
+        if threads > ROW_MAX_THREADS:
+            raise ValueError(f"xent_bwd_plan: V {v} needs {threads} threads at "
+                             f"{vecs} vectors a thread")
+        return XentPlan("row", rows, threads, vecs)
+    return XentPlan("warp" if whole else "scalar", -(-rows // WARP_ROWS),
+                    32 * WARP_ROWS, 0)
 
 
 def _plain_xent(z, lab):
@@ -87,6 +161,12 @@ def xent_grad(z, lab, g):
     """dz of the per-row loss for the per-row cotangent g: (rows, V)."""
     if z.device.type == "cpu":
         return _plain_xent_grad(z, lab, g)
+    return _bwd_kernel(z, lab, g)
+
+
+def _bwd_kernel(z, lab, g, plan=None):
+    """Launch ``xent_bwd`` on z (rows, V), lab and g (rows,) by ``plan``,
+    or by ``xent_bwd_plan``'s rule when None."""
     _check_cuda("xent_bwd", z, lab, g)
     if g.shape != lab.shape:
         raise ValueError(f"xent_bwd: g {tuple(g.shape)} must match the labels "
@@ -98,10 +178,12 @@ def xent_grad(z, lab, g):
     dz = torch.empty_like(zc)
     if rows == 0:
         return dz
+    plan = plan or xent_bwd_plan(rows, v, z.dtype)
+    route = (plan.threads, plan.vecs) if plan.route == "row" else (0, 0)
     with torch.cuda.device(z.device):
         err = _build.function("xent_bwd")(
             *_build.ptrs(zc, labc, gc, dz), rows, v, _build.DTYPE_CODES[z.dtype],
-            _build.stream())
+            *route, _build.stream())
     _build.check(err, "xent_bwd")
     LAUNCHES["xent_bwd"] += 1
     return dz
