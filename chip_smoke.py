@@ -59,8 +59,14 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    and ``rms_bwd`` on the plan's ring and every ring depth and CTAs per SM
    it tried against a ``-DNORM_BWD_V1`` build of ``rmsnorm.cu`` (the
    block-per-row kernel) at (8192, 1024), (8192, 4096) and (1024, 4096),
+   ``ln_bwd`` and ``addln_bwd`` likewise against a ``-DNORM_BWD_V1`` build
+   of ``layernorm.cu`` (the warp-per-row and block-per-row kernels) at
+   (8192, 1024), (4096, 512) and (8192, 4096),
    each new route the same bits twice, ``xent_fwd`` and ``addrms_bwd`` the
-   same bits as those builds and within 3% of their times;
+   same bits as those builds and within 3% of their times; the f32
+   ``dq_mm`` / ``dq4_mm`` / ``dq_bmm`` cases at three seeds, the kernel and
+   the plain version each held to the f64 product within a bound that
+   grows with K (``dq_f32_bound``);
    ``flash_bwd.cu``, ``matmul.cu``, ``quant.cu``, ``paged.cu``,
    ``layernorm.cu``, ``rmsnorm.cu`` and ``xent.cu`` built with no spill, no
    ptxas C75xx note and no ignored setmaxnreg;
@@ -77,8 +83,10 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
 5. the train step at full width (V512 d1024 h8 L4, S 1024, batch 8, bf16,
    ``make_train_step(model, SGD(1e-3), lm_loss)`` on the identity task, as
    the JAX repo's ``bench.py`` headline): finite losses, ms/step, tokens/s,
-   model TFLOP/s, the launches per step of every kernel, one profiled step;
-   then the f32 gradient gate: loss and every parameter's gradient of the
+   model TFLOP/s, the launches per step of every kernel, one profiled step,
+   and one on the ``-DXENT_BWD_V1`` and ``-DNORM_BWD_V1`` builds (each
+   reports ``xent_bwd``'s, ``ln_bwd``'s and ``addln_bwd``'s device time per
+   step); then the f32 gradient gate: loss and every parameter's gradient of the
    kernel path on the card against the plain path on the CPU (batch 1 x
    256 tokens);
 6. the tape engine under ``md.use_backend("cuda")``: the JAX repo's
@@ -153,7 +161,7 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    aux and every gradient); and ``benchmarks/moe_bench.py``'s train step
    (V512 d512 h4 L2, E8 top-1 at capacity 1.0, batch 8 x 512, bf16) grouped
    and one-hot beside the equal-FLOPs dense step, with exact launches and
-   one profiled step;
+   one profiled step, and one on the old backwards' builds (as phase 5);
 13. the kernels line: every kernel must have launched on its paths (counts
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
    7, phase 8 and each run of 9, 10, 11 and 12, and read just after each).
@@ -229,17 +237,34 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
        ("xent_dz", "float32"): (1e-5, 2 ** -21), ("xent_dz", "bfloat16"): (2 ** -7, 2 ** -21),
        ("attn_bwd", "float32"): (1e-4, 1e-5), ("attn_bwd", "bfloat16"): (2 ** -6, 2 ** -6),
        ("matmul", "float32"): (0.0, 1e-5), ("matmul", "bfloat16"): (0.0, 1e-2),
-       ("dq", "float32"): (1e-5, 1e-6), ("dq", "bfloat16"): (2 ** -7, 1e-6),
+       ("dq", "bfloat16"): (2 ** -7, 1e-6),
        ("scan", "float32"): (1e-6, 1e-6), ("scan", "bfloat16"): (2 ** -7, 2 ** -7)}
 # the kinds whose atol is a share of the plain output's largest magnitude.
 #  matmul: both sides accumulate in f32; bf16 rounds the output once (one
 #   bf16 ulp, under 2^-8 of the largest value), f32 sums up to K = 8192
 #   products in another order: 1e-2 and 1e-5 of the largest value.
-#  dq (dq_mm, dq4_mm): products of int8 codes and bf16 or f32 values are
-#   exact in f32 and both sides sum them in f32 in another order (int4's
-#   weights round to bf16 at the same point on both sides): f32 1e-5
-#   relative and 1e-6 of the largest value (an output that cancels keeps
-#   its terms' absolute error), bf16 one ulp of the output (2^-7 relative).
+#  dq (dq_mm, dq4_mm, dq_bmm) in bf16: products of int8 codes and bf16
+#   values are exact in f32 and both sides sum them in f32 in another order
+#   (int4's weights round to bf16 at the same point on both sides), then
+#   round the output once: one ulp of the output (2^-7 relative) and 1e-6
+#   of the largest value.  f32 has no entry here: dq_hold holds the kernel
+#   and the plain version alike to the exact (f64) product, output by
+#   output, within dq_f32_bound.  Its bound, for an output of K products
+#   t_k = x_k w_kj summed in f32 in any order:
+#     |out - ref| <= DQ_F32_C * 2^-24 * sqrt(K) * (||t||_2 + |ref|).
+#   Each f32 addition errs by at most 2^-24 of the partial sum it forms,
+#   and the errors of K additions add up like a random walk (sqrt(K) of
+#   them).  A partial sum of terms of both signs is the sum's drift towards
+#   ref plus a random walk of the terms, whose size is ||t||_2; a rounded
+#   product, the scale's multiply and the output's own rounding each add at
+#   most 2^-24 of |t_k| or |ref|, which the same bound covers.  A fully
+#   serial f32 sum of K = 1,024-4,096 such products (the worst order) used
+#   up to 0.37 of the bound on the CPU, the plain version up to 0.24, at
+#   three seeds (tests/test_torch_dq_gate.py).  The old f32 gate (1e-5
+#   relative, 1e-6 of the largest output) held the kernel to the plain
+#   version and grew with nothing: an output that cancels keeps its terms'
+#   rounding, which grows with K, and a new draw failed it (9.78e-6 against
+#   5.39e-6 at K 1,024-2,048).
 #  sdpa_int8 and paged_attn take the "attn" tolerances: sdpa_int8 rounds
 #   p * vs to bf16 at the same point as its plain version, and a p that
 #   differs in its last f32 bit can move that rounding; paged_attn rounds
@@ -252,6 +277,10 @@ TOL = {("ln", "float32"): (1e-5, 1e-5), ("ln", "bfloat16"): (2 ** -7, 1e-3),
 SCALED = {"attn_bwd", "matmul", "dq", "scan"}
 # the kinds whose atol is a share of the largest cotangent the caller passes
 G_SCALED = {"xent_dz"}
+# dq_f32_bound's constant, and the seeds of the f32 dequant cases, each
+# drawn from a generator of its own (dq_f32_cases)
+DQ_F32_C = 4.0
+DQ_F32_SEEDS = (2024, 2025, 2026)
 
 # the full-width train step: the JAX repo's headline (bench.py:636-661,
 # TransformerLM V512 d1024 h8 L4, S 1024, batch 8, bf16, SGD(1e-3), lm_loss
@@ -277,16 +306,17 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "mm_wgmma_kernel", "sdpa_int8_split_kernel",
                   "paged_attn_split_kernel", "norm_wave_kernel",
-                  "xent_row_bwd_kernel", "rms_ring_bwd_kernel", "rms_dg_sum_kernel")
+                  "xent_row_bwd_kernel", "norm_ring_bwd_kernel", "ring_sum_kernel")
 # the forward norms' kernels, whose device time per call each profile reports
 # for the plain and the fused (ADD) instantiations apart
 NORM_FWD_SYMBOLS = ("norm_wave_kernel", "ln_rows_kernel", "norm_fwd_kernel")
 # the redesigned backwards whose device time per step the train profiles
 # report on their new and old kernels: xent_bwd's (the row kernel and the
-# warp kernel) and rms_bwd's (the ring and its partial rows' sum, and the
-# block-per-row kernel with RMS and without ADD, whose partial rows the
-# caller sums with PyTorch kernels not counted here)
-BWD_REDESIGNED = ("xent_bwd", "rms_bwd")
+# warp kernel), and rms_bwd's, ln_bwd's and addln_bwd's (the ring and its
+# partial rows' sum; the block-per-row kernel, and LayerNorm's warp-per-row
+# kernel, whose partial rows the caller sums with PyTorch kernels not
+# counted here)
+BWD_REDESIGNED = ("xent_bwd", "rms_bwd", "ln_bwd", "addln_bwd")
 # the kernels that the train path runs and the serving path does not
 TRAIN_ONLY = {"ln_bwd", "addln_bwd", "flash_bwd_dkv", "flash_bwd_dq",
               "xent_fwd", "xent_bwd"}
@@ -604,6 +634,44 @@ def max_err(torch, out, ref, kind, dtype_name, g=None):
     return err.max().item()
 
 
+def dq_f32_bound(torch, x, w, ref):
+    """The f32 dequant gate's bound on each output's |out - ref| (see TOL):
+    x (..., K) the activations, w (..., K, N) the dequantized weight in f64,
+    ref = x @ w in f64.  ||t||_2 of an output's products is the square root
+    of (x^2) @ (w^2)."""
+    import math
+
+    x = x.double()
+    norm = torch.sqrt(torch.matmul(x * x, w * w))
+    return DQ_F32_C * 2.0 ** -24 * math.sqrt(x.shape[-1]) * (norm + ref.abs())
+
+
+def dq_hold(torch, out, plain, x, w, dn):
+    """A dequant product ``out`` of the kernel and ``plain`` of its plain
+    version, for activations x and the dequantized weight w (f64): in bf16
+    out within TOL["dq"] of plain; in f32 both within dq_f32_bound of the
+    exact product x @ w.  Returns the largest |out - plain| (bf16) or |out -
+    ref| (f32), and in f32 the largest share of the bound the kernel and
+    the plain version used ({} in bf16)."""
+    if dn == "bfloat16":
+        return max_err(torch, out, plain, "dq", dn), {}
+    ref = torch.matmul(x.double(), w)
+    lim = dq_f32_bound(torch, x, w, ref)
+    shares = {}
+    for side, got in (("kernel", out), ("plain", plain)):
+        check(bool(torch.isfinite(got).all()), f"dq f32 {side}: non-finite output")
+        share = (got.double() - ref).abs() / lim
+        i = int(torch.argmax(share))
+        check(share.flatten()[i].item() <= 1.0,
+              f"dq f32 {side} {tuple(x.shape)} x {tuple(w.shape)}: |err| "
+              f"{(got.double() - ref).abs().max().item():.3g} beyond dq_f32_bound; "
+              f"{int((share > 1).sum())} of {share.numel()} beyond, the worst at flat index "
+              f"{i}: {got.flatten()[i].item()!r} against {ref.flatten()[i].item()!r}, "
+              f"{share.flatten()[i].item():.3g} of its bound {lim.flatten()[i].item():.3g}")
+        shares[side] = share.max().item()
+    return (out.double() - ref).abs().max().item(), shares
+
+
 def ptxas_report(text: str) -> list:
     """One line for each kernel in nvcc's ``-Xptxas -v`` output: its name
     (demangled where c++filt exists), registers, and spills if any."""
@@ -680,16 +748,18 @@ def phase_kernels(torch, report):
          str(_build._CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, lib in v1_libs.items()}
-    # xent.cu's backward on the warp kernel and rmsnorm.cu's rms_bwd on the
-    # block-per-row kernel at every row (xent_bwd_route_ab,
-    # norm_bwd_route_ab, the train profiles)
+    # xent.cu's backward on the warp kernel, rmsnorm.cu's rms_bwd and
+    # layernorm.cu's ln_bwd and addln_bwd on their kernels before the ring,
+    # at every row (xent_bwd_route_ab, norm_bwd_route_ab, the train profiles)
     bwd_v1_libs = {"xent": _build.BUILD_DIR / "xent-bwd-v1.so",
-                   "rmsnorm": _build.BUILD_DIR / "rmsnorm-bwd-v1.so"}
+                   "rmsnorm": _build.BUILD_DIR / "rmsnorm-bwd-v1.so",
+                   "layernorm": _build.BUILD_DIR / "layernorm-bwd-v1.so"}
     bwd_v1_builds = {src: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-o", str(bwd_v1_libs[src]),
          str(_build._CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src, flag in (("xent", "-DXENT_BWD_V1"), ("rmsnorm", "-DNORM_BWD_V1"))}
+        for src, flag in (("xent", "-DXENT_BWD_V1"), ("rmsnorm", "-DNORM_BWD_V1"),
+                          ("layernorm", "-DNORM_BWD_V1"))}
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
@@ -703,7 +773,7 @@ def phase_kernels(torch, report):
                          for src, proc in bwd_v1_builds.items())):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 11} sources in "
+    log(f"[build] {len(_build.SOURCES) + 12} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -736,15 +806,19 @@ def phase_kernels(torch, report):
                           (OPT_TRAIN_BATCH * OPT_TRAIN_SEQ,))
              + rms_cases(torch, randn) + flash_cases(torch, randn)
              + xent_cases(torch, gen, randn) + matmul_cases(torch, randn)
-             + quant_cases(torch, gen, randn) + decode_attn_cases(torch, gen, randn)
-             + scan_cases(torch, gen) + dq_bmm_cases(torch, randn)
-             + dq_edge_cases(torch, randn)
+             + quant_cases(torch, gen, randn, (torch.bfloat16,))
+             + decode_attn_cases(torch, gen, randn) + scan_cases(torch, gen)
+             + dq_bmm_cases(torch, randn, (torch.bfloat16,))
+             + dq_edge_cases(torch, randn, (torch.bfloat16,))
              + norm_cases(torch, randn_bwd, MOE_TRAIN["dim"],
                           (MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,))
              + rms_cases(torch, randn_bwd, ((SSM_TRAIN_BATCH * SSM_TRAIN_SEQ,
                                               SSM_MODEL["dim"]),))
              + xent_cases(torch, gen_bwd, randn_bwd, ((MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,
                                                        MOE_TRAIN["vocab_size"]),)))
+    # the f32 dequant cases at three seeds; the first seed's are timed
+    report["dq_f32_seeds"] = dq_f32_cases(torch)
+    cases += [c for c in report["dq_f32_seeds"] if "ms" in c]
     torch.cuda.synchronize()
     for c in cases:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:8.2f}"
@@ -778,7 +852,8 @@ def phase_kernels(torch, report):
     report["xent_width_sweep"] = xent_width_sweep(torch, gen_bwd, randn_bwd)
     report["xent_bwd_route_ab"] = xent_bwd_route_ab(torch, gen_bwd, randn_bwd,
                                                     bwd_v1_libs["xent"])
-    report["norm_bwd_route_ab"] = norm_bwd_route_ab(torch, randn_bwd, bwd_v1_libs["rmsnorm"])
+    report["norm_bwd_route_ab"] = norm_bwd_route_ab(
+        torch, randn_bwd, {src: bwd_v1_libs[src] for src in ("rmsnorm", "layernorm")})
     report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
     # phases 3 and 9 profile their decodes on the earlier forward norms too
     report["norm_fwd_v1_libs"] = {src: str(path) for src, path in v1_libs.items()}
@@ -1017,10 +1092,10 @@ def norm_width_sweep(torch, randn) -> dict:
     at a decode step's 8 rows and at 2 * WAVE_MAX_ROWS + 1 rows, past the
     forward plan's crossover, in bf16 and f32, against its plain version
     (correctness only: so the four forwards pass through both of their
-    routes at every width; the backwards' narrow LayerNorm rows take
-    layernorm.cu's warp-per-row kernels, the wide ones and the RMSNorms
-    the block-per-row kernels).  The forwards run twice and must give the
-    same bits.  Returns the largest error of each kernel."""
+    routes at every width; rms_bwd, ln_bwd and addln_bwd take the ring at
+    every width, addrms_bwd the block-per-row kernel).  The forwards run
+    twice and must give the same bits.  Returns the largest error of each
+    kernel."""
     from minidiff_tpu_torch.kernels import layernorm as L
 
     worst: dict = {}
@@ -1063,17 +1138,18 @@ def norm_width_sweep(torch, randn) -> dict:
           f"norm_width_sweep: routes {sorted(routes)}")
     log(f"[kernel] norms at every d in 128..{L.MAX_WIDTH} step 128, 8 and "
         f"{2 * L.WAVE_MAX_ROWS + 1} rows, bf16 and f32, within tolerance of their "
-        "plain versions (the four forwards on both routes, the same bits twice); "
-        "largest errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        "plain versions (the four forwards on both routes, the same bits twice; the "
+        "backwards but addrms_bwd on the ring); largest errors " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     return worst
 
 
 def norm_route_ab(torch, randn, block_lib) -> list:
-    """The four LayerNorm kernels at the flagship's widths (d = 1024 at a
-    decode step's 8 rows and the train step's 8192), bf16 and f32: device
-    time of layernorm.cu's warp-per-row route against the block-per-row
-    route of rowblock.cuh (``block_lib``, built with -DNORM_BLOCK_PER_ROW),
-    each within tolerance of the plain version."""
+    """The LayerNorm forwards at the flagship's widths (d = 1024 at a decode
+    step's 8 rows and the train step's 8192), bf16 and f32: device time of
+    layernorm.cu's warp-per-row route against the block-per-row route of
+    rowblock.cuh (``block_lib``, built with -DNORM_BLOCK_PER_ROW), each
+    within tolerance of the plain version.  (The backwards left both for
+    the ring: norm_bwd_route_ab times them against their old build.)"""
     from minidiff_tpu_torch.kernels import _build
     from minidiff_tpu_torch.kernels import layernorm as L
 
@@ -1083,7 +1159,7 @@ def norm_route_ab(torch, randn, block_lib) -> list:
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for rows in (8, TRAIN_BATCH * TRAIN_SEQ):
-            x, a, dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(4))
+            x, a = (randn(rows, d, dtype=dtype) for _ in range(2))
             g, b = 1 + 0.1 * randn(d, dtype=dtype), 0.1 * randn(d, dtype=dtype)
             # ln_fwd and addln_fwd on their route before the one-wave kernel
             # (the warp per row, or every row block-per-row in block_lib)
@@ -1093,12 +1169,7 @@ def norm_route_ab(torch, randn, block_lib) -> list:
                            (L._plain_layernorm(x, g, b),), ("ln",)),
                 "addln_fwd": (lambda: (_norm_fwd_run(L, "addln_fwd", x, g, b, a,
                                                      warp_plan),),
-                              (L._plain_add_layernorm(x, a, g, b),), ("ln",)),
-                "ln_bwd": (lambda: L.ln_grads(x, g, dy), L._plain_ln_grads(x, g, dy),
-                           ("ln", "lnsum", "lnsum")),
-                "addln_bwd": (lambda: L.addln_grads(x, g, dy, g0),
-                              L._plain_addln_grads(x, g, dy, g0),
-                              ("addln_dx", "lnsum", "lnsum"))}
+                              (L._plain_add_layernorm(x, a, g, b),), ("ln",))}
             for name, (run, ref, kinds) in runs.items():
                 us = {}
                 for route, lib in (("warp", warp), ("block", block), ("warp2", warp)):
@@ -1420,30 +1491,94 @@ def xent_width_sweep(torch, gen, randn) -> dict:
     return worst
 
 
-# norm_bwd_route_ab's rms_bwd shapes (rows, d): the SSM and the options
-# train steps' and a tenth of the latter's rows; and the ring choices it
-# times beside the plan's: (CTAs per SM, stages), each cut to what shared
-# memory holds
+# norm_bwd_route_ab's shapes (rows, d): rms_bwd at the SSM and the options
+# train steps' and a tenth of the latter's rows; ln_bwd and addln_bwd at the
+# flagship's and the MoE train step's and at the options model's width;
+# the ring choices it times beside the plan's: (CTAs per SM, stages), each
+# cut to what shared memory holds; and the shapes where the plan's ring
+# must beat the old build in both turns (bf16; no more than 3% slower
+# anywhere)
 NORM_BWD_AB = ((8192, 1024), (8192, 4096), (1024, 4096))
+LN_BWD_AB = ((8192, 1024), (4096, 512), (8192, 4096))
 RING_AB = tuple((per_sm, stages) for per_sm in (1, 2, 4, 8) for stages in (2, 4, 8))
+RING_FASTER = {"rms_bwd": ((8192, 1024), (8192, 4096)),
+               "ln_bwd": ((8192, 1024), (4096, 512)),
+               "addln_bwd": ((8192, 1024), (4096, 512))}
 
 
-def norm_bwd_route_ab(torch, randn, v1_lib) -> list:
-    """rms_bwd at NORM_BWD_AB's shapes in bf16 and f32: the plan's ring and
-    every other ring of RING_AB against the block-per-row kernel of
-    ``v1_lib`` (rmsnorm.cu built with -DNORM_BWD_V1), in turns (old, plan,
-    the others, then back), dx within TOL["ln"] and dg within
-    TOL["lnsum"] of the plain version, the new routes the same bits on a
-    second run.  The plan's route must be faster than the old in both turns
-    at the train steps' 8,192 bf16 rows, and no more than 3% slower
-    anywhere.  addrms_bwd (which keeps the block-per-row kernel) at the
-    options train step's shape against the same build: the same bits, and
-    within 3% of its time.  The readings behind kernels.layernorm's
-    RING_CTAS_BY_ROW_BYTES and RING_BYTES."""
+def _ring_ab(torch, name, old, x, g, dy, g0, eps) -> dict:
+    """``name`` (rms_bwd, ln_bwd or addln_bwd) at x's shape: the plan's ring
+    and every other ring of RING_AB against ``old`` (its source built with
+    -DNORM_BWD_V1), in turns (old, plan, the others, then back), dx within
+    TOL["ln"] (TOL["addln_dx"] for addln_bwd) and dg (and db) within
+    TOL["lnsum"] of the plain version, the rings the same bits on a second
+    run.  The plan must be faster than the old in both turns at
+    RING_FASTER's bf16 shapes and no more than 3% slower anywhere."""
     from minidiff_tpu_torch.kernels import _build
     from minidiff_tpu_torch.kernels import layernorm as L
 
-    old = lib_at("rmsnorm", v1_lib)
+    rms, add = name == "rms_bwd", g0 is not None
+    dn = str(x.dtype).split(".")[1]
+    rows, d = x.shape
+    grads, plain, kinds = {
+        "rms_bwd": (L.rms_grads, L._plain_rms_grads, ("ln", "lnsum")),
+        "ln_bwd": (L.ln_grads, L._plain_ln_grads, ("ln", "lnsum", "lnsum")),
+        "addln_bwd": (L.addln_grads, L._plain_addln_grads,
+                      ("addln_dx", "lnsum", "lnsum"))}[name]
+    args = (x, g, dy) if g0 is None else (x, g, dy, g0)
+    ref = plain(*args, eps)
+    plan = L.norm_bwd_plan(rows, d, x.dtype, rms, add)
+    plans = {"plan": plan}
+    for per_sm, stages in RING_AB:
+        p = L.norm_bwd_plan(rows, d, x.dtype, rms, add, stages=stages, per_sm=per_sm)
+        key = f"ring {-(-p.ctas // _build.SMS)}x{p.stages}"
+        if p not in plans.values() and key not in plans:
+            plans[key] = p
+    err = {}
+
+    def run(n):
+        if n == "old":
+            with built_as("rmsnorm" if rms else "layernorm", old):
+                return grads(*args, eps)
+        if n == "plan":
+            return grads(*args, eps)
+        return L._bwd_kernel(name, x, g, dy, g0, eps, plans[n])
+
+    def first(n, got):
+        err[n] = max(max_err(torch, a, b, k, dn) for a, b, k in zip(got, ref, kinds))
+        if n != "old":
+            again = run(n)
+            check(all(_same_bits(torch, a, b) for a, b in zip(got, again)),
+                  f"{name} {n} {[rows, d]} {dn}: a second run gave other bits")
+
+    us = _turns(torch, ("old", *plans), run, first)
+    check(max(us["plan"]) <= 1.03 * min(us["old"]),
+          f"{name} {[rows, d]} {dn}: the plan's ring {us['plan']} us is more than 3% "
+          f"slower than the old {us['old']} us")
+    if (rows, d) in RING_FASTER[name] and x.dtype == torch.bfloat16:
+        check(max(us["plan"]) < min(us["old"]),
+              f"{name} {[rows, d]} bf16: the plan's ring {us['plan']} us is not faster "
+              f"than the old {us['old']} us")
+    rec = dict(name=name, dtype=dn, shape=[rows, d], ctas=plan.ctas, threads=plan.threads,
+               vecs=plan.vecs, stages=plan.stages, us=us, max_abs_err=err,
+               rings={k: [p.ctas, p.stages] for k, p in plans.items()})
+    log(f"[norm bwd ab] {name:9s} {dn:8s} {str([rows, d]):12s} plan {plan.ctas} CTAs x "
+        f"{plan.threads} x{plan.vecs}, {plan.stages} stages | " + " | ".join(
+            f"{n} {t[0]:7.2f} / {t[1]:7.2f}" for n, t in us.items()) + " us")
+    return rec
+
+
+def norm_bwd_route_ab(torch, randn, v1_libs) -> list:
+    """rms_bwd at NORM_BWD_AB's shapes, then ln_bwd and addln_bwd at
+    LN_BWD_AB's, in bf16 and f32, each by _ring_ab against the
+    -DNORM_BWD_V1 build of its source (``v1_libs``: rmsnorm.cu's and
+    layernorm.cu's).  addrms_bwd (which keeps the block-per-row kernel) at
+    the options train step's shape against the same build of rmsnorm.cu:
+    the same bits, and within 3% of its time.  The readings behind
+    kernels.layernorm's RING_CTAS_BY_STAGE_BYTES and RING_BYTES."""
+    from minidiff_tpu_torch.kernels import layernorm as L
+
+    old = {src: lib_at(src, path) for src, path in v1_libs.items()}
     eps = OPT_MODEL["norm_eps"]
     out = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1452,63 +1587,32 @@ def norm_bwd_route_ab(torch, randn, v1_lib) -> list:
             x = randn(rows, d, dtype=dtype) * 3 + 1
             g = 1 + 0.1 * randn(d, dtype=dtype)
             dy = randn(rows, d, dtype=dtype)
-            ref = L._plain_rms_grads(x, g, dy, eps)
-            plan = L.norm_bwd_plan(rows, d, dtype, True, False)
-            plans = {"plan": plan}
-            for per_sm, stages in RING_AB:
-                p = L.norm_bwd_plan(rows, d, dtype, True, False, stages=stages, per_sm=per_sm)
-                key = f"ring {-(-p.ctas // _build.SMS)}x{p.stages}"
-                if p not in plans.values() and key not in plans:
-                    plans[key] = p
-            err = {}
-
-            def run(name):
-                if name == "old":
-                    with built_as("rmsnorm", old):
-                        return L.rms_grads(x, g, dy, eps)
-                if name == "plan":
-                    return L.rms_grads(x, g, dy, eps)
-                return L._bwd_kernel("rms_bwd", x, g, dy, None, eps, plans[name])
-
-            def first(name, got):
-                err[name] = max(max_err(torch, got[0], ref[0], "ln", dn),
-                                max_err(torch, got[1], ref[1], "lnsum", dn))
-                if name != "old":
-                    again = run(name)
-                    check(all(_same_bits(torch, a, b) for a, b in zip(got, again)),
-                          f"rms_bwd {name} {[rows, d]} {dn}: a second run gave other bits")
-
-            us = _turns(torch, ("old", *plans), run, first)
-            check(max(us["plan"]) <= 1.03 * min(us["old"]),
-                  f"rms_bwd {[rows, d]} {dn}: the plan's ring {us['plan']} us is more "
-                  f"than 3% slower than the old {us['old']} us")
-            if rows == 8192 and dtype == torch.bfloat16:
-                check(max(us["plan"]) < min(us["old"]),
-                      f"rms_bwd {[rows, d]} bf16: the plan's ring {us['plan']} us is not "
-                      f"faster than the old {us['old']} us")
-            rec = dict(dtype=dn, shape=[rows, d], ctas=plan.ctas, threads=plan.threads,
-                       vecs=plan.vecs, stages=plan.stages, us=us, max_abs_err=err,
-                       rings={k: [p.ctas, p.stages] for k, p in plans.items()})
+            rec = _ring_ab(torch, "rms_bwd", old["rmsnorm"], x, g, dy, None, eps)
             if rows == OPT_TRAIN_BATCH * OPT_TRAIN_SEQ and d == OPT_MODEL["dim"]:
                 # addrms_bwd keeps its kernel: the same bits and time
                 g0 = randn(rows, d, dtype=dtype)
                 new = L.addrms_grads(x, g, dy, g0, eps)
-                with built_as("rmsnorm", old):
+                with built_as("rmsnorm", old["rmsnorm"]):
                     was = L.addrms_grads(x, g, dy, g0, eps)
                 check(all(_same_bits(torch, a, b) for a, b in zip(new, was)),
                       f"addrms_bwd {[rows, d]} {dn}: other bits than the -DNORM_BWD_V1 build")
                 rec["addrms_us"] = _old_new_turns(
-                    torch, "rmsnorm", old, lambda: L.addrms_grads(x, g, dy, g0, eps))
+                    torch, "rmsnorm", old["rmsnorm"], lambda: L.addrms_grads(x, g, dy, g0, eps))
                 check(min(rec["addrms_us"]["new"]) <= 1.03 * min(rec["addrms_us"]["old"]),
                       f"addrms_bwd {[rows, d]} {dn}: {rec['addrms_us']} us, more than 3% "
                       "slower than the -DNORM_BWD_V1 build")
+                log("[norm bwd ab] addrms_bwd {0} {1}: new {2[0]:.2f} / {2[1]:.2f}, old "
+                    "{3[0]:.2f} / {3[1]:.2f} us".format(
+                        dn, [rows, d], rec["addrms_us"]["new"], rec["addrms_us"]["old"]))
             out.append(rec)
-            log(f"[norm bwd ab] {dn:8s} {str([rows, d]):12s} plan {plan.ctas} CTAs x "
-                f"{plan.threads} x{plan.vecs}, {plan.stages} stages | " + " | ".join(
-                    f"{n} {t[0]:7.2f} / {t[1]:7.2f}" for n, t in us.items()) + " us"
-                + (" | addrms_bwd new {0[0]:.2f} / {0[1]:.2f}, old {1[0]:.2f} / "
-                   "{1[1]:.2f} us".format(rec["addrms_us"]["new"], rec["addrms_us"]["old"])
-                   if "addrms_us" in rec else ""))
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, d in LN_BWD_AB:
+            x = randn(rows, d, dtype=dtype) * 3 + 1
+            g = 1 + 0.1 * randn(d, dtype=dtype)
+            dy, g0 = (randn(rows, d, dtype=dtype) for _ in range(2))
+            for name in ("ln_bwd", "addln_bwd"):
+                out.append(_ring_ab(torch, name, old["layernorm"], x, g, dy,
+                                    g0 if name == "addln_bwd" else None, 1e-5))
     return out
 
 
@@ -1994,17 +2098,35 @@ def matmul_tile_ab(torch, randn) -> list:
     return rows
 
 
-def quant_cases(torch, gen, randn):
+def _dq_row(torch, name, dn, shape, x, run, plain, lib, w, plan, nbytes, flops, timed,
+            **extra) -> dict:
+    """One dequant case: the kernel's ``run()`` held by dq_hold against
+    ``plain()`` on activations x and the dequantized weight w (f64); with
+    ``timed``, the kernel's, the plain version's and the library call
+    ``lib()``'s device times and the bound."""
+    err, shares = dq_hold(torch, run(), plain(), x, w, dn)
+    row = dict(name=name, dtype=dn, shape=shape, **extra, **_plan_info(plan),
+               max_abs_err=err)
+    if shares:
+        row["bound_share"] = shares
+    if timed:
+        row.update(ms=device_ms(torch, run), plain_ms=device_ms(torch, plain),
+                   library_ms=device_ms(torch, lib), **bound(nbytes, flops, dn))
+    return row
+
+
+def quant_cases(torch, gen, randn, dtypes=None, timed=True):
     """dq_mm / dq4_mm at a decode step's projections (m = 8: QKV [1024,
     3072], out [1024, 1024], fc1 [1024, 4096], fc2 [4096, 1024], the head
-    [1024, 512]) and at m = 128 (the bench prefill of 8 x 16 tokens), against
+    [1024, 512]) and at m = 128 (the bench prefill of 8 x 16 tokens), in
+    ``dtypes`` (bf16 and f32), held by dq_hold; with ``timed``, beside
     torch.matmul on the dequantized weight."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     cases = []
     d = MODEL["dim"]
     shapes = [(d, 3 * d), (d, d), (d, 4 * d), (4 * d, d), (d, MODEL["vocab_size"])]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         for m in (BATCH, 128):
@@ -2020,32 +2142,30 @@ def quant_cases(torch, gen, randn):
                          k * n // 2 + 4 * (k // 128) * n)):
                     wd = (Q._dequantized4(p4, s4, dtype) if name == "dq4_mm"
                           else (q8.float() * s8).to(dtype))
-                    cases.append(dict(
-                        name=name, dtype=dn, shape=[m, k, n],
-                        **_plan_info(Q.dq_plan(4 if name == "dq4_mm" else 8, m, n, k, dtype,
-                                               group=128)),
-                        max_abs_err=max_err(torch, fn(x, wq, sq), plain(x, wq, sq),
-                                            "dq", dn),
-                        ms=device_ms(torch, lambda: fn(x, wq, sq)),
-                        plain_ms=device_ms(torch, lambda: plain(x, wq, sq)),
-                        library_ms=device_ms(torch, lambda: x @ wd),
-                        **bound((m * k + m * n) * size + wbytes, 2 * m * n * k, dn)))
+                    w64 = (wd.double() if name == "dq4_mm"
+                           else q8.double() * s8.double())
+                    cases.append(_dq_row(
+                        torch, name, dn, [m, k, n], x, lambda: fn(x, wq, sq),
+                        lambda: plain(x, wq, sq), lambda: x @ wd, w64,
+                        Q.dq_plan(4 if name == "dq4_mm" else 8, m, n, k, dtype, group=128),
+                        (m * k + m * n) * size + wbytes, 2 * m * n * k, timed))
     return cases
 
 
-def dq_bmm_cases(torch, randn):
+def dq_bmm_cases(torch, randn, dtypes=None, timed=True):
     """dq_bmm at the MoE serving model's banks ([E, C, K, N]): a decode step's
     w1 (8, 8, 1024) @ (8, 1024, 4096) and w2 (8, 8, 2048) @ (8, 2048, 1024),
     the bench prefill's w1 and w2 (8 x 16 tokens: C = 128; w2 splits K on
     the large tile), a C of 5 (no multiple of the kernel's 8 rows), 16 (a
-    16-token bucket), and 40 and 200 (large tiles cut short by rows), against
+    16-token bucket), and 40 and 200 (large tiles cut short by rows), in
+    ``dtypes`` (bf16 and f32), held by dq_hold; with ``timed``, beside
     torch.bmm on the dequantized bank.  A C of 384 (a server prefill's
     bucket) takes the plain version: no launch."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     e, d, ff = MOE_MODEL["num_experts"], MOE_MODEL["dim"], MOE_MODEL["mlp_hidden"]
     cases = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         for c, k, n in ((BATCH, d, 2 * ff), (BATCH, ff, d), (128, d, 2 * ff),
@@ -2055,23 +2175,20 @@ def dq_bmm_cases(torch, randn):
             q, s = Q.quantize_int8_stacked(randn(e, k, n, dtype=torch.float32)
                                            * k ** -0.5)
             wd = (q.float() * s[:, None, :]).to(dtype)
-            cases.append(dict(
-                name="dq_bmm", dtype=dn, shape=[e, c, k, n],
-                **_plan_info(Q.dq_plan(8, c, n, k, dtype, experts=e)),
-                max_abs_err=max_err(torch, Q.dequant_matmul_bmm(x, q, s),
-                                    Q._plain_dequant_bmm(x, q, s), "dq", dn),
-                ms=device_ms(torch, lambda: Q.dequant_matmul_bmm(x, q, s)),
-                plain_ms=device_ms(torch, lambda: Q._plain_dequant_bmm(x, q, s)),
-                library_ms=device_ms(torch, lambda: torch.bmm(x, wd)),
+            cases.append(_dq_row(
+                torch, "dq_bmm", dn, [e, c, k, n], x, lambda: Q.dequant_matmul_bmm(x, q, s),
+                lambda: Q._plain_dequant_bmm(x, q, s), lambda: torch.bmm(x, wd),
+                q.double() * s.double()[:, None, :], Q.dq_plan(8, c, n, k, dtype, experts=e),
                 # x and the output in x's dtype, the int8 bank and its scales
-                **bound((e * c * k + e * c * n) * size + e * k * n + 4 * e * n,
-                        2 * e * c * n * k, dn)))
-    x = randn(e, 384, q.shape[1], dtype=torch.bfloat16)
-    before = Q.LAUNCHES["dq_bmm"]
-    out = Q.dequant_matmul_bmm(x, q, s)
-    check(Q.LAUNCHES["dq_bmm"] == before, "dq_bmm launched at C = 384")
-    check(torch.equal(out, Q._plain_dequant_bmm(x, q, s)),
-          "dq_bmm at C = 384 is not its plain version")
+                (e * c * k + e * c * n) * size + e * k * n + 4 * e * n,
+                2 * e * c * n * k, timed))
+    if timed:
+        x = randn(e, 384, q.shape[1], dtype=torch.bfloat16)
+        before = Q.LAUNCHES["dq_bmm"]
+        out = Q.dequant_matmul_bmm(x, q, s)
+        check(Q.LAUNCHES["dq_bmm"] == before, "dq_bmm launched at C = 384")
+        check(torch.equal(out, Q._plain_dequant_bmm(x, q, s)),
+              "dq_bmm at C = 384 is not its plain version")
     return cases
 
 
@@ -2084,8 +2201,9 @@ def _dq_case(torch, randn, bits, dtype, shape, group=128):
     """One dq_bmm ([E, C, K, N], bits 8), dq_mm ([M, K, N], bits 8) or
     dq4_mm ([M, K, N], bits 4) case: the kernel's name, its entry point on x
     and a quantized weight, the plain version, the library call on the
-    dequantized weight (torch.bmm / x @ w), the plan, the bound's bytes and
-    flops, and a maker of fresh weight copies."""
+    dequantized weight (torch.bmm / x @ w), the dequantized weight in f64
+    (``exact``, dq_hold's), the plan, the bound's bytes and flops, and a
+    maker of fresh weight copies."""
     from minidiff_tpu_torch.kernels import quant as Q
 
     size = torch.finfo(dtype).bits // 8
@@ -2099,6 +2217,9 @@ def _dq_case(torch, randn, bits, dtype, shape, group=128):
 
         def dequant(q, s):
             return (q.float() * s).to(dtype)
+
+        def exact(q, s):
+            return q.double() * s.double()
 
         run, plain, lib = Q.dequant_matmul, Q._plain_dequant_matmul, torch.matmul
         plan = Q.dq_plan(8, m, n, k, dtype)
@@ -2114,6 +2235,9 @@ def _dq_case(torch, randn, bits, dtype, shape, group=128):
         def dequant(q, s):
             return (q.float() * s[:, None, :]).to(dtype)
 
+        def exact(q, s):
+            return q.double() * s.double()[:, None, :]
+
         run, plain, lib = Q.dequant_matmul_bmm, Q._plain_dequant_bmm, torch.bmm
         plan = Q.dq_plan(8, c, n, k, dtype, experts=e)
         nbytes = (e * c * k + e * c * n) * size + e * k * n + 4 * e * n
@@ -2128,21 +2252,24 @@ def _dq_case(torch, randn, bits, dtype, shape, group=128):
         def dequant(p, s):
             return Q._dequantized4(p, s, dtype)
 
+        def exact(p, s):  # the weight both sides multiply by (f32 in f32)
+            return Q._dequantized4(p, s, dtype).double()
+
         run, plain, lib = Q.dequant_matmul4, Q._plain_dequant_matmul4, torch.matmul
         plan = Q.dq_plan(4, m, n, k, dtype, group=group)
         nbytes = (m * k + m * n) * size + k * n // 2 + 4 * (k // group) * n
         flops = 2 * m * n * k
-    return dict(name=name, x=x, weight=weight, dequant=dequant, run=run, plain=plain,
-                lib=lib, plan=plan, nbytes=nbytes, flops=flops)
+    return dict(name=name, x=x, weight=weight, dequant=dequant, exact=exact, run=run,
+                plain=plain, lib=lib, plan=plan, nbytes=nbytes, flops=flops)
 
 
-def dq_edge_cases(torch, randn):
+def dq_edge_cases(torch, randn, dtypes=None, timed=True):
     """dq4_mm at int4 groups 64 and 256, a ragged N (520: no multiple of 16,
     8-byte weight copies), one row, 16 rows (a 16-token bucket) and 40 and
-    200 rows (large tiles cut short by rows); dq_bmm at N 520; each in bf16
-    and f32 against its plain version (dq_bmm_cases holds C = 5)."""
+    200 rows (large tiles cut short by rows); dq_bmm at N 520; each in
+    ``dtypes`` (bf16 and f32) held by dq_hold (dq_bmm_cases holds C = 5)."""
     cases = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for bits, shape, group in ((4, [8, 1024, 3072], 64), (4, [128, 1024, 3072], 64),
                                    (4, [8, 1024, 3072], 256), (4, [128, 1024, 3072], 256),
@@ -2153,14 +2280,41 @@ def dq_edge_cases(torch, randn):
             d = _dq_case(torch, randn, bits, dtype, shape, group)
             q, s = d["weight"]()
             x, wd = d["x"], d["dequant"](q, s)
-            cases.append(dict(
-                name=d["name"], dtype=dn, shape=shape,
-                group=group if bits == 4 else None, **_plan_info(d["plan"]),
-                max_abs_err=max_err(torch, d["run"](x, q, s), d["plain"](x, q, s), "dq", dn),
-                ms=device_ms(torch, lambda: d["run"](x, q, s)),
-                plain_ms=device_ms(torch, lambda: d["plain"](x, q, s)),
-                library_ms=device_ms(torch, lambda: d["lib"](x, wd)),
-                **bound(d["nbytes"], d["flops"], dn)))
+            cases.append(_dq_row(
+                torch, d["name"], dn, shape, x, lambda: d["run"](x, q, s),
+                lambda: d["plain"](x, q, s), lambda: d["lib"](x, wd), d["exact"](q, s),
+                d["plan"],
+                d["nbytes"], d["flops"], timed, group=group if bits == 4 else None))
+    return cases
+
+
+def dq_f32_cases(torch) -> list:
+    """The f32 cases of quant_cases, dq_bmm_cases and dq_edge_cases at each
+    seed of DQ_F32_SEEDS, each drawn from a generator of its own, so that
+    the f32 gate (dq_hold) holds on more than one draw; the first seed's
+    cases are timed, the others only held."""
+    cases = []
+    for i, seed in enumerate(DQ_F32_SEEDS):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+        f32 = (torch.float32,)
+        rows = (quant_cases(torch, gen, randn, f32, i == 0)
+                + dq_bmm_cases(torch, randn, f32, i == 0)
+                + dq_edge_cases(torch, randn, f32, i == 0))
+        for r in rows:
+            r["seed"] = seed
+        cases += rows
+    worst = {}
+    for r in cases:
+        for side, share in r["bound_share"].items():
+            key = (r["name"], side)
+            worst[key] = max(worst.get(key, 0.0), share)
+    log(f"[kernel] the f32 dequant cases at seeds {DQ_F32_SEEDS}: kernel and plain version "
+        "within dq_f32_bound of the f64 product; the largest share of the bound used: "
+        + ", ".join(f"{n} {side} {v:.3g}" for (n, side), v in sorted(worst.items())))
     return cases
 
 
@@ -2214,20 +2368,21 @@ def norm_fwd_v1(report):
 
 @contextlib.contextmanager
 def bwd_v1(report):
-    """Every kernel of xent.cu and rmsnorm.cu launched from their
-    -DXENT_BWD_V1 and -DNORM_BWD_V1 builds of phase 2 (the old backwards)
-    until the block ends."""
+    """Every kernel of xent.cu, rmsnorm.cu and layernorm.cu launched from
+    their -DXENT_BWD_V1 and -DNORM_BWD_V1 builds of phase 2 (the old
+    backwards) until the block ends."""
     with contextlib.ExitStack() as stack:
         for src, path in report["bwd_v1_libs"].items():
             stack.enter_context(built_as(src, lib_at(src, path)))
         yield
 
 
-def profile_bwd_v1(torch, report, out, label, run):
+def profile_bwd_v1(torch, report, out, label, run, kernels):
     """Profile ``run`` once more on the old backwards (phase 2 built them;
     a CPU rehearsal has no ``bwd_v1_libs`` and skips it) into
-    ``out["train_profile_bwd_v1"]``, and log each redesigned backward's
-    device time per step on both."""
+    ``out["train_profile_bwd_v1"]``, and log the device time per step of
+    each redesigned backward of ``kernels`` (those the run launches) on
+    both."""
     if "bwd_v1_libs" not in report:
         return
     with bwd_v1(report):
@@ -2235,8 +2390,7 @@ def profile_bwd_v1(torch, report, out, label, run):
             torch, f"{label}, -DXENT_BWD_V1 / -DNORM_BWD_V1", run)
     new, old = out["train_profile"]["bwd"], out["train_profile_bwd_v1"]["bwd"]
     log(f"[profile]   {label}: device us per step new / old: " + ", ".join(
-        f"{k} {new.get(k, [0.0])[0]:.1f} / {old.get(k, [0.0])[0]:.1f}"
-        for k in BWD_REDESIGNED))
+        f"{k} {new.get(k, [0.0])[0]:.1f} / {old.get(k, [0.0])[0]:.1f}" for k in kernels))
 
 
 def dq_route_ab(torch, randn, simt_lib) -> list:
@@ -2700,6 +2854,15 @@ def phase_generate(torch, seed: int, report):
                 lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
 
+def _flags(args: str) -> list:
+    """The bool template arguments of a profiler key's kernel, demangled
+    (``<__nv_bfloat16, 2, true, false>``) or mangled (``I13__nv_bfloat16Li2ELb1ELb0E``)."""
+    if args.startswith("<"):
+        return [a.strip() in ("true", "(bool)1") for a in args[1:-1].split(",")
+                if a.strip() in ("true", "false", "(bool)1", "(bool)0")]
+    return [b == "1" for b in re.findall(r"Lb([01])E", args)]
+
+
 def norm_fwd_instance(key: str):
     """The forward norm a profiler key names, as its symbol, with \"+add\"
     for the instantiation that adds the residual (each of NORM_FWD_SYMBOLS
@@ -2708,37 +2871,31 @@ def norm_fwd_instance(key: str):
     false>``) or mangled (``norm_wave_kernelI13__nv_bfloat16Li1ELb1ELb0E``)."""
     for sym in NORM_FWD_SYMBOLS:
         m = re.search(rf"(?<![A-Za-z_]){sym}(<[^<>]*>|I.*)", key)
-        if m is None:
-            continue
-        args = m.group(1)
-        if args.startswith("<"):
-            add = args[1:-1].split(",")[-1].strip() in ("true", "(bool)1")
-        else:
-            bools = re.findall(r"Lb([01])E", args)
-            add = bool(bools) and bools[-1] == "1"
-        return sym + ("+add" if add else "")
+        if m is not None:
+            return sym + ("+add" if _flags(m.group(1))[-1:] == [True] else "")
     return None
 
 
 def bwd_instance(key: str):
     """The redesigned backward (BWD_REDESIGNED) a profiler key's kernel
-    serves, or None: xent_bwd for the row and warp kernels, rms_bwd for the
-    ring, its partial rows' sum and norm_bwd_kernel with RMS and without
-    ADD (its last two template arguments), demangled or mangled as
+    serves, or None: xent_bwd for the row and warp kernels; by their RMS and
+    ADD flags (their last two template arguments) the ring
+    norm_ring_bwd_kernel, its partial rows' sum ring_sum_kernel and the old
+    norm_bwd_kernel: rms_bwd for RMS without ADD, ln_bwd for neither,
+    addln_bwd for ADD without RMS (addrms_bwd's norm_bwd_kernel is none);
+    and the old ln_bwd_kernel by its ADD flag.  Demangled or mangled, as
     norm_fwd_instance reads them."""
     if re.search(r"(?<![A-Za-z_])xent_(row_)?bwd_kernel", key):
         return "xent_bwd"
-    if re.search(r"(?<![A-Za-z_])rms_(ring_bwd|dg_sum)_kernel", key):
-        return "rms_bwd"
-    m = re.search(r"(?<![A-Za-z_])norm_bwd_kernel(<[^<>]*>|I.*)", key)
+    m = re.search(r"(?<![A-Za-z_])(norm_ring_bwd|ring_sum|norm_bwd|ln_bwd)_kernel"
+                  r"(<[^<>]*>|I.*)", key)
     if m is None:
         return None
-    args = m.group(1)
-    if args.startswith("<"):
-        flags = [a.strip() in ("true", "(bool)1") for a in args[1:-1].split(",")[-2:]]
-    else:
-        flags = [b == "1" for b in re.findall(r"Lb([01])E", args)[-2:]]
-    return "rms_bwd" if flags == [True, False] else None
+    flags = _flags(m.group(2))
+    if m.group(1) == "ln_bwd":
+        return "addln_bwd" if flags[-1:] == [True] else "ln_bwd"
+    return {(True, False): "rms_bwd", (False, False): "ln_bwd",
+            (False, True): "addln_bwd"}.get(tuple(flags[-2:]))
 
 
 def profile_run(torch, label, run):
@@ -2972,6 +3129,8 @@ def phase_train(torch, seed: int, report):
     log(f"[train] launches per step {per_step}")
     report["train_profile"] = profile_run(
         torch, "one train step", lambda: step(toks, toks))
+    profile_bwd_v1(torch, report, report, "one train step", lambda: step(toks, toks),
+                   ("xent_bwd", "ln_bwd", "addln_bwd"))
     del model, step
 
     # f32 gradient gate: the kernel path on the card against the plain path
@@ -3640,10 +3799,10 @@ def phase_options(torch, seed: int, report):
     out["train_profile"] = profile_run(
         torch, "one options train step", lambda: step(train_toks, train_toks))
     profile_bwd_v1(torch, report, out, "one options train step",
-                   lambda: step(train_toks, train_toks))
+                   lambda: step(train_toks, train_toks), ("xent_bwd", "rms_bwd"))
     if "train_profile_bwd_v1" in out:
         new, was = out["train_profile"]["bwd"], out["train_profile_bwd_v1"]["bwd"]
-        for k in BWD_REDESIGNED:
+        for k in ("xent_bwd", "rms_bwd"):
             check(k in new and k in was and new[k][0] < was[k][0],
                   f"options train step: {k}'s device time per step {new.get(k)} is not "
                   f"below the old build's {was.get(k)}")
@@ -3914,7 +4073,8 @@ def phase_ssm(torch, seed: int, report):
         f"peak memory {peak / 2 ** 30:.2f} GiB | launches per step {want} | "
         "losses " + " ".join(f"{v:.4f}" for v in losses))
     out["train_profile"] = profile_run(torch, "one ssm train step", lambda: step(x, y))
-    profile_bwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y))
+    profile_bwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y),
+                   ("xent_bwd", "rms_bwd"))
     del model, step, x, y
 
     # the tape: md.value_and_grad of a linear_scan loss; an f32 gate against
@@ -4350,6 +4510,8 @@ def phase_moe(torch, seed: int, report):
         + " ".join(f"{name} {ls[-1]:.4f}" for name, ls in losses.items()))
     out["train_profile"] = profile_run(
         torch, "one grouped moe train step", lambda: steps["grouped"](toks, toks))
+    profile_bwd_v1(torch, report, out, "one grouped moe train step",
+                   lambda: steps["grouped"](toks, toks), ("xent_bwd", "ln_bwd", "addln_bwd"))
     report["moe"] = out
     report["launches_moe"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 

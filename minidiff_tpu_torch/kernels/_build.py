@@ -51,9 +51,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ln_fwd": ("layernorm", (_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
     "addln_fwd": ("layernorm", (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
-    "ln_bwd": ("layernorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
-    "addln_bwd": ("layernorm",
-                  (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
+    "ln_bwd": ("layernorm", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                             _I, _I, _P)),
+    "addln_bwd": ("layernorm", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                _I, _I, _I, _P)),
+    "ln_bwd_ring": ("layernorm", ()),
     "rms_fwd": ("rmsnorm", (_P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
     "addrms_fwd": ("rmsnorm", (_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P)),
     "rms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,

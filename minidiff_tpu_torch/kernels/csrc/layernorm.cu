@@ -51,6 +51,22 @@
 // exchange.  The warp-per-row kernel's serial chain (x, then a, two
 // dependent shuffle reductions, only then g and b) made it slower at 8
 // rows of 1,024 than rms_fwd at 8 rows of 4,096.
+//
+// ln_bwd and addln_bwd take rowblock.cuh's norm_ring_bwd_kernel at every
+// row count, as their launch plan (kernels.layernorm.norm_bwd_plan) says:
+// persistent CTAs whose thread 0 keeps the x and dy rows (and addln's g0
+// row: three a stage) of the next rows in flight by TMA bulk copies into a
+// ring of shared-memory stages, g read once into registers, and one
+// exchange (one barrier) a row carrying all four row sums (the mean, the
+// centred sum of squares, sum(w) and sum(w (x - mean))) as parts merged by
+// norm_wave_kernel's k-part formula; the partial rows of dg and db are
+// summed in a fixed order by a second launch.  The kernels above walked
+// each row as a chain (x, two dependent reductions, only then dy and g, two
+// more, g again, then dx) with nothing of the next row in flight, and left
+// the partial rows' sum to two PyTorch kernels.  Bound: bytes (x, dy and
+// g0 read once, dx written once).  A build with -DNORM_BWD_V1 keeps the
+// warp-per-row and block-per-row backwards for both, as before the ring
+// (chip_smoke.py times the two in turns).
 
 #include "rowblock.cuh"
 
@@ -63,6 +79,12 @@ using rowwise::warp_sum;
 constexpr bool kBlockPerRow = true;
 #else
 constexpr bool kBlockPerRow = false;
+#endif
+
+#ifdef NORM_BWD_V1
+constexpr bool kBwdV1 = true;
+#else
+constexpr bool kBwdV1 = false;
 #endif
 
 constexpr int kWarpsPerBlock = 4;
@@ -304,12 +326,18 @@ int launch_bwd(const void* x, const void* g, const void* dy, const void* g0,
 // block-per-row kernel, as the wider ones do.
 constexpr int kBwdWarpRowWidth = 1024;
 
-// the smallest register width (vectors per lane) that holds a row; wider
-// rows go to the block-per-row kernel
+// The backward by the plan's (threads, vecs, stages): stages > 0 on
+// rowblock.cuh's ring (which sums dg and db from its partial rows), else
+// (and on every row of a -DNORM_BWD_V1 build) the smallest register width
+// (vectors per lane) of the warp-per-row kernel that holds the row, or the
+// block-per-row kernel for wider rows, whose partial rows the caller sums.
 template <typename T, bool ADD>
 int dispatch_bwd(const void* x, const void* g, const void* dy, const void* g0,
-                 void* dx, void* dgp, void* dbp, int rows, int d, int blocks,
-                 float eps, void* stream) {
+                 void* dx, void* dgp, void* dbp, void* dg, void* db, int rows, int d,
+                 int blocks, float eps, int threads, int vecs, int stages, void* stream) {
+  if (stages > 0 && !kBwdV1)
+    return rowblock::launch_ring<T, false, ADD>(x, g, dy, g0, dx, dgp, dbp, dg, db, rows, d,
+                                                blocks, threads, vecs, stages, eps, stream);
   if (kBlockPerRow || d > kBwdWarpRowWidth)
     return rowblock::launch_bwd<T, false, ADD>(x, g, dy, g0, dx, dgp, dbp, rows,
                                                d, blocks, eps, stream);
@@ -360,27 +388,42 @@ extern "C" int addln_fwd(const void* x, const void* a, const void* g,
                              stream);
 }
 
-// dx like x; dgp and dbp (blocks, d) f32 partials, blocks >= 1 (the
-// caller's choice: two per SM, or fewer when there are fewer than 8 rows a
-// block).  Same pointer, dtype and width conditions as ln_fwd.
+// dx like x; dgp and dbp (blocks, d) f32 partial rows, blocks >= 1; dg and
+// db like g.  threads, vecs, stages: the launch plan's
+// (kernels.layernorm.norm_bwd_plan); stages > 0 takes rowblock.cuh's
+// norm_ring_bwd_kernel over `blocks` CTAs (refused unless threads and vecs
+// are its configuration for d and the stages fit), then sums the partial
+// rows into dg and db (g's dtype); 0 takes the warp-per-row or
+// block-per-row kernel, whose partial rows the caller sums (dg and db
+// unused), as does every row of a -DNORM_BWD_V1 build.  Same pointer,
+// dtype and width conditions as ln_fwd.
 extern "C" int ln_bwd(const void* x, const void* g, const void* dy, void* dx,
-                      void* dgp, void* dbp, int rows, int d, int blocks,
-                      float eps, int dtype, void* stream) {
+                      void* dgp, void* dbp, void* dg, void* db, int rows, int d,
+                      int blocks, float eps, int dtype, int threads, int vecs, int stages,
+                      void* stream) {
   if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16, false>(x, g, dy, nullptr, dx, dgp, dbp,
-                                              rows, d, blocks, eps, stream);
-  return dispatch_bwd<float, false>(x, g, dy, nullptr, dx, dgp, dbp, rows, d,
-                                    blocks, eps, stream);
+    return dispatch_bwd<__nv_bfloat16, false>(x, g, dy, nullptr, dx, dgp, dbp, dg, db,
+                                              rows, d, blocks, eps, threads, vecs, stages,
+                                              stream);
+  return dispatch_bwd<float, false>(x, g, dy, nullptr, dx, dgp, dbp, dg, db, rows, d,
+                                    blocks, eps, threads, vecs, stages, stream);
 }
 
-// t = x + a as addln_fwd wrote it; g0 the cotangent of t; dx = LN_dx + g0.
+// t = x + a as addln_fwd wrote it; g0 the cotangent of t;
+// dx = round(LN_dx) + g0.  Launched as ln_bwd.
 extern "C" int addln_bwd(const void* t, const void* g, const void* dy,
-                         const void* g0, void* dx, void* dgp, void* dbp,
-                         int rows, int d, int blocks, float eps, int dtype,
-                         void* stream) {
+                         const void* g0, void* dx, void* dgp, void* dbp, void* dg,
+                         void* db, int rows, int d, int blocks, float eps, int dtype,
+                         int threads, int vecs, int stages, void* stream) {
   if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16, true>(t, g, dy, g0, dx, dgp, dbp, rows,
-                                             d, blocks, eps, stream);
-  return dispatch_bwd<float, true>(t, g, dy, g0, dx, dgp, dbp, rows, d, blocks,
-                                   eps, stream);
+    return dispatch_bwd<__nv_bfloat16, true>(t, g, dy, g0, dx, dgp, dbp, dg, db, rows,
+                                             d, blocks, eps, threads, vecs, stages,
+                                             stream);
+  return dispatch_bwd<float, true>(t, g, dy, g0, dx, dgp, dbp, dg, db, rows, d, blocks,
+                                   eps, threads, vecs, stages, stream);
 }
+
+// Whether this build has the backwards' ring (1), or only the warp-per-row
+// and block-per-row kernels (0: -DNORM_BWD_V1), which the wrapper then
+// plans for.
+extern "C" int ln_bwd_ring() { return kBwdV1 ? 0 : 1; }

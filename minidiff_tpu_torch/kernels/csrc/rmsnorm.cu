@@ -34,7 +34,7 @@
 // before its one exchange per row, where the block-per-row kernel loaded g
 // only after its reduction's two barriers.
 //
-// rms_bwd runs rowblock.cuh's rms_ring_bwd_kernel at every row count, as
+// rms_bwd runs rowblock.cuh's norm_ring_bwd_kernel at every row count, as
 // its launch plan (kernels.layernorm.norm_bwd_plan) says: a persistent CTA
 // whose thread 0 keeps the x and dy of the next rows in flight by TMA bulk
 // copies into a ring of shared-memory stages, g read once into registers,
@@ -112,7 +112,7 @@ extern "C" int addrms_fwd(const void* x, const void* a, const void* g,
 
 // dx like x; dgp (blocks, d) f32 partial rows, blocks >= 1.  threads,
 // vecs, stages: the launch plan's (kernels.layernorm.norm_bwd_plan);
-// stages > 0 takes rowblock.cuh's rms_ring_bwd_kernel over `blocks` CTAs
+// stages > 0 takes rowblock.cuh's norm_ring_bwd_kernel over `blocks` CTAs
 // (refused unless threads and vecs are its configuration for d and the
 // stages fit), then sums the partial rows into dg (g's dtype); 0 takes the
 // block-per-row kernel, whose partial rows the caller sums (dg unused), as
@@ -122,10 +122,12 @@ extern "C" int rms_bwd(const void* x, const void* g, const void* dy, void* dx,
                        int dtype, int threads, int vecs, int stages, void* stream) {
   if (stages > 0 && !kBwdV1) {
     if (dtype == 1)
-      return rowblock::launch_ring<__nv_bfloat16>(x, g, dy, dx, dgp, dg, rows, d, blocks,
-                                                  threads, vecs, stages, eps, stream);
-    return rowblock::launch_ring<float>(x, g, dy, dx, dgp, dg, rows, d, blocks, threads,
-                                        vecs, stages, eps, stream);
+      return rowblock::launch_ring<__nv_bfloat16, true, false>(
+          x, g, dy, nullptr, dx, dgp, nullptr, dg, nullptr, rows, d, blocks, threads, vecs,
+          stages, eps, stream);
+    return rowblock::launch_ring<float, true, false>(x, g, dy, nullptr, dx, dgp, nullptr, dg,
+                                                     nullptr, rows, d, blocks, threads, vecs,
+                                                     stages, eps, stream);
   }
   if (dtype == 1)
     return rowblock::launch_bwd<__nv_bfloat16, true, false>(

@@ -28,8 +28,9 @@
 // addln_fwd at decode-sized row counts (kernels.layernorm.norm_fwd_plan
 // sends them there; see the kernel).  A build with -DNORM_FWD_V1 takes the
 // routes above for every row, as before the one-wave kernel (chip_smoke.py
-// times the two in turns).  rms_ring_bwd_kernel is rms_bwd's backward at
-// every row count (kernels.layernorm.norm_bwd_plan; see the kernel).
+// times the two in turns).  norm_ring_bwd_kernel is the backward of rms_bwd,
+// ln_bwd and addln_bwd at every row count (kernels.layernorm.norm_bwd_plan;
+// see the kernel).
 #pragma once
 
 #include "rowwise.cuh"
@@ -321,24 +322,64 @@ constexpr int wave_max_vecs() {
   return kMaxWidth / (kWaveMaxThreads * Vec<T>::N);  // 2 for bf16, 4 for f32
 }
 
-// The correctly rounded f32 reciprocals of the counts 1..kWaveMaxCount (the
-// most values a warp of the one-wave kernel holds; 0 maps to 0): a ragged
-// part's mean is its sum times the reciprocal of its count.  The kernel
-// divides nowhere, 1/d comes from the host: an IEEE division's slow path is
-// a called subroutine, and ptxas spilled the registers it saved around it.
-constexpr int kWaveMaxCount = 32 * kMaxWidth / kWaveMaxThreads;
+// The correctly rounded f32 reciprocals of the counts 1..kRcpMaxCount (the
+// most values a warp holds: of the one-wave kernel's CTAs, and of the
+// narrower ring CTAs of norm_ring_bwd_kernel; 0 maps to 0): a ragged part's
+// mean is its sum times the reciprocal of its count.  The kernels divide
+// nowhere, 1/d comes from the host: an IEEE division's slow path is a
+// called subroutine, and ptxas spilled the registers it saved around it.
+constexpr int kRcpMaxCount = 32 * kMaxWidth / kMaxThreads;
 
 struct RcpTable {
-  float r[kWaveMaxCount + 1];
+  float r[kRcpMaxCount + 1];
 };
 
 constexpr RcpTable rcp_table() {
   RcpTable t{};
-  for (int n = 1; n <= kWaveMaxCount; ++n) t.r[n] = 1.f / static_cast<float>(n);
+  for (int n = 1; n <= kRcpMaxCount; ++n) t.r[n] = 1.f / static_cast<float>(n);
   return t;
 }
 
 __constant__ RcpTable kRcp = rcp_table();
+
+// LayerNorm's statistics by Chan's formula in its k-part form (see
+// norm_wave_kernel).  A thread holds `held` of its NV vectors of the row
+// (vectors threadIdx.x + i * blockDim.x); its part's mean is its sum times
+// part_rcp (a power of two's reciprocal when whole, else the table's).
+template <typename T, int NV>
+__device__ __forceinline__ float part_rcp(int held) {
+  return held == NV ? 1.f / (NV * Vec<T>::N) : kRcp.r[held * Vec<T>::N];
+}
+
+// The vectors of a row of nvec that warp `warp` of a CTA of `threads`
+// holds, NV a thread at most; its part's mean is its sum times warp_rcp.
+template <int NV>
+__device__ __forceinline__ int warp_vecs(int nvec, int threads, int warp) {
+  int wv = 0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) wv += min(32, max(0, nvec - i * threads - 32 * warp));
+  return wv;
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ float warp_rcp(int wv) {
+  return wv == 32 * NV ? 1.f / (32 * NV * Vec<T>::N) : kRcp.r[wv * Vec<T>::N];
+}
+
+// One part's term of the k-part merge onto the whole's mean: a part of
+// count c, mean m and centred sum of squares q adds q + c (m - mean)^2 to
+// the whole's centred sum of squares, and a part with sums B = sum(w) and
+// A = sum(w (x - m)) adds A + (m - mean) B to the whole's sum(w (x -
+// mean)).  The caller sums the terms (shuffles within a warp, shuffles
+// over the warps' partials after the exchange).
+__device__ __forceinline__ float chan_q(float q, float c, float m, float mean) {
+  const float e = m - mean;
+  return q + c * e * e;
+}
+
+__device__ __forceinline__ float chan_a(float a, float b, float m, float mean) {
+  return a + (m - mean) * b;
+}
 
 inline int wave_vecs(int nvec) {
   int n = 1;
@@ -443,7 +484,7 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ a,
     // this thread's part: count, mean, centred sum of squares (the mean of
     // NV * V values, a power of two, by a constant reciprocal)
     const float c = static_cast<float>(held * V);
-    const float m = held == NV ? s * (1.f / (NV * V)) : s * kRcp.r[held * V];
+    const float m = s * part_rcp<T, NV>(held);
     float q = 0.f;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -457,22 +498,17 @@ norm_wave_kernel(const T* __restrict__ x, const T* __restrict__ a,
     }
     // the warp's part (every warp holds a vector of the row): its count is
     // V for each vector its lanes hold
-    int wv = 0;
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      wv += min(32, max(0, nvec - i * static_cast<int>(blockDim.x) - 32 * warp));
+    const int wv = warp_vecs<NV>(nvec, blockDim.x, warp);
     const float cw = static_cast<float>(wv * V);
     const float sw = warp_sum(s);
-    const float mw = wv == 32 * NV ? sw * (1.f / (32 * NV * V)) : sw * kRcp.r[wv * V];
-    const float e = m - mw;
-    const float qw = warp_sum(q + c * e * e);
+    const float mw = sw * warp_rcp<T, NV>(wv);
+    const float qw = warp_sum(chan_q(q, c, m, mw));
     if (lane == 0) red[warp] = make_float4(sw, mw, qw, cw);
     __syncthreads();
     // the row's (lanes past the last warp hold an empty part)
     const float4 p = part < warps ? red[part] : make_float4(0.f, 0.f, 0.f, 0.f);
     mean = group_sum(p.x, span) * inv_d;
-    const float ew = p.y - mean;
-    rsig = rsqrtf(group_sum(p.z + p.w * ew * ew, span) * inv_d + eps);
+    rsig = rsqrtf(group_sum(chan_q(p.z, p.w, p.y, mean), span) * inv_d + eps);
   }
 
 #pragma unroll
@@ -517,58 +553,75 @@ int launch_wave(const void* x, const void* a, const void* g, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// RMSNorm's backward, rms_bwd, at every row count: persistent CTAs walk
-// the rows interleaved (CTA b takes rows b, b + CTAs, ...: at any moment
-// the CTAs stream neighbouring rows, which measured faster than each
-// walking a contiguous run), and the design takes the old kernel's chain
-// apart.
-// - Rows in flight: thread 0 keeps the x and dy rows of the next `stages`
-//   rows in flight, each row one TMA bulk copy (cp.async.bulk, completing
-//   on the stage's mbarrier) into a ring of shared-memory stages, so the
-//   loads of later rows run under this row's arithmetic.  The plan
+// The ring backward: RMSNorm's (rms_bwd) and LayerNorm's (ln_bwd, and with
+// ADD addln_bwd) at every row count.  Persistent CTAs walk the rows
+// interleaved (CTA b takes rows b, b + CTAs, ...: at any moment the CTAs
+// stream neighbouring rows, which measured faster than each walking a
+// contiguous run), and the design takes the old kernels' chain apart.
+// - Rows in flight: thread 0 keeps the rows of the next `stages` rows in
+//   flight, each row one TMA bulk copy (cp.async.bulk, completing on the
+//   stage's mbarrier) into a ring of shared-memory stages: x and dy, and
+//   with ADD the residual's cotangent g0 (three rows a stage), so the loads
+//   of later rows run under this row's arithmetic.  The plan
 //   (kernels.layernorm.norm_bwd_plan) sizes the ring and the CTAs an SM
 //   holds from chip_smoke.py's norm_bwd_route_ab.
 // - g is read once per CTA, kept packed in registers: a thread owns the
-//   same columns in every row.
-// - One exchange a row: RMSNorm needs two row sums, sum(x^2) and
-//   sum(w x) with w = dy g, since mean(w xhat) = rsig sum(w x) / d.  Both
-//   go through one warp shuffle, the warps' partials through shared
-//   memory, one barrier, and every warp combines the partials by the same
-//   shuffles (group_sum, lane l taking warp l's), so every thread gets the
-//   same bits on every run.  Then rsig = rsqrt(sum(x^2) / d + eps),
-//   m2 = rsig sum(w x) / d, xhat = x rsig and dx = (w - xhat m2) rsig,
-//   stored from registers.
+//   same columns in every row.  LayerNorm's backward never reads b.
+// - One exchange a row.  RMSNorm needs two row sums, sum(x^2) and sum(w x)
+//   with w = dy g, since mean(w xhat) = rsig sum(w x) / d.  LayerNorm needs
+//   four: the mean, the centred sum of squares, sum(w) and sum(w (x -
+//   mean)).  They go through one warp shuffle each, the warps' partials
+//   through shared memory, one barrier, and every warp combines the
+//   partials by the same shuffles (group_sum, lane l taking warp l's), so
+//   every thread gets the same bits on every run.  LayerNorm's parts (a
+//   thread's values, then a warp's) each carry (count c, mean m, q =
+//   sum((x - m)^2), B = sum(w), A = sum(w (x - m))), centred on their own
+//   mean so that nothing cancels (rows of 300 +- 3 keep their digits), and
+//   combine by the k-part merge of norm_wave_kernel (chan_q, chan_a): q =
+//   sum[q_k + c_k (m_k - m)^2], sum(w (x - m)) = sum[A_k + (m_k - m) B_k].
+//   Then RMS: rsig = rsqrt(sum(x^2) / d + eps), m2 = rsig sum(w x) / d,
+//   xhat = x rsig, dx = (w - xhat m2) rsig; LN: rsig = rsqrt(q / d + eps),
+//   m1 = sum(w) / d, m2 = rsig sum(w (x - mean)) / d, xhat = (x - mean)
+//   rsig, dx = (w - m1 - xhat m2) rsig; ADD: dx = round_T(dx) + g0, rounded
+//   again (two roundings, as _addln_bwd_kernel).  dx is stored from
+//   registers.  Nothing divides: 1/d comes from the host, a part's 1/c from
+//   part_rcp / warp_rcp.
 // - One barrier a row: the exchange scratch is double-buffered (row k
 //   writes red[k & 1]; a thread writes it again only after the barrier of
 //   row k + 1, by which every thread has read it), and the barrier also
-//   frees the row's stage (every thread has copied its vectors to
-//   registers before it), so thread 0 refills that stage with the row
+//   frees the row's stage (every thread has copied its vectors, g0's too,
+//   to registers before it), so thread 0 refills that stage with the row
 //   `stages` ahead right after it.
-// - The dg partial row stays in registers and is written once per CTA as
-//   an f32 partial row; rms_dg_sum_kernel, launched next, sums the
-//   partial rows in a fixed order (no atomics: the same bits every run)
-//   and writes dg in g's dtype: one short launch where the caller's sum
-//   and cast were two PyTorch kernels, whose cost beside a 20-80 us ring
-//   was large enough to matter.
+// - The dg (and LN's db) partial rows stay in registers and are written
+//   once per CTA as f32 partial rows; ring_sum_kernel, launched next, sums
+//   the partial rows in a fixed order (no atomics: the same bits every run)
+//   and writes dg (and db) in g's dtype: one short launch where the
+//   caller's sum and cast were two PyTorch kernels, whose cost beside a
+//   20-80 us ring was large enough to matter.
 // - The row's columns are spread as in norm_bwd_kernel (row_shape: at
 //   most kMaxThreads threads; 512-thread CTAs measured no faster on the
 //   H100).  Small rows take several CTAs an SM, so that other CTAs' rows
 //   overlap each CTA's per-row chain (the plan's table, from
 //   chip_smoke.py's norm_bwd_route_ab).
-// Bound: bytes (x and dy read once, dx written once).
+// addrms_bwd (RMS with ADD) keeps norm_bwd_kernel.
+// Bound: bytes (x, dy and g0 read once, dx written once).
 constexpr int kRingMaxStages = 8;
 
-template <typename T, int NV>
+template <typename T, int NV, bool RMS, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
-rms_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                    const T* __restrict__ dy, T* __restrict__ dx,
-                    float* __restrict__ dgp, int rows, int d, int stages,
-                    float inv_d, float eps) {
+norm_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     const T* __restrict__ dy, const T* __restrict__ g0,
+                     T* __restrict__ dx, float* __restrict__ dgp, float* __restrict__ dbp,
+                     int rows, int d, int stages, float inv_d, float eps) {
+  static_assert(!(RMS && ADD), "addrms_bwd keeps norm_bwd_kernel");
   constexpr int V = Vec<T>::N;
+  constexpr int kRows = ADD ? 3 : 2;  // the rows a stage holds: x, dy (, g0)
   using Raw = typename Vec<T>::Raw;
-  extern __shared__ __align__(16) unsigned char ring[];  // stages x [x row | dy row]
+  extern __shared__ __align__(16) unsigned char ring[];  // stages x [x | dy (| g0)]
   __shared__ __align__(8) uint64_t full[kRingMaxStages];
-  __shared__ float2 red[2][32];  // each warp's (sum x^2, sum w x), two rows apart
+  // each warp's partials, two rows apart: RMS (sum x^2, sum w x); LN (sum
+  // x, mean), (centred sum of squares, count), (sum w, sum w (x - mean))
+  __shared__ float2 red[2][32][RMS ? 1 : 3];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -587,10 +640,11 @@ rms_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   auto issue = [&](int k) {
     const int st = k % stages;
     const size_t off = static_cast<size_t>(row_of(k)) * d;
-    sm90::mbar_expect_tx(bar0 + 8 * st, 2 * row_bytes);
-    sm90::bulk_load(ring0 + st * 2 * row_bytes, x + off, row_bytes, bar0 + 8 * st);
-    sm90::bulk_load(ring0 + st * 2 * row_bytes + row_bytes, dy + off, row_bytes,
-                    bar0 + 8 * st);
+    const unsigned dst = ring0 + st * kRows * row_bytes;
+    sm90::mbar_expect_tx(bar0 + 8 * st, kRows * row_bytes);
+    sm90::bulk_load(dst, x + off, row_bytes, bar0 + 8 * st);
+    sm90::bulk_load(dst + row_bytes, dy + off, row_bytes, bar0 + 8 * st);
+    if (ADD) sm90::bulk_load(dst + 2 * row_bytes, g0 + off, row_bytes, bar0 + 8 * st);
   };
   if (threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) sm90::mbar_init(bar0 + 8 * st, 1);
@@ -599,47 +653,119 @@ rms_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 
   Raw gr[NV];
-  float dg[NV][V];
+  float dg[NV][V], db[RMS ? 1 : NV][V];
+  int held = 0;  // this thread's vectors of the row
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = threadIdx.x + i * blockDim.x;
-    if (c < nvec) gr[i] = Vec<T>::fetch(g + c * V);
+    if (c < nvec) {
+      gr[i] = Vec<T>::fetch(g + c * V);
+      ++held;
+    }
 #pragma unroll
-    for (int j = 0; j < V; ++j) dg[i][j] = 0.f;
+    for (int j = 0; j < V; ++j) {
+      dg[i][j] = 0.f;
+      if constexpr (!RMS) db[i][j] = 0.f;
+    }
   }
+  // LN: this thread's and this warp's counts and their means' reciprocals,
+  // the same in every row
+  const float c_t = static_cast<float>(held * V);
+  const float rcp_t = part_rcp<T, NV>(held);
+  const int wv = warp_vecs<NV>(nvec, blockDim.x, warp);
+  const float c_w = static_cast<float>(wv * V);
+  const float rcp_w = warp_rcp<T, NV>(wv);
   __syncthreads();  // the barriers' inits, before any thread waits on them
 
   for (int k = 0; k < n; ++k) {
     const int st = k % stages;
     sm90::mbar_wait(bar0 + 8 * st, (k / stages) & 1);
-    const T* xs = reinterpret_cast<const T*>(ring + st * 2 * row_bytes);
+    const T* xs = reinterpret_cast<const T*>(ring + st * kRows * row_bytes);
     const T* ds = xs + d;
     float xv[NV][V], dv[NV][V];
-    float s0 = 0.f, s1 = 0.f;
+    Raw g0r[ADD ? NV : 1];
+    float2* r = red[k & 1][warp];
+    if constexpr (RMS) {
+      float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int c = threadIdx.x + i * blockDim.x;
-      if (c < nvec) {
-        float gv[V];
-        Vec<T>::load(xs + c * V, xv[i]);
-        Vec<T>::load(ds + c * V, dv[i]);
-        Vec<T>::unpack(gr[i], gv);
+      for (int i = 0; i < NV; ++i) {
+        const int c = threadIdx.x + i * blockDim.x;
+        if (c < nvec) {
+          float gv[V];
+          Vec<T>::load(xs + c * V, xv[i]);
+          Vec<T>::load(ds + c * V, dv[i]);
+          Vec<T>::unpack(gr[i], gv);
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          s0 += xv[i][j] * xv[i][j];
-          s1 += dv[i][j] * gv[j] * xv[i][j];
+          for (int j = 0; j < V; ++j) {
+            s0 += xv[i][j] * xv[i][j];
+            s1 += dv[i][j] * gv[j] * xv[i][j];
+          }
         }
       }
+      s0 = warp_sum(s0);
+      s1 = warp_sum(s1);
+      if (lane == 0) r[0] = make_float2(s0, s1);
+    } else {
+      // this thread's part: the mean, then the centred sums about it
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = threadIdx.x + i * blockDim.x;
+        if (c < nvec) {
+          Vec<T>::load(xs + c * V, xv[i]);
+          Vec<T>::load(ds + c * V, dv[i]);
+          if constexpr (ADD) g0r[i] = Vec<T>::fetch(ds + d + c * V);
+#pragma unroll
+          for (int j = 0; j < V; ++j) s += xv[i][j];
+        }
+      }
+      const float m = s * rcp_t;
+      float q = 0.f, bs = 0.f, as = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (i < held) {
+          float gv[V];
+          Vec<T>::unpack(gr[i], gv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float e = xv[i][j] - m;
+            const float w = dv[i][j] * gv[j];
+            q += e * e;
+            bs += w;
+            as += w * e;
+          }
+        }
+      }
+      // the warp's part, merged onto its own mean
+      const float sw = warp_sum(s);
+      const float mw = sw * rcp_w;
+      const float qw = warp_sum(chan_q(q, c_t, m, mw));
+      const float bw = warp_sum(bs);
+      const float aw = warp_sum(chan_a(as, bs, m, mw));
+      if (lane == 0) {
+        r[0] = make_float2(sw, mw);
+        r[1] = make_float2(qw, c_w);
+        r[2] = make_float2(bw, aw);
+      }
     }
-    s0 = warp_sum(s0);
-    s1 = warp_sum(s1);
-    float2* r = red[k & 1];
-    if (lane == 0) r[warp] = make_float2(s0, s1);
     __syncthreads();
     if (threadIdx.x == 0 && k + stages < n) issue(k + stages);
-    const float2 p = part < warps ? r[part] : make_float2(0.f, 0.f);
-    const float rsig = rsqrtf(group_sum(p.x, span) * inv_d + eps);
-    const float m2 = rsig * (group_sum(p.y, span) * inv_d);
+    const float2* p = red[k & 1][part];
+    const bool in = part < warps;  // lanes past the last warp hold an empty part
+    float rsig, mean = 0.f, m1 = 0.f, m2;
+    if constexpr (RMS) {
+      const float2 p0 = in ? p[0] : make_float2(0.f, 0.f);
+      rsig = rsqrtf(group_sum(p0.x, span) * inv_d + eps);
+      m2 = rsig * (group_sum(p0.y, span) * inv_d);
+    } else {
+      const float2 p0 = in ? p[0] : make_float2(0.f, 0.f);
+      const float2 p1 = in ? p[1] : make_float2(0.f, 0.f);
+      const float2 p2 = in ? p[2] : make_float2(0.f, 0.f);
+      mean = group_sum(p0.x, span) * inv_d;
+      rsig = rsqrtf(group_sum(chan_q(p1.x, p1.y, p0.y, mean), span) * inv_d + eps);
+      m1 = group_sum(p2.x, span) * inv_d;
+      m2 = rsig * (group_sum(chan_a(p2.y, p2.x, p0.y, mean), span) * inv_d);
+    }
     const size_t base = static_cast<size_t>(row_of(k)) * d;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -649,37 +775,58 @@ rms_ring_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
         Vec<T>::unpack(gr[i], gv);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float xh = xv[i][j] * rsig;
-          o[j] = (dv[i][j] * gv[j] - xh * m2) * rsig;
-          dg[i][j] += dv[i][j] * xh;
+          if constexpr (RMS) {
+            const float xh = xv[i][j] * rsig;
+            o[j] = (dv[i][j] * gv[j] - xh * m2) * rsig;
+            dg[i][j] += dv[i][j] * xh;
+          } else {
+            const float xh = (xv[i][j] - mean) * rsig;
+            o[j] = (dv[i][j] * gv[j] - m1 - xh * m2) * rsig;
+            dg[i][j] += dv[i][j] * xh;
+            db[i][j] += dv[i][j];
+          }
+        }
+        if constexpr (ADD) {
+          float g0v[V];
+          Vec<T>::unpack(g0r[i], g0v);
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = Vec<T>::round(o[j]) + g0v[j];
         }
         Vec<T>::store(dx + base + c * V, o);
       }
     }
   }
 
-  // this CTA's partial row: each column has one owner thread
+  // this CTA's partial rows: each column has one owner thread
   const size_t pbase = static_cast<size_t>(b) * d;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = threadIdx.x + i * blockDim.x;
     if (c < nvec) {
 #pragma unroll
-      for (int j = 0; j < V; j += 4) Vec<float>::store(dgp + pbase + c * V + j, &dg[i][j]);
+      for (int j = 0; j < V; j += 4) {
+        Vec<float>::store(dgp + pbase + c * V + j, &dg[i][j]);
+        if constexpr (!RMS) Vec<float>::store(dbp + pbase + c * V + j, &db[i][j]);
+      }
     }
   }
 }
 
-// dg = the column sums of the `p` f32 partial rows of d values, rounded
-// once to T.  A CTA takes 32 columns, a lane one column (each warp's loads
-// of a row are one 128-byte line); warp w sums rows w, w + kSumWarps, ...
-// in order, and warp 0 adds the warps' sums in warp order.
+// dg (blockIdx.y 0) and LN's db (blockIdx.y 1) = the column sums of the `p`
+// f32 partial rows of d values in dgp (dbp), rounded once to T.  A CTA
+// takes 32 columns, a lane one column (each warp's loads of a row are one
+// 128-byte line); warp w sums rows w, w + kSumWarps, ... in order, and
+// warp 0 adds the warps' sums in warp order.  RMS and ADD say which
+// backward the launch serves (the profiles tell them apart by them).
 constexpr int kSumWarps = 16;
 
-template <typename T>
+template <typename T, bool RMS, bool ADD>
 __global__ void __launch_bounds__(kSumWarps * 32)
-rms_dg_sum_kernel(const float* __restrict__ parts, T* __restrict__ dg, int p, int d) {
+ring_sum_kernel(const float* __restrict__ dgp, const float* __restrict__ dbp,
+                T* __restrict__ dg, T* __restrict__ db, int p, int d) {
   __shared__ float red[kSumWarps][32];
+  const float* parts = RMS || blockIdx.y == 0 ? dgp : dbp;
+  T* out = RMS || blockIdx.y == 0 ? dg : db;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
@@ -694,33 +841,34 @@ rms_dg_sum_kernel(const float* __restrict__ parts, T* __restrict__ dg, int p, in
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < kSumWarps; ++w) t += red[w][lane];
-    rowwise::put(dg + c, t);
+    rowwise::put(out + c, t);
   }
 }
 
-// Launch rms_ring_bwd_kernel over `ctas` CTAs with a ring of `stages`, at
+// Launch norm_ring_bwd_kernel over `ctas` CTAs with a ring of `stages`, at
 // the plan's (threads, vecs), refused with cudaErrorInvalidValue unless
 // those are row_shape's for a row of d values and the stages fit; then
-// rms_dg_sum_kernel from its `ctas` partial rows (dgp) into dg.
-template <typename T, int NV = 1>
-int launch_ring(const void* x, const void* g, const void* dy, void* dx, void* dgp,
-                void* dg, int rows, int d, int ctas, int threads, int vecs, int stages,
-                float eps, void* stream) {
+// ring_sum_kernel from its `ctas` partial rows (dgp, and LN's dbp) into dg
+// (and db).  g0 is read with ADD only, dbp and db without RMS only.
+template <typename T, bool RMS, bool ADD, int NV = 1>
+int launch_ring(const void* x, const void* g, const void* dy, const void* g0, void* dx,
+                void* dgp, void* dbp, void* dg, void* db, int rows, int d, int ctas,
+                int threads, int vecs, int stages, float eps, void* stream) {
   if constexpr (NV > max_nv<T>()) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     int nv, th;
     row_shape(d / Vec<T>::N, &nv, &th);
     if (nv > NV)
-      return launch_ring<T, 2 * NV>(x, g, dy, dx, dgp, dg, rows, d, ctas, threads, vecs,
-                                    stages, eps, stream);
+      return launch_ring<T, RMS, ADD, 2 * NV>(x, g, dy, g0, dx, dgp, dbp, dg, db, rows, d,
+                                              ctas, threads, vecs, stages, eps, stream);
     if (d > kMaxWidth || vecs != nv || threads != th || stages < 1 ||
         stages > kRingMaxStages || ctas < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = stages * 2 * d * static_cast<int>(sizeof(T));
-    auto kernel = rms_ring_bwd_kernel<T, NV>;
-    // past 48 KB with the static scratch (under 1 KB) only by the attribute
-    if (smem + 1024 > 48 * 1024) {
+    const int smem = stages * (ADD ? 3 : 2) * d * static_cast<int>(sizeof(T));
+    auto kernel = norm_ring_bwd_kernel<T, NV, RMS, ADD>;
+    // past 48 KB with the static scratch (under 2 KB) only by the attribute
+    if (smem + 2048 > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) {
@@ -731,12 +879,13 @@ int launch_ring(const void* x, const void* g, const void* dy, void* dx, void* dg
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     kernel<<<ctas, threads, smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(dy),
-        static_cast<T*>(dx), static_cast<float*>(dgp), rows, d, stages,
-        1.f / static_cast<float>(d), eps);
+        static_cast<const T*>(g0), static_cast<T*>(dx), static_cast<float*>(dgp),
+        static_cast<float*>(dbp), rows, d, stages, 1.f / static_cast<float>(d), eps);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    rms_dg_sum_kernel<T><<<(d + 31) / 32, kSumWarps * 32, 0, st>>>(
-        static_cast<const float*>(dgp), static_cast<T*>(dg), ctas, d);
+    ring_sum_kernel<T, RMS, ADD><<<dim3((d + 31) / 32, RMS ? 1 : 2), kSumWarps * 32, 0, st>>>(
+        static_cast<const float*>(dgp), static_cast<const float*>(dbp), static_cast<T*>(dg),
+        static_cast<T*>(db), ctas, d);
     return static_cast<int>(cudaGetLastError());
   }
 }

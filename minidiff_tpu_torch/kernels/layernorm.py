@@ -50,18 +50,21 @@ order), else their earlier routes (``ln_rows_kernel``, a warp per row, for
 LayerNorm rows a warp's registers hold; ``norm_fwd_kernel``, a block per
 row, for the rest).
 
-The four backwards launch by ``norm_bwd_plan``: ``rms_bwd`` on the ring
-kernel of ``csrc/rowblock.cuh`` (``rms_ring_bwd_kernel``: persistent CTAs,
-the x and dy of the next rows in flight by TMA bulk copies into a ring of
-shared-memory stages, g read once, one exchange a row for both row sums);
-``ln_bwd``, ``addln_bwd`` and ``addrms_bwd`` on their earlier kernels
-(``ln_bwd_kernel``, a warp per row, for LayerNorm rows of up to
-``BWD_WARP_WIDTH`` values; ``norm_bwd_kernel``, a block per row, for the
-rest), two CTAs per SM.  Each backward's CTAs write f32 partial rows of dg
-(and db), summed in a fixed order: on the ring by ``rms_bwd``'s second
-kernel (``rms_dg_sum_kernel``, which writes dg in g's dtype), elsewhere here.
-A build of ``rmsnorm.cu`` without the ring (``-DNORM_BWD_V1``) says so
-(``rms_bwd_ring``), and ``rms_bwd`` then launches as it did before it.
+The four backwards launch by ``norm_bwd_plan``: ``rms_bwd``, ``ln_bwd``
+and ``addln_bwd`` on the ring kernel of ``csrc/rowblock.cuh``
+(``norm_ring_bwd_kernel``: persistent CTAs, the x and dy rows (and
+addln's g0 row) of the next rows in flight by TMA bulk copies into a ring
+of shared-memory stages, g read once, one exchange a row for all the row
+sums, LayerNorm's four merged as parts by Chan's formula); ``addrms_bwd``
+on its earlier kernel (``norm_bwd_kernel``, a block per row), two CTAs per
+SM.  Each backward's CTAs write f32 partial rows of dg (and db), summed in
+a fixed order: on the ring by the entry's second kernel
+(``ring_sum_kernel``, which writes dg and db in g's dtype), elsewhere
+here.  A build of ``rmsnorm.cu`` or ``layernorm.cu`` without the ring
+(``-DNORM_BWD_V1``) says so (``rms_bwd_ring``, ``ln_bwd_ring``), and its
+backwards then launch as they did before it (``ln_bwd_kernel``, a warp per
+row, for LayerNorm rows of up to ``BWD_WARP_WIDTH`` values;
+``norm_bwd_kernel`` for the rest).
 """
 
 from __future__ import annotations
@@ -98,18 +101,21 @@ WAVE_MAX_ROWS = 128
 BWD_WARP_WIDTH = 1024
 BWD_WARPS = 8
 RING_MAX_STAGES = 8
-# rms_bwd's ring: the CTAs an SM runs by the bytes of one x row (up to each
-# count; 1 past the last), and the x and dy bytes an SM keeps in flight,
-# which set the stages (at least 2).  chip_smoke.py's norm_bwd_route_ab
-# timed 1-8 CTAs an SM at 2-8 stages at (8192, 1024), (8192, 4096) and
-# (1024, 4096) in bf16 and f32: 2 KB rows were fastest at 4 CTAs an SM
-# and 2 stages, 4 and 8 KB rows at 2 and 2, 16 KB rows within 1% of their
-# best at 1 and 2
-RING_CTAS_BY_ROW_BYTES = ((2048, 4), (8192, 2))
+# the ring of rms_bwd, ln_bwd and addln_bwd: the CTAs an SM runs by the
+# bytes of one stage (x and dy, and addln's g0; up to each count, 1 past the
+# last), and the stage bytes an SM keeps in flight, which set the stages (at
+# least 2).  chip_smoke.py's norm_bwd_route_ab timed 1-8 CTAs an SM at 2-8
+# stages, rms_bwd at (8192, 1024), (8192, 4096) and (1024, 4096), ln_bwd
+# and addln_bwd at (8192, 1024), (4096, 512) and (8192, 4096), in bf16 and
+# f32: stages of 2-3 KB (1 KB rows) were fastest at 8 CTAs an SM and 2
+# stages, of 4-6 KB at 4 and 2, of 8-16 KB at 2 and 2, of 24 KB and more
+# within 3% of their best at 1 and 2 (keyed by the row's bytes, addln_bwd's
+# three 8 KB rows took 2 CTAs an SM, 4.5% slower than 1)
+RING_CTAS_BY_STAGE_BYTES = ((3072, 8), (6144, 4), (16384, 2))
 RING_BYTES = 32 * 1024
 # a ring CTA's shared memory beside its stages: the system's 1 KB, the
-# stages' mbarriers and the exchange scratch
-RING_SMEM_EXTRA = 2048
+# stages' mbarriers and the exchange scratch (LayerNorm's 1.5 KB)
+RING_SMEM_EXTRA = 3072
 
 
 class NormPlan(NamedTuple):
@@ -161,7 +167,7 @@ def _row_shape(nvec: int):
 
 class NormBwdPlan(NamedTuple):
     """How a backward norm launches: the route ("ring":
-    ``rms_ring_bwd_kernel``, persistent CTAs over a ring of ``stages``
+    ``norm_ring_bwd_kernel``, persistent CTAs over a ring of ``stages``
     shared-memory stages; "warp": ``ln_bwd_kernel``, ``BWD_WARPS`` warps a
     CTA, a warp a row; "block": ``norm_bwd_kernel``, a CTA walks its rows
     one at a time), the CTAs (each writes one partial row), the threads of a
@@ -180,26 +186,29 @@ def norm_bwd_plan(rows: int, d: int, dtype, rms: bool, add: bool, stages=None,
     """The launch plan of ``rms_bwd`` (``rms`` and not ``add``),
     ``addrms_bwd``, ``ln_bwd`` or ``addln_bwd`` (``add``: the fused
     residual's) for ``rows`` rows of ``d`` values, from shapes only.
-    ``rms_bwd`` takes the ring: ``row_shape``'s threads and vectors,
-    ``per_sm`` CTAs an SM (by ``RING_CTAS_BY_ROW_BYTES``), the fewest stages
-    (at least 2, at most ``RING_MAX_STAGES``) that keep ``RING_BYTES`` of x
-    and dy in flight per SM, both cut to what shared memory holds, and at
-    most one CTA a row.  ``stages`` and ``per_sm`` force the choice, for
-    chip_smoke.py's A/B, and ``ring=False`` the launch ``rms_bwd`` had
-    before the ring.  The others keep the launch they had before the plan:
-    two CTAs an SM or one per 8 rows, whichever is fewer, on the warp
-    kernel for LayerNorm rows of up to ``BWD_WARP_WIDTH`` values (its lane
-    vectors the next power of two over the row's share), else on the
-    block-per-row kernel."""
+    ``rms_bwd``, ``ln_bwd`` and ``addln_bwd`` take the ring: ``row_shape``'s
+    threads and vectors, ``per_sm`` CTAs an SM (by the bytes of a stage,
+    which holds x and dy, and ``addln_bwd``'s g0: ``RING_CTAS_BY_STAGE_BYTES``),
+    the fewest stages (at least 2, at most ``RING_MAX_STAGES``) that keep
+    ``RING_BYTES`` of stages in flight per SM, both cut
+    to what shared memory holds, and at most one CTA a row.  ``stages`` and
+    ``per_sm`` force the choice, for chip_smoke.py's A/B, and ``ring=False``
+    the launch each had before the ring, which ``addrms_bwd`` keeps: two
+    CTAs an SM or one per 8 rows, whichever is fewer, on the warp kernel for
+    LayerNorm rows of up to ``BWD_WARP_WIDTH`` values (its lane vectors the
+    next power of two over the row's share), else on the block-per-row
+    kernel."""
     size = torch.finfo(dtype).bits // 8
     nvec = d // (16 // size)
     if ring is None:
-        ring = rms and not add
+        ring = not (rms and add)
     if ring:
+        if rms and add:
+            raise ValueError("addrms_bwd has no ring")
         vecs, threads = _row_shape(nvec)
+        stage = (3 if add else 2) * d * size
         if per_sm is None:
-            per_sm = next((n for most, n in RING_CTAS_BY_ROW_BYTES if d * size <= most), 1)
-        stage = 2 * d * size
+            per_sm = next((n for most, n in RING_CTAS_BY_STAGE_BYTES if stage <= most), 1)
         if stages is None:
             stages = max(2, min(RING_MAX_STAGES, -(-RING_BYTES // (per_sm * stage))))
         stages = min(stages, RING_MAX_STAGES, _build.SMEM_LIMIT // stage)
@@ -381,42 +390,49 @@ def _add_rmsnorm_fwd(x, a, g, eps: float):
     return _fwd_kernel("addrms_fwd", x, (a, g), eps, (2,) + tuple(x.shape))
 
 
+# each ring's entry that says whether its library has the ring
+_RING_ENTRY = {"rms_bwd": "rms_bwd_ring", "ln_bwd": "ln_bwd_ring", "addln_bwd": "ln_bwd_ring"}
+
+
 def _bwd_kernel(name: str, x, g, dy, g0, eps: float, plan=None):
     """Launch a backward (g0 None for ``ln_bwd`` / ``rms_bwd``) by
-    ``plan`` (``norm_bwd_plan``'s rule when None); the f32 partial rows of
-    its CTAs (dg, and db for LayerNorm) are summed here, then cast to g's
-    dtype.  Returns (dx, dg[, db])."""
+    ``plan`` (``norm_bwd_plan``'s rule when None).  On the ring the entry
+    sums its CTAs' f32 partial rows (dg, and db for LayerNorm) into outputs
+    in g's dtype itself; off it they are summed here, then cast.  Returns
+    (dx, dg[, db])."""
     operands = (x, g, dy) if g0 is None else (x, g, dy, g0)
     _check_cuda(name, *operands)
     _same_shape(name, *((x, dy) if g0 is None else (x, dy, g0)))
     d = x.shape[-1]
     rows = x.numel() // d
-    rms = "rms" in name
+    rms, add = "rms" in name, g0 is not None
     sums = 1 if rms else 2
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if rows == 0:
         return (dx,) + (torch.zeros_like(g),) * sums
-    plan = plan or norm_bwd_plan(rows, d, x.dtype, rms, g0 is not None)
+    plan = plan or norm_bwd_plan(rows, d, x.dtype, rms, add)
     with torch.cuda.device(x.device):
-        if plan.route == "ring" and not _build.function("rms_bwd_ring")():
+        if plan.route == "ring" and not _build.function(_RING_ENTRY[name])():
             # a build without the ring (-DNORM_BWD_V1) launches as before it
-            plan = norm_bwd_plan(rows, d, x.dtype, True, False, ring=False)
+            plan = norm_bwd_plan(rows, d, x.dtype, rms, add, ring=False)
         parts = torch.empty((sums, plan.ctas, d), dtype=torch.float32, device=x.device)
-        # rms_bwd's entry takes dg and the ring's (threads, vecs, stages):
-        # on the ring it sums the partial rows into dg itself
-        route, dg = (), None
-        if name == "rms_bwd":
-            dg = torch.empty(g.shape, dtype=g.dtype, device=g.device)
+        # every entry but addrms_bwd's takes dg (and db) and the ring's
+        # (threads, vecs, stages): on the ring it sums the partial rows into
+        # them itself
+        outs, route = (), ()
+        if name != "addrms_bwd":
+            outs = tuple(torch.empty(g.shape, dtype=g.dtype, device=g.device)
+                         for _ in range(sums))
             route = ((plan.threads, plan.vecs, plan.stages) if plan.route == "ring"
                      else (0, 0, 0))
         ins = [t.contiguous() for t in operands]
         err = _build.function(name)(
-            *_build.ptrs(*ins, dx, *parts, *(() if dg is None else (dg,))), rows, d,
-            plan.ctas, float(eps), _build.DTYPE_CODES[x.dtype], *route, _build.stream())
+            *_build.ptrs(*ins, dx, *parts, *outs), rows, d, plan.ctas, float(eps),
+            _build.DTYPE_CODES[x.dtype], *route, _build.stream())
     _build.check(err, name)
     LAUNCHES[name] += 1
     if plan.route == "ring":
-        return dx, dg
+        return (dx, *outs)
     return (dx, *parts.sum(dim=1).to(g.dtype))
 
 

@@ -3,23 +3,25 @@ kernel's order, on the CPU.
 
 ``kernels.layernorm.norm_bwd_plan`` decides, from shapes only and before
 launch, how ``csrc/rmsnorm.cu``'s ``rms_bwd`` and ``addrms_bwd`` and
-``csrc/layernorm.cu``'s ``ln_bwd`` and ``addln_bwd`` launch.  Only
-``rms_bwd`` moved: it runs ``csrc/rowblock.cuh``'s ``rms_ring_bwd_kernel``
-(persistent CTAs, thread 0 keeping the x and dy of the next rows in flight
-by TMA bulk copies into a ring of shared-memory stages, one exchange a row
-for both row sums); the other three keep the launch they had.  The kernels
-cannot run here, so these tests hold:
+``csrc/layernorm.cu``'s ``ln_bwd`` and ``addln_bwd`` launch.  ``rms_bwd``,
+``ln_bwd`` and ``addln_bwd`` run ``csrc/rowblock.cuh``'s
+``norm_ring_bwd_kernel`` (persistent CTAs, thread 0 keeping the x and dy
+(and addln's g0) of the next rows in flight by TMA bulk copies into a ring
+of shared-memory stages, one exchange a row for the row sums);
+``addrms_bwd`` keeps the launch it had.  The kernels cannot run here, so
+these tests hold (``tests/test_torch_ln_bwd_plan.py`` holds LayerNorm's
+ring in its own detail):
 
 - the plan for all four at every width ``uses_kernel`` takes and rows 1 to
-  8,192, in bf16 and f32: the three that did not move get the kernel, grid
-  and block they had before the plan (restated here from ``layernorm.cu``'s
-  ``dispatch_bwd``, ``rowblock.cuh``'s ``row_shape`` and the wrapper's "two
-  CTAs per SM, or one per 8 rows"); ``rms_bwd`` gets ``row_shape``'s
-  threads and vectors, the CTAs an SM its table gives for the row's bytes,
-  a ring that shared memory holds at those CTAs, and at most one CTA a
-  row; and ``_bwd_kernel`` hands each C entry its plan, in the argument
-  count of its ctypes signature, and plans ``rms_bwd`` as before the ring
-  for a library built without it (``-DNORM_BWD_V1``);
+  8,192, in bf16 and f32: ``addrms_bwd`` gets the kernel, grid and block
+  it had before the plan (restated here from ``rowblock.cuh``'s
+  ``row_shape`` and the wrapper's "two CTAs per SM, or one per 8 rows");
+  the others get ``row_shape``'s threads and vectors, the CTAs an SM its
+  table gives for the stage's bytes, a ring that shared memory holds at
+  those CTAs (two rows a stage, three for ``addln_bwd``), and at most one
+  CTA a row; and ``_bwd_kernel`` hands each C entry its plan, in the
+  argument count of its ctypes signature, and plans ``rms_bwd`` as before
+  the ring for a library built without it (``-DNORM_BWD_V1``);
 - the ring's schedule, restated from the kernel: every row's stage and
   mbarrier parity, each stage refilled only after the barrier of the row
   that held it, at 0-40 rows and 1-8 stages;
@@ -27,7 +29,7 @@ cannot run here, so these tests hold:
   thread's sums of x^2 and (dy g) x over its columns, both through one
   warp butterfly, the warps' partials combined by the same shuffles, rsig,
   m2 = rsig sum(w x) / d, dx = (w - xhat m2) rsig, the dg partial rows of
-  each CTA's interleaved rows, summed in ``rms_dg_sum_kernel``'s order
+  each CTA's interleaved rows, summed in ``ring_sum_kernel``'s order
   and rounded once to g's dtype.  It is held against
   the plain version and the JAX package's Pallas kernel in interpret mode
   at d 1024 and 4096, a ragged f32 width (1000) and rows whose mean is
@@ -88,10 +90,11 @@ def _row_shape(nvec: int):
 
 def _launch_before_the_plan(rows: int, d: int, dtype, rms: bool):
     """The backwards' launch as the wrapper and the C entries made it before
-    norm_bwd_plan: two CTAs per SM, or one per 8 rows; layernorm.cu's
-    dispatch_bwd sends LayerNorm rows of up to 1,024 values to ln_bwd_kernel
-    (8 warps, per_lane vectors a lane rounded up to 1, 2, 4 or the widest),
-    every other row to rowblock.cuh's norm_bwd_kernel at row_shape."""
+    norm_bwd_plan (and before the ring): two CTAs per SM, or one per 8 rows;
+    layernorm.cu's dispatch_bwd sends LayerNorm rows of up to 1,024 values
+    to ln_bwd_kernel (8 warps, per_lane vectors a lane rounded up to 1, 2, 4
+    or the widest), every other row to rowblock.cuh's norm_bwd_kernel at
+    row_shape."""
     ctas = max(1, min(-(-rows // 8), 2 * SMS))
     nvec = d // (16 // _size(dtype))
     if not rms and d <= 1024:
@@ -116,20 +119,22 @@ def test_plan_for_all_four_backwards(dt):
         for rows in ROWS:
             for name, (rms, add) in BACKWARDS.items():
                 p = L.norm_bwd_plan(rows, d, dtype, rms, add)
-                if name != "rms_bwd":
+                assert L.norm_bwd_plan(rows, d, dtype, rms, add, ring=False) == \
+                    _launch_before_the_plan(rows, d, dtype, rms), (name, d, rows)
+                if name == "addrms_bwd":
                     assert p == _launch_before_the_plan(rows, d, dtype, rms), (name, d, rows)
                     continue
                 assert p.route == "ring"
                 assert (p.vecs, p.threads) == _row_shape(nvec)
-                stage = 2 * d * _size(dtype)
+                stage = (3 if add else 2) * d * _size(dtype)
                 assert 1 <= p.stages <= L.RING_MAX_STAGES
                 assert p.stages * stage <= L._build.SMEM_LIMIT
                 # at least two stages wherever two fit
                 assert p.stages >= 2 or 2 * stage > L._build.SMEM_LIMIT
-                # the CTAs an SM by the row's bytes, fewer only where shared
-                # memory does not hold them, and at most one CTA a row
-                want = next((n for most, n in L.RING_CTAS_BY_ROW_BYTES
-                             if d * _size(dtype) <= most), 1)
+                # the CTAs an SM by the stage's bytes, fewer only where
+                # shared memory does not hold them, and at most one CTA a row
+                want = next((n for most, n in L.RING_CTAS_BY_STAGE_BYTES
+                             if stage <= most), 1)
                 per_sm = -(-p.ctas // SMS)
                 assert 1 <= p.ctas <= rows
                 assert p.ctas == min(per_sm * SMS, rows)
@@ -139,7 +144,7 @@ def test_plan_for_all_four_backwards(dt):
                     assert per_sm == want or (
                         (per_sm + 1) * (p.stages * stage + L.RING_SMEM_EXTRA)
                         > L._build.SMEM_PER_SM)
-                # RING_BYTES of x and dy in flight per SM, where the cap and
+                # RING_BYTES of stages in flight per SM, where the cap and
                 # shared memory allow
                 if rows >= want * SMS and per_sm == want:
                     assert (p.stages * per_sm * stage >= L.RING_BYTES
@@ -160,11 +165,12 @@ def test_plan_can_be_forced():
 
 def _recorder(monkeypatch, ring: bool):
     """Replace the C entries with a recorder of what _bwd_kernel hands them;
-    ``rms_bwd_ring`` answers whether the library has the ring."""
+    ``rms_bwd_ring`` and ``ln_bwd_ring`` answer whether the library has the
+    ring."""
     calls = []
 
     def entry(n):
-        if n == "rms_bwd_ring":
+        if n in ("rms_bwd_ring", "ln_bwd_ring"):
             return lambda: int(ring)
 
         def run(*args):
@@ -197,11 +203,14 @@ def test_bwd_kernel_passes_the_plan(name, dt, d, monkeypatch):
         assert got == name and not calls
         assert len(args) == len(L._build.SIGNATURES[name][1])
         plan = L.norm_bwd_plan(rows, d, dtype, rms, add)
-        # the operands, dx, the partial rows, and rms_bwd's dg
-        n_ptrs = 3 + add + 1 + sums + (name == "rms_bwd")
+        # the operands, dx, the partial rows, and the ring's dg (and db)
+        n_ptrs = 3 + add + 1 + sums + (sums if name != "addrms_bwd" else 0)
         assert args[n_ptrs:n_ptrs + 5] == (rows, d, plan.ctas, 1e-5,
                                            L._build.DTYPE_CODES[dtype])
-        if name == "rms_bwd":
+        if name in ("ln_bwd", "addln_bwd"):
+            assert plan.route == "ring"
+            assert args[n_ptrs + 5:-1] == (plan.threads, plan.vecs, plan.stages)
+        elif name == "rms_bwd":
             assert plan.route == "ring"
             assert args[n_ptrs + 5:-1] == (plan.threads, plan.vecs, plan.stages)
             # a forced plan reaches the entry as it is; off the ring, zeros
@@ -217,6 +226,9 @@ def test_bwd_kernel_passes_the_plan(name, dt, d, monkeypatch):
         else:
             assert len(args) == n_ptrs + 6
     assert L.LAUNCHES[name] == (9 if name == "rms_bwd" else 3)
+    if name == "addrms_bwd":
+        with pytest.raises(ValueError, match="no ring"):
+            L.norm_bwd_plan(8, d, dtype, True, True, ring=True)
 
 
 @pytest.mark.parametrize("dt,d", [("bfloat16", 1024), ("bfloat16", 4096), ("float32", 1000)])
@@ -243,7 +255,7 @@ def test_a_build_without_the_ring_launches_as_before(dt, d, monkeypatch):
 
 
 def _ring_schedule(n: int, stages: int):
-    """rms_ring_bwd_kernel's loads and waits over a CTA's n rows: thread 0
+    """norm_ring_bwd_kernel's loads and waits over a CTA's n rows: thread 0
     issues rows 0 .. min(stages, n) - 1 before the loop; row k waits on
     stage k % stages at parity (k / stages) & 1, and after row k's barrier
     thread 0 issues row k + stages into the same stage.  Yields each wait
@@ -298,15 +310,15 @@ def _butterfly(t, span: int = 32):
 
 
 def _ring_rms_bwd(x, g, dy, eps: float, plan):
-    """``rms_ring_bwd_kernel`` in its order: CTA b takes rows b, b + ctas,
-    ...; thread t holds vectors t, t + threads, ...
+    """``norm_ring_bwd_kernel<T, NV, true, false>`` in its order: CTA b
+    takes rows b, b + ctas, ...; thread t holds vectors t, t + threads, ...
     (``plan.vecs``) in every row, sums x^2 and (dy g) x over them in that
     order, both sums go through the warp butterfly and then, lane l of
     every warp taking warp l's partials, the same shuffles over the fewest
     lanes that hold one each; rsig = rsqrt(s0 / d + eps), m2 = rsig (s1 /
     d) (1 / d from the host), xhat = x rsig, dx = (dy g - xhat m2) rsig
     rounded to x's dtype, and dg += dy xhat per thread over the CTA's rows,
-    the partial rows summed as rms_dg_sum_kernel sums them."""
+    the partial rows summed as ring_sum_kernel sums them."""
     rows, d = x.shape
     v = 16 // _size(x.dtype)
     threads, nv, nvec = plan.threads, plan.vecs, d // v
@@ -344,7 +356,7 @@ def _ring_rms_bwd(x, g, dy, eps: float, plan):
         for r in range(b, rows, plan.ctas):
             parts[b] = parts[b] + ds[r] * xh[r]
     parts = parts.transpose(1, 2).reshape(plan.ctas, -1)[:, :d]
-    # rms_dg_sum_kernel: warp w sums partial rows w, w + 16, ... in order,
+    # ring_sum_kernel: warp w sums partial rows w, w + 16, ... in order,
     # then the warps' sums are added in warp order
     warp_sums = torch.zeros(16, d)
     for w in range(16):
@@ -408,15 +420,24 @@ def test_ring_order_matches_plain_and_jax_kernel(dt, d, mean):
 # --------------------------------------------------------------------------
 
 
+def _plain_bwd(name, x, g, dy, g0, eps, plan=None):
+    """_bwd_kernel's stand-in on the CPU: the plain backward of ``name``."""
+    if name == "rms_bwd":
+        return L._plain_rms_grads(x, g, dy, eps)
+    if name == "ln_bwd":
+        return L._plain_ln_grads(x, g, dy, eps)
+    return L._plain_addln_grads(x, g, dy, g0, eps)
+
+
 def test_route_ab_rehearsed(monkeypatch):
     # the forced rings launch through _bwd_kernel, which only the card runs
-    monkeypatch.setattr(L, "_bwd_kernel", lambda name, x, g, dy, g0, eps, plan=None: (
-        L._plain_rms_grads(x, g, dy, eps)))
+    monkeypatch.setattr(L, "_bwd_kernel", _plain_bwd)
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "device_ms", lambda torch, fn, iters=50: (fn(), 0.0)[1])
     monkeypatch.setattr(chip_smoke, "lib_at", lambda source, path: None)
     monkeypatch.setattr(chip_smoke, "built_as", lambda source, lib: contextlib.nullcontext())
     monkeypatch.setattr(chip_smoke, "NORM_BWD_AB", ((64, 256), (16, 1024)))
+    monkeypatch.setattr(chip_smoke, "LN_BWD_AB", ((48, 512), (9, 128)))
     monkeypatch.setattr(chip_smoke, "OPT_TRAIN_BATCH", 1)
     monkeypatch.setattr(chip_smoke, "OPT_TRAIN_SEQ", 16)
     monkeypatch.setattr(chip_smoke, "OPT_MODEL", dict(chip_smoke.OPT_MODEL, dim=1024))
@@ -425,9 +446,11 @@ def test_route_ab_rehearsed(monkeypatch):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen).to(dtype)
 
-    out = chip_smoke.norm_bwd_route_ab(torch, randn, None)
-    assert [(r["dtype"], r["shape"]) for r in out] == [
-        (dt, s) for dt in ("bfloat16", "float32") for s in ([64, 256], [16, 1024])]
+    out = chip_smoke.norm_bwd_route_ab(torch, randn, {"rmsnorm": None, "layernorm": None})
+    assert [(r["name"], r["dtype"], r["shape"]) for r in out] == [
+        ("rms_bwd", dt, s) for dt in ("bfloat16", "float32") for s in ([64, 256], [16, 1024])
+    ] + [(n, dt, s) for dt in ("bfloat16", "float32") for s in ([48, 512], [9, 128])
+         for n in ("ln_bwd", "addln_bwd")]
     for rec in out:
         assert {"old", "plan"} <= set(rec["us"]) and all(len(t) == 2 for t in rec["us"].values())
         # every ring it timed is a distinct launch
@@ -451,19 +474,27 @@ def test_ring_constants_are_the_route_ab_reading():
 
 
 @pytest.mark.parametrize("key,want", [
-    ("void rowblock::rms_ring_bwd_kernel<__nv_bfloat16, 2>(__nv_bfloat16 const*)", "rms_bwd"),
-    ("void rowblock::rms_dg_sum_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)",
+    ("void rowblock::norm_ring_bwd_kernel<__nv_bfloat16, 2, true, false>(__nv_bfloat16 const*)",
      "rms_bwd"),
+    ("void rowblock::ring_sum_kernel<__nv_bfloat16, true, false>(float const*, float const*, "
+     "__nv_bfloat16*, __nv_bfloat16*, int, int)", "rms_bwd"),
+    ("void rowblock::norm_ring_bwd_kernel<float, 1, false, false>(float const*)", "ln_bwd"),
+    ("_ZN8rowblock20norm_ring_bwd_kernelI13__nv_bfloat16Li1ELb0ELb1EEEvPKT_S4_", "addln_bwd"),
+    ("void rowblock::ring_sum_kernel<float, false, true>(float const*)", "addln_bwd"),
+    ("_ZN8rowblock15ring_sum_kernelIfLb0ELb0EEEvPKfS2_PT_S4_ii", "ln_bwd"),
     ("void rowblock::norm_bwd_kernel<__nv_bfloat16, 2, true, false>(float*)", "rms_bwd"),
     ("_ZN8rowblock15norm_bwd_kernelI13__nv_bfloat16Li2ELb1ELb0EEEvPKT_S4_", "rms_bwd"),
     ("void rowblock::norm_bwd_kernel<__nv_bfloat16, 2, true, true>(float*)", None),
-    ("_ZN8rowblock15norm_bwd_kernelIfLi4ELb0ELb0EEEvPKT_S3_", None),
+    ("_ZN8rowblock15norm_bwd_kernelIfLi4ELb0ELb0EEEvPKT_S3_", "ln_bwd"),
+    ("void rowblock::norm_bwd_kernel<float, 4, false, true>(float*)", "addln_bwd"),
     ("void (anonymous namespace)::xent_row_bwd_kernel<float, 8>(float const*)", "xent_bwd"),
     ("void (anonymous namespace)::xent_bwd_kernel<__nv_bfloat16, true>(int)", "xent_bwd"),
     ("void (anonymous namespace)::xent_fwd_kernel<__nv_bfloat16, true>(int)", None),
-    ("void (anonymous namespace)::ln_bwd_kernel<float, 1, false>(float*)", None)])
+    ("void (anonymous namespace)::ln_bwd_kernel<float, 1, false>(float*)", "ln_bwd"),
+    ("_ZN12_GLOBAL__N_113ln_bwd_kernelI13__nv_bfloat16Li4ELb1EEEvPKT_S4_", "addln_bwd"),
+    ("void rowblock::norm_wave_kernel<float, 1, false, false>(float const*)", None)])
 def test_profile_names_the_redesigned_backwards(key, want):
-    # the train profiles' device time per step of xent_bwd and rms_bwd, on
-    # the new kernels and on the old builds' (addrms_bwd's norm_bwd_kernel
-    # and ln_bwd's kernels not counted)
+    # the train profiles' device time per step of xent_bwd, rms_bwd, ln_bwd
+    # and addln_bwd, on the new kernels and on the old builds' (addrms_bwd's
+    # norm_bwd_kernel not counted)
     assert chip_smoke.bwd_instance(key) == want
