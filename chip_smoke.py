@@ -63,13 +63,23 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    of ``layernorm.cu`` (the warp-per-row and block-per-row kernels) at
    (8192, 1024), (4096, 512) and (8192, 4096),
    each new route the same bits twice, ``xent_fwd`` and ``addrms_bwd`` the
-   same bits as those builds and within 3% of their times; the f32
+   same bits as those builds and within 3% of their times; ``xent_fwd`` on
+   the launch plan's route and the route it did not pick against a
+   ``-DXENT_FWD_V1`` build of ``xent.cu`` (the warp kernel) in turns at
+   8,192 rows of V 128 to 65,536 and at the MoE train step's (4096, 512),
+   labels outside [0, V) among the rows; the scan on the plan's ring and
+   the other ring tiles and depths against a ``-DSCAN_V1`` build of
+   ``scan.cu`` (the thread kernel) in turns at every lead 1-8 of the SSM
+   train step's width, the server's one-row prefills and the decode and
+   tape shapes, every route the old build's bits, and the reverse scan
+   against the old composition flip(scan(shift(flip(a)), flip(g))) bit for
+   bit; the f32
    ``dq_mm`` / ``dq4_mm`` / ``dq_bmm`` cases at three seeds, the kernel and
    the plain version each held to the f64 product within a bound that
    grows with K (``dq_f32_bound``);
    ``flash_bwd.cu``, ``matmul.cu``, ``quant.cu``, ``paged.cu``,
-   ``layernorm.cu``, ``rmsnorm.cu`` and ``xent.cu`` built with no spill, no
-   ptxas C75xx note and no ignored setmaxnreg;
+   ``layernorm.cu``, ``rmsnorm.cu``, ``xent.cu`` and ``scan.cu`` built with
+   no spill, no ptxas C75xx note and no ignored setmaxnreg;
 3. ``generate_compiled`` at full width (V512 d1024 h8 L4, max_seq_len 512,
    bf16, batch 8, prompt 16, 128 new tokens), profiled once, and once more
    on the ``-DNORM_FWD_V1`` norms (each profile reports the forward norms'
@@ -123,7 +133,8 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    one profiled step, and again on the ``-DXENT_BWD_V1`` and
    ``-DNORM_BWD_V1`` builds (each profile reports ``xent_bwd``'s and
    ``rms_bwd``'s device time per step, which must be below the old
-   builds'); then f32 gates
+   builds') and on the ``-DXENT_FWD_V1`` build (``xent_fwd``'s device time
+   per step on both); then f32 gates
    at full width and one layer against the plain path on the CPU: the
    logits of a prefill and 8 cached decode steps, the loss and every
    parameter's gradient;
@@ -136,7 +147,11 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    the state bytes beside the flagship's KV cache), the train step (batch
    8 x 1024, ``make_train_step(model, SGD(1e-4), lm_loss)``: ms/step,
    tokens/s, model TFLOP/s, peak memory, one profiled step, and one on
-   the ``-DXENT_BWD_V1`` and ``-DNORM_BWD_V1`` builds), exact scan,
+   the ``-DXENT_BWD_V1`` and ``-DNORM_BWD_V1`` builds, and one on the old
+   scan: the ``-DSCAN_V1`` build with the backward's cotangent as
+   flips around a forward scan, each profile reporting the flip, cat and
+   scan kernels' device time per step; the new one must hold no flip
+   kernel), exact scan,
    RMSNorm and cross-entropy launches on each, f32 gates at full width and
    one layer against the plain path on the CPU (prefill + 8 steps' logits,
    a ragged prefill's states, the loss and every gradient), and the tape's
@@ -306,7 +321,8 @@ PORTED_SYMBOLS = ("ln_rows_kernel", "ln_bwd_kernel", "norm_fwd_kernel",
                   "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "mm_wgmma_kernel", "sdpa_int8_split_kernel",
                   "paged_attn_split_kernel", "norm_wave_kernel",
-                  "xent_row_bwd_kernel", "norm_ring_bwd_kernel", "ring_sum_kernel")
+                  "xent_row_kernel", "norm_ring_bwd_kernel", "ring_sum_kernel",
+                  "scan_ring_kernel")
 # the forward norms' kernels, whose device time per call each profile reports
 # for the plain and the fused (ADD) instantiations apart
 NORM_FWD_SYMBOLS = ("norm_wave_kernel", "ln_rows_kernel", "norm_fwd_kernel")
@@ -760,6 +776,15 @@ def phase_kernels(torch, report):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, flag in (("xent", "-DXENT_BWD_V1"), ("rmsnorm", "-DNORM_BWD_V1"),
                           ("layernorm", "-DNORM_BWD_V1"))}
+    # xent.cu's forward on the warp kernel and scan.cu on the thread kernel,
+    # at every shape (xent_fwd_route_ab, scan_route_ab, the train profiles)
+    v1_fwd_libs = {"xent": _build.BUILD_DIR / "xent-fwd-v1.so",
+                   "scan": _build.BUILD_DIR / "scan-v1.so"}
+    v1_fwd_builds = {src: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-o", str(v1_fwd_libs[src]),
+         str(_build._CSRC / f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, flag in (("xent", "-DXENT_FWD_V1"), ("scan", "-DSCAN_V1"))}
     _build.build_all()
     for flag, proc in (("-DNORM_BLOCK_PER_ROW", block_build), ("-DDQ_SIMT_BF16", simt_build),
                        ("-DFLASH_WMMA_BF16", wmma_build),
@@ -770,10 +795,12 @@ def phase_kernels(torch, report):
                        *((f"-DNORM_FWD_V1 {src}.cu", proc)
                          for src, proc in v1_builds.items()),
                        *((f"{src}.cu V1 backward", proc)
-                         for src, proc in bwd_v1_builds.items())):
+                         for src, proc in bwd_v1_builds.items()),
+                       *((f"{src}.cu V1 forward", proc)
+                         for src, proc in v1_fwd_builds.items())):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"nvcc {flag}:\n{out}")
-    log(f"[build] {len(_build.SOURCES) + 12} sources in "
+    log(f"[build] {len(_build.SOURCES) + 14} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     report["build"] = []
     for name in _build.SOURCES:
@@ -781,9 +808,10 @@ def phase_kernels(torch, report):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
     # the flash backward's, the matmuls', the quantized kernels', the paged
-    # kernel's, the norms' and the cross-entropy's: no spill, no serialised
-    # MMAs, no ignored setmaxnreg
-    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm", "xent"):
+    # kernel's, the norms', the cross-entropy's and the scan's: no spill, no
+    # serialised MMAs, no ignored setmaxnreg
+    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm", "xent",
+                 "scan"):
         bad = [line for line in ptxas_report(_build.build_log(name))
                if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
         check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
@@ -854,11 +882,23 @@ def phase_kernels(torch, report):
                                                     bwd_v1_libs["xent"])
     report["norm_bwd_route_ab"] = norm_bwd_route_ab(
         torch, randn_bwd, {src: bwd_v1_libs[src] for src in ("rmsnorm", "layernorm")})
+    # the forward cross-entropy's and the scan's A/Bs draw from a generator of
+    # their own, as the backwards' did
+    gen_fwd = torch.Generator(device="cuda").manual_seed(1236)
+
+    def randn_fwd(*shape, dtype):
+        return torch.randn(shape, generator=gen_fwd, device="cuda").to(dtype)
+
+    report["xent_fwd_route_ab"] = xent_fwd_route_ab(torch, gen_fwd, randn_fwd,
+                                                    v1_fwd_libs["xent"])
+    report["scan_route_ab"] = scan_route_ab(torch, gen_fwd, v1_fwd_libs["scan"])
     report["simt_quant_lib"] = str(simt_lib)  # phases 7 and 12 profile it too
     # phases 3 and 9 profile their decodes on the earlier forward norms too
     report["norm_fwd_v1_libs"] = {src: str(path) for src, path in v1_libs.items()}
-    # phases 9 and 10 profile their train steps on the old backwards too
+    # phases 9 and 10 profile their train steps on the old backwards too, and
+    # on the old forward cross-entropy and scan
     report["bwd_v1_libs"] = {src: str(path) for src, path in bwd_v1_libs.items()}
+    report["fwd_v1_libs"] = {src: str(path) for src, path in v1_fwd_libs.items()}
 
     # the kernels line reports the serving kernels at the shape the bf16
     # serving path gives them most often (the norms at a decode step's 8
@@ -1489,6 +1529,74 @@ def xent_width_sweep(torch, gen, randn) -> dict:
         "every route (the same bits twice); largest errors " + ", ".join(
             f"{k} {v:.3g}" for k, v in sorted(worst.items())))
     return worst
+
+
+# xent_fwd_route_ab's shapes (rows, V): 8,192 rows at XENT_AB_V's widths,
+# between them and below them, and the MoE train step's (4096, 512)
+XENT_FWD_AB = (tuple((XENT_AB_ROWS, v) for v in (128, 256, 512, 1024, 2048, 4096, 8192,
+                                                  32768, 65536))
+               + ((MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, MOE_TRAIN["vocab_size"]),))
+
+
+def xent_fwd_route_ab(torch, gen, randn, v1_lib) -> list:
+    """xent_fwd at XENT_FWD_AB in bf16 and f32: the plan's route and, where
+    the row kernel holds the row, the route it did not pick and the row
+    kernel at every other count of vectors a thread, against the
+    warp kernel of ``v1_lib`` (xent.cu built with -DXENT_FWD_V1), in turns
+    (old, plan, other, then back), each within TOL["xent_loss"] of the plain
+    version with labels outside [0, V) (-1 and V) among the rows, and the
+    new routes the same bits on a second run.  The plan's route must be no
+    more than 3% slower than the old in either turn at every shape: the
+    readings behind kernels.xent.FWD_ROW_MIN_V, FWD_VECS and FWD_THREADS."""
+    from minidiff_tpu_torch.kernels import xent as X
+
+    old = lib_at("xent", v1_lib)
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        w = 16 // (torch.finfo(dtype).bits // 8)
+        for rows, v in XENT_FWD_AB:
+            z = randn(rows, v, dtype=dtype) * 3
+            lab = torch.randint(0, v, (rows,), generator=gen, device=DEVICE)
+            lab[3], lab[4] = -1, v
+            ref = X._plain_xent(z, lab)
+            plan = X.xent_fwd_plan(rows, v, dtype)
+            plans = {"plan": plan}
+            if v % w == 0 and v <= X.ROW_MAX_V:
+                other = X.xent_fwd_plan(rows, v, dtype,
+                                        route="warp" if plan.route == "row" else "row")
+                plans[other.route] = other
+                # the row kernel at every other count of vectors a thread
+                row = plan if plan.route == "row" else other
+                for n in (1, 2, 4, 8):
+                    if n != row.vecs and 32 * n <= -(-v // w) <= X.ROW_MAX_THREADS * n:
+                        alt = X.xent_fwd_plan(rows, v, dtype, route="row", vecs=n)
+                        plans[f"row {alt.threads}x{alt.vecs}"] = alt
+            err = {}
+
+            def run(name):
+                if name == "old":
+                    with built_as("xent", old):
+                        return X.xent_fwd(z, lab)
+                return X._fwd_kernel(z, lab, plans[name])
+
+            def first(name, got):
+                err[name] = max_err(torch, got, ref, "xent_loss", dn)
+                if name != "old":
+                    check(torch.equal(got.view(torch.int32), run(name).view(torch.int32)),
+                          f"xent_fwd {name} {[rows, v]} {dn}: a second run gave other bits")
+
+            us = _turns(torch, ("old", *plans), run, first)
+            check(max(us["plan"]) <= 1.03 * min(us["old"]),
+                  f"xent_fwd {[rows, v]} {dn}: the plan's {plan.route} route {us['plan']} us "
+                  f"is more than 3% slower than the old {us['old']} us")
+            out.append(dict(dtype=dn, shape=[rows, v], route=plan.route, threads=plan.threads,
+                            vecs=plan.vecs, us=us, max_abs_err=err))
+            log(f"[xent_fwd ab] {dn:8s} {str([rows, v]):14s} plan {plan.route} "
+                f"{plan.threads}x{plan.vecs} | " + " | ".join(
+                    f"{n} {t[0]:8.2f} / {t[1]:8.2f}" for n, t in us.items()) + " us")
+            del z, ref
+    return out
 
 
 # norm_bwd_route_ab's shapes (rows, d): rms_bwd at the SSM and the options
@@ -2393,6 +2501,51 @@ def profile_bwd_v1(torch, report, out, label, run, kernels):
         f"{k} {new.get(k, [0.0])[0]:.1f} / {old.get(k, [0.0])[0]:.1f}" for k in kernels))
 
 
+@contextlib.contextmanager
+def fwd_v1(report):
+    """The old forward cross-entropy and the old scan until the
+    block ends: xent.cu's and scan.cu's kernels launched from their
+    -DXENT_FWD_V1 and -DSCAN_V1 builds of phase 2, and ScanFn's backward
+    computing its cotangent as flip(scan(shift(flip(a)), flip(g)))."""
+    import torch
+
+    from minidiff_tpu_torch.kernels import scan as S
+
+    plan_cls = S.ScanFn
+
+    class FlipScanFn(plan_cls):
+        @staticmethod
+        def backward(ctx, g):
+            a, y = ctx.saved_tensors
+            r = torch.flip(S.scan(S._shift(torch.flip(a, [1])),
+                                  torch.flip(g.contiguous(), [1])), [1])
+            return r * S._shift(y), r
+
+    with contextlib.ExitStack() as stack:
+        for src, path in report["fwd_v1_libs"].items():
+            stack.enter_context(built_as(src, lib_at(src, path)))
+        S.ScanFn = FlipScanFn
+        try:
+            yield
+        finally:
+            S.ScanFn = plan_cls
+
+
+def profile_fwd_v1(torch, report, out, label, run, groups):
+    """Profile ``run`` once more on the old forward and scan (fwd_v1; a CPU
+    rehearsal has no ``fwd_v1_libs`` and skips it) into
+    ``out["train_profile_fwd_v1"]``, and log the device us per step of
+    ``groups`` (step_group's) on both."""
+    if "fwd_v1_libs" not in report:
+        return
+    with fwd_v1(report):
+        out["train_profile_fwd_v1"] = profile_run(
+            torch, f"{label}, -DXENT_FWD_V1 / -DSCAN_V1 and the flip route", run)
+    new, old = out["train_profile"]["groups"], out["train_profile_fwd_v1"]["groups"]
+    log(f"[profile]   {label}: device us per step new / old: " + ", ".join(
+        f"{g} {new.get(g, [0.0])[0]:.1f} / {old.get(g, [0.0])[0]:.1f}" for g in groups))
+
+
 def dq_route_ab(torch, randn, simt_lib) -> list:
     """dq_bmm and dq4_mm in bf16 at the main path's shapes (DQ_BMM_AB,
     DQ4_AB): the tensor-core tiles against the SIMT tile of ``simt_lib``
@@ -2727,36 +2880,164 @@ def decode_split_ab(torch, gen, randn) -> list:
 def scan_cases(torch, gen) -> list:
     """scan at the SSM train step's and long prefill's (8, 1024, 32768) in
     bf16 and f32, at a server slot's one-row prefill (1, 384, 32768) in
-    bf16, and at the backward's operands (the decay flipped and shifted, so
-    its first row is 0), against the plain version.  Decays in [0.5, 1),
-    inputs normal.  The plain version is a loop of T steps of a few launches
-    each, timed over 2 calls.  No single PyTorch call computes a linear
-    recurrence: no library time."""
+    bf16, and the backward's reverse scan at (8, 1024, 32768), against the
+    plain version.  Decays in [0.5, 1), inputs normal.  The plain version is
+    a loop of T steps of a few launches each, timed over 2 calls.  No single
+    PyTorch call computes a linear recurrence: no library time."""
     from minidiff_tpu_torch.kernels import scan as S
 
     cases = []
     c = SSM_SCAN[2]
-    for dtype, lead, t, backward in ((torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], False),
-                                     (torch.float32, SSM_SCAN[0], SSM_SCAN[1], False),
-                                     (torch.bfloat16, 1, 384, False),
-                                     (torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], True)):
+    for dtype, lead, t, reverse in ((torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], False),
+                                    (torch.float32, SSM_SCAN[0], SSM_SCAN[1], False),
+                                    (torch.bfloat16, 1, 384, False),
+                                    (torch.bfloat16, SSM_SCAN[0], SSM_SCAN[1], True)):
         dn = str(dtype).split(".")[1]
         size = torch.finfo(dtype).bits // 8
         a = torch.rand((lead, t, c), generator=gen, device=DEVICE) * 0.5 + 0.5
         b = torch.randn((lead, t, c), generator=gen, device=DEVICE)
-        if backward:
-            a = S._shift(torch.flip(a, [1]))
         a, b = a.to(dtype), b.to(dtype)
+        plan = S.scan_plan(lead, t, c, dtype)
         cases.append(dict(
-            name="scan", dtype=dn, shape=[lead, t, c], backward=backward,
-            max_abs_err=max_err(torch, S.scan(a, b), S._plain_scan(a, b), "scan", dn),
-            ms=device_ms(torch, lambda: S.scan(a, b)),
-            plain_ms=device_ms(torch, lambda: S._plain_scan(a, b), iters=2),
+            name="scan", dtype=dn, shape=[lead, t, c], backward=reverse,
+            route=plan.route, tile=plan.tile, steps=plan.steps, stages=plan.stages,
+            max_abs_err=max_err(torch, S.scan(a, b, reverse), S._plain_scan(a, b, reverse),
+                                "scan", dn),
+            ms=device_ms(torch, lambda: S.scan(a, b, reverse)),
+            plain_ms=device_ms(torch, lambda: S._plain_scan(a, b, reverse), iters=2),
             library_ms=None,
             # a and b read once, y written once; one f32 multiply and add
             **bound(3 * lead * t * c * size, 2 * lead * t * c, "float32")))
         del a, b
     return cases
+
+
+def _server_scan_lengths() -> list:
+    """T of a server slot's one-row prefills: REQUESTS' prompts in the
+    server's buckets."""
+    from minidiff_tpu_torch.models.server import _BUCKET
+
+    return sorted({-(-p // _BUCKET) * _BUCKET for p, _ in REQUESTS})
+
+
+def scan_ab_shapes() -> list:
+    """scan_route_ab's (dtype name, lead, T, C): the SSM train step's width
+    at every lead from 1 to 8 at its T, a server slot's one-row prefills,
+    generate_compiled_ssm's prefill (batch 8, prompt 16) and the tape gate's
+    shape, in bf16; the train step's and the one-row prefill's in f32."""
+    lead, t, c = SSM_SCAN
+    shapes = [("bfloat16", n, t, c) for n in range(1, lead + 1)]
+    shapes += [("bfloat16", 1, n, c) for n in _server_scan_lengths()]
+    shapes += [("bfloat16", BATCH, PROMPT, c), ("bfloat16", *SSM_TAPE_GATE)]
+    shapes += [("float32", lead, t, c), ("float32", 1, max(_server_scan_lengths()), c)]
+    return shapes
+
+
+# the ring tiles scan_route_ab times beside the plan's
+SCAN_AB_TILES = (256, 128, 64)
+
+
+def _scan_ring_choices(S, lead, t, c, dtype, plan) -> dict:
+    """The ring shapes scan_route_ab times beside the plan's: the ring
+    where the plan takes the thread kernel, each other tile of
+    SCAN_AB_TILES at the plan's depth, and the ring tile at half and twice
+    its steps a stage."""
+    tile = plan.tile or S.RING_TILE
+    steps = plan.steps or S.RING_STEPS
+    tried = {}
+    for name, kw in ([("ring", {})] * (plan.route != "ring")
+                     + [(f"tile {w}", dict(tile=w)) for w in SCAN_AB_TILES if w != tile]
+                     + [(f"steps {n}", dict(tile=tile, steps=n))
+                        for n in (steps // 2, 2 * steps)]):
+        try:
+            tried[name] = S.scan_plan(lead, t, c, dtype, route="ring", **kw)
+        except ValueError:
+            pass
+    return tried
+
+
+def scan_route_ab(torch, gen, v1_lib) -> list:
+    """The scan at scan_ab_shapes(): the plan's route and the ring shapes
+    of _scan_ring_choices against the thread kernel of ``v1_lib`` (scan.cu
+    built with -DSCAN_V1), in turns (old, plan, the others, then back),
+    every route the old build's bits and the same bits on a second run;
+    then the reverse scan against the old composition flip(scan(shift(flip(
+    a)), flip(g))) on the old build, in turns, the same bits, and at the
+    one-row prefills against the plain version too.  The plan must be no
+    more than 3% slower than the old build in either turn at every shape,
+    forward and reverse: the readings behind kernels.scan's tile rule and
+    ring depth."""
+    from minidiff_tpu_torch.kernels import scan as S
+
+    old = lib_at("scan", v1_lib)
+    out = []
+    for dn, lead, t, c in scan_ab_shapes():
+        dtype = getattr(torch, dn)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        a = (torch.rand((lead, t, c), generator=gen, device=DEVICE) * 0.5 + 0.5).to(dtype)
+        b = torch.randn((lead, t, c), generator=gen, device=DEVICE).to(dtype)
+        plan = S.scan_plan(lead, t, c, dtype)
+        plans = {"plan": plan, **_scan_ring_choices(S, lead, t, c, dtype, plan)}
+        with built_as("scan", old):
+            want = S.scan(a, b).view(bits)
+
+        def run(name):
+            if name == "old":
+                with built_as("scan", old):
+                    return S.scan(a, b)
+            return S._launch(a, b, False, plans[name])
+
+        def first(name, got):
+            check(torch.equal(got.view(bits), want),
+                  f"scan {name} {[lead, t, c]} {dn}: other bits than the -DSCAN_V1 build")
+            if name != "old":
+                check(torch.equal(run(name).view(bits), want),
+                      f"scan {name} {[lead, t, c]} {dn}: a second run gave other bits")
+
+        us = _turns(torch, ("old", *plans), run, first)
+        del want
+
+        # the reverse scan, against the composition it replaces
+        def run_rev(name):
+            if name == "old":
+                with built_as("scan", old):
+                    return torch.flip(S.scan(S._shift(torch.flip(a, [1])),
+                                             torch.flip(b, [1])), [1])
+            return S.scan(a, b, reverse=True)
+
+        with built_as("scan", old):
+            want = run_rev("old").view(bits)
+
+        def first_rev(name, got):
+            check(torch.equal(got.view(bits), want),
+                  f"scan reverse {name} {[lead, t, c]} {dn}: other bits than the old "
+                  "composition")
+            if name != "old":
+                check(torch.equal(run_rev(name).view(bits), want),
+                      f"scan reverse {[lead, t, c]} {dn}: a second run gave other bits")
+
+        rev = _turns(torch, ("old", "reverse"), run_rev, first_rev)
+        if lead == 1:
+            check(torch.equal(want, S._plain_scan(a, b, True).view(bits)),
+                  f"scan reverse {[lead, t, c]} {dn}: other bits than the plain version")
+        del want
+        for name, times, old_us in (("plan", us["plan"], us["old"]),
+                                    ("reverse", rev["reverse"], rev["old"])):
+            check(max(times) <= 1.03 * min(old_us),
+                  f"scan {name} {[lead, t, c]} {dn}: {times} us is more than 3% slower than "
+                  f"the old build's {old_us} us")
+        out.append(dict(dtype=dn, shape=[lead, t, c], route=plan.route, tile=plan.tile,
+                        steps=plan.steps, stages=plan.stages, ctas=plan.ctas, us=us,
+                        reverse_us=rev, **bound(3 * lead * t * c * dtype.itemsize,
+                                                2 * lead * t * c, "float32")))
+        log(f"[scan ab] {dn:8s} {str([lead, t, c]):18s} plan {plan.route} tile {plan.tile} "
+            f"{plan.steps}x{plan.stages} | " + " | ".join(
+                f"{n} {v[0]:8.2f} / {v[1]:8.2f}" for n, v in us.items())
+            + f" us | reverse {rev['reverse'][0]:.2f} / {rev['reverse'][1]:.2f}, old "
+            f"composition {rev['old'][0]:.2f} / {rev['old'][1]:.2f} us | bound "
+            f"{out[-1]['bound_ms'] * 1e3:.2f} us")
+        del a, b
+    return out
 
 
 def wide_norm_case(torch, randn) -> dict:
@@ -2885,7 +3166,7 @@ def bwd_instance(key: str):
     addln_bwd for ADD without RMS (addrms_bwd's norm_bwd_kernel is none);
     and the old ln_bwd_kernel by its ADD flag.  Demangled or mangled, as
     norm_fwd_instance reads them."""
-    if re.search(r"(?<![A-Za-z_])xent_(row_)?bwd_kernel", key):
+    if re.search(r"(?<![A-Za-z_])xent_(row_)?bwd_kernel", key) or xent_fwd_instance(key) is False:
         return "xent_bwd"
     m = re.search(r"(?<![A-Za-z_])(norm_ring_bwd|ring_sum|norm_bwd|ln_bwd)_kernel"
                   r"(<[^<>]*>|I.*)", key)
@@ -2896,6 +3177,34 @@ def bwd_instance(key: str):
         return "addln_bwd" if flags[-1:] == [True] else "ln_bwd"
     return {(True, False): "rms_bwd", (False, False): "ln_bwd",
             (False, True): "addln_bwd"}.get(tuple(flags[-2:]))
+
+
+def xent_fwd_instance(key: str):
+    """Whether a profiler key's kernel is a forward cross-entropy kernel
+    (xent_fwd_kernel, or xent_row_kernel with BWD false: True), the row
+    kernel's backward (False), or neither (None); demangled or mangled."""
+    if re.search(r"(?<![A-Za-z_])xent_fwd_kernel", key):
+        return True
+    m = re.search(r"(?<![A-Za-z_])xent_row_kernel(<[^<>]*>|I.*)", key)
+    if m is None:
+        return None
+    return _flags(m.group(1))[-1:] != [True]
+
+
+def step_group(key: str):
+    """The group a profiler key's kernel belongs to in the train profiles'
+    ``groups``, or None: "xent_fwd" (the forward cross-entropy's kernels),
+    "scan" (scan_kernel and scan_ring_kernel), "flip" (PyTorch's flip
+    kernels) and "cat" (its cat kernels)."""
+    if xent_fwd_instance(key):
+        return "xent_fwd"
+    if re.search(r"(?<![A-Za-z_])scan_(ring_)?kernel", key):
+        return "scan"
+    if "flip" in key:
+        return "flip"
+    if "CatArray" in key:
+        return "cat"
+    return None
 
 
 def profile_run(torch, label, run):
@@ -2986,9 +3295,19 @@ def profile_run(torch, label, run):
     if bwd:
         log("[profile]   redesigned backwards: " + ", ".join(
             f"{inst} {us:.1f} us in {n}" for inst, (us, n) in sorted(bwd.items())))
+    # step_group's groups: device us and calls of each
+    groups: dict = {}
+    for k, t, n in rows:
+        grp = step_group(k)
+        if grp is not None:
+            us, c = groups.get(grp, (0.0, 0))
+            groups[grp] = [us + t, c + n]
+    if groups:
+        log("[profile]   groups: " + ", ".join(
+            f"{g} {us:.1f} us in {n}" for g, (us, n) in sorted(groups.items())))
     return dict(wall_us=wall_us, device_busy_us=busy_us, device_calls=calls,
                 device_us_by_kind=by_kind, top=top, ported=ported,
-                norm_fwd=norm_fwd, norm_us_per_call=norms, bwd=bwd)
+                norm_fwd=norm_fwd, norm_us_per_call=norms, bwd=bwd, groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -3806,6 +4125,8 @@ def phase_options(torch, seed: int, report):
             check(k in new and k in was and new[k][0] < was[k][0],
                   f"options train step: {k}'s device time per step {new.get(k)} is not "
                   f"below the old build's {was.get(k)}")
+    profile_fwd_v1(torch, report, out, "one options train step",
+                   lambda: step(train_toks, train_toks), ("xent_fwd",))
     del model, step
 
     # f32 gates, full width and one layer: the kernel path on the card
@@ -4075,6 +4396,11 @@ def phase_ssm(torch, seed: int, report):
     out["train_profile"] = profile_run(torch, "one ssm train step", lambda: step(x, y))
     profile_bwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y),
                    ("xent_bwd", "rms_bwd"))
+    # the backward's cotangent is one reverse scan: no flip kernel
+    flips = out["train_profile"].get("groups", {}).get("flip")
+    check(flips is None, f"ssm train step: flip kernels in the profile {flips}")
+    profile_fwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y),
+                   ("flip", "cat", "scan"))
     del model, step, x, y
 
     # the tape: md.value_and_grad of a linear_scan loss; an f32 gate against

@@ -69,7 +69,7 @@ SIGNATURES = {
                                     _I, _I, _F, _I, _I, _I, _I, _P)),
     "flash_bwd_dq": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _F, _I, _I, _I, _I, _P)),
-    "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _P)),
+    "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "dq_mm": ("quant", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
@@ -81,7 +81,7 @@ SIGNATURES = {
     "paged_attn": ("paged", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _I, _I, _I, _P)),
     "paged_attn_clusters": ("paged", (_I, _I, _I, _I, _I, _I, _P)),
-    "linear_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "linear_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _libs: dict = {}

@@ -75,7 +75,6 @@
 // Clusters with TMA multicast and a persistent tile schedule are later
 // work.
 
-#include <cuda.h>  // CUtensorMap; its encoder is found at run time, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -593,35 +592,10 @@ mm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__
   }
 }
 
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                           const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                           const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                           CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime
-// (null where it has none)
-Encode encoder() {
-  static Encode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<Encode>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The TMA map of a row-major (rows, cols) bf16 matrix in boxes of 64
 // columns x box_rows rows, 128-byte swizzled, zeros past its edges
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const Encode encode = encoder();
+  const sm90::Encode encode = sm90::encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};

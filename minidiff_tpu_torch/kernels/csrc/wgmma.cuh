@@ -1,5 +1,6 @@
 // Hopper building blocks shared by quant.cu, flash_fwd.cu, flash_bwd.cu,
-// matmul.cu and paged.cu: cp.async and TMA bulk copies into shared memory,
+// matmul.cu, paged.cu and scan.cu: the lookup of the TMA map encoder,
+// cp.async and TMA bulk copies into shared memory,
 // mbarriers, thread-block clusters and their distributed shared memory,
 // the matrix descriptors of operands staged there, the warpgroup MMAs
 // (wgmma) the kernels run, and the flash kernels' swizzled tile copy and
@@ -18,11 +19,37 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; its encoder is found at run time, libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
+
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                           const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                           const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                           CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (null where it has none), for the TMA tensor maps of matmul.cu and scan.cu
+inline Encode encoder() {
+  static Encode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
