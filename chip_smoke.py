@@ -181,6 +181,18 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
    7, phase 8 and each run of 9, 10, 11 and 12, and read just after each).
 
+The decode entry points of phases 3, 4 and 7-12 (``generate_compiled``,
+``generate_compiled_ssm`` and the three servers) run captured: one CUDA
+graph replay per token or step (``models/capture.py``), their launches
+credited per replay, each capture's warm-up step counted too.  Each path
+is timed against its eager step loop in turns in the same call
+(``decode_ab``: ms per step and tok/s of every run, each arm's busy share
+and device calls per step from a profile of a shorter decode, exactly one
+replay per step, two captured runs the same tokens, the agreement of the
+two arms reported); the f32 paths' solo decodes must equal the eager
+loop's token for token.  The captured programs are dropped between
+phases (``clear_programs``).
+
 Prints progress lines, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
@@ -558,6 +570,7 @@ def main() -> int:
                         ("options", phase_options), ("ssm", phase_ssm),
                         ("head_dims", phase_head_dims), ("moe", phase_moe)):
         timed(name, phase, args.seed)
+        clear_programs()
 
     from minidiff_tpu_torch import kernels as K
 
@@ -2453,15 +2466,16 @@ def lib_at(source: str, path):
 @contextlib.contextmanager
 def built_as(source: str, lib):
     """Every kernel of ``csrc/<source>.cu`` launched from ``lib`` until the
-    block ends."""
+    block ends.  Each swap bumps the library epoch, so a captured decode
+    step re-captures on the swapped library and again after it."""
     from minidiff_tpu_torch.kernels import _build
 
     own = _build._lib(source)
-    _build._libs[source] = lib
+    _build.use_library(source, lib)
     try:
         yield
     finally:
-        _build._libs[source] = own
+        _build.use_library(source, own)
 
 
 @contextlib.contextmanager
@@ -3094,6 +3108,191 @@ def _timed_steps(torch, K, step, state, warmup, steps, expected, label):
 
 
 # ---------------------------------------------------------------------------
+# captured decoding against the eager step loop (phases 3, 4 and 7-12)
+# ---------------------------------------------------------------------------
+
+# rounds of each decode A/B: captured, eager, then eager, captured, ...
+AB_ROUNDS = 2
+
+
+def clear_programs() -> None:
+    """Drop the cached decode programs: each pins its model, its caches and
+    its graph's memory, which the next phase needs back."""
+    from minidiff_tpu_torch.models import decode, ssm
+
+    decode._decode_cache.clear()
+    ssm._ssm_decode_cache.clear()
+
+
+def eager_generate(torch, model, prompt, new, kv_quant=False):
+    """generate_compiled's greedy decode as the eager step loop (the port
+    before capture): the prefill, then ``new - 1`` calls of ``_chunk_step``
+    launched from Python.  The A/B's other arm: measurement code, not a
+    switch of the package."""
+    from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
+
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(model.device)
+    b, s0 = prompt.shape
+    L = min(model.max_seq_len, -(-(s0 + new) // 128) * 128)
+    with torch.inference_mode():
+        caches, logits = _prefill(model, prompt, L, kv_quant=kv_quant)
+        tok = torch.argmax(logits, dim=-1)
+        out = [tok]
+        pos = torch.full((b,), s0, dtype=torch.long, device=prompt.device)
+        for j in range(new - 1):
+            logits = _chunk_step(model, caches, tok.reshape(b, 1), pos + j, L)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            out.append(tok)
+        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def eager_generate_ssm(torch, model, prompt, new):
+    """generate_compiled_ssm's greedy decode as the eager step loop: the
+    prefill, then ``new - 1`` calls of ``MambaLM.step`` from Python."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long).to(model.device)
+    with torch.inference_mode():
+        logits, states = model.prefill(prompt)
+        tok = torch.argmax(logits, dim=-1)
+        out = [tok]
+        for _ in range(new - 1):
+            logits, states = model.step(states, tok)
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def eager_server(torch, srv):
+    """``srv`` with its steps run eagerly: ``_device_step`` launched from
+    Python on device copies of the step's inputs, no graph (the A/B's other
+    arm; measurement code, not a switch of the package)."""
+    def run(inputs):
+        return srv._device_step(**{k: torch.as_tensor(v).to(srv.device)
+                                   for k, v in inputs.items()})
+
+    srv._run_step = run
+    return srv
+
+
+def schedule_on(srv, prompts):
+    """run_schedule on ``srv`` from its first slot and lowest page on, so
+    that every run of one schedule places its requests alike."""
+    srv._free = list(range(srv.max_batch))
+    if hasattr(srv, "_free_pages"):
+        srv._free_pages.sort()
+    return run_schedule(srv, prompts)
+
+
+def profile_captured(torch, label, run):
+    """profile_run of ``run`` after one call outside the profiler, which
+    captures whatever ``run`` has not captured yet (a capture inside the
+    profiler's window is not measured here)."""
+    run()
+    torch.cuda.synchronize()
+    return profile_run(torch, label, run)
+
+
+def decode_ab(torch, label, captured, eager, steps: int, tokens: int, generated,
+              profiled, gate_repeat: bool = True) -> dict:
+    """A decode path captured against its eager step loop in this call.
+
+    ``captured()`` runs the entry point (its programs captured already),
+    ``eager()`` the same decode launched step by step from Python; each run
+    makes ``tokens`` tokens in ``steps`` decode steps, and ``generated(out)``
+    lists a run's generated tokens.  The two arms run in turns for
+    AB_ROUNDS rounds (captured, eager, eager, captured).  Then each arm's
+    ``profiled`` run, a shorter decode of the same path (``profiled`` is
+    (captured run, eager run, its decode steps); a profile's cost grows with
+    its events, and an eager step makes hundreds), is profiled once after
+    one call outside the profiler.  Gates: exactly one graph replay per
+    step and no capture in a captured run, none in an eager one; with
+    ``gate_repeat`` every captured run the same tokens.  The agreement of
+    the captured tokens with the eager loop's is reported (the f32 paths
+    gate it on each request's solo decode, ``eager_generate``).  Returns ms per step and tok/s of
+    every timed run, and each arm's profile with its busy share, busy us
+    and device calls per decode step (the prefill's share included)."""
+    from minidiff_tpu_torch.models import capture
+
+    runs = {"captured": captured, "eager": eager}
+    secs = {arm: [] for arm in runs}
+    outs = {arm: [] for arm in runs}
+    for r in range(AB_ROUNDS):
+        for arm in (("captured", "eager") if r % 2 == 0 else ("eager", "captured")):
+            torch.cuda.synchronize()
+            capture.reset_stats()
+            t0 = time.perf_counter()
+            outs[arm].append(generated(runs[arm]()))
+            torch.cuda.synchronize()
+            secs[arm].append(time.perf_counter() - t0)
+            got = (capture.STATS["replays"], capture.STATS["captures"])
+            want = (steps, 0) if arm == "captured" else (0, 0)
+            check(got == want, f"{label} {arm}: {got[0]} graph replays and {got[1]} "
+                  f"captures over {steps} steps, expected {want}")
+    if gate_repeat:
+        check(all(o == outs["captured"][0] for o in outs["captured"]),
+              f"{label}: two captured runs at one seed gave other tokens")
+    a, b = outs["captured"][0], outs["eager"][0]
+    agreement = sum(x == y for x, y in zip(a, b)) / max(1, len(a))
+    check(len(a) == len(b) == tokens, f"{label}: {len(a)} / {len(b)} tokens, "
+          f"expected {tokens}")
+    out = {"steps": steps, "tokens": tokens, "agreement": agreement,
+           "replays_per_step": 1.0, "profiled_steps": profiled[2]}
+    for arm, run in zip(runs, profiled[:2]):
+        prof = profile_captured(torch, f"{label}, {arm}, {profiled[2]} steps", run)
+        out[arm] = dict(
+            ms_per_step=[t / steps * 1e3 for t in secs[arm]],
+            tok_s=[tokens / t for t in secs[arm]],
+            busy_share=prof["device_busy_us"] / prof["wall_us"],
+            busy_us_per_step=prof["device_busy_us"] / profiled[2],
+            device_calls_per_step=prof["device_calls"] / profiled[2], profile=prof)
+    cap, eag = out["captured"], out["eager"]
+    log(f"[capture] {label}: captured {min(cap['ms_per_step']):.3f} ms/step "
+        f"({max(cap['tok_s']):.0f} tok/s, busy {cap['busy_share']:.1%}, "
+        f"{cap['device_calls_per_step']:.1f} device calls a step) | eager "
+        f"{min(eag['ms_per_step']):.3f} ms/step ({max(eag['tok_s']):.0f} tok/s, busy "
+        f"{eag['busy_share']:.1%}, {eag['device_calls_per_step']:.1f} calls a step) | "
+        f"runs ms/step captured {[round(t, 3) for t in cap['ms_per_step']]} eager "
+        f"{[round(t, 3) for t in eag['ms_per_step']]} | one replay a step; token "
+        f"agreement {agreement:.4f}")
+    return out
+
+
+def short_generate(torch, entry, eager, model, prompt, **kw):
+    """decode_ab's profiled runs of a compiled decode: 32 new tokens
+    through ``entry`` and through ``eager``."""
+    return (lambda: entry(model, prompt, 32, device=DEVICE, **kw),
+            lambda: eager(torch, model, prompt, 32, **kw), 31)
+
+
+def short_schedule(srv, eager_srv, prompts):
+    """decode_ab's profiled runs of a server: the first four requests at 8
+    new tokens each on ``srv`` and on ``eager_srv``, run once here to count
+    its steps (and capture any table width the full schedule did not)."""
+    short = [(p, min(n, 8)) for p, n in prompts[:4]]
+    steps = schedule_on(srv, short)[1]
+    return (lambda: schedule_on(srv, short), lambda: schedule_on(eager_srv, short),
+            steps)
+
+
+def captures() -> int:
+    """The captures since ``capture.STATS`` was last reset: each one's
+    warm-up runs its step once, and those launches count."""
+    from minidiff_tpu_torch.models import capture
+
+    return capture.STATS["captures"]
+
+
+def capture_seconds(torch, run) -> float:
+    """Seconds of the captures ``run()`` makes (warm-up and capture)."""
+    from minidiff_tpu_torch.models import capture
+
+    torch.cuda.synchronize()
+    capture.reset_stats()
+    run()
+    torch.cuda.synchronize()
+    return capture.STATS["capture_seconds"]
+
+
+# ---------------------------------------------------------------------------
 # phase 3: generate_compiled at full width
 # ---------------------------------------------------------------------------
 
@@ -3107,30 +3306,36 @@ def phase_generate(torch, seed: int, report):
     model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **MODEL)
     prompt = torch.from_numpy(np.random.RandomState(seed + 1).randint(
         1, MODEL["vocab_size"], size=(BATCH, PROMPT)))
-    # warm-up: the allocator's pools and cuBLAS handles
-    generate_compiled(model, prompt, 4, device=DEVICE)
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = generate_compiled(model, prompt, NEW, device=DEVICE)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    # the first call captures the step (warm-up: the allocator's pools,
+    # cuBLAS handles); the timed one replays it
+    cap_s = capture_seconds(torch, lambda: generate_compiled(model, prompt, NEW,
+                                                             device=DEVICE))
+    out, dt, counts = _counted(torch, K, lambda: generate_compiled(
+        model, prompt, NEW, device=DEVICE))
     report["launches_generate"] = K.launch_counts()
+    want = {k: n * (NEW if k != "flash_fwd" else 1)
+            for k, n in forward_launches(model).items()}
+    check(counts == want, f"generate: launches {counts}, expected {want}")
     check(tuple(out.shape) == (BATCH, PROMPT + NEW), f"generate shape {out.shape}")
     check(torch.equal(out[:, :PROMPT].cpu(), prompt), "generate must keep the prompt")
     check(bool(((out >= 0) & (out < MODEL["vocab_size"])).all()), "token out of range")
     tok_s = BATCH * NEW / dt
-    report["generate"] = dict(seconds=dt, tok_s=tok_s, ms_per_step=dt / NEW * 1e3)
+    report["generate"] = dict(seconds=dt, tok_s=tok_s, ms_per_step=dt / NEW * 1e3,
+                              capture_seconds=cap_s)
     log(f"[generate] bf16 V{MODEL['vocab_size']} d{MODEL['dim']} "
         f"L{MODEL['num_layers']} batch {BATCH} prompt {PROMPT} new {NEW}: "
-        f"{dt:.3f} s, {tok_s:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step | "
-        f"launches {report['launches_generate']}")
-    report["generate_profile"] = profile_run(
-        torch, "generate_compiled 32 new tokens",
-        lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+        f"{dt:.3f} s, {tok_s:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step (captured in "
+        f"{cap_s:.3f} s) | launches {report['launches_generate']}")
+    report["generate_ab"] = decode_ab(
+        torch, "generate bf16", lambda: generate_compiled(model, prompt, NEW, device=DEVICE),
+        lambda: eager_generate(torch, model, prompt, NEW), NEW - 1, BATCH * NEW,
+        lambda o: o[:, PROMPT:].flatten().tolist(),
+        short_generate(torch, generate_compiled, eager_generate, model, prompt))
+    # generate_compiled's 32 new tokens, captured
+    report["generate_profile"] = report["generate_ab"]["captured"]["profile"]
     if "norm_fwd_v1_libs" in report:  # phase 2 built them (absent in a CPU rehearsal)
         with norm_fwd_v1(report):
-            report["generate_profile_norm_fwd_v1"] = profile_run(
+            report["generate_profile_norm_fwd_v1"] = profile_captured(
                 torch, "generate_compiled 32 new tokens, -DNORM_FWD_V1 norms",
                 lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
@@ -3346,7 +3551,8 @@ def phase_server(torch, seed: int, report):
                for n, new in REQUESTS]
     n_tokens = sum(new for _, new in REQUESTS)
 
-    # f32: the server must reproduce solo decoding token for token
+    # f32: the server must reproduce solo decoding token for token, and the
+    # captured steps the eager ones
     model = TransformerLM(dtype=torch.float32, device=DEVICE, seed=seed, **MODEL)
     srv = DecodeServer(model, max_batch=8, window=512, device=DEVICE)
     K.reset_launch_counts()
@@ -3358,6 +3564,9 @@ def phase_server(torch, seed: int, report):
     report["launches_server"] = K.launch_counts()
     solo = [generate_compiled(model, [p], n, device=DEVICE)[0, len(p):].tolist()
             for p, n in prompts]
+    eager = [eager_generate(torch, model, [p], n)[0, len(p):].tolist()
+             for p, n in prompts]
+    check(solo == eager, "f32 solo generate_compiled differs from the eager step loop")
     for i, (g, s) in enumerate(zip(got, solo)):
         check(len(g) == REQUESTS[i][1], f"request {i}: {len(g)} tokens")
         if g != s:
@@ -3366,8 +3575,8 @@ def phase_server(torch, seed: int, report):
                                f"differs from its solo decode at token {first}")
     log(f"[server] f32: {len(REQUESTS)} requests over 8 slots, {steps} steps, "
         f"{n_tokens} tokens in {dt32:.3f} s ({n_tokens / dt32:.0f} tok/s): every "
-        f"request token-identical to its solo generate_compiled | launches "
-        f"{report['launches_server']}")
+        f"request token-identical to its solo generate_compiled and to the eager "
+        f"step loop | launches {report['launches_server']}")
 
     # the f32 kernel path against the plain path on the CPU, full width
     toks = torch.from_numpy(rng.randint(1, MODEL["vocab_size"], size=(2, 16)))
@@ -3380,27 +3589,35 @@ def phase_server(torch, seed: int, report):
     check(err < 1e-3, f"f32 logits GPU vs CPU plain path: max |err| {err:.3g}")
     log(f"[server] f32 logits, kernels on the GPU vs plain path on the CPU: "
         f"max |err| {err:.3g}")
-    del model
+    del model, srv
+    clear_programs()
 
     model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **MODEL)
     srv = DecodeServer(model, max_batch=8, window=512, device=DEVICE)
-    run_schedule(srv, prompts[:2])  # warm-up
+    cap_s = capture_seconds(torch, lambda: run_schedule(srv, prompts[:2]))  # warm-up
     t0 = time.perf_counter()
-    srv = DecodeServer(model, max_batch=8, window=512, device=DEVICE)
-    got, steps, _ = run_schedule(srv, prompts)
+    got, steps, _ = schedule_on(srv, prompts)
     torch.cuda.synchronize()
     dt16 = time.perf_counter() - t0
     solo = [generate_compiled(model, [p], n, device=DEVICE)[0, len(p):].tolist()
             for p, n in prompts]
     same = sum(a == b for g, s in zip(got, solo) for a, b in zip(g, s))
+    eager_srv = eager_server(torch, DecodeServer(model, max_batch=8, window=512,
+                                                 device=DEVICE))
+    schedule_on(eager_srv, prompts[:2])  # warm-up
+    bf16_ab = decode_ab(
+        torch, "server bf16", lambda: schedule_on(srv, prompts),
+        lambda: schedule_on(eager_srv, prompts), steps, n_tokens,
+        lambda o: [t for g in o[0] for t in g],
+        short_schedule(srv, eager_srv, prompts), gate_repeat=False)
     report["server"] = dict(
         requests=len(REQUESTS), tokens=n_tokens, steps=steps,
         f32_seconds=dt32, f32_tok_s=n_tokens / dt32, bf16_seconds=dt16,
         bf16_tok_s=n_tokens / dt16, bf16_agreement=same / n_tokens,
-        f32_logits_max_err_vs_cpu=err)
+        f32_logits_max_err_vs_cpu=err, capture_seconds=cap_s, bf16_ab=bf16_ab)
     log(f"[server] bf16: {n_tokens} tokens in {dt16:.3f} s "
-        f"({n_tokens / dt16:.0f} tok/s); agreement with solo decode "
-        f"{same}/{n_tokens} = {same / n_tokens:.4f}")
+        f"({n_tokens / dt16:.0f} tok/s, captured in {cap_s:.3f} s); agreement with "
+        f"solo decode {same}/{n_tokens} = {same / n_tokens:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -3678,9 +3895,12 @@ def tape_closed_forms(torch, md, report):
 
 def _counted(torch, K, run):
     """(result, seconds, nonzero launch counts) of ``run()`` from reset
-    counters, synchronised."""
+    counters (the launch counts and ``capture.STATS``), synchronised."""
+    from minidiff_tpu_torch.models import capture
+
     torch.cuda.synchronize()
     K.reset_launch_counts()
+    capture.reset_stats()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -3724,9 +3944,10 @@ def phase_quant(torch, seed: int, report):
     for label, qm, dq, kv_quant in (("int8", q8, "dq_mm", False),
                                     ("int4", q4, "dq4_mm", False),
                                     ("int8_kv", q8, "dq_mm", True)):
-        generate_compiled(qm, prompt, 4, device=DEVICE, kv_quant=kv_quant)  # warm-up
-        toks[label], dt, counts = _counted(torch, K, lambda: generate_compiled(
+        run = (lambda qm=qm, kv_quant=kv_quant: generate_compiled(
             qm, prompt, NEW, device=DEVICE, kv_quant=kv_quant))
+        cap_s = capture_seconds(torch, run)  # the capture, and the warm-up
+        toks[label], dt, counts = _counted(torch, K, run)
         want = decode_launches(dq, NEW, DQ_PER_STEP, kv_quant)
         check(counts == want, f"quant {label}: launches {counts}, expected {want}")
         check(tuple(toks[label].shape) == (BATCH, PROMPT + NEW)
@@ -3735,9 +3956,16 @@ def phase_quant(torch, seed: int, report):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
         out[label] = dict(seconds=dt, tok_s=BATCH * NEW / dt, ms_per_step=dt / NEW * 1e3,
-                          launches=counts, launches_per_step={
+                          launches=counts, capture_seconds=cap_s, launches_per_step={
                               dq: DQ_PER_STEP, **({"sdpa_int8": SDPA8_PER_STEP}
                                                   if kv_quant else {})})
+        out[label]["ab"] = decode_ab(
+            torch, f"quant {label}", run,
+            lambda qm=qm, kv_quant=kv_quant: eager_generate(torch, qm, prompt, NEW,
+                                                            kv_quant=kv_quant),
+            NEW - 1, BATCH * NEW, lambda o: o[:, PROMPT:].flatten().tolist(),
+            short_generate(torch, generate_compiled, eager_generate, qm, prompt,
+                           kv_quant=kv_quant))
         log(f"[quant] {label} bf16 batch {BATCH} prompt {PROMPT} new {NEW}: "
             f"{dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step "
             f"| per step {out[label]['launches_per_step']} | launches {counts}")
@@ -3751,19 +3979,17 @@ def phase_quant(torch, seed: int, report):
         f"{weight_bytes['int8']:,} ({weight_bytes['int8'] / weight_bytes['bf16']:.3f}x) "
         f"int4 {weight_bytes['int4']:,} ({weight_bytes['int4'] / weight_bytes['bf16']:.3f}x); "
         f"int8-cache tokens equal to the bf16 cache's: {agree:.4f}")
-    out["profile"] = profile_run(
-        torch, "int8 generate_compiled 32 new tokens",
-        lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
-    # the int4 decode on the tensor-core tiles, then on the SIMT tile
-    out["profile_int4"] = profile_run(
-        torch, "int4 generate_compiled 32 new tokens",
-        lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
+    # the int8 and int4 decodes' 32 new tokens, captured; the int4 decode
+    # on the tensor-core tiles, then on the SIMT tile
+    out["profile"] = out["int8"]["ab"]["captured"]["profile"]
+    out["profile_int4"] = out["int4"]["ab"]["captured"]["profile"]
     if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
         with built_as("quant", lib_at("quant", report["simt_quant_lib"])):
-            out["profile_int4_simt"] = profile_run(
+            out["profile_int4_simt"] = profile_captured(
                 torch, "int4 generate_compiled 32 new tokens, SIMT tile",
                 lambda: generate_compiled(q4, prompt, 32, device=DEVICE))
     del q8, q4
+    clear_programs()
 
     # the int8 KV cache at long context (bench.py:413-443): the prefill's
     # 15,872 rows take the plain product on the dequantized weight, its
@@ -3775,12 +4001,22 @@ def phase_quant(torch, seed: int, report):
         1, MODEL["vocab_size"], size=(LC_BATCH, LC_PROMPT)))
     lc_out = {}
     for label, kv_quant in (("int8", False), ("int8_kv", True)):
-        lc_out[label], dt, counts = _counted(torch, K, lambda: generate_compiled(
+        run = (lambda kv_quant=kv_quant: generate_compiled(
             lc, prompt_lc, LC_NEW, device=DEVICE, kv_quant=kv_quant))
+        cap_s = capture_seconds(torch, run)
+        lc_out[label], dt, counts = _counted(torch, K, run)
         want = decode_launches("dq_mm", LC_NEW, 1, kv_quant)
         check(counts == want, f"quant 4k {label}: launches {counts}, expected {want}")
         out[f"4k_{label}"] = dict(seconds=dt, tok_s=LC_BATCH * LC_NEW / dt,
-                                  ms_per_token=dt / LC_NEW * 1e3, launches=counts)
+                                  ms_per_token=dt / LC_NEW * 1e3, launches=counts,
+                                  capture_seconds=cap_s)
+        out[f"4k_{label}"]["ab"] = decode_ab(
+            torch, f"quant 4k {label} (prefill included)", run,
+            lambda kv_quant=kv_quant: eager_generate(torch, lc, prompt_lc, LC_NEW,
+                                                     kv_quant=kv_quant),
+            LC_NEW - 1, LC_BATCH * LC_NEW, lambda o: o[:, LC_PROMPT:].flatten().tolist(),
+            (run, lambda kv_quant=kv_quant: eager_generate(
+                torch, lc, prompt_lc, LC_NEW, kv_quant=kv_quant), LC_NEW - 1))
         log(f"[quant] 4k {label}: batch {LC_BATCH} prompt {LC_PROMPT} new {LC_NEW}: "
             f"{dt:.3f} s with the prefill, {LC_BATCH * LC_NEW / dt:.0f} tok/s")
         for k, n in counts.items():
@@ -3788,6 +4024,7 @@ def phase_quant(torch, seed: int, report):
     out["4k_int8_kv_agreement_with_int8"] = (
         lc_out["int8_kv"][:, LC_PROMPT:] == lc_out["int8"][:, LC_PROMPT:]).float().mean().item()
     del lc
+    clear_programs()
 
     # f32 gate: the same codes on the card and on the CPU (quantized once,
     # then moved), the kernels against the plain path, full width
@@ -3843,18 +4080,19 @@ def phase_paged(torch, seed: int, report):
     model = TransformerLM(dtype=torch.float32, device=DEVICE, seed=seed, **MODEL)
     srv = PagedDecodeServer(model, max_batch=8, window=512, device=DEVICE)
     gaps = []
-    step_logits = srv._step_logits
+    step = srv.step
 
-    def spy(toks, pos):
+    def spy():
         # the smallest top-2 logit gap of the live slots at every step
-        logits = step_logits(toks, pos)
         live = [s for s in range(srv.max_batch)
                 if s not in srv._free and srv._budget[s] > 0]
-        top = logits[live, 0].float().topk(2, dim=-1).values
-        gaps.append(top[:, 0] - top[:, 1])
-        return logits
+        out = step()
+        if live:
+            top = srv.last_logits[live].float().topk(2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+        return out
 
-    srv._step_logits = spy
+    srv.step = spy
     K.reset_launch_counts()
     t0 = time.perf_counter()
     got, steps, slots = run_schedule(srv, prompts)
@@ -3865,6 +4103,9 @@ def phase_paged(torch, seed: int, report):
     check(srv.pages_in_use() == 0, f"{srv.pages_in_use()} pages not released")
     solo = [generate_compiled(model, [p], n, device=DEVICE)[0, len(p):].tolist()
             for p, n in prompts]
+    eager = [eager_generate(torch, model, [p], n)[0, len(p):].tolist()
+             for p, n in prompts]
+    check(solo == eager, "f32 solo generate_compiled differs from the eager step loop")
     for i, (g, s) in enumerate(zip(got, solo)):
         check(len(g) == REQUESTS[i][1], f"paged request {i}: {len(g)} tokens")
         if g != s:
@@ -3877,6 +4118,7 @@ def phase_paged(torch, seed: int, report):
         f"every request token-identical to its solo generate_compiled; smallest "
         f"top-2 logit gap {min_gap:.3g} | launches {report['launches_paged']}")
     del model, srv
+    clear_programs()
 
     # bf16: paged against dense at equal batch (serving_bench.paged_vs_dense)
     model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed,
@@ -3893,24 +4135,31 @@ def phase_paged(torch, seed: int, report):
 
     servers = {"dense": setup(DecodeServer), "paged": setup(PagedDecodeServer),
                "paged_oversub": setup(PagedDecodeServer, num_pages=max(
-                   PAGED_SLOTS + 1, PAGED_SLOTS * (PAGED_SEQ // 128) // 4))}
+                   PAGED_SLOTS + 1, PAGED_SLOTS * (PAGED_SEQ // 128) // 4)),
+               "dense_eager": eager_server(torch, setup(DecodeServer)),
+               "paged_eager": eager_server(torch, setup(PagedDecodeServer))}
     times = {name: [] for name in servers}
-    for name, srv in servers.items():
-        srv.step()  # warm-up
+    cap_s = {name: capture_seconds(torch, srv.step)  # warm-up; the capture
+             for name, srv in servers.items()}
     for _ in range(PAGED_ROUNDS):  # in turns, so that drift cancels
         for name, srv in servers.items():
             _, dt, counts = _timed_steps(
                 torch, K, lambda _: srv.step(), None, 0, PAGED_STEPS,
-                DENSE_STEP_LAUNCHES if name == "dense" else PAGED_STEP_LAUNCHES,
+                DENSE_STEP_LAUNCHES if name.startswith("dense") else PAGED_STEP_LAUNCHES,
                 f"{name} server step")
             times[name].append(dt)
     tok_s = {name: PAGED_SLOTS / min(ts) for name, ts in times.items()}
-    step_profile = profile_run(torch, "8 paged server steps",
-                               lambda: [servers["paged"].step() for _ in range(8)])
-    kv = {name: (srv.kv_bytes() if name != "dense" else sum(
+    # 2 x 4 profiled steps keep every slot within its first page (16 + 1 +
+    # 3 x 32 + 8 positions), so the profile replays and never captures
+    step_profile = profile_run(torch, "4 paged server steps",
+                               lambda: [servers["paged"].step() for _ in range(4)])
+    eager_profile = profile_run(torch, "4 paged server steps, eager",
+                                lambda: [servers["paged_eager"].step() for _ in range(4)])
+    kv = {name: (srv.kv_bytes() if name.startswith("paged") else sum(
         t.numel() * t.element_size() for c in srv._caches for t in c.values()))
         for name, srv in servers.items()}
-    pages = {name: srv.pages_in_use() for name, srv in servers.items() if name != "dense"}
+    pages = {name: srv.pages_in_use() for name, srv in servers.items()
+             if name.startswith("paged")}
 
     # pool exhaustion: at submit, and mid-decode when a step crosses a page
     errors = []
@@ -3934,11 +4183,15 @@ def phase_paged(torch, seed: int, report):
         f32_seconds=dt32, f32_min_top2_gap=min_gap, bf16_step_ms={
             name: [t * 1e3 for t in ts] for name, ts in times.items()},
         bf16_tok_s=tok_s, paged_vs_dense=tok_s["paged"] / tok_s["dense"],
-        kv_bytes=kv, pages_in_use=pages, exhaustion=errors, profile=step_profile)
+        kv_bytes=kv, pages_in_use=pages, exhaustion=errors, profile=step_profile,
+        eager_profile=eager_profile, capture_seconds=cap_s,
+        captured_vs_eager={"dense": tok_s["dense"] / tok_s["dense_eager"],
+                           "paged": tok_s["paged"] / tok_s["paged_eager"]})
     log(f"[paged] bf16 {PAGED_SLOTS} slots window {PAGED_SEQ}, {PAGED_STEPS} steps x "
         f"{PAGED_ROUNDS} rounds in turns: dense {tok_s['dense']:.0f} tok/s, paged "
         f"{tok_s['paged']:.0f} tok/s ({tok_s['paged'] / tok_s['dense']:.3f}x), "
-        f"oversubscribed {tok_s['paged_oversub']:.0f} tok/s | kv bytes dense "
+        f"oversubscribed {tok_s['paged_oversub']:.0f} tok/s; eager steps dense "
+        f"{tok_s['dense_eager']:.0f} paged {tok_s['paged_eager']:.0f} tok/s | kv bytes dense "
         f"{kv['dense']:,} paged {kv['paged']:,} oversubscribed {kv['paged_oversub']:,} "
         f"({kv['paged_oversub'] / kv['dense']:.3f}x) | pages in use {pages} | pool "
         f"exhaustion raised at submit and mid-decode")
@@ -4027,9 +4280,9 @@ def phase_options(torch, seed: int, report):
     fwd = forward_launches(model)
     prompt = torch.from_numpy(np.random.RandomState(seed + 7).randint(
         1, cfg["vocab_size"], size=(BATCH, PROMPT)))
-    generate_compiled(model, prompt, 4, device=DEVICE)  # warm-up
-    toks, dt, counts = _counted(torch, K, lambda: generate_compiled(
-        model, prompt, NEW, device=DEVICE))
+    run = lambda: generate_compiled(model, prompt, NEW, device=DEVICE)  # noqa: E731
+    cap_s = capture_seconds(torch, run)  # the capture, and the warm-up
+    toks, dt, counts = _counted(torch, K, run)
     # the prefill runs every forward kernel once, each decode step all but flash
     want = {k: n * (NEW if k != "flash_fwd" else 1) for k, n in fwd.items()}
     check(counts == want, f"options generate: launches {counts}, expected {want}")
@@ -4038,16 +4291,21 @@ def phase_options(torch, seed: int, report):
           f"options generate: tokens {tuple(toks.shape)} out of range")
     add(counts)
     out["generate"] = dict(seconds=dt, tok_s=BATCH * NEW / dt,
-                           ms_per_step=dt / NEW * 1e3, launches=counts)
+                           ms_per_step=dt / NEW * 1e3, launches=counts,
+                           capture_seconds=cap_s)
     log(f"[options] generate_compiled batch {BATCH} prompt {PROMPT} new {NEW}: "
         f"{dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, {dt / NEW * 1e3:.2f} ms/step "
-        f"| launches {counts}")
-    out["generate_profile"] = profile_run(
-        torch, "options generate_compiled 32 new tokens",
-        lambda: generate_compiled(model, prompt, 32, device=DEVICE))
+        f"(captured in {cap_s:.3f} s) | launches {counts}")
+    out["generate_ab"] = decode_ab(
+        torch, "options generate bf16", run,
+        lambda: eager_generate(torch, model, prompt, NEW), NEW - 1, BATCH * NEW,
+        lambda o: o[:, PROMPT:].flatten().tolist(),
+        short_generate(torch, generate_compiled, eager_generate, model, prompt))
+    # the options decode's 32 new tokens, captured
+    out["generate_profile"] = out["generate_ab"]["captured"]["profile"]
     if "norm_fwd_v1_libs" in report:  # phase 2 built them (absent in a CPU rehearsal)
         with norm_fwd_v1(report):
-            out["generate_profile_norm_fwd_v1"] = profile_run(
+            out["generate_profile_norm_fwd_v1"] = profile_captured(
                 torch, "options generate_compiled 32 new tokens, -DNORM_FWD_V1 norms",
                 lambda: generate_compiled(model, prompt, 32, device=DEVICE))
 
@@ -4057,9 +4315,8 @@ def phase_options(torch, seed: int, report):
                for n, new in REQUESTS]
     n_tokens = sum(new for _, new in REQUESTS)
     srv = DecodeServer(model, max_batch=8, window=cfg["max_seq_len"], device=DEVICE)
-    run_schedule(srv, prompts[:2])  # warm-up
-    srv = DecodeServer(model, max_batch=8, window=cfg["max_seq_len"], device=DEVICE)
-    (got, steps, slots), dt, counts = _counted(torch, K, lambda: run_schedule(
+    srv_cap_s = capture_seconds(torch, lambda: run_schedule(srv, prompts[:2]))  # warm-up
+    (got, steps, slots), dt, counts = _counted(torch, K, lambda: schedule_on(
         srv, prompts))
     check(slots < len(prompts), "options server: no slot was reused")
     # every request's prefill runs each forward kernel once, and every step
@@ -4077,16 +4334,26 @@ def phase_options(torch, seed: int, report):
     same = sum(a == b for g, s_ in zip(got, solo) for a, b in zip(g, s_))
     check(all(len(g) == n for g, (_, n) in zip(got, prompts)),
           "options server: wrong token counts")
+    eager_srv = eager_server(torch, DecodeServer(
+        model, max_batch=8, window=cfg["max_seq_len"], device=DEVICE))
+    schedule_on(eager_srv, prompts[:2])  # warm-up
+    server_ab = decode_ab(
+        torch, "options server bf16", lambda: schedule_on(srv, prompts),
+        lambda: schedule_on(eager_srv, prompts), steps, n_tokens,
+        lambda o: [t for g in o[0] for t in g], short_schedule(srv, eager_srv, prompts),
+        gate_repeat=False)
     out["server"] = dict(requests=len(REQUESTS), tokens=n_tokens, steps=steps,
                          seconds=dt, tok_s=n_tokens / dt, ms_per_step=dt / steps * 1e3,
                          kv_bytes=kv_bytes, mha_kv_bytes=mha_bytes,
-                         bf16_agreement=same / n_tokens, launches=counts)
+                         bf16_agreement=same / n_tokens, launches=counts,
+                         capture_seconds=srv_cap_s, ab=server_ab)
     log(f"[options] server bf16: {len(REQUESTS)} requests over 8 slots, {steps} "
         f"steps, {n_tokens} tokens in {dt:.3f} s ({n_tokens / dt:.0f} tok/s, "
         f"{dt / steps * 1e3:.2f} ms/step); KV bytes {kv_bytes:,} "
         f"(multi-head {mha_bytes:,}, {kv_bytes / mha_bytes:.3f}x); agreement "
         f"with solo decode {same}/{n_tokens} | launches {counts}")
-    del srv
+    del srv, eager_srv
+    clear_programs()
 
     # the f32 gates take the first layer of these weights in f32
     gate = _f32_prefix(torch, model, OPT_GATE_LAYERS)
@@ -4223,9 +4490,10 @@ def phase_ssm(torch, seed: int, report):
     rng = np.random.RandomState(seed + 12)
     for label, plen in (("generate", PROMPT), ("generate_long", SSM_LONG_PROMPT)):
         prompt = torch.from_numpy(rng.randint(1, cfg["vocab_size"], size=(BATCH, plen)))
-        generate_compiled_ssm(model, prompt, 4, device=DEVICE)  # warm-up
-        toks, dt, counts = _counted(torch, K, lambda: generate_compiled_ssm(
-            model, prompt, NEW, device=DEVICE))
+        run = (lambda prompt=prompt: generate_compiled_ssm(model, prompt, NEW,
+                                                           device=DEVICE))
+        cap_s = capture_seconds(torch, run)  # the capture, and the warm-up
+        toks, dt, counts = _counted(torch, K, run)
         want = ssm_launches(model, forwards=1, steps=NEW - 1)
         check(counts == want, f"ssm {label}: launches {counts}, expected {want}")
         check(tuple(toks.shape) == (BATCH, plen + NEW)
@@ -4242,14 +4510,19 @@ def phase_ssm(torch, seed: int, report):
         _, pre_s, _ = _counted(torch, K, prefill)
         out[label] = dict(prompt=plen, seconds=dt, tok_s=BATCH * NEW / dt,
                           ms_per_step=dt / NEW * 1e3, prefill_ms=pre_s * 1e3,
-                          launches=counts)
+                          launches=counts, capture_seconds=cap_s)
+        out[label]["ab"] = decode_ab(
+            torch, f"ssm {label} bf16", run,
+            lambda prompt=prompt: eager_generate_ssm(torch, model, prompt, NEW),
+            NEW - 1, BATCH * NEW, lambda o, plen=plen: o[:, plen:].flatten().tolist(),
+            short_generate(torch, generate_compiled_ssm, eager_generate_ssm, model,
+                           prompt))
         log(f"[ssm] generate_compiled_ssm bf16 batch {BATCH} prompt {plen} new "
             f"{NEW}: {dt:.3f} s, {BATCH * NEW / dt:.0f} tok/s, "
             f"{dt / NEW * 1e3:.2f} ms/step (prefill alone {pre_s * 1e3:.2f} ms) "
             f"| launches {counts}")
-    out["generate_profile"] = profile_run(
-        torch, "ssm generate_compiled_ssm 32 new tokens",
-        lambda: generate_compiled_ssm(model, prompt[:, :PROMPT], 32, device=DEVICE))
+    # generate_compiled_ssm's 32 new tokens after the 16-token prompt, captured
+    out["generate_profile"] = out["generate"]["ab"]["captured"]["profile"]
 
     # SSMDecodeServer: phase 4's staggered schedule on 8 slots; in f32 every
     # request must equal its solo decode token for token
@@ -4261,19 +4534,23 @@ def phase_ssm(torch, seed: int, report):
     (got, steps, slots), dt32, counts = _counted(torch, K, lambda: run_schedule(
         srv, prompts))
     check(slots < len(prompts), "ssm server: no slot was reused")
-    want = ssm_launches(m32, forwards=len(REQUESTS), steps=steps)
+    # each capture's warm-up runs the step once more
+    want = ssm_launches(m32, forwards=len(REQUESTS), steps=steps + captures())
     check(counts == want, f"ssm server: launches {counts}, expected {want}")
     add(counts)
     for i, ((p, n), g) in enumerate(zip(prompts, got)):
         solo = generate_compiled_ssm(m32, [p], n, device=DEVICE)[0, len(p):].tolist()
+        check(solo == eager_generate_ssm(torch, m32, [p], n)[0, len(p):].tolist(),
+              f"f32 ssm request {i}: generate_compiled_ssm differs from the eager loop")
         if g != solo:
             first = next(j for j, (a, b) in enumerate(zip(g, solo)) if a != b)
             raise SmokeFailure(f"f32 ssm server request {i} (prompt {len(p)}) "
                                f"differs from its solo decode at token {first}")
     log(f"[ssm] server f32: {len(REQUESTS)} requests over 8 slots, {steps} steps, "
         f"{n_tokens} tokens in {dt32:.3f} s: every request token-identical to its "
-        f"solo generate_compiled_ssm | launches {counts}")
+        f"solo generate_compiled_ssm and to the eager loop | launches {counts}")
     del srv
+    clear_programs()
 
     # f32 gates, full width and one layer: the kernel path on the card
     # against the plain path on the CPU, the same weights.  f32 through one
@@ -4343,9 +4620,8 @@ def phase_ssm(torch, seed: int, report):
     # bf16 server throughput and the state's bytes beside the flagship's KV
     # cache for the same 8 slots (window 512, bf16)
     srv = SSMDecodeServer(model, max_batch=8, device=DEVICE)
-    run_schedule(srv, prompts[:2])  # warm-up
-    srv = SSMDecodeServer(model, max_batch=8, device=DEVICE)
-    (got, steps, _), dt16, counts = _counted(torch, K, lambda: run_schedule(
+    srv_cap_s = capture_seconds(torch, lambda: run_schedule(srv, prompts[:2]))  # warm-up
+    (got, steps, _), dt16, counts = _counted(torch, K, lambda: schedule_on(
         srv, prompts))
     check(counts == ssm_launches(model, forwards=len(REQUESTS), steps=steps),
           f"ssm bf16 server: launches {counts}")
@@ -4354,15 +4630,24 @@ def phase_ssm(torch, seed: int, report):
                       for t in st_.values())
     kv_bytes = (2 * MODEL["num_layers"] * 8 * MODEL["dim"] * 512
                 * torch.finfo(torch.bfloat16).bits // 8)
+    eager_srv = eager_server(torch, SSMDecodeServer(model, max_batch=8, device=DEVICE))
+    schedule_on(eager_srv, prompts[:2])  # warm-up
+    server_ab = decode_ab(
+        torch, "ssm server bf16", lambda: schedule_on(srv, prompts),
+        lambda: schedule_on(eager_srv, prompts), steps, n_tokens,
+        lambda o: [t for g in o[0] for t in g], short_schedule(srv, eager_srv, prompts),
+        gate_repeat=False)
     out["server"] = dict(requests=len(REQUESTS), tokens=n_tokens, steps=steps,
                          f32_seconds=dt32, f32_tok_s=n_tokens / dt32,
                          bf16_seconds=dt16, bf16_tok_s=n_tokens / dt16,
                          ms_per_step=dt16 / steps * 1e3, state_bytes=state_bytes,
-                         flagship_kv_bytes=kv_bytes, launches=counts)
+                         flagship_kv_bytes=kv_bytes, launches=counts,
+                         capture_seconds=srv_cap_s, ab=server_ab)
     log(f"[ssm] server bf16: {n_tokens} tokens in {dt16:.3f} s ({n_tokens / dt16:.0f} "
         f"tok/s, {dt16 / steps * 1e3:.2f} ms/step); state {state_bytes:,} bytes for 8 "
         f"slots against the flagship's KV cache of {kv_bytes:,} (window 512)")
-    del srv
+    del srv, eager_srv
+    clear_programs()
 
     # the train step at ssm_bench.train_race's shape
     trng = np.random.RandomState(seed + 16)
@@ -4624,9 +4909,9 @@ def phase_moe(torch, seed: int, report):
     prompt = torch.from_numpy(np.random.RandomState(seed + 20).randint(
         1, cfg["vocab_size"], size=(BATCH, PROMPT)))
     for label, m in (("bf16", model), ("int8", q8)):
-        generate_compiled(m, prompt, 4, device=DEVICE)  # warm-up
-        toks, dt, counts = _counted(torch, K, lambda: generate_compiled(
-            m, prompt, MOE_NEW, device=DEVICE))
+        run = lambda m=m: generate_compiled(m, prompt, MOE_NEW, device=DEVICE)  # noqa: E731
+        cap_s = capture_seconds(torch, run)  # the capture, and the warm-up
+        toks, dt, counts = _counted(torch, K, run)
         per_forward = forward_launches(m)
         want = {k: n * (MOE_NEW if k != "flash_fwd" else 1)
                 for k, n in per_forward.items()}
@@ -4638,7 +4923,12 @@ def phase_moe(torch, seed: int, report):
         add(counts)
         out[f"generate_{label}"] = dict(
             seconds=dt, tok_s=BATCH * MOE_NEW / dt, ms_per_step=dt / MOE_NEW * 1e3,
-            launches=counts, per_forward=per_forward)
+            launches=counts, per_forward=per_forward, capture_seconds=cap_s)
+        out[f"generate_{label}"]["ab"] = decode_ab(
+            torch, f"moe generate {label} banks", run,
+            lambda m=m: eager_generate(torch, m, prompt, MOE_NEW), MOE_NEW - 1,
+            BATCH * MOE_NEW, lambda o: o[:, PROMPT:].flatten().tolist(),
+            short_generate(torch, generate_compiled, eager_generate, m, prompt))
         log(f"[moe] generate_compiled {label} banks, batch {BATCH} prompt {PROMPT} "
             f"new {MOE_NEW}: {dt:.3f} s, {BATCH * MOE_NEW / dt:.0f} tok/s, "
             f"{dt / MOE_NEW * 1e3:.2f} ms/step | per prefill and step {per_forward}")
@@ -4650,12 +4940,11 @@ def phase_moe(torch, seed: int, report):
         f"decode_moe_int8_speedup_vs_bf16); weight bytes bf16 "
         f"{weight_bytes['bf16']:,} int8 {weight_bytes['int8']:,} "
         f"({weight_bytes['int8'] / weight_bytes['bf16']:.3f}x)")
-    out["generate_profile"] = profile_run(
-        torch, "moe int8 generate_compiled 32 new tokens",
-        lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
+    # the int8 decode's 32 new tokens, captured
+    out["generate_profile"] = out["generate_int8"]["ab"]["captured"]["profile"]
     if "simt_quant_lib" in report:  # phase 2 built it (absent in a CPU rehearsal)
         with built_as("quant", lib_at("quant", report["simt_quant_lib"])):
-            out["generate_profile_simt"] = profile_run(
+            out["generate_profile_simt"] = profile_captured(
                 torch, "moe int8 generate_compiled 32 new tokens, SIMT tile",
                 lambda: generate_compiled(q8, prompt, 32, device=DEVICE))
     del q8
@@ -4672,6 +4961,11 @@ def phase_moe(torch, seed: int, report):
     for dtype, m in (("bf16", model), ("f32", m32)):
         solo = [generate_compiled(m, [p], n, device=DEVICE)[0, len(p):].tolist()
                 for p, n in prompts]
+        if dtype == "f32":
+            eager = [eager_generate(torch, m, [p], n)[0, len(p):].tolist()
+                     for p, n in prompts]
+            check(solo == eager, "f32 moe solo generate_compiled differs from the "
+                  "eager step loop")
         for cls in (DecodeServer, PagedDecodeServer):
             name = f"{cls.__name__}_{dtype}"
             if dtype == "bf16":
@@ -4681,10 +4975,12 @@ def phase_moe(torch, seed: int, report):
             (got, steps, slots), dt, counts = _counted(
                 torch, K, lambda: run_schedule(srv, prompts))
             check(slots < len(prompts), f"moe {name}: no slot was reused")
-            want = {k: n * (len(prompts) + (steps if k != "flash_fwd" else 0))
+            # each capture's warm-up runs the step once more
+            runs = steps + captures()
+            want = {k: n * (len(prompts) + (runs if k != "flash_fwd" else 0))
                     for k, n in fwd.items()}
             if cls is PagedDecodeServer:
-                want["paged_attn"] = cfg["num_layers"] * steps
+                want["paged_attn"] = cfg["num_layers"] * runs
             check(counts == want, f"moe {name}: launches {counts}, expected {want}")
             add(counts)
             check(all(len(g) == n for g, (_, n) in zip(got, prompts)),
@@ -4702,11 +4998,23 @@ def phase_moe(torch, seed: int, report):
                              seconds=dt, tok_s=n_tokens / dt,
                              ms_per_step=dt / steps * 1e3,
                              agreement=same / n_tokens, launches=counts)
+            if dtype == "bf16":
+                eager_srv = eager_server(torch, cls(m, max_batch=8,
+                                                    window=cfg["max_seq_len"],
+                                                    device=DEVICE))
+                schedule_on(eager_srv, prompts[:2])  # warm-up
+                out[name]["ab"] = decode_ab(
+                    torch, f"moe {name}", lambda srv=srv: schedule_on(srv, prompts),
+                    lambda eager_srv=eager_srv: schedule_on(eager_srv, prompts),
+                    steps, n_tokens, lambda o: [t for g in o[0] for t in g],
+                    short_schedule(srv, eager_srv, prompts), gate_repeat=False)
+                del eager_srv
             log(f"[moe] {name}: {len(prompts)} requests over 8 slots, {steps} "
                 f"steps, {n_tokens} tokens in {dt:.3f} s ({n_tokens / dt:.0f} "
                 f"tok/s); agreement with solo decode {same}/{n_tokens}")
             del srv
     del m32
+    clear_programs()
 
     # f32 gates at full width and one layer, the card against the CPU: the
     # same routes first (a probability gap under f32 rounding would flip a

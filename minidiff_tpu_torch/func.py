@@ -6,7 +6,8 @@ The port of ``minidiff_tpu/func.py:51-220``: ``value_and_grad``, ``grad``,
 tuples) of Tensors; small helpers here stand in for ``jax.tree``.
 ``hessian`` takes one hvp per basis direction, the JAX package's loop off
 XLA.  ``jit``, ``remat``, ``scan``, ``cond``, ``while_loop`` and ``lower``
-are not ported yet.
+are not ported yet; the decode programs are captured as CUDA graphs
+(``models/capture.py``), and ``jit``'s capture of a tape step comes next.
 """
 
 from __future__ import annotations

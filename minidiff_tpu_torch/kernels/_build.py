@@ -12,6 +12,11 @@ loaded.  ``build_all()`` starts one nvcc per source at once and waits for
 all of them.  The compiler's output (with
 ptxas's register and shared-memory report) is kept beside each library as
 ``<name>-<hash>.log``.  Nothing here runs at import time.
+
+A CUDA graph (``models/capture.py``) holds the function pointers of the
+libraries loaded when it was captured.  ``use_library`` swaps a source's
+library (an A/B build) and bumps ``epoch()``, which every captured
+program's key carries, so that a swap re-captures.
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ SIGNATURES = {
 }
 
 _libs: dict = {}
+_epoch = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -157,6 +163,20 @@ def _lib(source: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
         _libs[source] = lib
     return lib
+
+
+def epoch() -> int:
+    """How many times ``use_library`` has swapped a library: part of every
+    captured program's key."""
+    return _epoch
+
+
+def use_library(source: str, lib) -> None:
+    """Launch every kernel of ``csrc/<source>.cu`` from ``lib`` (a loaded
+    ctypes library with the C signatures) from now on, and bump ``epoch()``."""
+    global _epoch
+    _libs[source] = lib
+    _epoch += 1
 
 
 def function(name: str):

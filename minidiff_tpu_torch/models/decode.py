@@ -1,11 +1,16 @@
 """KV-cached autoregressive decoding.
 
-Port of ``minidiff_tpu/models/decode.py`` ``generate_compiled``.  The JAX
-package lowers the whole loop into one ``lax.scan`` program; here it runs
-eagerly, with one parallel prefill and a Python loop of one-token steps,
-over a static cache window ``L = min(max_seq_len, ceil((total+1)/128)*128)``
-exactly as the JAX program sizes it.  Capturing the step in a CUDA graph is
-later work.
+Port of ``minidiff_tpu/models/decode.py`` ``decode_program`` and
+``generate_compiled``.  The JAX package lowers the whole loop into one
+``lax.scan`` program; here ``decode_program`` builds a ``DecodeLoop``
+(``models/capture.py``): one parallel prefill, eager, then one one-token
+step captured as a CUDA graph and replayed once per token, over a static
+cache window ``L = min(max_seq_len, ceil((total+1)/128)*128)`` exactly as
+the JAX program sizes it.  On the CPU the same program runs its step
+function without a graph.  Programs are cached per (model, shapes,
+sampling config, device, library epoch) in an LRU of 32, as the JAX
+package caches its compiled programs; the seed is a runtime input, so
+varying seeds reuse one capture.
 
 The one-token step is ``_chunk_step`` with c = 1, the same code the decode
 server runs, so a request decodes through the same arithmetic alone or
@@ -17,32 +22,56 @@ keeps the cache as int8 lines with per-row f32 scales, read through the
 
 from __future__ import annotations
 
+import itertools
+from collections import OrderedDict
+
 import torch
 
+from minidiff_tpu_torch.kernels import _build
 from minidiff_tpu_torch.models import functional as F
+from minidiff_tpu_torch.models.capture import DecodeLoop
 from minidiff_tpu_torch.models.layers import check_device
-from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
+from minidiff_tpu_torch.models.speculative import _alloc_caches, _chunk_step, _prefill
 
 _DECODE_BLOCK = 128
 
+# program key -> DecodeLoop.  LRU-bounded as the JAX package's cache: each
+# program pins its model, its caches and its graph's memory
+_DECODE_CACHE_MAX = 32
+_decode_cache: "OrderedDict" = OrderedDict()
 
-def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
-                      temperature: float = 1.0, top_k=None, top_p=None,
-                      min_p=None, seed: int = 0, device="cuda",
-                      kv_quant: bool = False):
-    """prompt (B, S0) int -> (B, S0 + max_new_tokens) int64 on the model's
-    device.
 
-    Greedy mode takes the argmax.  ``greedy=False`` draws a Gumbel-max
-    sample at ``temperature`` (truncated by ``top_k`` / ``top_p`` /
-    ``min_p``) with noise keyed by (seed, position): deterministic per seed.
-    ``device`` must be where the model lives; "cuda" without a GPU raises.
-    ``kv_quant=True`` stores the KV cache as int8 lines with per-row f32
-    scales (tokens may differ from the full-precision cache's near logit
-    ties).
-    """
+def weights_key(model) -> tuple:
+    """The storage of every parameter and buffer of ``model``: a captured
+    graph reads the weights where they were at capture, so a model moved or
+    re-allocated since needs another program."""
+    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                        model.buffers()))
+
+
+def cached_program(cache: "OrderedDict", key, build, limit: int):
+    """``cache[key]``, made by ``build()`` when missing; the least recently
+    used entry goes past ``limit`` entries."""
+    program = cache.get(key)
+    if program is not None:
+        cache.move_to_end(key)
+        return program
+    program = cache[key] = build()
+    while len(cache) > limit:
+        cache.popitem(last=False)
+    return program
+
+
+def decode_program(model, prompt, max_new_tokens: int, greedy: bool = True,
+                   temperature: float = 1.0, top_k=None, top_p=None, min_p=None,
+                   kv_quant: bool = False, device="cuda"):
+    """The captured ``(prompt, seed) -> (B, S0 + max_new_tokens)`` program
+    behind ``generate_compiled`` for ``prompt``'s shape, cached per (model,
+    batch, prompt length, new tokens, dtypes, sampling config, kv_quant) as
+    the JAX package keys it, and per device, library epoch
+    (``kernels._build.epoch``) and weight storage (``weights_key``)."""
     dev = check_device(model, device)
-    prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    prompt = torch.as_tensor(prompt)
     b, s0 = prompt.shape
     if s0 < 1 or max_new_tokens < 1:
         raise ValueError("generate_compiled needs a non-empty prompt and "
@@ -56,20 +85,50 @@ def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
             "(sdpa_int8_cache masks by position only)")
     L = min(model.max_seq_len,
             -(-(total + 1) // _DECODE_BLOCK) * _DECODE_BLOCK)
-    seed = int(seed) & 0xFFFFFFFF
+    key = (id(model), b, s0, max_new_tokens, str(model.dtype), str(prompt.dtype),
+           greedy, float(temperature), top_k,
+           None if top_p is None else float(top_p),
+           None if min_p is None else float(min_p), kv_quant,
+           str(dev), _build.epoch(), weights_key(model))
 
-    def select(logits, i):
-        noise = None if greedy else F.gumbel_noise(logits.shape, (seed, i), dev)
-        return F.select_next(logits, greedy, temperature, top_k, top_p,
-                             min_p, noise)
+    def build():
+        caches = _alloc_caches(model, b, L, kv_quant, dev)
+        rows = torch.arange(b, device=dev)
 
-    with torch.inference_mode():
-        caches, logits = _prefill(model, prompt, L, kv_quant=kv_quant)
-        tok = select(logits, s0 - 1)
-        out = [tok]
-        pos = torch.full((b,), s0, dtype=torch.long, device=dev)
-        for j in range(max_new_tokens - 1):
-            logits = _chunk_step(model, caches, tok.reshape(b, 1), pos + j, L)
-            tok = select(logits[:, 0], s0 + j)
-            out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        def prefill(toks):
+            return _prefill(model, toks, L, kv_quant=kv_quant, caches=caches)[1]
+
+        def forward(tok, pos):
+            return _chunk_step(model, caches, tok.reshape(b, 1), pos, L)[:, 0]
+
+        def select(logits, seed, pos):
+            noise = (None if greedy
+                     else F.gumbel_noise(seed, pos, rows, logits.shape[-1]))
+            return F.select_next(logits, greedy, temperature, top_k, top_p,
+                                 min_p, noise)
+
+        return DecodeLoop(b, s0, max_new_tokens, dev, prefill, forward, select)
+
+    return cached_program(_decode_cache, key, build, _DECODE_CACHE_MAX)
+
+
+def generate_compiled(model, prompt, max_new_tokens: int, greedy: bool = True,
+                      temperature: float = 1.0, top_k=None, top_p=None,
+                      min_p=None, seed: int = 0, device="cuda",
+                      kv_quant: bool = False):
+    """prompt (B, S0) int -> (B, S0 + max_new_tokens) int64 on the model's
+    device, through ``decode_program``: on the card one CUDA graph replay
+    per token after the first.
+
+    Greedy mode takes the argmax.  ``greedy=False`` draws a Gumbel-max
+    sample at ``temperature`` (truncated by ``top_k`` / ``top_p`` /
+    ``min_p``) with noise keyed by (seed, position, row), drawn on the
+    model's device (``functional.gumbel_noise``): deterministic per seed.
+    ``device`` must be where the model lives; "cuda" without a GPU raises.
+    ``kv_quant=True`` stores the KV cache as int8 lines with per-row f32
+    scales (tokens may differ from the full-precision cache's near logit
+    ties).
+    """
+    prompt = torch.as_tensor(prompt)
+    return decode_program(model, prompt, max_new_tokens, greedy, temperature,
+                          top_k, top_p, min_p, kv_quant, device)(prompt, seed)

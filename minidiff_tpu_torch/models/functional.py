@@ -11,7 +11,6 @@ logits).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from minidiff_tpu_torch.kernels.layernorm import add_layernorm, add_rmsnorm
@@ -129,16 +128,46 @@ def truncate_logits(logits, top_k=None, top_p=None, min_p=None):
     return logits
 
 
-def gumbel_noise(shape, key, device):
-    """Gumbel(0, 1) noise in f32, a pure function of ``key`` (a tuple of
-    ints such as (seed, step)).  Drawn on the CPU from a torch.Generator
-    seeded from the key, so it is the same on every device.  (The JAX
-    package draws threefry bits, which cannot be reproduced here.)"""
-    words = np.random.SeedSequence([int(k) & 0xFFFFFFFF for k in key]
-                                   ).generate_state(2, np.uint32)
-    gen = torch.Generator().manual_seed(int(words[0]) << 32 | int(words[1]))
-    u = torch.rand(shape, generator=gen, dtype=torch.float32) + 1e-9
-    return (-torch.log(-torch.log(u))).to(device)
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, c: int):
+    """(h * c) mod 2^32 for h in [0, 2^32) held in int64: c in 16-bit halves,
+    so that no product leaves the int64 range on any device."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finaliser, a bijection of [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def gumbel_uniform(seed, step, row, vocab: int):
+    """U(0, 1) in f32, strictly inside: (B, V) from int64 tensors ``seed``,
+    ``step``, ``row`` of one shape (B,) on one device.  A counter-based hash
+    of (seed, step, row, vocab index) in integer tensor ops on that device:
+    the same bits on every device, no generator state, no host copy, so
+    the draw can sit inside a CUDA graph whose seeds and steps are
+    inputs.  Each value is (m + 0.5) / 2^24 for the hash's top 24 bits m."""
+    k = _fmix32((seed & _M32) ^ 0x3C6EF372)
+    k = _fmix32(k ^ (step & _M32))
+    k = _fmix32(k ^ (row & _M32))
+    v = _fmix32(torch.arange(vocab, dtype=torch.int64, device=seed.device) ^ 0x9E3779B9)
+    bits = _fmix32(k[:, None] ^ v[None, :])
+    return ((bits >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def gumbel_noise(seed, step, row, vocab: int):
+    """Gumbel(0, 1) noise in f32, (B, V): ``-log(-log(u))`` of
+    ``gumbel_uniform(seed, step, row, vocab)``, a pure function of its key
+    and finite (u lies in [2^-25, 1 - 2^-25]).  (The JAX package draws
+    threefry bits, which are not reproduced here.)"""
+    return -torch.log(-torch.log(gumbel_uniform(seed, step, row, vocab)))
 
 
 def select_next(logits, greedy: bool, temperature: float = 1.0, top_k=None,

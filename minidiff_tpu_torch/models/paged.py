@@ -13,10 +13,13 @@ evicted.
 Page 0 is the reserved garbage page and never handed out: released slots
 keep stepping, and their zeroed table rows send both their writes and their
 (masked) reads there, so a live slot's pages are never touched.  The page
-table lives on the host; each step sends the write positions and the
-table's columns up to the furthest page a live slot reads, so that the
-kernel's launch plan (``kernels.paged.paged_plan``, which reads shapes
-only) splits each slot over the pages in use and not over the window.
+table lives on the host; each step copies the write pages and offsets and
+the table's columns up to the furthest page a live slot reads into the
+static buffers of its captured step (``DecodeServer.step``), one graph per
+table width, captured at the width's first step and kept in the server, so
+that the kernel's launch plan (``kernels.paged.paged_plan``, which reads
+shapes only) splits each slot over the pages in use and not over the
+window.
 The prefill writes its rows page by page into the slot's pages; a step
 appends each slot's new KV line with ``append_kv`` and attends through the
 ``paged_attn`` kernel (``kernels/paged.py``) with ``q`` cast to the pool
@@ -152,19 +155,23 @@ class PagedDecodeServer(DecodeServer):
                 pool[name][pids] = pages
         return logits
 
-    def _step_logits(self, toks, pos):
-        model, b = self.model, self.max_batch
-        pos_np = self._pos
-        pidx = np.maximum(pos_np, 0) // PAGE
-        page_ids = torch.as_tensor(self._table_np[np.arange(b), pidx].astype(np.int64),
-                                   device=self.device)
-        offsets = torch.as_tensor(pos_np % PAGE, device=self.device)
+    def _step_inputs(self) -> dict:
+        b = self.max_batch
+        pidx = np.maximum(self._pos, 0) // PAGE
         # the columns up to the furthest page a live slot reads: a slot reads
         # pages 0 .. pos // PAGE, and a released slot (a zeroed row) any
         live = [s for s in range(b) if s not in self._free and self._budget[s] > 0]
         width = max((int(pidx[s]) + 1 for s in live), default=1)
-        table = torch.as_tensor(np.ascontiguousarray(self._table_np[:, :width]),
-                                device=self.device)
+        return {**super()._step_inputs(),
+                "page_ids": self._table_np[np.arange(b), pidx].astype(np.int64),
+                "offsets": self._pos % PAGE,
+                "table": np.ascontiguousarray(self._table_np[:, :width])}
+
+    def _program_key(self, inputs: dict):
+        return inputs["table"].shape[1]
+
+    def _step_logits(self, toks, pos, page_ids, offsets, table):
+        model, b = self.model, self.max_batch
         pos32 = pos.to(torch.int32)
         pos2d = pos.reshape(b, 1)
         x = model.tok_emb[toks]

@@ -10,6 +10,16 @@ entirely.  Pad rows land at positions >= the request's length, which the
 read mask ``l <= pos`` hides until decode overwrites them; inactive slots
 keep decoding garbage into their own rows, which is ignored.
 
+The batched step (``_step_logits`` plus the next-token choice over all
+``max_batch`` slots, one fixed shape) is a ``StepProgram``
+(``models/capture.py``): captured as a CUDA graph at the first step and
+replayed at every step after, its tokens, positions, seeds and steps copied
+into static buffers first, and the tokens read back with one ``.tolist()``
+after the replay, as the JAX server's jitted step returns them.  On the CPU
+the same program runs the step without a graph.  A prefill stays eager and
+writes its slot's rows into the cache in place, so the graph's caches are
+the server's own tensors and are never re-allocated.
+
 Greedy outputs are token-for-token identical to decoding each request alone
 through ``generate_compiled``.  Prefix caching, chunked prefill and the
 speculative server come with a later slice.  ``PagedDecodeServer``
@@ -23,7 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from minidiff_tpu_torch.kernels import _build
 from minidiff_tpu_torch.models import functional as F
+from minidiff_tpu_torch.models.capture import StepProgram
 from minidiff_tpu_torch.models.layers import check_device
 from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
 
@@ -44,7 +56,9 @@ class DecodeServer:
 
     ``greedy=False`` draws Gumbel-max samples at ``temperature`` (truncated
     by ``top_k`` / ``top_p`` / ``min_p``) with noise keyed by (request seed,
-    request-local step): each request's stream is deterministic in its seed.
+    request-local step), drawn on the device: each request's stream is
+    deterministic in its seed.  The model must stay where it was when the
+    server was built: the captured steps read its weights there.
     """
 
     def __init__(self, model, max_batch: int = 8, window=None,
@@ -64,8 +78,13 @@ class DecodeServer:
         self._free = list(range(max_batch))
         self._budget = np.zeros(max_batch, np.int64)   # tokens still to emit
         self._out: "dict[int, list]" = {}
-        self._seed = [0] * max_batch
+        self._seed = np.zeros(max_batch, np.int64)
         self._steps = np.zeros(max_batch, np.int64)    # slot-local step count
+        # (program key, library epoch) -> the captured step; one memory pool
+        self._programs: "dict[tuple, StepProgram]" = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._logits = None
 
     def _resolve_window(self, window):
         """The KV window: ``window`` (``max_seq_len`` by default), a multiple
@@ -90,16 +109,22 @@ class DecodeServer:
                  "v": torch.zeros(shape, dtype=self.model.dtype, device=self.device)}
                 for _ in self.model.blocks]
 
-    def _select(self, logits, slots):
-        """Next tokens from (n, V) logits, one row per slot in ``slots``."""
+    def _choose(self, logits, seeds, steps):
+        """Next tokens (n,) on the device from (n, V) logits and the slots'
+        seed and step tensors (n,): a slot's noise is keyed by its request's
+        (seed, step) alone."""
         noise = None
         if not self.greedy:
-            v = logits.shape[-1]
-            noise = torch.stack([
-                F.gumbel_noise((v,), (self._seed[s], self._steps[s]), self.device)
-                for s in slots])
+            noise = F.gumbel_noise(seeds, steps, torch.zeros_like(seeds),
+                                   logits.shape[-1])
         return F.select_next(logits, self.greedy, self.temperature, self.top_k,
-                             self.top_p, self.min_p, noise).tolist()
+                             self.top_p, self.min_p, noise)
+
+    @property
+    def last_logits(self):
+        """The (max_batch, V) logits of the last step, one row per slot;
+        the next step overwrites them."""
+        return self._logits
 
     def active(self) -> bool:
         """True while any slot is still decoding (finished but uncollected
@@ -120,7 +145,9 @@ class DecodeServer:
         self._steps[slot] = 0
         with torch.inference_mode():
             logits = self._prefill_slot(slot, padded.to(self.device), s0)
-            tok = self._select(logits, [slot])[0]
+            seed = torch.full((1,), self._seed[slot], dtype=torch.long,
+                              device=self.device)
+            tok = int(self._choose(logits, seed, torch.zeros_like(seed))[0])
         self._pos[slot] = s0          # position the new token will occupy
         self._tok[slot] = tok
         self._budget[slot] = max_new_tokens - 1
@@ -155,18 +182,54 @@ class DecodeServer:
         """Logits (B, 1, V) of one batched step of every slot."""
         return _chunk_step(self.model, self._caches, toks, pos, self.window)
 
+    def _step_inputs(self) -> dict:
+        """The host values the step's static buffers take for this step."""
+        return {"toks": self._tok, "pos": self._pos, "seeds": self._seed,
+                "steps": self._steps}
+
+    def _program_key(self, inputs: dict):
+        """What else tells one captured step from another: nothing here."""
+        return None
+
+    def _step_state(self) -> list:
+        """The tensors a step changes that a second run of it would not
+        change alike (none: the KV writes of a step depend on its inputs
+        alone, so the warm-up's writes are the replay's)."""
+        return []
+
+    def _device_step(self, toks, pos, seeds, steps, **rest):
+        """The captured step: (logits (B, V), next tokens (B,))."""
+        logits = self._step_logits(toks.reshape(-1, 1), pos, **rest)[:, 0]
+        return logits, self._choose(logits, seeds, steps)
+
+    def _program(self, inputs: dict) -> StepProgram:
+        key = (self._program_key(inputs), _build.epoch())
+        program = self._programs.get(key)
+        if program is None:
+            buffers = {name: torch.zeros(np.shape(v), dtype=torch.as_tensor(v).dtype,
+                                         device=self.device)
+                       for name, v in inputs.items()}
+            program = self._programs[key] = StepProgram(
+                lambda: self._device_step(**buffers), buffers, self.device,
+                pool=self._pool, restore=self._step_state())
+        return program
+
+    def _run_step(self, inputs: dict):
+        """(logits (B, V), next tokens (B,)) of one step on ``inputs``: a
+        replay of the captured step."""
+        return self._program(inputs).run(**inputs)
+
     def step(self) -> "dict[int, int]":
-        """One batched decode step for every live slot; returns {slot:
-        emitted token}.  Slots whose budget hits zero finish."""
+        """One batched decode step for every live slot (one replay of the
+        captured step); returns {slot: emitted token}.  Slots whose budget
+        hits zero finish."""
         live = [s for s in range(self.max_batch)
                 if s not in self._free and self._budget[s] > 0]
         if not live:
             return {}
         with torch.inference_mode():
-            toks = torch.as_tensor(self._tok, device=self.device)
-            pos = torch.as_tensor(self._pos, device=self.device)
-            logits = self._step_logits(toks.reshape(-1, 1), pos)
-            nxt = self._select(logits[:, 0], range(self.max_batch))
+            self._logits, nxt = self._run_step(self._step_inputs())
+            nxt = nxt.tolist()
         emitted: "dict[int, int]" = {}
         for s in live:
             tok = nxt[s]
@@ -216,6 +279,13 @@ class SSMDecodeServer(DecodeServer):
             state["conv"][slot] = row["conv"][0]
         return logits
 
+    def _step_state(self) -> list:
+        # the recurrence advances h and the conv window on every run
+        return [t for state in self._caches for t in state.values()]
+
     def _step_logits(self, toks, pos):
-        logits, self._caches = self.model.step(self._caches, toks[:, 0])
+        logits, new = self.model.step(self._caches, toks[:, 0])
+        for state, row in zip(self._caches, new):
+            for name, t in row.items():
+                state[name].copy_(t)
         return logits[:, None]

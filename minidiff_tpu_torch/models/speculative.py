@@ -74,38 +74,51 @@ def _write_int8_rows(cache, index, kk, vv):
         cache[name + "s"][index] = sc
 
 
-def _prefill(model, toks, L: int, last=None, kv_quant: bool = False):
+def _alloc_caches(model, b: int, L: int, kv_quant: bool, device):
+    """Per-layer caches of window L for b rows, as a prefill leaves them
+    before it writes: zeros, and for an int8 cache scale rows of 1 (as in
+    the JAX cache)."""
+    caches = []
+    for blk in model.blocks:
+        shape = (b, blk.attn.num_kv_heads, L, blk.attn.head_dim)
+        if kv_quant:
+            caches.append({"k8": torch.zeros(shape, dtype=torch.int8, device=device),
+                           "ks": torch.ones(shape[:3], dtype=torch.float32, device=device),
+                           "v8": torch.zeros(shape, dtype=torch.int8, device=device),
+                           "vs": torch.ones(shape[:3], dtype=torch.float32, device=device)})
+        else:
+            caches.append({"k": torch.zeros(shape, dtype=model.dtype, device=device),
+                           "v": torch.zeros(shape, dtype=model.dtype, device=device)})
+    return caches
+
+
+def _prefill(model, toks, L: int, last=None, kv_quant: bool = False, caches=None):
     """Whole-prompt parallel forward of toks (B, s) -> (caches of window L
     holding positions < s, logits (B, V) at position ``last``, default s-1).
     ``kv_quant`` stores int8 caches; attention still runs on the full
-    precision k/v, as in the JAX prefill (``decode.py:189-205``).
+    precision k/v, as in the JAX prefill (``decode.py:189-205``).  Given
+    ``caches`` (``_alloc_caches``' layout), the prefill resets and fills
+    them in place instead of allocating.
     """
     b, s = toks.shape
     last = s - 1 if last is None else int(last)
     x = model.tok_emb[toks]
     if not model.rope:
         x = x + model.pos_emb[:s]
-    caches = []
-    for blk in model.blocks:
+    if caches is None:
+        caches = _alloc_caches(model, b, L, kv_quant, toks.device)
+    else:
+        for cache in caches:
+            for name, t in cache.items():
+                t.fill_(1 if name in ("ks", "vs") else 0)
+    for blk, cache in zip(model.blocks, caches):
         attn = blk.attn
         q, kk, vv = F.block_qkv(blk, x)
-        shape = (b, attn.num_kv_heads, L, attn.head_dim)
         if kv_quant:
-            # unwritten scale rows are 1, as in the JAX cache
-            cache = {"k8": torch.zeros(shape, dtype=torch.int8, device=toks.device),
-                     "ks": torch.ones(shape[:3], dtype=torch.float32,
-                                      device=toks.device)}
-            cache["v8"], cache["vs"] = (torch.zeros_like(cache["k8"]),
-                                        torch.ones_like(cache["ks"]))
-            _write_int8_rows(cache, (slice(None), slice(None), slice(0, s)),
-                             kk, vv)
-            caches.append(cache)
+            _write_int8_rows(cache, (slice(None), slice(None), slice(0, s)), kk, vv)
         else:
-            ck = torch.zeros(shape, dtype=model.dtype, device=toks.device)
-            cv = torch.zeros_like(ck)
-            ck[:, :, :s] = kk
-            cv[:, :, :s] = vv
-            caches.append({"k": ck, "v": cv})
+            cache["k"][:, :, :s] = kk
+            cache["v"][:, :, :s] = vv
         o = sdpa(q, attn.expand_kv(kk), attn.expand_kv(vv), causal=True)
         x = F.block_finish(blk, x, o)
     x = model.ln_f(x)

@@ -1,7 +1,7 @@
 """Selective state-space models (Mamba-style) on PyTorch.
 
 Port of ``minidiff_tpu/models/ssm.py``: ``softplus``, ``MambaBlock``,
-``MambaLM`` and ``generate_compiled_ssm``.  The sequence mixer is a
+``MambaLM``, ``ssm_decode_program`` and ``generate_compiled_ssm``.  The sequence mixer is a
 per-channel linear recurrence ``h_t = Abar_t * h_{t-1} + Bbar_t x_t`` whose
 decay and input maps are functions of the input; the whole prompt or
 training sequence runs it as one ``linear_scan`` (the ``scan`` kernel on the
@@ -20,16 +20,21 @@ step the cross-entropy kernels.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 from torch import nn
 
+from minidiff_tpu_torch.kernels import _build
 from minidiff_tpu_torch.kernels.scan import linear_scan
 from minidiff_tpu_torch.models import functional as F
+from minidiff_tpu_torch.models.capture import DecodeLoop
+from minidiff_tpu_torch.models.decode import cached_program, weights_key
 from minidiff_tpu_torch.models.layers import Linear, check_device, resolve_device
 from minidiff_tpu_torch.models.transformer import RMSNorm
 
-__all__ = ["MambaBlock", "MambaLM", "generate_compiled_ssm", "softplus"]
+__all__ = ["MambaBlock", "MambaLM", "generate_compiled_ssm", "softplus",
+           "ssm_decode_program"]
 
 
 def softplus(x):
@@ -275,37 +280,73 @@ class MambaLM(nn.Module):
             return torch.cat(out, dim=1)
 
 
-def generate_compiled_ssm(model, prompt, max_new_tokens: int, greedy: bool = True,
-                          temperature: float = 1.0, top_k=None, seed: int = 0,
-                          device="cuda"):
-    """prompt (B, S0) int -> (B, S0 + max_new_tokens) int64 on the model's
-    device: one parallel prefill (the scan kernel) hands its O(1) state to a
-    loop of ``MambaLM.step``.
+# program key -> DecodeLoop, LRU-bounded as the JAX package's cache
+_SSM_DECODE_CACHE_MAX = 32
+_ssm_decode_cache: "OrderedDict" = OrderedDict()
 
-    Greedy mode takes the argmax and gives ``model.generate``'s tokens.
-    ``greedy=False`` draws a Gumbel-max sample at ``temperature`` (top-k
-    truncated with ``top_k``) with noise keyed by (seed, position):
-    deterministic per seed.  ``device`` must be where the model lives.
-    Capturing the step in a CUDA graph is later work.
-    """
+
+def ssm_decode_program(model, prompt, max_new_tokens: int, greedy: bool = True,
+                       temperature: float = 1.0, top_k=None, device="cuda"):
+    """The captured ``(prompt, seed) -> (B, S0 + max_new_tokens)`` program
+    behind ``generate_compiled_ssm`` for ``prompt``'s shape, cached per
+    (model, batch, prompt length, new tokens, sampling config, prompt dtype)
+    as the JAX package keys it, and per device, library epoch and weight
+    storage.  Its static state is ``model.init_state(B)``: the prefill
+    copies its states in, and the captured ``MambaLM.step`` updates them in
+    place."""
     dev = check_device(model, device)
-    prompt = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    prompt = torch.as_tensor(prompt)
     b, s0 = prompt.shape
     if s0 < 1 or max_new_tokens < 1:
         raise ValueError("generate_compiled_ssm needs a non-empty prompt and "
                          "max_new_tokens >= 1")
-    seed = int(seed) & 0xFFFFFFFF
+    key = (id(model), b, s0, max_new_tokens, greedy, float(temperature), top_k,
+           str(prompt.dtype), str(dev), _build.epoch(), weights_key(model))
 
-    def select(logits, i):
-        noise = None if greedy else F.gumbel_noise(logits.shape, (seed, i), dev)
-        return F.select_next(logits, greedy, temperature, top_k, None, None, noise)
+    def build():
+        states = model.init_state(b)
+        rows = torch.arange(b, device=dev)
 
-    with torch.inference_mode():
-        logits, states = model.prefill(prompt)
-        tok = select(logits, s0 - 1)
-        out = [tok]
-        for j in range(max_new_tokens - 1):
-            logits, states = model.step(states, tok)
-            tok = select(logits, s0 + j)
-            out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        def keep(new_states):
+            for st, nw in zip(states, new_states):
+                for name, t in nw.items():
+                    st[name].copy_(t)
+
+        def prefill(toks):
+            logits, st = model.prefill(toks)
+            keep(st)
+            return logits
+
+        def forward(tok, pos):
+            logits, st = model.step(states, tok)
+            keep(st)
+            return logits
+
+        def select(logits, seed, pos):
+            noise = (None if greedy
+                     else F.gumbel_noise(seed, pos, rows, logits.shape[-1]))
+            return F.select_next(logits, greedy, temperature, top_k, None, None,
+                                 noise)
+
+        return DecodeLoop(b, s0, max_new_tokens, dev, prefill, forward, select)
+
+    return cached_program(_ssm_decode_cache, key, build, _SSM_DECODE_CACHE_MAX)
+
+
+def generate_compiled_ssm(model, prompt, max_new_tokens: int, greedy: bool = True,
+                          temperature: float = 1.0, top_k=None, seed: int = 0,
+                          device="cuda"):
+    """prompt (B, S0) int -> (B, S0 + max_new_tokens) int64 on the model's
+    device, through ``ssm_decode_program``: one parallel prefill (the scan
+    kernel) hands its O(1) state to ``MambaLM.step``, on the card one CUDA
+    graph replay per token after the first.
+
+    Greedy mode takes the argmax and gives ``model.generate``'s tokens.
+    ``greedy=False`` draws a Gumbel-max sample at ``temperature`` (top-k
+    truncated with ``top_k``) with noise keyed by (seed, position, row),
+    drawn on the model's device: deterministic per seed.  ``device`` must
+    be where the model lives.
+    """
+    prompt = torch.as_tensor(prompt)
+    return ssm_decode_program(model, prompt, max_new_tokens, greedy, temperature,
+                              top_k, device)(prompt, seed)
