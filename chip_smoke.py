@@ -4,6 +4,7 @@ serving paths, the LLaMA-style options, the Mamba family and the
 Mixture-of-Experts family on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--json PATH]
+    python3 chip_smoke.py --refusal CASE   (one child case of phase 5)
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc; the
 kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
@@ -98,13 +99,18 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    reports ``xent_bwd``'s, ``ln_bwd``'s and ``addln_bwd``'s device time per
    step); then the f32 gradient gate: loss and every parameter's gradient of the
    kernel path on the card against the plain path on the CPU (batch 1 x
-   256 tokens);
+   256 tokens); then the capture refusals: in a child process each, a
+   train step whose loss reads ``.item()``, an ``md.jit`` program with
+   ``.item()`` and one that makes a numpy array a Tensor must raise at
+   their capture;
 6. the tape engine under ``md.use_backend("cuda")``: the JAX repo's
    ``bench.py`` matmul step (``md.value_and_grad`` of ``sum(tanh(x @ w))``
-   at 4096² bf16 and an SGD update; ms/step, TFLOP/s, exactly one launch of
-   each matmul kernel per step), the device-bound MLP of
-   ``benchmarks/mlp_bench.py`` (batch 8192, 784 -> 4096 -> 10, f32, SGD 0.1:
-   the loss must fall, exact launches per step), an f32 gate (the value,
+   at 4096² bf16 and an SGD update, through ``md.jit``; ms/step, TFLOP/s,
+   exactly one launch of each matmul kernel per step), the device-bound
+   MLP of ``benchmarks/mlp_bench.py`` (batch 8192, 784 -> 4096 -> 10, f32,
+   SGD 0.1, through ``md.jit``: the loss must fall, exact launches per
+   step), a draw from ``md.randn`` inside ``md.jit`` (fresh at each replay,
+   the eager draws of the same seed), an f32 gate (the value,
    gradients and an hvp of ``sum(tanh(x @ w))`` at 2048² on the card against
    the same tape on the CPU), and the README demo and the 64-dim Rosenbrock
    ``md.hessian`` against their closed forms;
@@ -181,6 +187,19 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
    7, phase 8 and each run of 9, 10, 11 and 12, and read just after each).
 
+The train steps of phases 5 and 9-12 (``make_train_step``'s default
+``jit=True``) and the tape steps of phase 6 (``md.jit``) run captured: the
+first call of a program is a real step, run eagerly, after which the step
+is captured; every later call replays one CUDA graph.  Each path is timed
+against its eager step (``jit=False``, or the function itself for the tape)
+in turns in the same call (``train_ab``: the flagship, options, MoE
+grouped and MambaLM steps and the tape's matmul and MLP steps; ms per step
+of every run, each arm's busy share and device calls from one profiled
+step, the capture's seconds, the device memory each arm's first two
+steps take and hold), each arm from a copy of the same weights, with
+their losses bit-equal step for step (or within the spread of two eager
+runs, reported).
+
 The decode entry points of phases 3, 4 and 7-12 (``generate_compiled``,
 ``generate_compiled_ssm`` and the three servers) run captured: one CUDA
 graph replay per token or step (``models/capture.py``), their launches
@@ -206,7 +225,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -530,6 +551,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", type=Path, default=None,
                     help="write every measurement to this file")
+    ap.add_argument("--refusal", choices=REFUSALS, default=None,
+                    help="run one capture-refusal case (a child process of the run)")
     args = ap.parse_args()
 
     import torch
@@ -543,6 +566,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.refusal is not None:
+        return refusal_case(torch, args.refusal)
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -586,6 +611,15 @@ def main() -> int:
     check(set(K.launch_counts()) == {k["name"] for k in kernels},
           "the kernels line must list every ported kernel")
     report["kernels"] = kernels
+    log("[train_ab] captured against eager (best run's ms per step; busy share, device "
+        "calls a step, peak MiB from one profiled step and the first two steps):")
+    for label, r in report["train_ab"].items():
+        c, e = r["captured"], r["eager"]
+        log(f"[train_ab]   {label}: {min(c['ms_per_step']):.3f} / {min(e['ms_per_step']):.3f} "
+            f"ms, busy {c['busy_share']:.1%} / {e['busy_share']:.1%}, calls "
+            f"{c['device_calls_per_step']} / {e['device_calls_per_step']}, peak "
+            f"{c['peak_mib']:.0f} / {e['peak_mib']:.0f} MiB, capture "
+            f"{c['capture_seconds']:.2f} s, losses {r['held']}")
     report["seconds"] = time.perf_counter() - t_start
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
@@ -635,13 +669,42 @@ def device_ms(torch, fn, iters: int = 50) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # ~25 ms at 2 GHz: longer than the enqueue
+    # ~25 ms at 2 GHz, or ~100 us a call past 250 calls: longer than the enqueue
+    torch.cuda._sleep(max(50_000_000, 200_000 * iters))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the readings of each name in one turn of a gated pair in the route A/Bs,
+# whose median is the turn's: a lone reading of the old kernel's own code
+# has read 6% slower than the turn beside it, past the 3% gate
+GATE_READS = 3
+# the least device ms of a reading in the route A/Bs of short calls
+# (xent_fwd's narrow rows, 7-14 us; the scan's (8, 16, 32768), 5 us): 50
+# calls made readings short enough for the card's drift between two turns
+# to move them by 3%
+GATE_READ_MS = 2.0
+
+
+def _pair_turns(torch, run, pair, iters: int = 50) -> dict:
+    """Device us of ``run(name)`` for the pair a route A/B gates (the old
+    build first) in two turns, ``pair`` then reversed.  A turn reads the
+    two alternately, GATE_READS times each, and a name's turn is the median
+    of its readings, so that both names' turns span the same stretch of
+    the card's drift."""
+    us = {n: [] for n in pair}
+    for order in (pair, pair[::-1]):
+        reads = {n: [] for n in pair}
+        for _ in range(GATE_READS):
+            for n in order:
+                reads[n].append(device_ms(torch, lambda: run(n), iters) * 1e3)
+        for n in pair:
+            us[n].append(statistics.median(reads[n]))
+    return us
 
 
 def max_err(torch, out, ref, kind, dtype_name, g=None):
@@ -1320,16 +1383,19 @@ def norm_fwd_route_ab(torch, randn, v1_libs) -> list:
             plan = L.norm_fwd_plan(rows, d, dtype, rms)
             run = lambda: _norm_fwd_run(L, name, x, g, b, a)  # noqa: E731
             ref = _norm_fwd_plain(L, name, x, g, b, a)
-            us, err = {"old": [], "new": []}, {}
-            for route in ("old", "new", "new", "old"):
+
+            def routed(route):
                 with built_as(src, old[src]) if route == "old" else contextlib.nullcontext():
-                    if route not in err:
-                        got = run()
-                        if add:
-                            check(torch.equal(got[0], ref[0]),
-                                  f"{name} {[rows, d]} {dn} ({route}): t = x + a must be exact")
-                        err[route] = max_err(torch, got, ref, "ln", dn)
-                    us[route].append(device_ms(torch, run) * 1e3)
+                    return run()
+
+            err = {}
+            for route in ("old", "new"):
+                got = routed(route)
+                if add:
+                    check(torch.equal(got[0], ref[0]),
+                          f"{name} {[rows, d]} {dn} ({route}): t = x + a must be exact")
+                err[route] = max_err(torch, got, ref, "ln", dn)
+            us = _pair_turns(torch, routed, ("old", "new"))
             old_plan = L.norm_fwd_plan(rows, d, dtype, rms, wave=False)
             row = dict(name=name, dtype=dn, shape=[rows, d], old_us=us["old"],
                        new_us=us["new"], max_abs_err=err, route=plan.route,
@@ -1415,15 +1481,29 @@ XENT_SWEEP_V = (tuple(range(8, 513, 8)) + (10, 1000, 1024, 2040, 4104, 8200, 163
                                            32768, 32776, 50257, 65536))
 
 
-def _turns(torch, names, run, first):
-    """Device us of ``run(name)`` for each name in turns (names, then the
-    same names in reverse), ``first(name, out)`` called once per name on a
-    run's output before its first timing."""
-    us = {n: [] for n in names}
-    for n in (*names, *reversed(names)):
-        if not us[n]:
+def _turns(torch, names, run, first, min_ms: float = 0.0):
+    """Device us of ``run(name)`` for each name in two turns,
+    ``first(name, out)`` called once per name on a run's output before its
+    first timing.  The first two names are the pair every caller gates
+    (the old build and the plan): _pair_turns reads them first.  The
+    others, which are only reported, follow forward and back, each turn one
+    reading.  ``min_ms`` > 0 lengthens each reading of a short call from 50
+    calls to as many as fill ``min_ms`` of device time (at most 400, which
+    keeps a call of two launches inside the launch queue), from a first
+    reading of 5 calls of the first name."""
+    pair, rest = names[:2], names[2:]
+    for n in pair:
+        first(n, run(n))
+    iters = 50
+    if min_ms:
+        est = device_ms(torch, lambda: run(names[0]), 5)
+        iters = 400 if est * 400 <= min_ms else max(50, math.ceil(min_ms / est))
+    us = _pair_turns(torch, run, pair, iters)
+    for n in (*rest, *reversed(rest)):
+        if n not in us:
             first(n, run(n))
-        us[n].append(device_ms(torch, lambda: run(n)) * 1e3)
+            us[n] = []
+        us[n].append(device_ms(torch, lambda: run(n), iters) * 1e3)
     return us
 
 
@@ -1432,7 +1512,7 @@ def xent_bwd_route_ab(torch, gen, randn, v1_lib) -> list:
     route, and the row kernel at each of its shapes the plan did not pick
     (its default vectors a thread, and half as many on twice the threads),
     against the warp kernel of ``v1_lib`` (xent.cu built with
-    -DXENT_BWD_V1), in turns (old, plan, the others, then back), each within
+    -DXENT_BWD_V1), in turns (old, plan, back, then the others), each within
     TOL["xent_dz"] of the plain version and the new routes the same bits on
     a second run; and xent_fwd against the same build, the same bits and
     within 3% of its time.  The plan's route must be no more than 3% slower
@@ -1556,11 +1636,12 @@ def xent_fwd_route_ab(torch, gen, randn, v1_lib) -> list:
     the row kernel holds the row, the route it did not pick and the row
     kernel at every other count of vectors a thread, against the
     warp kernel of ``v1_lib`` (xent.cu built with -DXENT_FWD_V1), in turns
-    (old, plan, other, then back), each within TOL["xent_loss"] of the plain
+    (old, plan, back, then the others), each within TOL["xent_loss"] of the plain
     version with labels outside [0, V) (-1 and V) among the rows, and the
     new routes the same bits on a second run.  The plan's route must be no
     more than 3% slower than the old in either turn at every shape: the
-    readings behind kernels.xent.FWD_ROW_MIN_V, FWD_VECS and FWD_THREADS."""
+    readings behind kernels.xent.FWD_ROW_MIN_V, FWD_VECS and FWD_THREADS.
+    Each reading covers at least GATE_READ_MS of device time."""
     from minidiff_tpu_torch.kernels import xent as X
 
     old = lib_at("xent", v1_lib)
@@ -1599,7 +1680,7 @@ def xent_fwd_route_ab(torch, gen, randn, v1_lib) -> list:
                     check(torch.equal(got.view(torch.int32), run(name).view(torch.int32)),
                           f"xent_fwd {name} {[rows, v]} {dn}: a second run gave other bits")
 
-            us = _turns(torch, ("old", *plans), run, first)
+            us = _turns(torch, ("old", *plans), run, first, min_ms=GATE_READ_MS)
             check(max(us["plan"]) <= 1.03 * min(us["old"]),
                   f"xent_fwd {[rows, v]} {dn}: the plan's {plan.route} route {us['plan']} us "
                   f"is more than 3% slower than the old {us['old']} us")
@@ -1630,7 +1711,7 @@ RING_FASTER = {"rms_bwd": ((8192, 1024), (8192, 4096)),
 def _ring_ab(torch, name, old, x, g, dy, g0, eps) -> dict:
     """``name`` (rms_bwd, ln_bwd or addln_bwd) at x's shape: the plan's ring
     and every other ring of RING_AB against ``old`` (its source built with
-    -DNORM_BWD_V1), in turns (old, plan, the others, then back), dx within
+    -DNORM_BWD_V1), in turns (old, plan, back, then the others), dx within
     TOL["ln"] (TOL["addln_dx"] for addln_bwd) and dg (and db) within
     TOL["lnsum"] of the plain version, the rings the same bits on a second
     run.  The plan must be faster than the old in both turns at
@@ -2500,7 +2581,8 @@ def bwd_v1(report):
 
 
 def profile_bwd_v1(torch, report, out, label, run, kernels):
-    """Profile ``run`` once more on the old backwards (phase 2 built them;
+    """Profile ``run`` once more on the old backwards (after one call
+    outside the profiler, which captures a train step on them; phase 2 built them;
     a CPU rehearsal has no ``bwd_v1_libs`` and skips it) into
     ``out["train_profile_bwd_v1"]``, and log the device time per step of
     each redesigned backward of ``kernels`` (those the run launches) on
@@ -2508,7 +2590,7 @@ def profile_bwd_v1(torch, report, out, label, run, kernels):
     if "bwd_v1_libs" not in report:
         return
     with bwd_v1(report):
-        out["train_profile_bwd_v1"] = profile_run(
+        out["train_profile_bwd_v1"] = profile_captured(
             torch, f"{label}, -DXENT_BWD_V1 / -DNORM_BWD_V1", run)
     new, old = out["train_profile"]["bwd"], out["train_profile_bwd_v1"]["bwd"]
     log(f"[profile]   {label}: device us per step new / old: " + ", ".join(
@@ -2546,14 +2628,15 @@ def fwd_v1(report):
 
 
 def profile_fwd_v1(torch, report, out, label, run, groups):
-    """Profile ``run`` once more on the old forward and scan (fwd_v1; a CPU
+    """Profile ``run`` once more on the old forward and scan (fwd_v1; after
+    one call outside the profiler, as profile_bwd_v1; a CPU
     rehearsal has no ``fwd_v1_libs`` and skips it) into
     ``out["train_profile_fwd_v1"]``, and log the device us per step of
     ``groups`` (step_group's) on both."""
     if "fwd_v1_libs" not in report:
         return
     with fwd_v1(report):
-        out["train_profile_fwd_v1"] = profile_run(
+        out["train_profile_fwd_v1"] = profile_captured(
             torch, f"{label}, -DXENT_FWD_V1 / -DSCAN_V1 and the flip route", run)
     new, old = out["train_profile"]["groups"], out["train_profile_fwd_v1"]["groups"]
     log(f"[profile]   {label}: device us per step new / old: " + ", ".join(
@@ -2973,14 +3056,15 @@ def _scan_ring_choices(S, lead, t, c, dtype, plan) -> dict:
 def scan_route_ab(torch, gen, v1_lib) -> list:
     """The scan at scan_ab_shapes(): the plan's route and the ring shapes
     of _scan_ring_choices against the thread kernel of ``v1_lib`` (scan.cu
-    built with -DSCAN_V1), in turns (old, plan, the others, then back),
+    built with -DSCAN_V1), in turns (old, plan, back, then the others),
     every route the old build's bits and the same bits on a second run;
     then the reverse scan against the old composition flip(scan(shift(flip(
     a)), flip(g))) on the old build, in turns, the same bits, and at the
     one-row prefills against the plain version too.  The plan must be no
     more than 3% slower than the old build in either turn at every shape,
     forward and reverse: the readings behind kernels.scan's tile rule and
-    ring depth."""
+    ring depth.  Each forward reading covers at least GATE_READ_MS of
+    device time."""
     from minidiff_tpu_torch.kernels import scan as S
 
     old = lib_at("scan", v1_lib)
@@ -3008,7 +3092,7 @@ def scan_route_ab(torch, gen, v1_lib) -> list:
                 check(torch.equal(run(name).view(bits), want),
                       f"scan {name} {[lead, t, c]} {dn}: a second run gave other bits")
 
-        us = _turns(torch, ("old", *plans), run, first)
+        us = _turns(torch, ("old", *plans), run, first, min_ms=GATE_READ_MS)
         del want
 
         # the reverse scan, against the composition it replaces
@@ -3290,6 +3374,185 @@ def capture_seconds(torch, run) -> float:
     run()
     torch.cuda.synchronize()
     return capture.STATS["capture_seconds"]
+
+
+# ---------------------------------------------------------------------------
+# captured train steps against the eager step (phases 5, 6, 9, 10 and 12)
+# ---------------------------------------------------------------------------
+
+# steps in each timed run of a train A/B (AB_ROUNDS runs an arm)
+TRAIN_AB_STEPS = 5
+# the steps that make a host sync or a host copy inside a capture, each run
+# in a child process of its own (capture_refusals): a refused capture can
+# leave the process's CUDA generator unusable
+REFUSALS = ("train_item", "jit_item", "jit_host_copy")
+
+
+def model_arms(torch, model, opt, loss_fn, x, y, moe: bool = False):
+    """train_ab's arms of ``make_train_step`` on ``model``: each arm trains
+    its own copy of the weights as they stand now (the captured arm with
+    ``jit=True``, the eager arm with ``jit=False``), one step on (x, y) a
+    call, with a new ``opt()``.  ``model``'s gradients are dropped first."""
+    import copy
+
+    from minidiff_tpu_torch import make_train_step
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    init = copy.deepcopy(model)
+
+    def make(arm):
+        m = copy.deepcopy(init)
+        step = make_train_step(m, opt(), loss_fn=loss_fn, jit=arm == "captured",
+                               device=DEVICE, apply_fn=m.forward_with_aux if moe else None)
+        return lambda: step(x, y)
+
+    return make
+
+
+def train_ab(torch, label, make, steps: int = TRAIN_AB_STEPS) -> dict:
+    """A train step captured against its eager step in this call.
+
+    ``make(arm)`` gives an arm ("captured" or "eager"): a callable that runs
+    one train step from the arm's own state and returns its loss (a device
+    tensor); both arms start from the same state.  First each arm's first
+    two steps, with the device memory they take beyond what was held before
+    them (peak, and held after them) and the capture's seconds (its
+    warm-up step included); then AB_ROUNDS timed runs of ``steps`` steps
+    an arm in turns (captured, eager, eager, captured); then one profiled
+    step of each arm (busy share, busy us and device calls a step).  Gates:
+    the captured arm captures once at its first step and replays once a
+    step after it, the eager arm neither; every loss finite; the two arms'
+    losses bit-equal step for step, or, where they are not, within the
+    spread of a second eager run from the same state (the result says
+    which)."""
+    from minidiff_tpu_torch.models import capture
+
+    arms = {arm: make(arm) for arm in ("captured", "eager")}
+    losses = {arm: [] for arm in arms}
+    out = {"steps": steps, "rounds": AB_ROUNDS}
+    for arm, run in arms.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        capture.reset_stats()
+        losses[arm] += [run(), run()]
+        torch.cuda.synchronize()
+        first = (capture.STATS["captures"], capture.STATS["replays"])
+        want = (1, 1) if arm == "captured" else (0, 0)
+        check(first == want, f"{label} {arm}: {first[0]} captures and {first[1]} replays "
+              f"over its first two steps, expected {want}")
+        out[arm] = dict(peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+                        held_mib=(torch.cuda.memory_allocated() - base) / 2 ** 20,
+                        capture_seconds=capture.STATS["capture_seconds"], ms_per_step=[])
+    for r in range(AB_ROUNDS):
+        for arm in (("captured", "eager") if r % 2 == 0 else ("eager", "captured")):
+            torch.cuda.synchronize()
+            capture.reset_stats()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                losses[arm].append(arms[arm]())
+            torch.cuda.synchronize()
+            out[arm]["ms_per_step"].append((time.perf_counter() - t0) / steps * 1e3)
+            got = (capture.STATS["replays"], capture.STATS["captures"])
+            want = (steps, 0) if arm == "captured" else (0, 0)
+            check(got == want, f"{label} {arm}: {got[0]} graph replays and {got[1]} "
+                  f"captures over {steps} steps, expected {want}")
+    cap, eag = (torch.stack(losses[arm]).double().cpu() for arm in arms)
+    check(bool(torch.isfinite(cap).all() and torch.isfinite(eag).all()),
+          f"{label}: non-finite losses {cap.tolist()} / {eag.tolist()}")
+    diff, spread = (cap - eag).abs().max().item(), 0.0
+    out["held"] = "bit-equal"
+    if not torch.equal(cap, eag):
+        again = make("eager")
+        eag2 = torch.stack([again() for _ in range(len(eag))]).double().cpu()
+        spread = (eag2 - eag).abs().max().item()
+        check(diff <= spread, f"{label}: captured losses differ from the eager run's by "
+              f"{diff:.3g}, beyond the spread of two eager runs {spread:.3g}")
+        out["held"] = "within the spread of two eager runs"
+        del again
+    out.update(max_abs_diff=diff, eager_spread=spread, losses_captured=cap.tolist(),
+               losses_eager=eag.tolist())
+    for arm, run in arms.items():
+        prof = profile_run(torch, f"{label}, {arm}, one step", run)
+        out[arm].update(busy_share=prof["device_busy_us"] / prof["wall_us"],
+                        busy_us_per_step=prof["device_busy_us"],
+                        device_calls_per_step=prof["device_calls"], profile=prof)
+    c, e = out["captured"], out["eager"]
+    log(f"[train_ab] {label}: captured {min(c['ms_per_step']):.3f} ms/step (busy "
+        f"{c['busy_share']:.1%}, {c['device_calls_per_step']} device calls a step, "
+        f"capture {c['capture_seconds']:.2f} s, peak {c['peak_mib']:.0f} MiB, held "
+        f"{c['held_mib']:.0f} MiB) | eager {min(e['ms_per_step']):.3f} ms/step (busy "
+        f"{e['busy_share']:.1%}, {e['device_calls_per_step']} calls, peak "
+        f"{e['peak_mib']:.0f} MiB, held {e['held_mib']:.0f} MiB) | runs ms/step captured "
+        f"{[round(t, 3) for t in c['ms_per_step']]} eager "
+        f"{[round(t, 3) for t in e['ms_per_step']]} | {len(cap)} losses {out['held']} "
+        f"(max |diff| {diff:.3g}, eager spread {spread:.3g}); one replay a step")
+    return out
+
+
+def refusal_case(torch, case: str) -> int:
+    """A child process's one case of capture_refusals: a captured step that
+    makes a host sync (``.item()``) or a host-to-device copy (a numpy array
+    made a Tensor inside ``fn``).  Its first call runs the step eagerly,
+    where both are allowed, then captures it, which must raise.  Prints one
+    JSON line; exits 0 where the call raised."""
+    import numpy as np
+
+    import minidiff_tpu_torch as md
+    from minidiff_tpu_torch import SGD, TransformerLM, lm_loss, make_train_step
+
+    if case == "train_item":
+        model = TransformerLM(dtype=torch.float32, device=DEVICE, seed=0, vocab_size=64,
+                              dim=128, num_heads=2, num_layers=1, max_seq_len=64)
+        toks = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (2, 64))).to(DEVICE)
+
+        def loss_fn(logits, y):
+            loss = lm_loss(logits, y)
+            return loss if loss.item() >= 0 else -loss  # a host read of the loss
+
+        step = make_train_step(model, SGD(1e-3), loss_fn=loss_fn, device=DEVICE)
+
+        def call():
+            return step(toks, toks)
+    else:
+        md.set_backend(DEVICE)
+        x = md.Tensor(np.ones((64, 64)), dtype=md.float32)
+        if case == "jit_item":
+            def fn(x):
+                return x * float(md.sum(x).item())
+        else:
+            def fn(x):
+                return x + md.Tensor(np.ones((64, 64)), dtype=md.float32)
+        jitted = md.jit(fn)
+
+        def call():
+            return jitted(x)
+    try:
+        call()
+    except Exception as e:  # the refusal this case looks for
+        print(json.dumps({"case": case, "raised": True,
+                          "error": f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:200]}"}))
+        return 0
+    print(json.dumps({"case": case, "raised": False}))
+    return 1
+
+
+def capture_refusals(torch, report) -> None:
+    """Each of REFUSALS in a child process (``--refusal CASE``): the capture
+    of a step with a host sync or a host copy must raise on the card."""
+    out = {}
+    for case in REFUSALS:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--refusal",
+                               case], capture_output=True, text=True, timeout=600, cwd=ROOT)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        res = json.loads(lines[-1]) if lines else {"case": case, "raised": None}
+        check(proc.returncode == 0 and res.get("raised") is True,
+              f"capture refusal {case}: rc {proc.returncode}, {res}; stderr "
+              f"{proc.stderr[-1500:]}")
+        out[case] = res
+        log(f"[refusal] {case}: the capture raised {res['error']}")
+    report["capture_refusals"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -3667,7 +3930,11 @@ def phase_train(torch, seed: int, report):
         torch, "one train step", lambda: step(toks, toks))
     profile_bwd_v1(torch, report, report, "one train step", lambda: step(toks, toks),
                    ("xent_bwd", "ln_bwd", "addln_bwd"))
-    del model, step
+    del step
+    report.setdefault("train_ab", {})["flagship"] = train_ab(
+        torch, "flagship train step",
+        model_arms(torch, model, lambda: SGD(1e-3), lm_loss, toks, toks))
+    del model
 
     # f32 gradient gate: the kernel path on the card against the plain path
     # on the CPU, the same weights (drawn from the seed on the CPU)
@@ -3701,6 +3968,7 @@ def phase_train(torch, seed: int, report):
     log(f"[train] f32 gate, batch 1 x {GATE_SEQ}: loss GPU {loss_gpu.item():.6f} "
         f"CPU {loss_cpu.item():.6f}; every gradient within {worst:.3g} of its "
         f"largest value (worst {worst_name})")
+    capture_refusals(torch, report)
 
 
 # ---------------------------------------------------------------------------
@@ -3723,10 +3991,15 @@ def phase_tape(torch, seed, report):
     w = md.Tensor(rng.randn(MM_N, MM_N) / np.sqrt(MM_N), dtype=md.bfloat16)
     vag = md.value_and_grad(lambda x, w: md.sum(md.tanh(x @ w)), argnums=(0, 1))
 
-    def mm_step(state):
-        x, w, _ = state
+    def mm_core(x, w):
         out, (gx, gw) = vag(x, w)
         return x - MM_LR * gx, w - MM_LR * gw, out
+
+    # the step captured: md.jit, one graph replay a step after the first
+    mm_jit = md.jit(mm_core)
+
+    def mm_step(state):
+        return mm_jit(*state[:2])
 
     state, dt, counts = _timed_steps(torch, K, mm_step, (x, w, None), MM_WARMUP,
                                      MM_STEPS, MM_STEP_LAUNCHES, "tape matmul step")
@@ -3741,7 +4014,10 @@ def phase_tape(torch, seed, report):
     report["tape_matmul_profile"] = profile_run(
         torch, "one tape matmul step", lambda: mm_step(state))
     launches = dict(counts)
-    del x, w, state
+    del mm_jit, state
+    report.setdefault("train_ab", {})["tape_matmul"] = train_ab(
+        torch, "tape matmul step (md.jit)", tape_arms(md, mm_core, (x, w)))
+    del x, w
 
     # mlp_bench.py's device-bound MLP on synthetic_classification-style data
     centroids = np.random.RandomState(42).randn(MLP_OUT, MLP_IN)
@@ -3754,7 +4030,7 @@ def phase_tape(torch, seed, report):
               "b1": np.zeros(MLP_HIDDEN),
               "w2": rng.randn(MLP_HIDDEN, MLP_OUT) / np.sqrt(MLP_HIDDEN),
               "b2": np.zeros(MLP_OUT)}
-    params = {k: md.Tensor(v, dtype=md.float32) for k, v in params.items()}
+    params = params0 = {k: md.Tensor(v, dtype=md.float32) for k, v in params.items()}
 
     def mlp_loss(p, x, y):
         h = md.maximum(x @ p["w1"] + p["b1"], 0.0)
@@ -3763,10 +4039,16 @@ def phase_tape(torch, seed, report):
 
     mlp_vag = md.value_and_grad(mlp_loss)
 
+    def mlp_core(p, x, y):
+        loss, g = mlp_vag(p, x, y)
+        return {k: p[k] - MLP_LR * g[k] for k in p}, loss
+
+    mlp_jit = md.jit(mlp_core)
+
     def mlp_step(state):
         p, history = state
-        loss, g = mlp_vag(p, xs, ys)
-        return {k: p[k] - MLP_LR * g[k] for k in p}, history + [loss]
+        p, loss = mlp_jit(p, xs, ys)
+        return p, history + [loss]
 
     (params, losses), dt, counts = _timed_steps(
         torch, K, mlp_step, (params, []), 1, MLP_STEPS, MLP_STEP_LAUNCHES,
@@ -3787,10 +4069,57 @@ def phase_tape(torch, seed, report):
     for k, n in counts.items():
         launches[k] = launches.get(k, 0) + n
     report["launches_tape"] = {k: launches.get(k, 0) for k in K.launch_counts()}
-    del xs, ys, params
+    del mlp_jit
+    report["train_ab"]["tape_mlp"] = train_ab(
+        torch, "tape MLP step (md.jit)",
+        tape_arms(md, lambda p: mlp_core(p, xs, ys), (params0,)))
+    del xs, ys, params, params0
+    tape_rng(torch, md, report)
 
     tape_gate(torch, md, seed, report)
     tape_closed_forms(torch, md, report)
+
+
+def tape_arms(md, core, state0):
+    """train_ab's arms of a functional tape step ``core(*state) -> (*state,
+    loss)``: the captured arm runs ``md.jit(core)``, the eager arm ``core``,
+    each from ``state0``; a call runs one step and returns the loss's
+    device tensor."""
+    def make(arm):
+        fn = md.jit(core) if arm == "captured" else core
+        state = list(state0)
+
+        def run():
+            *state[:], loss = fn(*state)
+            return loss._data
+
+        return run
+
+    return make
+
+
+def tape_rng(torch, md, report):
+    """A draw from the tape's generator inside md.jit on the card: the
+    capture registers the generator with its graph, so every call draws
+    anew, the same numbers as the eager function's calls from the same
+    seed (the JAX package bakes such a draw in as a constant)."""
+    import numpy as np
+
+    x = md.Tensor(torch.zeros(4, 4, device=DEVICE))
+
+    def fn(x):
+        return x + md.randn(4, 4)
+
+    runs = {}
+    for name, f in (("eager", fn), ("jit", md.jit(fn))):
+        md.seed(11)
+        runs[name] = [np.asarray(f(x)) for _ in range(4)]
+    fresh = all(not np.array_equal(a, b) for a, b in zip(runs["jit"], runs["jit"][1:]))
+    same = all(np.array_equal(a, b) for a, b in zip(runs["jit"], runs["eager"]))
+    check(fresh and same, f"md.jit draws: fresh each call {fresh}, the eager draws {same}")
+    report["tape_rng"] = dict(fresh_each_call=fresh, equal_to_eager=same)
+    log("[tape] md.jit of a draw from md.randn: a fresh draw each replay, the eager "
+        "function's numbers from the same seed")
 
 
 def tape_gate(torch, md, seed, report):
@@ -4394,7 +4723,11 @@ def phase_options(torch, seed: int, report):
                   f"below the old build's {was.get(k)}")
     profile_fwd_v1(torch, report, out, "one options train step",
                    lambda: step(train_toks, train_toks), ("xent_fwd",))
-    del model, step
+    del step
+    report.setdefault("train_ab", {})["options"] = train_ab(
+        torch, "options train step",
+        model_arms(torch, model, lambda: SGD(1e-3), lm_loss, train_toks, train_toks))
+    del model
 
     # f32 gates, full width and one layer: the kernel path on the card
     # against the plain path on the CPU, the same weights.  f32 through one
@@ -4686,7 +5019,10 @@ def phase_ssm(torch, seed: int, report):
     check(flips is None, f"ssm train step: flip kernels in the profile {flips}")
     profile_fwd_v1(torch, report, out, "one ssm train step", lambda: step(x, y),
                    ("flip", "cat", "scan"))
-    del model, step, x, y
+    del step
+    report.setdefault("train_ab", {})["mamba"] = train_ab(
+        torch, "MambaLM train step", model_arms(torch, model, lambda: SGD(SSM_LR), lm_loss, x, y))
+    del model, x, y
 
     # the tape: md.value_and_grad of a linear_scan loss; an f32 gate against
     # the CPU tape, then bf16 timed at the train step's scan shape (the
@@ -5146,6 +5482,12 @@ def phase_moe(torch, seed: int, report):
         torch, "one grouped moe train step", lambda: steps["grouped"](toks, toks))
     profile_bwd_v1(torch, report, out, "one grouped moe train step",
                    lambda: steps["grouped"](toks, toks), ("xent_bwd", "ln_bwd", "addln_bwd"))
+    grouped = models["grouped"]
+    del steps, models
+    report.setdefault("train_ab", {})["moe_grouped"] = train_ab(
+        torch, "moe grouped train step",
+        model_arms(torch, grouped, lambda: SGD(1e-3), make_moe_loss(0.01), toks, toks,
+                   moe=True))
     report["moe"] = out
     report["launches_moe"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 

@@ -3,7 +3,8 @@
 Seven slices are ported.  The tape engine: ``Tensor`` / ``backward()`` with
 its three cleanup modes, higher-order sweeps and ``reuse_graph``, the op
 registry and its VJPs, ``value_and_grad`` / ``grad`` / ``vjp`` / ``jvp`` /
-``hvp`` / ``hessian`` and the gradcheck oracle (``minidiff_tpu_torch.utils``),
+``hvp`` / ``hessian``, ``jit`` (a tape program captured as a CUDA graph)
+and the gradcheck oracle (``minidiff_tpu_torch.utils``),
 over two array backends, ``"cuda"`` (the default) and ``"cpu"``
 (``md.use_backend("cpu")``).  Serving: ``TransformerLM``,
 ``generate_compiled`` (with an int8 KV cache, ``kv_quant=True``), the
@@ -18,7 +19,8 @@ int8 expert banks through the same decode paths, its train step
 (``make_moe_loss``, ``make_train_step(..., apply_fn=...)``), and the tape's
 ``dequant_matmul_bmm``.
 Training: ``make_train_step`` with ``SGD``, ``Adam`` and ``AdamW``,
-``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd.
+``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd,
+each step one CUDA graph replay (``jit=True``, the default).
 Hand-written sm_90a CUDA kernels (``minidiff_tpu_torch.kernels``) carry the
 tape's large 2-D matrix products, LayerNorm, RMSNorm and their fused
 residual-add forms, flash attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,
@@ -52,6 +54,7 @@ from minidiff_tpu_torch.func import (  # noqa: F401
     grad,
     hessian,
     hvp,
+    jit,
     jvp,
     value_and_grad,
     vjp,

@@ -605,6 +605,11 @@ class TorchBackend:
             self._generator = torch.Generator(device=self.device)
         return self._generator
 
+    def drawn_generators(self) -> list:
+        """The generator of this backend's draws, once a draw or a seed has
+        made it (a captured tape program registers it with its graph)."""
+        return [] if self._generator is None else [self._generator]
+
     def seed(self, value: int) -> None:
         self._gen().manual_seed(int(value))
 

@@ -5,21 +5,29 @@ The port of ``minidiff_tpu/func.py:51-220``: ``value_and_grad``, ``grad``,
 (no torch autograd).  Arguments may be Tensors or pytrees (dicts, lists,
 tuples) of Tensors; small helpers here stand in for ``jax.tree``.
 ``hessian`` takes one hvp per basis direction, the JAX package's loop off
-XLA.  ``jit``, ``remat``, ``scan``, ``cond``, ``while_loop`` and ``lower``
-are not ported yet; the decode programs are captured as CUDA graphs
-(``models/capture.py``), and ``jit``'s capture of a tape step comes next.
+XLA.  ``jit`` (``minidiff_tpu/func.py:229-347``) captures a tape program
+as a CUDA graph over static buffers, a ``StepProgram``
+(``models/capture.py``) per key.  ``remat``, ``scan``, ``cond``,
+``while_loop`` and ``lower`` are not ported yet.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import TYPE_CHECKING
 
 import numpy as np
+import torch
 
 import minidiff_tpu_torch as md
+import minidiff_tpu_torch.backend as backend
+from minidiff_tpu_torch.kernels import _build
+from minidiff_tpu_torch.models.capture import StepProgram, cached_program
 
 if TYPE_CHECKING:
-    from typing import Any, Callable, Sequence, Union
+    from typing import Any, Callable, Optional, Sequence, Union
+
+_JIT_CACHE_MAX = 32
 
 
 def _is_tensor(x: "Any") -> bool:
@@ -39,6 +47,44 @@ def _tree_map(fn: "Callable[[Any], Any]", tree: "Any") -> "Any":
             return out
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree)
+
+
+def _tree_flatten(tree: "Any"):
+    """(leaves, structure) of nested dicts, lists and tuples, in
+    ``_tree_map``'s order: a Tensor and any other object is a leaf, None an
+    empty subtree.  The structure is hashable."""
+    leaves: list = []
+
+    def walk(t):
+        if t is None:
+            return ("none",)
+        if isinstance(t, dict):
+            return ("dict", tuple(t), tuple(walk(v) for v in t.values()))
+        if isinstance(t, (list, tuple)):
+            return ("seq", type(t), tuple(walk(v) for v in t))
+        leaves.append(t)
+        return ("leaf",)
+
+    return leaves, walk(tree)
+
+
+def _tree_unflatten(structure: tuple, leaves: "Sequence[Any]") -> "Any":
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind == "none":
+            return None
+        if kind == "leaf":
+            return next(it)
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        out = [build(c) for c in s[2]]
+        if s[1] is list:
+            return out
+        return s[1](*out) if hasattr(s[1], "_fields") else s[1](out)
+
+    return build(structure)
 
 
 def _tree_detach(tree: "Any", allow_grad: bool) -> "Any":
@@ -186,4 +232,149 @@ def hvp(fn: "Callable[[md.Tensor], md.Tensor]"):
     return wrapper
 
 
-__all__ = ["value_and_grad", "grad", "vjp", "jvp", "hvp", "hessian"]
+def _is_dynamic_leaf(x: "Any") -> bool:
+    return isinstance(x, (md.Tensor, torch.Tensor, np.ndarray, np.generic,
+                          int, float, complex))
+
+
+class _Donated:
+    """What a donated Tensor holds after the call: reading it raises, as
+    reading a deleted JAX array does."""
+
+    __slots__ = ()
+
+    def _deleted(self, *args: "Any", **kwargs: "Any"):
+        raise RuntimeError("md.jit: this Tensor was donated to a compiled "
+                           "program and must not be read after the call")
+
+    __getattr__ = __array__ = __len__ = __iter__ = _deleted
+
+    def __repr__(self) -> str:
+        return "<donated>"
+
+
+def jit(fn: "Callable[..., Any]", in_shardings: "Any" = None,
+        out_shardings: "Any" = None, donate: bool = False,
+        donate_argnums: "Optional[Sequence[int]]" = None):
+    """Capture a Tensor program as one CUDA graph per key.
+
+    ``fn`` may build tapes, call ``backward()`` and update parameters out of
+    place (an optimizer step), anything the eager engine supports except
+    data-dependent Python control flow and host reads (``.item()``, a
+    numpy array or list turned into a Tensor inside ``fn``: a capture
+    refuses both, and they raise).  The leaves of args and kwargs are keyed
+    as the JAX package keys them: Tensors by ``allow_grad``, shape and
+    dtype; torch tensors, numpy arrays and numbers as dynamic arrays by
+    shape and dtype (``fn`` receives them as tensors on the device); any
+    other leaf as a static, which must be hashable; plus the active
+    backend's device and the library epoch.  ``wrapper._cache`` holds one
+    program per key, an LRU of 32 as the decode programs' (a program of an
+    earlier library epoch is never used again and ages out); the graphs of
+    one wrapper share one memory pool.
+
+    Each program owns static buffers on the device, one per dynamic leaf.
+    Every call copies the leaves in, and ``fn`` runs on Tensors rebuilt over
+    those buffers, never on the caller's: the caller's Tensors are not
+    changed, as the JAX package's ``pure`` leaves them.  On ``"cuda"`` the
+    first call of a key runs ``fn`` eagerly (the warm-up) and returns its
+    result, and the step is captured right after it; later calls replay the
+    graph.  On ``"cpu"`` every call runs ``fn`` on the buffers.  Outputs
+    come back as fresh detached Tensors.  A draw from the library's
+    generator (``md.randn`` and the rest) inside ``fn`` draws anew at every
+    call, on the CPU and on the card (the capture registers the generator
+    with its graph), where the JAX package bakes it in as a trace-time
+    constant.
+
+    ``donate=True`` donates every input, ``donate_argnums`` the listed
+    positional args: a donated Tensor is consumed by the call (reading it
+    afterwards raises) and its storage is released to the caller's
+    allocator, as JAX deletes a donated buffer.  Results are the same with
+    and without donation.  ``in_shardings`` / ``out_shardings`` come with
+    the parallel layers.
+    """
+    if in_shardings is not None or out_shardings is not None:
+        raise NotImplementedError(
+            "md.jit: in_shardings / out_shardings come with the parallel "
+            "layers, a later slice of the port")
+    cache: "OrderedDict" = OrderedDict()
+    pools: dict = {}  # device -> the graphs' memory pool
+    donate_set = frozenset(donate_argnums or ())
+
+    def wrapper(*args: "Any", **kwargs: "Any"):
+        leaves, structure = _tree_flatten((args, kwargs))
+        gives = [donate] * len(leaves)  # whether each leaf is donated
+        if donate_set and not donate:
+            gives = [pos in donate_set for pos, a in enumerate(args)
+                     for _ in _tree_flatten(a)[0]]
+            gives += [False] * (len(leaves) - len(gives))  # kwargs: never
+        meta, dynamic, donated = [], [], []
+        for leaf, give in zip(leaves, gives):
+            if _is_tensor(leaf):
+                data = leaf._data
+                meta.append(("tensor", leaf.allow_grad, tuple(data.shape), data.dtype))
+                dynamic.append(data)
+                if give:
+                    donated.append(leaf)
+            elif _is_dynamic_leaf(leaf):
+                value = (leaf if isinstance(leaf, torch.Tensor)
+                         else torch.as_tensor(np.asarray(leaf)))  # on the host
+                meta.append(("array", None, tuple(value.shape), value.dtype))
+                dynamic.append(value)
+            else:
+                # hashable non-array (str, dtype, shape tuple, ...) -> static
+                meta.append(("static", leaf, None, None))
+        device = backend.get_backend().device
+        key = (structure, tuple(meta), str(device), _build.epoch())
+        try:
+            hash(key)
+        except TypeError as e:
+            raise TypeError(
+                "md.jit arguments must be Tensors, arrays, numbers, or "
+                f"hashable statics; got an unhashable static leaf: {e}") from None
+
+        def build():
+            if device.type == "cuda" and device not in pools:
+                pools[device] = torch.cuda.graph_pool_handle()
+            return _jit_program(fn, structure, meta, dynamic, device,
+                                pools.get(device))
+
+        program = cached_program(cache, key, build, _JIT_CACHE_MAX)
+        program.load(**{str(i): v for i, v in enumerate(dynamic)})
+        for leaf in donated:
+            leaf._data = _Donated()
+        out = program.replay()
+        return _tree_map(lambda r: md.Tensor(r.clone()) if isinstance(r, torch.Tensor)
+                         else r, out)
+
+    wrapper._cache = cache  # exposed for tests / cache inspection
+    return wrapper
+
+
+def _jit_program(fn: "Callable[..., Any]", structure: tuple, meta: list,
+                 dynamic: list, device: "torch.device", pool: "Any") -> StepProgram:
+    """The program of one ``jit`` key: a buffer per dynamic leaf, and a step
+    that runs ``fn`` on Tensors rebuilt over them and returns its outputs'
+    torch tensors."""
+    buffers = {str(i): torch.empty(v.shape, dtype=v.dtype, device=device)
+               for i, v in enumerate(dynamic)}
+    bufs = [buffers[str(i)] for i in range(len(dynamic))]
+
+    def step():
+        it = iter(bufs)
+        rebuilt = []
+        for kind, info, _, _ in meta:
+            if kind == "tensor":
+                rebuilt.append(md.Tensor(next(it), allow_grad=info))
+            elif kind == "array":
+                rebuilt.append(next(it))
+            else:
+                rebuilt.append(info)
+        a, k = _tree_unflatten(structure, rebuilt)
+        out = fn(*a, **k)
+        return _tree_map(lambda t: t._data if _is_tensor(t) else t, out)
+
+    return StepProgram(step, buffers, device, pool=pool, grad=True,
+                       generators=backend.drawn_generators)
+
+
+__all__ = ["value_and_grad", "grad", "vjp", "jvp", "hvp", "hessian", "jit"]

@@ -24,17 +24,30 @@ nothing, and each replay credits them: a replayed kernel counts as a
 launch.  The warm-up's launches are real and count.  ``STATS`` counts the
 replays (graph launches on the card, step calls on the CPU) and the
 captures, and sums the capture time.
+
+A train step is a ``StepProgram`` with ``grad=True``: it runs with
+autograd on (a decode step runs under ``torch.inference_mode()``), and its
+first call on the card is the first real step, run eagerly on the side
+stream (where it builds the kernels, makes the optimizer's state and warms
+autograd and cuBLAS up) and kept, not undone; the step is captured right
+after it, and every later call replays the graph.  Such a first call is a
+capture and no replay.  ``weights_key`` and ``cached_program`` key and
+bound the programs of the decode entry points, ``make_train_step`` and
+``md.jit``: LRUs of 32 programs each.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 
 import torch
 
 from minidiff_tpu_torch import kernels as K
 
-__all__ = ["DecodeLoop", "STATS", "StepProgram", "record_launches", "reset_stats"]
+__all__ = ["DecodeLoop", "STATS", "StepProgram", "cached_program",
+           "record_launches", "reset_stats", "weights_key"]
 
 STATS = {"replays": 0, "captures": 0, "capture_seconds": 0.0}
 
@@ -53,6 +66,27 @@ def record_launches(fn):
     return out, made
 
 
+def weights_key(model) -> tuple:
+    """The storage of every parameter and buffer of ``model``: a captured
+    graph reads the weights where they were at capture, so a model moved or
+    re-allocated since needs another program."""
+    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                        model.buffers()))
+
+
+def cached_program(cache, key, build, limit: int):
+    """``cache[key]`` (an ``OrderedDict``), made by ``build()`` when
+    missing; the least recently used entry goes past ``limit`` entries."""
+    program = cache.get(key)
+    if program is not None:
+        cache.move_to_end(key)
+        return program
+    program = cache[key] = build()
+    while len(cache) > limit:
+        cache.popitem(last=False)
+    return program
+
+
 class StepProgram:
     """One step over static buffers, replayed as a CUDA graph on the card.
 
@@ -62,15 +96,23 @@ class StepProgram:
     their memory; their replays must not overlap, and on one stream they
     do not.  ``restore`` lists tensors the step changes in a way a second
     run would not repeat (a recurrent state): the warm-up's changes to them
-    are undone before the capture.
+    are undone before the capture.  ``grad=True`` makes a train step's
+    program: autograd on, and the warm-up is the first real step.
+    ``generators()`` lists the ``torch.Generator``s the step draws from,
+    which a capture registers with its graph, so that each replay draws
+    anew as the step does on the CPU (a capture refuses a draw from a
+    generator it does not know).
     """
 
-    def __init__(self, fn, buffers: dict, device, pool=None, restore=()):
+    def __init__(self, fn, buffers: dict, device, pool=None, restore=(),
+                 grad: bool = False, generators=tuple):
         self.fn = fn
         self.buffers = buffers
         self.device = torch.device(device)
         self.pool = pool
         self.restore = list(restore)
+        self.grad = grad
+        self.generators = generators
         self.graph = None
         self.outputs = None
         self.launches: dict = {}
@@ -79,15 +121,18 @@ class StepProgram:
         self._copied = None
 
     def load(self, **values) -> None:
-        """Copy host ``values`` (arrays, lists or CPU tensors) into the
-        buffers of the same names: on the card through a pinned staging
-        buffer, once the previous load's copies are done."""
+        """Copy ``values`` into the buffers of the same names: a tensor on
+        the program's device directly, host values (arrays, lists or CPU
+        tensors) on the card through a pinned staging buffer, once the
+        previous load's copies are done."""
         cuda = self.device.type == "cuda"
         if cuda and self._copied is not None:
             self._copied.synchronize()
         for name, value in values.items():
             buf = self.buffers[name]
-            if cuda:
+            if isinstance(value, torch.Tensor) and value.device == buf.device:
+                buf.copy_(value)
+            elif cuda:
                 stage = self._staging.get(name)
                 if stage is None:
                     stage = self._staging[name] = torch.empty(
@@ -101,25 +146,30 @@ class StepProgram:
                 self._copied = torch.cuda.Event()
             self._copied.record()
 
-    def capture(self) -> None:
-        """Warm up and capture the step (on the card, once)."""
+    def _mode(self):
+        return contextlib.nullcontext() if self.grad else torch.inference_mode()
+
+    def capture(self):
+        """Warm up and capture the step (on the card, once).  Returns what
+        the warm-up step returned."""
         if self.device.type != "cuda" or self.graph is not None:
-            return
+            return None
         t0 = time.perf_counter()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.inference_mode(), torch.cuda.stream(stream):
+        with self._mode(), torch.cuda.stream(stream):
             saved = [t.clone() for t in self.restore]
-            self.fn()
+            warm = self.fn()
             for t, s in zip(self.restore, saved):
                 t.copy_(s)
             del saved
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators():
+            graph.register_generator_state(gen)
 
         def capture():
-            with torch.inference_mode(), torch.cuda.graph(graph, pool=self.pool,
-                                                          stream=stream):
+            with self._mode(), torch.cuda.graph(graph, pool=self.pool, stream=stream):
                 return self.fn()
 
         self.outputs, self.launches = record_launches(capture)
@@ -127,14 +177,19 @@ class StepProgram:
         self.capture_seconds = time.perf_counter() - t0
         STATS["captures"] += 1
         STATS["capture_seconds"] += self.capture_seconds
+        return warm
 
     def replay(self):
         """Run the step once: a graph launch on the card (the capture first,
         at the first replay), the step function on the CPU.  Returns the
-        outputs, which the next replay overwrites."""
+        outputs, which the next replay overwrites.  A ``grad`` program's
+        first call on the card runs the step eagerly, captures it and
+        returns the eager step's outputs, with no replay."""
         if self.device.type != "cuda":
-            with torch.inference_mode():
+            with self._mode():
                 self.outputs = self.fn()
+        elif self.grad and self.graph is None:
+            return self.capture()
         else:
             self.capture()
             self.graph.replay()

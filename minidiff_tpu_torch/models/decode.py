@@ -22,14 +22,13 @@ keeps the cache as int8 lines with per-row f32 scales, read through the
 
 from __future__ import annotations
 
-import itertools
 from collections import OrderedDict
 
 import torch
 
 from minidiff_tpu_torch.kernels import _build
 from minidiff_tpu_torch.models import functional as F
-from minidiff_tpu_torch.models.capture import DecodeLoop
+from minidiff_tpu_torch.models.capture import DecodeLoop, cached_program, weights_key
 from minidiff_tpu_torch.models.layers import check_device
 from minidiff_tpu_torch.models.speculative import _alloc_caches, _chunk_step, _prefill
 
@@ -39,27 +38,6 @@ _DECODE_BLOCK = 128
 # program pins its model, its caches and its graph's memory
 _DECODE_CACHE_MAX = 32
 _decode_cache: "OrderedDict" = OrderedDict()
-
-
-def weights_key(model) -> tuple:
-    """The storage of every parameter and buffer of ``model``: a captured
-    graph reads the weights where they were at capture, so a model moved or
-    re-allocated since needs another program."""
-    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
-                                                        model.buffers()))
-
-
-def cached_program(cache: "OrderedDict", key, build, limit: int):
-    """``cache[key]``, made by ``build()`` when missing; the least recently
-    used entry goes past ``limit`` entries."""
-    program = cache.get(key)
-    if program is not None:
-        cache.move_to_end(key)
-        return program
-    program = cache[key] = build()
-    while len(cache) > limit:
-        cache.popitem(last=False)
-    return program
 
 
 def decode_program(model, prompt, max_new_tokens: int, greedy: bool = True,

@@ -7,14 +7,22 @@ with the JAX package's update rules exactly, which differ from
 AdamW decays the parameters before the Adam step.  ``step(params)`` updates
 each parameter in place from its ``.grad`` under ``torch.no_grad()`` (one
 in-place subtraction or scaling, rounded once as the JAX package's
-out-of-place update is); the state (momentum, moments) is kept per
-parameter, in the parameter's dtype, as the JAX state is, and Adam's step
-count once per optimizer.
+out-of-place update is).
+
+The state lives where a CUDA graph can replay it: the momentum and the
+moments are tensors made once, at a parameter's first step, in its dtype
+(as the JAX state is), and written in place from then on; Adam's step count
+``t`` is a float64 scalar on the parameters' device, as the JAX package's
+``state["t"]``, and the bias-corrected step size is computed from it there.
+A 0-dim device tensor takes the dtype of the tensor it scales, so the
+update of a bf16 or f16 parameter is computed in f32 (the step size kept
+at f32, as a Python float is inside a kernel) and rounded once, by the
+in-place subtraction.  So a
+captured train step reads and writes the same storage at every replay, and
+the eager step runs the same operations.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -42,8 +50,9 @@ class SGD(Optimizer):
             g = p.grad
             if self.momentum != 0.0:
                 v = self.state.get(p)
-                g = g.clone() if v is None else self.momentum * v + g
-                self.state[p] = g
+                if v is None:
+                    v = self.state[p] = torch.zeros_like(p)
+                g = v.mul_(self.momentum).add_(g)
             p.sub_(self.lr * g)
 
 
@@ -55,22 +64,32 @@ class Adam(Optimizer):
         self.b1 = b1
         self.b2 = b2
         self.eps = eps
-        self.t = 0
+        self.t = None  # the step count: a float64 scalar on the device
 
     @torch.no_grad()
     def step(self, params) -> None:
-        self.t += 1
-        # bias-corrected step size folded into one scalar
-        step = self.lr * math.sqrt(1 - self.b2 ** self.t) / (1 - self.b1 ** self.t)
+        params = [p for p in params if p.grad is not None]
+        if not params:
+            return
+        if self.t is None:
+            self.t = torch.zeros((), dtype=torch.float64, device=params[0].device)
+        t = self.t.add_(1.0)
+        # bias-corrected step size folded into one scalar, cast once a step
+        # to each parameter dtype's compute type (at least f32)
+        step = self.lr * torch.sqrt(1 - self.b2 ** t) / (1 - self.b1 ** t)
+        steps: dict = {}
         for p in params:
-            if p.grad is None:
-                continue
             g = p.grad
-            m, v = self.state.get(p, (torch.zeros_like(p), torch.zeros_like(p)))
-            m = self.b1 * m + (1 - self.b1) * g
-            v = self.b2 * v + (1 - self.b2) * g * g
-            self.state[p] = (m, v)
-            p.sub_(step * m / (torch.sqrt(v) + self.eps))
+            state = self.state.get(p)
+            if state is None:
+                state = self.state[p] = (torch.zeros_like(p), torch.zeros_like(p))
+            m, v = state
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * g * g)
+            wide = torch.promote_types(p.dtype, torch.float32)
+            if wide not in steps:
+                steps[wide] = step.to(wide)
+            p.sub_(steps[wide] * m.to(wide) / (torch.sqrt(v.to(wide)) + self.eps))
 
 
 class AdamW(Adam):

@@ -28,8 +28,7 @@ from torch import nn
 from minidiff_tpu_torch.kernels import _build
 from minidiff_tpu_torch.kernels.scan import linear_scan
 from minidiff_tpu_torch.models import functional as F
-from minidiff_tpu_torch.models.capture import DecodeLoop
-from minidiff_tpu_torch.models.decode import cached_program, weights_key
+from minidiff_tpu_torch.models.capture import DecodeLoop, cached_program, weights_key
 from minidiff_tpu_torch.models.layers import Linear, check_device, resolve_device
 from minidiff_tpu_torch.models.transformer import RMSNorm
 

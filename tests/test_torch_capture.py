@@ -58,6 +58,24 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _drop_reference_programs():
+    """Take the JAX package's compiled decode programs that this file adds
+    back out of its caches (LRUs of 32): the reference's own tests count
+    their entries (``tests/test_decode.py``) in the same worker.  The other
+    port files that run the reference's compiled decode import it, and it
+    applies to each as its own module fixture."""
+    from minidiff_tpu.models import decode as ref_decode
+    from minidiff_tpu.models import ssm as ref_ssm
+
+    caches = (ref_decode._decode_cache, ref_ssm._SSM_DECODE_CACHE)
+    before = [set(c) for c in caches]
+    yield
+    for cache, keys in zip(caches, before):
+        for key in [k for k in cache if k not in keys]:
+            del cache[key]
+
+
 DENSE = dict(vocab_size=64, dim=64, num_heads=2, num_layers=2, max_seq_len=256)
 MOE = dict(vocab_size=64, dim=64, num_heads=4, num_kv_heads=2, num_layers=2,
            num_experts=4, max_seq_len=256, k=2, capacity_factor=2.0, norm="rms",

@@ -36,6 +36,7 @@ from minidiff_tpu_torch import (SGD, DecodeServer, MoETransformerLM,
                                 make_moe_loss, make_train_step, params_from_jax,
                                 quantize_for_serving, quantized_bytes)
 from minidiff_tpu_torch.models.moe import MoEFeedForward
+from test_torch_capture import _drop_reference_programs  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

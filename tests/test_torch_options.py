@@ -28,6 +28,7 @@ from minidiff_tpu_torch import (SGD, AdamW, DecodeServer, TransformerLM,
                                 params_from_jax)
 from minidiff_tpu_torch.models import functional as F
 from minidiff_tpu_torch.models.speculative import _chunk_step, _prefill
+from test_torch_capture import _drop_reference_programs  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

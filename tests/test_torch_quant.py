@@ -41,6 +41,7 @@ from minidiff_tpu_torch import (
     quantized_bytes,
 )
 from minidiff_tpu_torch.kernels import quant as TQ
+from test_torch_capture import _drop_reference_programs  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -29,6 +29,7 @@ from minidiff_tpu_torch import (
     params_from_jax,
 )
 from minidiff_tpu_torch.models import functional as F
+from test_torch_capture import _drop_reference_programs  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -189,8 +189,24 @@ def test_train_step_options_of_later_slices_raise():
     toks = torch.from_numpy(_tokens(s=8))
     with pytest.raises(NotImplementedError, match="later slice"):
         step(toks, toks, rng=0)
-    with pytest.raises(TypeError):
-        make_train_step(tm, jit=True, device="cpu")
+
+
+@pytest.mark.parametrize("opt_name", ["sgd_momentum", "adamw"])
+def test_jit_true_and_false_give_the_same_steps(opt_name):
+    """The captured program's step function (jit=True, the default) and the
+    eager step (jit=False) run the same operations: equal losses and
+    parameters, bit for bit, on the CPU."""
+    toks = torch.from_numpy(_tokens(b=4, s=16))
+    runs = []
+    for jit in (True, False):
+        _, _, tm = _pair(torch.float64)
+        step = make_train_step(tm, _OPTS[opt_name][1](), loss_fn=lm_loss,
+                               jit=jit, device="cpu")
+        runs.append(([step(toks, toks).item() for _ in range(3)], tm.state_dict()))
+    (jl, jp), (el, ep) = runs
+    assert jl == el
+    for name, p in jp.items():
+        assert torch.equal(p, ep[name]), name
 
 
 def test_train_step_on_cuda_raises_without_gpu():
