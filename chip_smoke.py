@@ -183,9 +183,26 @@ kernels build from ``minidiff_tpu_torch/kernels/csrc`` into
    (V512 d512 h4 L2, E8 top-1 at capacity 1.0, batch 8 x 512, bf16) grouped
    and one-hot beside the equal-FLOPs dense step, with exact launches and
    one profiled step, and one on the old backwards' builds (as phase 5);
-13. the kernels line: every kernel must have launched on its paths (counts
+13. sliding windows with attention sinks, and packed sequences, at
+   Mistral-7B-v0.1's widths (V32000 d4096, 32 heads over 8 KV heads,
+   SwiGLU 14336, RMSNorm 1e-5, RoPE 1e4, window 4096 with 4 sinks, bf16,
+   2 of its 32 layers, max_seq_len 8192): three packed train steps through
+   the captured ``make_packed_train_step`` (2 rows of 8,192 tokens packed
+   from documents of 64-6,144 tokens) with exact launches, their losses
+   bit-equal to the eager step's; ``generate_compiled`` of a 4,608-token
+   prompt and 32 new tokens, equal to the eager loop; ``PagedDecodeServer``
+   with 4 requests whose prompts pass 4,096 positions, each equal to its
+   solo decode; an f32 gate at one layer (S 256, window 96, 4 sinks, segment
+   ids) of the loss and every gradient against the CPU; and the tape's
+   ``md.sdpa`` with a key-padding mask (B 4, H 32, S 2,048, head dim 128,
+   non-causal) forward and backward against the plain versions.  Phase 2
+   holds the flash kernels under each mask (window 4,096 with 4 sinks at
+   (64, 8192, 128), ids at (32, 8192, 128), a key row at (128, 2048, 128),
+   and an f32 case of each) to their plain versions, with times, bounds
+   over the visible pairs and SDPA with the dense boolean mask beside them;
+14. the kernels line: every kernel must have launched on its paths (counts
    are reset just before phases 3, 4, 5, each timed part of 6, each run of
-   7, phase 8 and each run of 9, 10, 11 and 12, and read just after each).
+   7, phase 8 and each run of 9-13, and read just after each).
 
 The train steps of phases 5 and 9-12 (``make_train_step``'s default
 ``jit=True``) and the tape steps of phase 6 (``md.jit``) run captured: the
@@ -377,7 +394,9 @@ PAGED_ONLY = {"paged_attn"}
 SSM_ONLY = {"scan"}
 MOE_ONLY = {"dq_bmm"}
 PATHS = ("generate", "server", "train", "tape", "quant", "paged", "options",
-         "ssm", "head_dims", "moe")
+         "ssm", "head_dims", "moe", "window")
+# the kernels phase 13 (sliding windows, sinks, packing) must launch too
+WINDOW_PATH = {"flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_attn"}
 
 # quantized decode (bench.py:350-443): the serving model above at its bench
 # size, and the int8 KV cache at long context (bench.py:413-443)
@@ -424,6 +443,29 @@ OPT_MODEL = dict(vocab_size=32768, dim=4096, num_heads=32, num_kv_heads=8,
 # of 16 and 8 cached steps, and one sequence of 128 tokens for the gradients
 OPT_TRAIN_BATCH, OPT_TRAIN_SEQ, OPT_TRAIN_STEPS = 8, 1024, 10
 OPT_GATE_LAYERS, OPT_GATE_PROMPT, OPT_GATE_STEPS, OPT_GATE_SEQ = 1, 16, 8, 128
+
+# sliding windows with attention sinks, and packed sequences, at
+# Mistral-7B-v0.1's widths
+# (https://huggingface.co/mistralai/Mistral-7B-v0.1/blob/main/config.json:
+# hidden 4096, 32 heads over 8 KV heads, intermediate 14336 with SwiGLU,
+# vocabulary 32000, rope_theta 1e4, rms_norm_eps 1e-5, sliding_window 4096,
+# untied head, no biases) with 4 attention sinks (StreamingLLM's count),
+# bf16, random weights from --seed.  Cut: 2 of its 32 identical layers, and
+# 8,192 positions (past the window, so the band is live)
+WIN_MODEL = dict(vocab_size=32000, dim=4096, num_heads=32, num_kv_heads=8,
+                 num_layers=2, max_seq_len=8192, norm="rms", norm_eps=1e-5,
+                 rope=True, rope_base=1e4, mlp="swiglu", mlp_hidden=14336,
+                 mlp_bias=False, window=4096, sinks=4)
+# three packed train steps of 2 rows x 8,192 tokens, documents of 64-6,144
+# tokens; a 4,608-token prompt and 32 new tokens; the paged server's 4
+# requests (prompt, new tokens), every prompt past the window; the f32
+# gate's sequence, window and sinks; the tape gate's (B, H, S, head dim)
+WIN_TRAIN_BATCH, WIN_TRAIN_SEQ, WIN_TRAIN_STEPS = 2, 8192, 3
+WIN_DOCS = (64, 6144)
+WIN_PROMPT, WIN_NEW = 4608, 32
+WIN_REQUESTS = [(4160, 24), (4500, 16), (4800, 12), (5100, 20)]
+WIN_GATE_SEQ, WIN_GATE_WINDOW, WIN_GATE_SINKS = 256, 96, 4
+WIN_SDPA = (4, 32, 2048, 128)
 OPTIONS_ONLY = {"rms_fwd", "addrms_fwd", "rms_bwd", "addrms_bwd"}
 
 # the head-dim-256 flash cases: 8 sequences x 2 heads of 1,024 tokens, the
@@ -593,7 +635,8 @@ def main() -> int:
                         ("train", phase_train), ("tape", phase_tape),
                         ("quant", phase_quant), ("paged", phase_paged),
                         ("options", phase_options), ("ssm", phase_ssm),
-                        ("head_dims", phase_head_dims), ("moe", phase_moe)):
+                        ("head_dims", phase_head_dims), ("moe", phase_moe),
+                        ("window", phase_window)):
         timed(name, phase, args.seed)
         clear_programs()
 
@@ -641,14 +684,16 @@ def main() -> int:
 def required_paths(name: str) -> tuple:
     """The paths on which kernel ``name`` must launch: the serving kernels
     (the forward norms and flash) on every path that runs the model forward,
-    the others on the paths that only they serve."""
+    the others on the paths that only they serve; the flash kernels and
+    paged attention on the window path too."""
+    extra = ("window",) if name in WINDOW_PATH else ()
     for only, paths in ((TAPE_ONLY, ("tape",)), (QUANT_ONLY, ("quant",)),
                         (PAGED_ONLY, ("paged",)), (TRAIN_ONLY, ("train",)),
                         (OPTIONS_ONLY, ("options",)), (SSM_ONLY, ("ssm",)),
                         (MOE_ONLY, ("moe",))):
         if name in only:
-            return paths
-    return ("generate", "server", "train", "quant", "paged")
+            return paths + extra
+    return ("generate", "server", "train", "quant", "paged") + extra
 
 
 # ---------------------------------------------------------------------------
@@ -883,11 +928,11 @@ def phase_kernels(torch, report):
         for line in ptxas_report(_build.build_log(name)):
             report["build"].append(f"{name}: {line}")
             log(f"[build] {name}: {line}")
-    # the flash backward's, the matmuls', the quantized kernels', the paged
+    # the flash kernels', the matmuls', the quantized kernels', the paged
     # kernel's, the norms', the cross-entropy's and the scan's: no spill, no
     # serialised MMAs, no ignored setmaxnreg
-    for name in ("flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm", "xent",
-                 "scan"):
+    for name in ("flash_fwd", "flash_bwd", "matmul", "quant", "paged", "layernorm", "rmsnorm",
+                 "xent", "scan"):
         bad = [line for line in ptxas_report(_build.build_log(name))
                if re.search(r"\b[1-9]\d* bytes spill|C75\d\d|setmaxnreg", line)]
         check(not bad, f"{name}.cu: ptxas reports " + "; ".join(bad))
@@ -920,6 +965,9 @@ def phase_kernels(torch, report):
                                               SSM_MODEL["dim"]),))
              + xent_cases(torch, gen_bwd, randn_bwd, ((MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,
                                                        MOE_TRAIN["vocab_size"]),)))
+    # the flash kernels under sinks, key rows and ids, from a generator of
+    # their own (the other cases' inputs stay as they were)
+    cases += flash_mask_cases(torch)
     # the f32 dequant cases at three seeds; the first seed's are timed
     report["dq_f32_seeds"] = dq_f32_cases(torch)
     cases += [c for c in report["dq_f32_seeds"] if "ms" in c]
@@ -932,6 +980,7 @@ def phase_kernels(torch, report):
             f"{' g' + str(c['group']) if c.get('group') else ''}"
             f"{' causal' if c.get('causal') else '':7s}"
             f"{' w' + str(c['window']) if c.get('window') else '':5s}"
+            f"{' ' + c['masks'] if c.get('masks') else ''}"
             f"{' g' + str(c['groups']) if c.get('groups', 1) > 1 else '':4s} "
             f"err {c['max_abs_err']:.3g} "
             f"| kernel {c['ms'] * 1e3:9.2f} us | plain {c['plain_ms'] * 1e3:9.2f} us "
@@ -1035,7 +1084,7 @@ def phase_kernels(torch, report):
     line = []
     for name, (src, replaces, shape) in meta.items():
         c = next(c for c in cases if c["name"] == name and c["dtype"] == "bfloat16"
-                 and c["shape"] == shape and not c.get("window")
+                 and c["shape"] == shape and not c.get("window") and not c.get("masks")
                  and c.get("causal", True) and not c.get("backward"))
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          shape=shape, **{key: c[key] for key in (
@@ -1638,10 +1687,14 @@ def xent_fwd_route_ab(torch, gen, randn, v1_lib) -> list:
     warp kernel of ``v1_lib`` (xent.cu built with -DXENT_FWD_V1), in turns
     (old, plan, back, then the others), each within TOL["xent_loss"] of the plain
     version with labels outside [0, V) (-1 and V) among the rows, and the
-    new routes the same bits on a second run.  The plan's route must be no
-    more than 3% slower than the old in either turn at every shape: the
-    readings behind kernels.xent.FWD_ROW_MIN_V, FWD_VECS and FWD_THREADS.
-    Each reading covers at least GATE_READ_MS of device time."""
+    new routes the same bits on a second run.  Where the plan's route is
+    the row kernel it must be no more than 3% slower than the old in either
+    turn: the readings behind kernels.xent.FWD_ROW_MIN_V, FWD_VECS and
+    FWD_THREADS.  Where it is the warp kernel, both arms launch the same
+    kernel from the same source, so a speed gate would read only the card's
+    drift: there the plan's output must be the old build's, bit for bit,
+    and both times are kept.  Each reading covers at least GATE_READ_MS of
+    device time."""
     from minidiff_tpu_torch.kernels import xent as X
 
     old = lib_at("xent", v1_lib)
@@ -1681,9 +1734,14 @@ def xent_fwd_route_ab(torch, gen, randn, v1_lib) -> list:
                           f"xent_fwd {name} {[rows, v]} {dn}: a second run gave other bits")
 
             us = _turns(torch, ("old", *plans), run, first, min_ms=GATE_READ_MS)
-            check(max(us["plan"]) <= 1.03 * min(us["old"]),
-                  f"xent_fwd {[rows, v]} {dn}: the plan's {plan.route} route {us['plan']} us "
-                  f"is more than 3% slower than the old {us['old']} us")
+            if plan.route == "warp":
+                check(torch.equal(run("plan").view(torch.int32), run("old").view(torch.int32)),
+                      f"xent_fwd {[rows, v]} {dn}: the plan's warp route gave other bits "
+                      "than the old build's warp kernel")
+            else:
+                check(max(us["plan"]) <= 1.03 * min(us["old"]),
+                      f"xent_fwd {[rows, v]} {dn}: the plan's {plan.route} route "
+                      f"{us['plan']} us is more than 3% slower than the old {us['old']} us")
             out.append(dict(dtype=dn, shape=[rows, v], route=plan.route, threads=plan.threads,
                             vecs=plan.vecs, us=us, max_abs_err=err))
             log(f"[xent_fwd ab] {dn:8s} {str([rows, v]):14s} plan {plan.route} "
@@ -1894,9 +1952,10 @@ def flash_cases(torch, randn):
             op, lp = A._plain_flash_fwd(q, k, v, scale, causal, window)
             err = max(max_err(torch, o, op, "attn", dn),
                       max_err(torch, lse, lp, "lse", dn))
-            library = None if window is not None else device_ms(
-                torch, lambda: TF.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=causal))
+            # SDPA, a windowed case with the equivalent dense boolean mask
+            band = None if window is None else A._keep_mask(s, s, window, DEVICE)
+            library = device_ms(torch, lambda: TF.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal and band is None, attn_mask=band))
             cases.append(dict(
                 name="flash_fwd", max_abs_err=err, **shape,
                 ms=device_ms(torch, lambda: A.flash_fwd(q, k, v, scale, causal,
@@ -1920,14 +1979,15 @@ def flash_cases(torch, randn):
         pq, pk, pv = A._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window)
         plain_ms = device_ms(torch, lambda: A._plain_flash_bwd(
             q, k, v, o, lse, do, scale, causal, window), iters=10)
-        library = None
-        if window is None:
-            # autograd of SDPA, the backward only: dq, dk and dv in one call
-            ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
-            ol = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-            do4 = do.reshape(1, bh, s, hd)
-            library = device_ms(torch, lambda: torch.autograd.grad(
-                ol, (ql, kl, vl), do4, retain_graph=True), iters=10)
+        # autograd of SDPA, the backward only: dq, dk and dv in one call (a
+        # windowed case with the equivalent dense boolean mask)
+        band = None if window is None else A._keep_mask(s, s, window, DEVICE)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
+        ol = TF.scaled_dot_product_attention(ql, kl, vl, is_causal=causal and band is None,
+                                             attn_mask=band)
+        do4 = do.reshape(1, bh, s, hd)
+        library = device_ms(torch, lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do4, retain_graph=True), iters=10)
         io = bh * s * hd * size
         stats = 2 * bh * s * 4  # lse and delta, f32
         cases.append(dict(
@@ -1945,6 +2005,154 @@ def flash_cases(torch, randn):
             plain_ms=plain_ms, library_ms=library,
             # S, dP, dS K
             **bound(5 * io + stats, 6 * bh * pairs * hd, dn)))
+    return cases
+
+
+# flash_mask_cases' cases: (dtype, batch rows, heads, S, window, sinks, key
+# row, ids), head dim 128: Mistral-7B-v0.1's window of 4,096 with 4 sinks
+# at the window phase's train shape (2 rows x 32 heads of 8,192), packed ids
+# at one row of 8,192, a key row at the tape gate's (4 x 32 heads of
+# 2,048, non-causal), and an f32 case of each at a small size
+FLASH_MASK_CASES = (("bfloat16", 2, 32, 8192, 4096, 4, False, False),
+                    ("bfloat16", 1, 32, 8192, None, 0, False, True),
+                    ("bfloat16", 4, 32, 2048, None, 0, True, False),
+                    ("float32", 2, 4, 512, 200, 4, False, False),
+                    ("float32", 2, 4, 512, None, 0, False, True),
+                    ("float32", 2, 4, 512, None, 0, True, False))
+# heads per call of the chunked plain versions (their (S, S) scores)
+PLAIN_HEADS = 4
+
+
+def _packed_ids(rng, s: int, lo: int, hi: int):
+    """(1, S) segment ids and positions of documents with lengths drawn in
+    [lo, hi] from ``rng``, packed into one row (the last cut by S)."""
+    ids, pos, d = [], [], 0
+    while len(ids) < s:
+        n = int(rng.randint(lo, hi + 1))
+        ids += [d] * n
+        pos += list(range(n))
+        d += 1
+    return ids[:s], pos[:s]
+
+
+def _chunked(torch, fn, h, outs, *ops, kvm=None, seg=None):
+    """``fn`` (a plain flash version) over (BH, S, D) operands, PLAIN_HEADS
+    heads of one batch row at a time (its (S, S) scores fit), concatenated
+    into ``outs`` outputs."""
+    bh = ops[0].shape[0]
+    parts = []
+    for r0 in range(0, bh, PLAIN_HEADS):
+        r1, b = min(r0 + PLAIN_HEADS, (r0 // h + 1) * h), r0 // h
+        sl = [t[r0:r1] for t in ops]
+        parts.append(fn(*sl, kvm=None if kvm is None else kvm[b:b + 1],
+                        seg=None if seg is None else seg[b:b + 1], h=r1 - r0))
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(outs))
+
+
+def flash_mask_cases(torch) -> list:
+    """flash_fwd, flash_bwd_dkv and flash_bwd_dq under each mask of
+    FLASH_MASK_CASES against their plain versions (run PLAIN_HEADS heads at
+    a time), every bf16 backward twice with the same bits; times, the bound
+    over this run's visible pairs, and as the library call SDPA (the
+    memory-efficient backend) with the equivalent dense boolean mask,
+    forward, and the backward of its autograd."""
+    import numpy as np
+    import torch.nn.functional as TF
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from minidiff_tpu_torch.kernels import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(1237)
+    rng = np.random.RandomState(1237)
+    cases = []
+    for dn, b, h, s, window, sinks, key_row, ids in FLASH_MASK_CASES:
+        dtype, hd = getattr(torch, dn), 128
+        bh, scale, size = b * h, hd ** -0.5, torch.finfo(getattr(torch, dn)).bits // 8
+        causal = not key_row
+        q, k, v, do = (torch.randn((bh, s, hd), generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(4))
+        kvm = seg = None
+        keep = (A._keep_mask(s, s, window, DEVICE, sinks) if causal
+                else torch.ones(s, s, dtype=torch.bool, device=DEVICE))[None].expand(b, s, s)
+        if key_row:
+            lens = rng.randint(s // 8, s + 1, size=b)
+            kvm = torch.from_numpy((np.arange(s)[None] < lens[:, None]).astype(np.int32)
+                                   ).to(DEVICE)
+            keep = keep & (kvm[:, None, :] != 0)
+        if ids:
+            seg = torch.tensor([_packed_ids(rng, s, 64, 6144 if s > 1024 else 200)[0]
+                                for _ in range(b)], dtype=torch.int32, device=DEVICE)
+            keep = keep & (seg[:, :, None] == seg[:, None, :])
+        pairs = int(keep.sum()) * h  # visible (query, key) pairs of every head
+        masks = ("window %d sinks %d" % (window, sinks) if window else "") + (
+            "key row" if key_row else "") + ("ids" if ids else "")
+        shape = dict(dtype=dn, shape=[bh, s, hd], causal=causal, window=window, sinks=sinks,
+                     masks=masks, rows=A.flash_plan(bh, s, hd, dtype))
+        mk = dict(kvm=kvm, seg=seg, h=h)
+        q4, k4, v4, do4 = (t.reshape(b, h, s, hd) for t in (q, k, v, do))
+        dense = keep[:, None]  # (B, 1, S, S), True = attend
+
+        def lib_fwd():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return TF.scaled_dot_product_attention(q4, k4, v4, attn_mask=dense,
+                                                       scale=scale)
+
+        o, lse = A.flash_fwd(q, k, v, scale, causal, window, sinks, **mk)
+        op, lp = _chunked(torch, lambda *t, **m: A._plain_flash_fwd(
+            *t, scale, causal, window, sinks, **m), h, 2, q, k, v, kvm=kvm, seg=seg)
+        err = max(max_err(torch, o, op, "attn", dn), max_err(torch, lse, lp, "lse", dn))
+        io = bh * s * hd * size
+        mask_bytes = 4 * (0 if kvm is None else kvm.numel()) + 4 * (
+            0 if seg is None else seg.numel())
+        cases.append(dict(
+            name="flash_fwd", max_abs_err=err, **shape,
+            ms=device_ms(torch, lambda: A.flash_fwd(q, k, v, scale, causal, window, sinks,
+                                                    **mk), iters=10),
+            plain_ms=device_ms(torch, lambda: _chunked(torch, lambda *t, **m: (
+                A._plain_flash_fwd(*t, scale, causal, window, sinks, **m)), h, 2, q, k, v,
+                kvm=kvm, seg=seg), iters=2),
+            library_ms=device_ms(torch, lib_fwd, iters=10),
+            **bound(4 * io + bh * s * 4 + mask_bytes, 4 * pairs * hd, dn)))
+        del op, lp
+        ops, dims, flags = A._bwd_operands(q, k, v, o, lse, do, window, causal, sinks, **mk)
+        dk, dv = A.flash_bwd_dkv(ops, dims, scale, flags)
+        dq = A.flash_bwd_dq(ops, dims, scale, flags)
+        if dtype == torch.bfloat16:
+            again = (*A.flash_bwd_dkv(ops, dims, scale, flags),
+                     A.flash_bwd_dq(ops, dims, scale, flags))
+            check(all(torch.equal(a, b_) for a, b_ in zip((dk, dv, dq), again)),
+                  f"flash backward {shape}: two runs differ")
+            del again
+        shape["plan"] = list(A.flash_bwd_plan(bh, s, s, hd, dtype))
+
+        def plain_bwd():
+            return _chunked(torch, lambda *t, **m: A._plain_flash_bwd(
+                *t, scale, causal, window, sinks, **m), h, 3, q, k, v, o, lse, do, kvm=kvm, seg=seg)
+
+        pq, pk, pv = plain_bwd()
+        plain_ms = device_ms(torch, plain_bwd, iters=2)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q4, k4, v4))
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            ol = TF.scaled_dot_product_attention(ql, kl, vl, attn_mask=dense, scale=scale)
+        library = device_ms(torch, lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do4, retain_graph=True), iters=5)
+        del ol, ql, kl, vl
+        stats = 2 * bh * s * 4  # lse and delta, f32
+        cases.append(dict(
+            name="flash_bwd_dkv", **shape,
+            max_abs_err=max(max_err(torch, dk, pk, "attn_bwd", dn),
+                            max_err(torch, dv, pv, "attn_bwd", dn)),
+            ms=device_ms(torch, lambda: A.flash_bwd_dkv(ops, dims, scale, flags), iters=10),
+            plain_ms=plain_ms, library_ms=library,
+            **bound(6 * io + stats + mask_bytes, 8 * pairs * hd, dn)))
+        cases.append(dict(
+            name="flash_bwd_dq", **shape,
+            max_abs_err=max_err(torch, dq, pq, "attn_bwd", dn),
+            ms=device_ms(torch, lambda: A.flash_bwd_dq(ops, dims, scale, flags), iters=10),
+            plain_ms=plain_ms, library_ms=library,
+            **bound(5 * io + stats + mask_bytes, 6 * pairs * hd, dn)))
+        del q, k, v, do, o, lse, ops, dk, dv, dq, pq, pk, pv, keep, dense
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -3063,8 +3271,11 @@ def scan_route_ab(torch, gen, v1_lib) -> list:
     one-row prefills against the plain version too.  The plan must be no
     more than 3% slower than the old build in either turn at every shape,
     forward and reverse: the readings behind kernels.scan's tile rule and
-    ring depth.  Each forward reading covers at least GATE_READ_MS of
-    device time."""
+    ring depth; except the forward where the plan is the thread kernel,
+    which is the old build's own kernel from the same source: there the
+    bit-for-bit equality with the old build (held for every route) is the
+    gate, and both times are kept.  Each forward reading covers at least
+    GATE_READ_MS of device time."""
     from minidiff_tpu_torch.kernels import scan as S
 
     old = lib_at("scan", v1_lib)
@@ -3119,8 +3330,8 @@ def scan_route_ab(torch, gen, v1_lib) -> list:
             check(torch.equal(want, S._plain_scan(a, b, True).view(bits)),
                   f"scan reverse {[lead, t, c]} {dn}: other bits than the plain version")
         del want
-        for name, times, old_us in (("plan", us["plan"], us["old"]),
-                                    ("reverse", rev["reverse"], rev["old"])):
+        gated = (("plan", us["plan"], us["old"]),) if plan.route != "thread" else ()
+        for name, times, old_us in gated + (("reverse", rev["reverse"], rev["old"]),):
             check(max(times) <= 1.03 * min(old_us),
                   f"scan {name} {[lead, t, c]} {dn}: {times} us is more than 3% slower than "
                   f"the old build's {old_us} us")
@@ -5490,6 +5701,242 @@ def phase_moe(torch, seed: int, report):
                    moe=True))
     report["moe"] = out
     report["launches_moe"] = {k: launches.get(k, 0) for k in K.launch_counts()}
+
+
+
+# ---------------------------------------------------------------------------
+# phase 13: sliding windows with attention sinks, and packed sequences
+# ---------------------------------------------------------------------------
+
+
+def packed_batch(rng, b: int, s: int, vocab: int, lo: int, hi: int) -> dict:
+    """``pack_documents``' tables for b full rows of s tokens: documents
+    with lengths drawn in [lo, hi] from ``rng`` until the packing fills b
+    rows, then its first b rows."""
+    from minidiff_tpu_torch.models import pack_documents
+
+    docs, total = [], 0
+    while True:
+        n = int(rng.randint(lo, hi + 1))
+        docs.append(rng.randint(0, vocab, size=n))
+        total += n
+        if total >= (b + 1) * s:
+            packed = pack_documents(docs, s)
+            if packed["tokens"].shape[0] >= b:
+                return {k: v[:b] for k, v in packed.items()}
+
+
+def phase_window(torch, seed: int, report):
+    import copy
+
+    import numpy as np
+
+    import minidiff_tpu_torch as md
+    from minidiff_tpu_torch import (SGD, PagedDecodeServer, TransformerLM,
+                                    generate_compiled, lm_loss)
+    from minidiff_tpu_torch import kernels as K
+    from minidiff_tpu_torch.kernels import attention as A
+    from minidiff_tpu_torch.models import make_packed_train_step
+
+    cfg = WIN_MODEL
+    t0 = time.perf_counter()
+    model = TransformerLM(dtype=torch.bfloat16, device=DEVICE, seed=seed, **cfg)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[window] Mistral-7B-v0.1 widths, window {cfg['window']} sinks {cfg['sinks']}, "
+        f"{cfg['num_layers']} layers, bf16: {n_params / 1e6:.1f}M parameters drawn in "
+        f"{init_s:.1f} s")
+    out = {"n_params": n_params, "init_seconds": init_s}
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # the packed train step, captured, against the eager step on a copy of
+    # the same weights: the same losses, bit for bit
+    rng = np.random.RandomState(seed + 13)
+    batches = [packed_batch(rng, WIN_TRAIN_BATCH, WIN_TRAIN_SEQ, cfg["vocab_size"],
+                            *WIN_DOCS) for _ in range(WIN_TRAIN_STEPS)]
+    docs = [int(b["segment_ids"].max()) + 1 for b in batches]
+    twin = copy.deepcopy(model)
+    step = make_packed_train_step(model, SGD(1e-4), device=DEVICE)
+    want = {k: n * WIN_TRAIN_STEPS for k, n in train_launches(model).items()}
+    times = []
+
+    def run_steps():
+        losses = []
+        for bt in batches:
+            t = time.perf_counter()
+            losses.append(step(bt))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return losses
+
+    losses, dt, counts = _counted(torch, K, run_steps)
+    check(counts == want, f"window packed train: launches {counts}, expected {want}")
+    add(counts)
+    eager = make_packed_train_step(twin, SGD(1e-4), jit=False, device=DEVICE)
+    eager_losses = [eager({k: torch.from_numpy(v) for k, v in bt.items()})
+                    for bt in batches]
+    losses = [x.item() for x in losses]
+    eager_losses = [x.item() for x in eager_losses]
+    check(all(np.isfinite(losses)), f"window packed train: non-finite losses {losses}")
+    check(losses == eager_losses, f"window packed train: captured losses {losses} are not "
+          f"the eager step's {eager_losses}")
+    del twin, eager
+    out["train"] = dict(batch=[WIN_TRAIN_BATCH, WIN_TRAIN_SEQ], documents=docs,
+                        ms_per_step=[t * 1e3 for t in times], losses=losses,
+                        launches=counts)
+    log(f"[window] packed train step (captured) {WIN_TRAIN_BATCH} x {WIN_TRAIN_SEQ}, "
+        f"{docs} documents: " + " ".join(f"{t * 1e3:.1f}" for t in times)
+        + " ms/step (the first eager, then the capture) | losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f" = eager | launches {counts}")
+    del step
+    clear_programs()
+
+    # generate_compiled past the window, against the eager loop
+    fwd = forward_launches(model)
+    prompt = torch.from_numpy(rng.randint(1, cfg["vocab_size"], size=(1, WIN_PROMPT)))
+    run = lambda: generate_compiled(model, prompt, WIN_NEW, device=DEVICE)  # noqa: E731
+    cap_s = capture_seconds(torch, run)
+    toks, dt, counts = _counted(torch, K, run)
+    want = {k: n * (WIN_NEW if k != "flash_fwd" else 1) for k, n in fwd.items()}
+    check(counts == want, f"window generate: launches {counts}, expected {want}")
+    add(counts)
+    eager_toks = eager_generate(torch, model, prompt, WIN_NEW)
+    check(torch.equal(toks.cpu(), eager_toks.cpu()),
+          "window generate: captured tokens differ from the eager loop's")
+    out["generate"] = dict(prompt=WIN_PROMPT, new=WIN_NEW, seconds=dt,
+                           ms_per_step=dt / WIN_NEW * 1e3, capture_seconds=cap_s,
+                           launches=counts)
+    log(f"[window] generate_compiled prompt {WIN_PROMPT} new {WIN_NEW}: {dt:.3f} s "
+        f"(prefill and {WIN_NEW - 1} replays; captured in {cap_s:.2f} s), tokens = eager "
+        f"loop | launches {counts}")
+    clear_programs()
+
+    # the paged server, every prompt past the window, against solo decodes:
+    # in bf16 their agreement (near-tied logits of random weights may flip
+    # where the batched step's products round otherwise), in f32 equal
+    prompts = [([int(t) for t in rng.randint(1, cfg["vocab_size"], n)], new)
+               for n, new in WIN_REQUESTS]
+
+    def serve(m):
+        srv = PagedDecodeServer(m, max_batch=len(prompts), window=cfg["max_seq_len"],
+                                device=DEVICE)
+        slots = [srv.submit(p, n, seed=i) for i, (p, n) in enumerate(prompts)]
+        steps = 0
+        while srv.active():
+            srv.step()
+            steps += 1
+        return [srv.collect(sl) for sl in slots], steps
+
+    def solo(m):
+        return [generate_compiled(m, [p], n, device=DEVICE)[0, len(p):].tolist()
+                for p, n in prompts]
+
+    (got, steps), dt, counts = _counted(torch, K, lambda: serve(model))
+    check(counts.get("paged_attn", 0) > 0
+          and counts.get("flash_fwd", 0) == len(prompts) * cfg["num_layers"],
+          f"window paged server: launches {counts}")
+    add(counts)
+    n_tokens = sum(n for _, n in WIN_REQUESTS)
+    same = sum(a == b for g, s_ in zip(got, solo(model)) for a, b in zip(g, s_))
+    clear_programs()
+    f32 = _f32_prefix(torch, model, cfg["num_layers"])
+    (got32, _), _, counts32 = _counted(torch, K, lambda: serve(f32))
+    add(counts32)
+    check(got32 == solo(f32), "window paged server f32: a request differs from its solo "
+          "decode")
+    del f32
+    out["paged_server"] = dict(requests=WIN_REQUESTS, steps=steps, seconds=dt,
+                               bf16_agreement=same / n_tokens, launches=counts)
+    log(f"[window] PagedDecodeServer {len(prompts)} requests, prompts "
+        f"{[n for n, _ in WIN_REQUESTS]}: {steps} steps in {dt:.3f} s; bf16 agreement "
+        f"with solo decode {same}/{n_tokens}, f32 every request = its solo decode | "
+        f"launches {counts}")
+    clear_programs()
+
+    # the f32 gate: one layer at full width, window 96 with 4 sinks, packed
+    # ids; the loss and every gradient against the CPU
+    gate = _f32_prefix(torch, model, 1)
+    del model
+    for m in (gate, *(blk.attn for blk in gate.blocks)):
+        m.window, m.sinks = WIN_GATE_WINDOW, WIN_GATE_SINKS
+    gb = packed_batch(rng, 1, WIN_GATE_SEQ, cfg["vocab_size"], 16, 100)
+    cpu = copy.deepcopy(gate).to("cpu")
+
+    def loss_of(m, dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in gb.items()}
+        return lm_loss(m(t["tokens"], segment_ids=t["segment_ids"], positions=t["positions"]),
+                       t["targets"], mask=t["loss_mask"])
+
+    K.reset_launch_counts()
+    loss_gpu = loss_of(gate, DEVICE)
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    gate_counts = {k: n for k, n in K.launch_counts().items() if n}
+    check(all(gate_counts.get(k, 0) == 1 for k in ("flash_fwd", "flash_bwd_dkv",
+                                                  "flash_bwd_dq")),
+          f"window f32 gate: launches {gate_counts}")
+    add(gate_counts)
+    loss_cpu = loss_of(cpu, "cpu")
+    loss_cpu.backward()
+    check(abs(loss_gpu.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item()),
+          f"window f32 loss GPU {loss_gpu.item()} vs CPU {loss_cpu.item()}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in gate.named_parameters():
+        r = cpu_params[name].grad
+        check(p.grad is not None and r is not None, f"window gate: no gradient for {name}")
+        rel = ((p.grad.cpu() - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"window f32 gradient of {worst_name} GPU vs CPU: max |err| "
+          f"{worst:.3g} of its largest value")
+    out["gate"] = dict(seq=WIN_GATE_SEQ, window=WIN_GATE_WINDOW, sinks=WIN_GATE_SINKS,
+                       documents=int(gb["segment_ids"].max()) + 1, loss_gpu=loss_gpu.item(),
+                       loss_cpu=loss_cpu.item(), worst_grad_rel_err=worst,
+                       worst_param=worst_name)
+    log(f"[window] f32 gate, 1 layer at full width, S {WIN_GATE_SEQ} window "
+        f"{WIN_GATE_WINDOW} sinks {WIN_GATE_SINKS}, {out['gate']['documents']} packed "
+        f"documents: loss GPU {loss_gpu.item():.6f} CPU {loss_cpu.item():.6f}; every "
+        f"gradient within {worst:.3g} of its largest value (worst {worst_name})")
+    del gate, cpu
+
+    # the tape's sdpa with a key-padding mask, forward and backward
+    b, h, s, hd = WIN_SDPA
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    q, k, v, ct = (torch.randn((b, h, s, hd), generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = rng.randint(s // 8, s + 1, size=b)
+    kvm = torch.from_numpy(np.arange(s)[None] < lens[:, None]).to(DEVICE)
+    with md.use_backend(DEVICE):
+        tq, tk, tv = (md.Tensor(t, allow_grad=True) for t in (q, k, v))
+
+        def tape():
+            o = md.sdpa(tq, tk, tv, mask=md.Tensor(kvm.reshape(b, 1, 1, s)))
+            md.sum(o * md.Tensor(ct)).backward()
+            return o
+
+        o, dt, counts = _counted(torch, K, tape)
+    check(counts == {"flash_fwd": 2, "flash_bwd_dkv": 1, "flash_bwd_dq": 1},
+          f"window tape sdpa: launches {counts}")
+    add(counts)
+    k32 = kvm.to(torch.int32)
+    q3, k3, v3, do3 = (t.reshape(b * h, s, hd) for t in (q, k, v, ct))
+    op, lp = A._plain_flash_fwd(q3, k3, v3, hd ** -0.5, False, kvm=k32, h=h)
+    pq, pk, pv = A._plain_flash_bwd(q3, k3, v3, op, lp, do3, hd ** -0.5, False, kvm=k32, h=h)
+    err = max([max_err(torch, o._data.reshape(op.shape), op, "attn", "bfloat16")]
+              + [max_err(torch, t.grad._data.reshape(r.shape), r, "attn_bwd", "bfloat16")
+                 for t, r in zip((tq, tk, tv), (pq, pk, pv))])
+    out["tape_sdpa"] = dict(shape=list(WIN_SDPA), lengths=lens.tolist(), seconds=dt,
+                            max_abs_err=err, launches=counts)
+    log(f"[window] tape md.sdpa key-padding mask {list(WIN_SDPA)} lengths {lens.tolist()}: "
+        f"value and gradients within {err:.3g} of the plain versions, {dt * 1e3:.1f} ms "
+        f"| launches {counts}")
+    report["window"] = out
+    report["launches_window"] = {k: launches.get(k, 0) for k in K.launch_counts()}
 
 
 if __name__ == "__main__":

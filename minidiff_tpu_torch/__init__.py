@@ -20,7 +20,11 @@ int8 expert banks through the same decode paths, its train step
 ``dequant_matmul_bmm``.
 Training: ``make_train_step`` with ``SGD``, ``Adam`` and ``AdamW``,
 ``lm_loss`` and ``cross_entropy``, differentiated by PyTorch's autograd,
-each step one CUDA graph replay (``jit=True``, the default).
+each step one CUDA graph replay (``jit=True``, the default), and packed
+pretraining (``models.pack``: ``pack_documents``,
+``make_packed_train_step``).  Sliding-window attention with attention
+sinks (``TransformerLM(window=, sinks=)``) trains and serves on every
+path, and the tape's ``sdpa`` takes the JAX op's masks.
 Hand-written sm_90a CUDA kernels (``minidiff_tpu_torch.kernels``) carry the
 tape's large 2-D matrix products, LayerNorm, RMSNorm and their fused
 residual-add forms, flash attention, softmax cross-entropy, the int8 and int4 dequant-matmuls,

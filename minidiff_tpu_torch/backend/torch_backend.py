@@ -23,9 +23,9 @@ or divided by an integer), the result is numpy's float64.
 hand-written CUDA kernels for large 2-D f32/bf16 products),
 ``softmax_xent`` to ``kernels.xent``, ``rmsnorm`` and ``add_rmsnorm`` to
 ``kernels.layernorm``, ``dequant_matmul``, ``dequant_matmul4``,
-``dequant_matmul_bmm`` and ``sdpa_int8_cache`` to ``kernels.quant``, and
-``linear_scan`` to
-``kernels.scan``.  Autograd is the tape's: torch tensors
+``dequant_matmul_bmm`` and ``sdpa_int8_cache`` to ``kernels.quant``,
+``linear_scan`` to ``kernels.scan``, and ``sdpa`` to
+``kernels.attention``.  Autograd is the tape's: torch tensors
 here never require grad.
 """
 
@@ -38,6 +38,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from minidiff_tpu_torch.kernels import attention as _attn
 from minidiff_tpu_torch.kernels import layernorm as _ln
 from minidiff_tpu_torch.kernels import matmul as _mm
 from minidiff_tpu_torch.kernels import quant as _quant
@@ -467,6 +468,13 @@ class TorchBackend:
     sdpa_int8_cache = staticmethod(_quant.for_tape("sdpa_int8_cache"))
     unpack_int4 = staticmethod(_quant.unpack_int4)
     quantize_int8_stacked = staticmethod(_quant.quantize_int8_stacked)
+
+    # attention: the flash kernels where they take the operands and masks,
+    # the composed attention elsewhere (kernels/attention.py sdpa)
+    @staticmethod
+    def sdpa(q, k, v, causal: py_bool = False, scale=None, mask=None, window=None,
+             sinks: int = 0, segment_ids=None):
+        return _attn.sdpa(q, k, v, causal, scale, mask, window, sinks, segment_ids)
 
     # ---- ternary ----
     @staticmethod

@@ -68,12 +68,9 @@ SIGNATURES = {
     "rms_bwd_ring": ("rmsnorm", ()),
     "addrms_bwd": ("rmsnorm", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     "norm_null": ("rmsnorm", (_I, _I, _P)),
-    "flash_fwd": ("flash_fwd",
-                  (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P)),
-    "flash_bwd_dkv": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _F, _I, _I, _I, _I, _P)),
-    "flash_bwd_dq": ("flash_bwd", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _F, _I, _I, _I, _I, _P)),
+    "flash_fwd": ("flash_fwd", (_P,) * 7 + (_I,) * 4 + (_F,) + (_I,) * 6 + (_P,)),
+    "flash_bwd_dkv": ("flash_bwd", (_P,) * 10 + (_I,) * 4 + (_F,) + (_I,) * 6 + (_P,)),
+    "flash_bwd_dq": ("flash_bwd", (_P,) * 9 + (_I,) * 4 + (_F,) + (_I,) * 6 + (_P,)),
     "xent_fwd": ("xent", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "xent_bwd": ("xent", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "matmul": ("matmul", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),

@@ -62,6 +62,14 @@
 // Built with -DFLASH_BWD_WMMA_BF16, bf16 runs that tile's WMMA form instead
 // (chip_smoke.py's A/B of the two).
 //
+// The masks beyond causal and the window (flash_mask.cuh): attention sinks
+// (the dQ kernel streams the sink tiles below its band first, as
+// flash_fwd.cu; a dK/dV CTA holding a sink key walks every query tile
+// from its diagonal on), a key-padding row and segment ids, which mask
+// every tile and are compiled only into the kernels that take them
+// (ROWS).  A masked pair has P = 0, and P = 1 on a row with no visible key
+// (lse -1e30), as the TPU kernels' exp(-1e30 - lse).
+//
 // The CUDA-core / WMMA tile (at D 128; D 256 below).  dkv: one block per
 // (batch*head, 64-key tile); it keeps its K and V tiles and f32 dK/dV
 // accumulators in shared memory and walks the live 64-query tiles.  Each
@@ -84,6 +92,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -325,25 +334,15 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* B,
 }
 __device__ __forceinline__ void put(float* dst, float v) { *dst = v; }
 
-// Whether key tile kt holds any (row, col) pair visible to query tile qt
-// (tiles of BT rows each).
-template <int BT>
-__device__ __forceinline__ bool tile_live(int qt, int kt, int causal,
-                                          int window) {
-  if (!causal) return true;
-  const bool causal_live = kt * BT <= qt * BT + BT - 1;
-  if (window <= 0) return causal_live;
-  return causal_live && (kt * BT + BT - 1 >= qt * BT - (window - 1));
-}
-
-__device__ __forceinline__ bool visible(int qi, int kj, int sq, int sk,
-                                        int causal, int window) {
-  bool keep = qi < sq && kj < sk;
-  if (causal) {
-    keep = keep && qi >= kj;
-    if (window > 0) keep = keep && (qi - kj < window);
-  }
-  return keep;
+// P of one (query, key) pair from its unscaled score s and the query's
+// lse: exp(s scale - lse) where the pair is visible (in bounds and kept by
+// the masks), else 0, or 1 on a row with no visible key (lse -1e30): the
+// JAX kernels' exp(-1e30 - lse) of a masked score.
+template <bool ROWS>
+__device__ __forceinline__ float prob(const FlashMask& mk, int qi, int kj, int sq, int sk,
+                                      int qid, float s, float scale, float lse) {
+  if (qi < sq && kj < sk && mk.keep<ROWS>(qi, kj, qid)) return expf(s * scale - lse);
+  return ROWS && lse == -1e30f ? 1.f : 0.f;
 }
 
 // Write rows [r0, r0 + BT) of an f32 accumulator tile to a (n, D) output,
@@ -367,14 +366,15 @@ template <int BT> struct Elems {
 // One block per SM (its shared memory allows no more at either head dim):
 // told so, ptxas stops spilling to keep registers for a second one (f32 at
 // head dim 256 spilled 12 bytes)
-template <typename T, int D, int BT>
+template <typename T, int D, int BT, bool ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
+                     const float* __restrict__ delta, const int* __restrict__ kvm,
+                     const int* __restrict__ seg, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, float scale,
-                     int causal, int window) {
+                     int causal, int window, int sinks, int h) {
   using L = Layout<T, D, BT>;
   using W = Warps<BT>;
   using E = Elems<BT>;
@@ -404,10 +404,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int srow = threadIdx.x / E::TPR;
   const int cbase = E::CPT * (threadIdx.x % E::TPR);
   const int kj = k0 + srow;
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
 
   const int n_qt = (sq + BT - 1) / BT;
   for (int qt = 0; qt < n_qt; ++qt) {
-    if (!tile_live<BT>(qt, kt, causal, window)) continue;
+    if (!mk.tile_live(qt * BT, BT, k0, BT)) continue;
     const int q0 = qt * BT;
     __syncthreads();  // the previous tile's Q, dO, lse and delta consumed
     load_rows<D, BT>(sQ, L::LDC, qb, q0, sq);
@@ -422,8 +423,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < E::CPT; ++j) {
       const int col = cbase + j;
       const int e = srow * L::LDS + col;
-      const float p = visible(q0 + col, kj, sq, sk, causal, window)
-                          ? expf(sm.s[e] * scale - sm.lse[col]) : 0.f;
+      const float p = prob<ROWS>(mk, q0 + col, kj, sq, sk, mk.id(q0 + col, sq), sm.s[e],
+                                 scale, sm.lse[col]);
       const float ds = p * (sm.dp[e] - sm.delta[col]) * scale;
       put(sm.p + srow * L::LDP + col, p);
       put(sm.ds + srow * L::LDP + col, ds);
@@ -438,13 +439,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D, BT>(dv + static_cast<size_t>(bh) * sk * D, sdV, k0, sk);
 }
 
-template <typename T, int D, int BT>
+template <typename T, int D, int BT, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, float scale, int causal, int window) {
+                    const float* __restrict__ delta, const int* __restrict__ kvm,
+                    const int* __restrict__ seg, T* __restrict__ dq,
+                    int sq, int sk, float scale, int causal, int window, int sinks, int h) {
   using L = Layout<T, D, BT>;
   using W = Warps<BT>;
   using E = Elems<BT>;
@@ -473,10 +475,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int srow = threadIdx.x / E::TPR;
   const int cbase = E::CPT * (threadIdx.x % E::TPR);
   const int qi = q0 + srow;
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
+  const int qid = mk.id(qi, sq);
 
   const int n_kt = (sk + BT - 1) / BT;
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (!tile_live<BT>(qt, kt, causal, window)) continue;
+    if (!mk.tile_live(q0, BT, kt * BT, BT)) continue;
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's K and V consumed
     load_rows<D, BT>(sK, L::LDC, kb, k0, sk);
@@ -490,8 +494,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < E::CPT; ++j) {
       const int col = cbase + j;
       const int e = srow * L::LDS + col;
-      const float p = visible(qi, k0 + col, sq, sk, causal, window)
-                          ? expf(sm.s[e] * scale - lse_r) : 0.f;
+      const float p = prob<ROWS>(mk, qi, k0 + col, sq, sk, qid, sm.s[e], scale, lse_r);
       put(sm.ds + srow * L::LDP + col, p * (sm.dp[e] - delta_r) * scale);
     }
     W::sync();
@@ -504,9 +507,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int BT>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, void* dk, void* dv,
-           int bh, int sq, int sk, float scale, int causal, int window,
-           bool dkv, void* stream) {
+           const float* lse, const float* delta, const int* kvm, const int* seg, void* dq,
+           void* dk, void* dv, int bh, int sq, int sk, float scale, int causal, int window,
+           int sinks, int h, bool dkv, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
@@ -514,24 +517,26 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* tdo = static_cast<const T*>(dout);
   if (dkv) {
     constexpr size_t bytes = Smem<T, D, BT>::bytes(2, 2);
+    auto kernel = kvm || seg ? flash_bwd_dkv_kernel<T, D, BT, true>
+                             : flash_bwd_dkv_kernel<T, D, BT, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((sk + BT - 1) / BT, bh);
-    flash_bwd_dkv_kernel<T, D, BT><<<grid, kThreads, bytes, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        sq, sk, scale, causal, window);
+    kernel<<<grid, kThreads, bytes, st>>>(
+        tq, tk, tv, tdo, lse, delta, kvm, seg, static_cast<T*>(dk), static_cast<T*>(dv),
+        sq, sk, scale, causal, window, sinks, h);
   } else {
     constexpr size_t bytes = Smem<T, D, BT>::bytes(1, 1);
+    auto kernel = kvm || seg ? flash_bwd_dq_kernel<T, D, BT, true>
+                             : flash_bwd_dq_kernel<T, D, BT, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((sq + BT - 1) / BT, bh);
-    flash_bwd_dq_kernel<T, D, BT><<<grid, kThreads, bytes, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, sk, scale,
-        causal, window);
+    kernel<<<grid, kThreads, bytes, st>>>(
+        tq, tk, tv, tdo, lse, delta, kvm, seg, static_cast<T*>(dq), sq, sk, scale,
+        causal, window, sinks, h);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -539,15 +544,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // The instantiation for head dim d: 64-row tiles at 128, 32 at 256.
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v,
-             const void* dout, const float* lse, const float* delta, void* dq,
-             void* dk, void* dv, int bh, int sq, int sk, float scale,
-             int causal, int window, bool dkv, void* stream) {
+             const void* dout, const float* lse, const float* delta, const int* kvm,
+             const int* seg, void* dq, void* dk, void* dv, int bh, int sq, int sk, float scale,
+             int causal, int window, int sinks, int h, bool dkv, void* stream) {
   if (d == 128)
-    return launch<T, 128, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk,
-                              scale, causal, window, dkv, stream);
+    return launch<T, 128, 64>(q, k, v, dout, lse, delta, kvm, seg, dq, dk, dv, bh, sq, sk,
+                              scale, causal, window, sinks, h, dkv, stream);
   if (d == 256)
-    return launch<T, 256, 32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk,
-                              scale, causal, window, dkv, stream);
+    return launch<T, 256, 32>(q, k, v, dout, lse, delta, kvm, seg, dq, dk, dv, bh, sq, sk,
+                              scale, causal, window, sinks, h, dkv, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -598,12 +603,18 @@ struct Turns {
 // dV += P^T dO and dK += dS^T Q.  `st` holds the tile's lse, then its
 // delta (BQ each), from this thread's first column c2 on.  MASK: pairs
 // past Sq (cmax columns are in range), above the diagonal or outside the
-// window (query - key = dbase + column - row) get P = 0.
-template <int BQ, bool MASK>
+// window (query - key = dbase + column - row) unless the key is a sink
+// (kmax: rows below it are), and with ROWS pairs the key row or ids drop,
+// get P = 0; with ROWS, 1 on a query row with no visible key (lse -1e30).
+// ROWS: the key row kv0 / kv8 of this thread's keys (nonzero: kept), their
+// ids id0 / id8 against the queries' (seg from the tile's first column).
+template <int BQ, bool MASK, bool ROWS>
 __device__ __forceinline__ void grads_t(const float (&s)[BQ / 2], const float (&dp)[BQ / 2],
                                         unsigned (&p)[BQ / 4], unsigned (&ds)[BQ / 4],
                                         const float* st, float sl2, float scale, int cmax,
-                                        int dbase, int causal, int window) {
+                                        int dbase, int causal, int window, int kmax,
+                                        const int* seg, const int (&kv)[2],
+                                        const int (&kid)[2]) {
 #pragma unroll
   for (int j = 0; j < BQ / 8; ++j) {
     float pe[2][2], de[2][2];  // [row][column]
@@ -617,8 +628,14 @@ __device__ __forceinline__ void grads_t(const float (&s)[BQ / 2], const float (&
         float pv = exp2_approx(fmaf(s[i], sl2, -l2));
         if constexpr (MASK) {
           const int d = dbase + col - 8 * r;
-          const bool keep = col < cmax && (!causal || (d >= 0 && (window <= 0 || d < window)));
-          pv = keep ? pv : 0.f;
+          bool keep = col < cmax && (!causal || (d >= 0 && (window <= 0 || d < window ||
+                                                           8 * r < kmax)));
+          if constexpr (ROWS) {
+            keep = keep && kv[r] != 0 && (seg == nullptr || seg[col] == kid[r]);
+            pv = keep ? pv : (st[col] == -1e30f ? 1.f : 0.f);
+          } else {
+            pv = keep ? pv : 0.f;
+          }
         }
         pe[r][e] = pv;
         de[r][e] = pv * (dp[i] - dl) * scale;
@@ -636,13 +653,17 @@ __device__ __forceinline__ void grads_t(const float (&s)[BQ / 2], const float (&
 // (times log2 e) and delta are l2 and dl.  dS = P (dP - delta) scale
 // leaves rounded to bf16 in the accumulator's layout, the A operand of
 // dQ += dS K.  MASK: keys past Sk (cmax columns are in range), above the
-// diagonal or outside the window (key - query = dbase + column - row) get
-// P = 0.
-template <int BK, bool MASK>
+// diagonal or outside the window (key - query = dbase + column - row)
+// unless a sink (columns below smax are), and with ROWS the pairs the key
+// row or ids drop (kvm, seg from the tile's first column; qid the rows'
+// ids), get P = 0; with ROWS, 1 on a row with no visible key (dead[r]).
+template <int BK, bool MASK, bool ROWS>
 __device__ __forceinline__ void grads(const float (&s)[BK / 2], const float (&dp)[BK / 2],
                                       unsigned (&ds)[BK / 4], const float (&l2)[2],
                                       const float (&dl)[2], float sl2, float scale, int cmax,
-                                      int dbase, int causal, int window) {
+                                      int dbase, int causal, int window, int smax,
+                                      const int* kvm, const int* seg, const int (&qid)[2],
+                                      const bool (&dead)[2]) {
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
     float de[2][2];  // [row][column]
@@ -654,8 +675,15 @@ __device__ __forceinline__ void grads(const float (&s)[BK / 2], const float (&dp
         float pv = exp2_approx(fmaf(s[i], sl2, -l2[r]));
         if constexpr (MASK) {
           const int d = dbase + col - 8 * r;
-          const bool keep = col < cmax && (!causal || (d <= 0 && (window <= 0 || d > -window)));
-          pv = keep ? pv : 0.f;
+          bool keep = col < cmax && (!causal || (d <= 0 && (window <= 0 || d > -window ||
+                                                           col < smax)));
+          if constexpr (ROWS) {
+            keep = keep && (kvm == nullptr || kvm[col] != 0) &&
+                   (seg == nullptr || seg[col] == qid[r]);
+            pv = keep ? pv : (dead[r] ? 1.f : 0.f);
+          } else {
+            pv = keep ? pv : 0.f;
+          }
         }
         de[r][e] = pv * (dp[i] - dl[r]) * scale;
       }
@@ -693,13 +721,14 @@ struct DkvCfg {
   static constexpr int kConsumerRegs = D == 128 ? 240 : 232;
 };
 
-template <int D, int WGS, int BQ, int STAGES>
+template <int D, int WGS, int BQ, int STAGES, bool ROWS>
 __global__ void __launch_bounds__(128 * WGS + 128, 1)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
+                           const int* __restrict__ kvm, const int* __restrict__ seg,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                           float scale, int causal, int window) {
+                           float scale, int causal, int window, int sinks, int h) {
   using C = DkvCfg<D, WGS, BQ, STAGES>;
   extern __shared__ unsigned char smem[];
   const unsigned base = smem_addr(smem);
@@ -716,11 +745,14 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
   // the live query tiles [qt0, qt0 + ntiles): causal tiles wholly above the
   // diagonal of the CTA's first key, and with a window those wholly past
-  // the band of its last, are skipped
+  // the band of its last, are skipped; a CTA holding a sink key is live for
+  // every query tile from its diagonal on
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
   int qt0 = 0, qt1 = (sq + BQ - 1) / BQ;
   if (causal) {
     qt0 = min(qt1, k0 / BQ);
-    if (window > 0) qt1 = min(qt1, (min(k0 + C::KEYS, sk) - 1 + window - 1) / BQ + 1);
+    if (window > 0 && k0 >= mk.sinks)
+      qt1 = min(qt1, (min(k0 + C::KEYS, sk) - 1 + window - 1) / BQ + 1);
   }
   const int ntiles = qt1 - qt0;
 
@@ -771,11 +803,21 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     const unsigned wcol = (wd / 64) * BQ * 128;  // its columns' atoms in a Q or dO tile
     const float* st0 = reinterpret_cast<const float*>(smem + (sStats - base)) + c2;
     const float sl2 = scale * kLog2e;
+    // with ROWS, this thread's keys' entries of the key row and their ids
+    int kv[2] = {1, 1}, kid[2] = {0, 0};
+    if constexpr (ROWS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        kv[r] = mk.kvm != nullptr && ra + 8 * r < sk ? mk.kvm[ra + 8 * r] : 1;
+        kid[r] = mk.id(ra + 8 * r, sk);
+      }
+    }
 
     // the tiles [na, nb) with a visible pair for this warpgroup's keys
     int na = 0, nb = w0 < sk ? ntiles : 0;
     if (w0 < sk && causal) {
-      if (window > 0) nb = min(nb, (min(w0 + 63, sk - 1) + window - 1) / BQ + 1 - qt0);
+      if (window > 0 && w0 >= mk.sinks)
+        nb = min(nb, (min(w0 + 63, sk - 1) + window - 1) / BQ + 1 - qt0);
       na = min(nb, max(0, w0 / BQ - qt0));
     }
     auto acquire = [&](int n) {
@@ -815,12 +857,14 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       // window's far edge for some key of this warpgroup
       unsigned p[BQ / 4], ds[BQ / 4];
       const float* st = st0 + (n % STAGES) * (C::kStats / 4);
-      if (q0 + BQ > sq ||
+      const int* segq = ROWS && mk.seg ? mk.seg + q0 + c2 : nullptr;
+      if (q0 + BQ > sq || ROWS ||
           (causal && (q0 < w0 + 63 || (window > 0 && q0 + BQ - 1 - w0 >= window))))
-        grads_t<BQ, true>(s, dp, p, ds, st, sl2, scale, sq - q0 - c2, q0 + c2 - ra, causal,
-                          window);
+        grads_t<BQ, true, ROWS>(s, dp, p, ds, st, sl2, scale, sq - q0 - c2, q0 + c2 - ra,
+                                causal, window, mk.sinks - ra, segq, kv, kid);
       else
-        grads_t<BQ, false>(s, dp, p, ds, st, sl2, scale, 0, 0, causal, window);
+        grads_t<BQ, false, ROWS>(s, dp, p, ds, st, sl2, scale, 0, 0, causal, window, 0, segq,
+                                 kv, kid);
       turn.mine();
       wgmma_fence();
       pv<128, BQ>(dvacc, p, stage(n) + C::kQ + wcol);  // dV += P^T dO
@@ -875,13 +919,14 @@ struct DqCfg {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int D, int WGS, int BK, int STAGES>
+template <int D, int WGS, int BK, int STAGES, bool ROWS>
 __global__ void __launch_bounds__(128 * WGS + 128, 1)
 flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ kvm, const int* __restrict__ seg,
                           bf16* __restrict__ dq, int sq, int sk, float scale, int causal,
-                          int window) {
+                          int window, int sinks, int h) {
   using C = DqCfg<D, WGS, BK, STAGES>;
   extern __shared__ unsigned char smem[];
   const unsigned sQ = (smem_addr(smem) + 1023) & ~1023u, sdO = sQ + C::kQ, sKV = sdO + C::kQ;
@@ -894,14 +939,20 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   // the last query tiles (the longest causal rows) first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;
 
-  // the live key tiles [kt0, kt0 + ntiles), as flash_fwd.cu's
+  // the live key tiles, as flash_fwd.cu's: the ns tiles holding sink
+  // columns below the band, then [kt0, kt1)
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
   const int last = min(q0 + C::ROWS, sq) - 1;
-  int kt0 = 0, kt1 = (sk + BK - 1) / BK;
+  int kt0 = 0, kt1 = (sk + BK - 1) / BK, ns = 0;
   if (causal) {
     kt1 = min(kt1, last / BK + 1);
-    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
+    if (window > 0) {
+      kt0 = max(0, q0 - window + 1) / BK;
+      ns = min(kt0, (mk.sinks + BK - 1) / BK);
+    }
   }
-  const int ntiles = kt1 - kt0;
+  const int ntiles = ns + kt1 - kt0;
+  auto key0 = [&](int n) { return (n < ns ? n : kt0 + n - ns) * BK; };
 
   if (tid == 0) {
     mbar_init(qbar, 128);
@@ -925,8 +976,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
     for (int n = 0; n < ntiles; ++n) {
       mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
-      load_tile<D, BK, 128>(stage(n), kb, (kt0 + n) * BK, sk, t);
-      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, (kt0 + n) * BK, sk, t);
+      load_tile<D, BK, 128>(stage(n), kb, key0(n), sk, t);
+      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, key0(n), sk, t);
       mbar_arrive_cp_async(full(n));
     }
     cp_async_wait_all();
@@ -939,19 +990,24 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const unsigned wq = sQ + wgi * 64 * 128, wdo = sdO + wgi * 64 * 128;
     const float sl2 = scale * kLog2e;
     float l2[2], dl[2];
+    bool dead[2];
+    const int qid[2] = {ROWS ? mk.id(ra, sq) : 0, ROWS ? mk.id(ra + 8, sq) : 0};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = ra + 8 * r;
       const bool ok = row < sq;
-      l2[r] = ok ? lse[static_cast<size_t>(bh) * sq + row] * kLog2e : 0.f;
+      const float lr = ok ? lse[static_cast<size_t>(bh) * sq + row] : 0.f;
+      l2[r] = lr * kLog2e;
+      dead[r] = lr == -1e30f;
       dl[r] = ok ? delta[static_cast<size_t>(bh) * sq + row] : 0.f;
     }
 
-    // the tiles [na, nb) with a visible pair for this warpgroup's rows
+    // the tiles [na, nb) with a visible pair for this warpgroup's rows;
+    // with sinks every tile from 0 on (flash_fwd.cu's rule)
     int na = 0, nb = w0 < sq ? ntiles : 0;
     if (w0 < sq && causal) {
-      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0);
-      if (window > 0) na = max(0, max(0, w0 - window + 1) / BK - kt0);
+      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0 + ns);
+      if (window > 0 && mk.sinks == 0) na = max(0, max(0, w0 - window + 1) / BK - kt0);
     }
     auto acquire = [&](int n) {
       mbar_wait(full(n), (n / STAGES) & 1);
@@ -977,7 +1033,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     for (int n = na; n < nb; ++n) {
       acquire(n);
-      const int k0 = (kt0 + n) * BK;
+      const int k0 = key0(n);
       float s[BK / 2], dp[BK / 2];
       turn.mine();
       wgmma_fence();
@@ -991,12 +1047,15 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       // masks only where the tile reaches past Sk, the diagonal or the
       // window's lower edge for some row of this warpgroup
       unsigned ds[BK / 4];
-      if (k0 + BK > sk ||
+      const int* kvk = ROWS && mk.kvm ? mk.kvm + k0 + c2 : nullptr;
+      const int* segk = ROWS && mk.seg ? mk.seg + k0 + c2 : nullptr;
+      if (k0 + BK > sk || ROWS ||
           (causal && (k0 + BK - 1 > w0 || (window > 0 && w0 + 63 - k0 >= window))))
-        grads<BK, true>(s, dp, ds, l2, dl, sl2, scale, sk - k0 - c2, k0 + c2 - ra, causal,
-                        window);
+        grads<BK, true, ROWS>(s, dp, ds, l2, dl, sl2, scale, sk - k0 - c2, k0 + c2 - ra, causal,
+                              window, mk.sinks - k0 - c2, kvk, segk, qid, dead);
       else
-        grads<BK, false>(s, dp, ds, l2, dl, sl2, scale, 0, 0, causal, window);
+        grads<BK, false, ROWS>(s, dp, ds, l2, dl, sl2, scale, 0, 0, causal, window, 0, kvk,
+                               segk, qid, dead);
       turn.mine();
       wgmma_fence();
       pv<D, BK>(dqacc, ds, stage(n));  // dQ += dS K
@@ -1034,35 +1093,38 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int D, int WGS, int BQ, int STAGES>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, int bh, int sq, int sk, float scale,
-               int causal, int window, cudaStream_t st) {
+               const float* delta, const int* kvm, const int* seg, void* dk, void* dv, int bh,
+               int sq, int sk, float scale, int causal, int window, int sinks, int h,
+               cudaStream_t st) {
   using C = DkvCfg<D, WGS, BQ, STAGES>;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D, WGS, BQ, STAGES>;
+  auto kernel = kvm || seg ? flash_bwd_dkv_wgmma_kernel<D, WGS, BQ, STAGES, true>
+                           : flash_bwd_dkv_wgmma_kernel<D, WGS, BQ, STAGES, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (sk + C::KEYS - 1) / C::KEYS);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, sk, scale, causal, window);
+      static_cast<const bf16*>(dout), lse, delta, kvm, seg, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, sk, scale, causal, window, sinks, h);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int WGS, int BK, int STAGES>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, void* dq, int bh, int sq, int sk, float scale, int causal,
-              int window, cudaStream_t st) {
+              const float* delta, const int* kvm, const int* seg, void* dq, int bh, int sq,
+              int sk, float scale, int causal, int window, int sinks, int h, cudaStream_t st) {
   using C = DqCfg<D, WGS, BK, STAGES>;
-  auto kernel = flash_bwd_dq_wgmma_kernel<D, WGS, BK, STAGES>;
+  auto kernel = kvm || seg ? flash_bwd_dq_wgmma_kernel<D, WGS, BK, STAGES, true>
+                           : flash_bwd_dq_wgmma_kernel<D, WGS, BK, STAGES, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (sq + C::ROWS - 1) / C::ROWS);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), sq, sk, scale,
-      causal, window);
+      static_cast<const bf16*>(dout), lse, delta, kvm, seg, static_cast<bf16*>(dq), sq, sk,
+      scale, causal, window, sinks, h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1073,32 +1135,34 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 // at head dim 128, 64 (one) at 256, key tiles of 64 in a ring of three
 // (two at 256).
 int dispatch_dkv(int d, int wgs, const void* q, const void* k, const void* v, const void* dout,
-                 const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                 int sk, float scale, int causal, int window, cudaStream_t st) {
+                 const float* lse, const float* delta, const int* kvm, const int* seg, void* dk,
+                 void* dv, int bh, int sq, int sk, float scale, int causal, int window,
+                 int sinks, int h, cudaStream_t st) {
   if (d == 128 && wgs == 2)
-    return launch_dkv<128, 2, 64, 3>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
-                                     causal, window, st);
+    return launch_dkv<128, 2, 64, 3>(q, k, v, dout, lse, delta, kvm, seg, dk, dv, bh, sq, sk,
+                                     scale, causal, window, sinks, h, st);
   if (d == 128 && wgs == 1)
-    return launch_dkv<128, 1, 64, 3>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
-                                     causal, window, st);
+    return launch_dkv<128, 1, 64, 3>(q, k, v, dout, lse, delta, kvm, seg, dk, dv, bh, sq, sk,
+                                     scale, causal, window, sinks, h, st);
   if (d == 256 && wgs == 2)
-    return launch_dkv<256, 2, 64, 2>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, scale,
-                                     causal, window, st);
+    return launch_dkv<256, 2, 64, 2>(q, k, v, dout, lse, delta, kvm, seg, dk, dv, bh, sq, sk,
+                                     scale, causal, window, sinks, h, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int dispatch_dq(int d, int wgs, const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
-                float scale, int causal, int window, cudaStream_t st) {
+                const float* lse, const float* delta, const int* kvm, const int* seg, void* dq,
+                int bh, int sq, int sk, float scale, int causal, int window, int sinks, int h,
+                cudaStream_t st) {
   if (d == 128 && wgs == 2)
-    return launch_dq<128, 2, 64, 3>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
-                                    window, st);
+    return launch_dq<128, 2, 64, 3>(q, k, v, dout, lse, delta, kvm, seg, dq, bh, sq, sk, scale,
+                                    causal, window, sinks, h, st);
   if (d == 128 && wgs == 1)
-    return launch_dq<128, 1, 64, 3>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
-                                    window, st);
+    return launch_dq<128, 1, 64, 3>(q, k, v, dout, lse, delta, kvm, seg, dq, bh, sq, sk, scale,
+                                    causal, window, sinks, h, st);
   if (d == 256 && wgs == 1)
-    return launch_dq<256, 1, 64, 2>(q, k, v, dout, lse, delta, dq, bh, sq, sk, scale, causal,
-                                    window, st);
+    return launch_dq<256, 1, 64, 2>(q, k, v, dout, lse, delta, kvm, seg, dq, bh, sq, sk, scale,
+                                    causal, window, sinks, h, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1108,48 +1172,56 @@ int dispatch_dq(int d, int wgs, const void* q, const void* k, const void* v, con
 
 // q and dout (bh, sq, d), k and v (bh, sk, d), lse and delta (bh, sq) f32;
 // dk, dv like k; d 128 or 256; all contiguous and 16-byte aligned.  window
-// <= 0 means no sliding window.  wgs: the consumer warpgroups of the bf16
-// kernel's CTA (kernels/attention.py flash_bwd_plan; f32 ignores it).
-// dtype: 0 = float32, 1 = bfloat16.  Built with -DFLASH_BWD_WMMA_BF16, bf16
-// runs the f32 kernel's WMMA tile (chip_smoke.py's A/B of the two).
-// Returns cudaGetLastError().
+// <= 0 means no sliding window; sinks: the first keys every row keeps under
+// a window.  kvm (b, sk) and seg (b, sq) int32 with b = bh / h, or null:
+// the key-padding rows and the segment ids (sq == sk) of flash_mask.cuh.
+// wgs: the consumer warpgroups of the bf16 kernel's CTA
+// (kernels/attention.py flash_bwd_plan; f32 ignores it).  dtype: 0 =
+// float32, 1 = bfloat16.  Built with -DFLASH_BWD_WMMA_BF16, bf16 runs the
+// f32 kernel's WMMA tile (chip_smoke.py's A/B of the two).  Returns
+// cudaGetLastError().
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int bh,
-                             int sq, int sk, int d, float scale, int causal,
-                             int window, int wgs, int dtype, void* stream) {
+                             const void* delta, const void* kvm, const void* seg,
+                             void* dk, void* dv, int bh, int sq, int sk, int d, float scale,
+                             int causal, int window, int sinks, int h, int wgs, int dtype,
+                             void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const int* km = static_cast<const int*>(kvm);
+  const int* sg = static_cast<const int*>(seg);
   if (dtype == 1) {
 #ifdef FLASH_BWD_WMMA_BF16
-    return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, nullptr, dk, dv, bh,
-                                   sq, sk, scale, causal, window, true, stream);
+    return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, km, sg, nullptr, dk, dv, bh,
+                                   sq, sk, scale, causal, window, sinks, h, true, stream);
 #else
-    return wg::dispatch_dkv(d, wgs, q, k, v, dout, l, dl, dk, dv, bh, sq, sk, scale, causal,
-                            window, static_cast<cudaStream_t>(stream));
+    return wg::dispatch_dkv(d, wgs, q, k, v, dout, l, dl, km, sg, dk, dv, bh, sq, sk, scale,
+                            causal, window, sinks, h, static_cast<cudaStream_t>(stream));
 #endif
   }
-  return dispatch<float>(d, q, k, v, dout, l, dl, nullptr, dk, dv, bh, sq, sk,
-                         scale, causal, window, true, stream);
+  return dispatch<float>(d, q, k, v, dout, l, dl, km, sg, nullptr, dk, dv, bh, sq, sk,
+                         scale, causal, window, sinks, h, true, stream);
 }
 
 // dq like q; the other operands as for flash_bwd_dkv.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dq, int bh, int sq,
-                            int sk, int d, float scale, int causal, int window,
-                            int wgs, int dtype, void* stream) {
+                            const void* delta, const void* kvm, const void* seg, void* dq,
+                            int bh, int sq, int sk, int d, float scale, int causal,
+                            int window, int sinks, int h, int wgs, int dtype, void* stream) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const int* km = static_cast<const int*>(kvm);
+  const int* sg = static_cast<const int*>(seg);
   if (dtype == 1) {
 #ifdef FLASH_BWD_WMMA_BF16
-    return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, dq, nullptr, nullptr,
-                                   bh, sq, sk, scale, causal, window, false, stream);
+    return dispatch<__nv_bfloat16>(d, q, k, v, dout, l, dl, km, sg, dq, nullptr, nullptr,
+                                   bh, sq, sk, scale, causal, window, sinks, h, false, stream);
 #else
-    return wg::dispatch_dq(d, wgs, q, k, v, dout, l, dl, dq, bh, sq, sk, scale, causal, window,
-                           static_cast<cudaStream_t>(stream));
+    return wg::dispatch_dq(d, wgs, q, k, v, dout, l, dl, km, sg, dq, bh, sq, sk, scale, causal,
+                           window, sinks, h, static_cast<cudaStream_t>(stream));
 #endif
   }
-  return dispatch<float>(d, q, k, v, dout, l, dl, dq, nullptr, nullptr, bh, sq,
-                         sk, scale, causal, window, false, stream);
+  return dispatch<float>(d, q, k, v, dout, l, dl, km, sg, dq, nullptr, nullptr, bh, sq,
+                         sk, scale, causal, window, sinks, h, false, stream);
 }

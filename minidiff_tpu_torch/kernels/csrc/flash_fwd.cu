@@ -52,6 +52,16 @@
 // Built with -DFLASH_WMMA_BF16, bf16 runs that tile's WMMA form instead
 // (chip_smoke.py's A/B of the two).
 //
+// The masks beyond causal and the window (flash_mask.cuh), as the TPU
+// kernel takes them: attention sinks, a key-padding row and segment ids.
+// Tiles below a CTA's band that hold sink columns are streamed first, and
+// under sinks a warpgroup computes every tile from 0 (one it needs not is
+// wholly masked and leaves its rows as they were); a key row or ids mask
+// every tile and skip none.  A row with no visible key keeps m = -1e30,
+// averages v over the keys of its tiles and returns lse -1e30, as the TPU
+// kernel does.  The wgmma kernel is instantiated for each set of masks a
+// call can take (MASKS), so that a call pays for none it does not use.
+//
 // The CUDA-core / WMMA tile: one CTA of 4 warps per (batch*head, 64-query
 // tile); K/V tiles of BK rows stream through shared memory; each warp owns
 // 16 query rows end to end (QK^T, online softmax, PV), so the only block
@@ -67,6 +77,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -233,23 +244,13 @@ __device__ __forceinline__ void store_p(float* /*sP*/, float* sS, int row,
 }
 __device__ __forceinline__ void store_o(float* dst, float v) { *dst = v; }
 
-// Whether key tile kt (of BK rows) holds any (row, col) pair visible to
-// query tile qt.
-template <int BK>
-__device__ __forceinline__ bool tile_live(int qt, int kt, int causal,
-                                          int window) {
-  if (!causal) return true;
-  const bool causal_live = kt * BK <= qt * BQ + BQ - 1;
-  if (window <= 0) return causal_live;
-  return causal_live && (kt * BK + BK - 1 >= qt * BQ - (window - 1));
-}
-
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, const int* __restrict__ kvm,
+                 const int* __restrict__ seg, int sq, int sk, float scale,
+                 int causal, int window, int sinks, int h) {
   using L = Tiles<T, D, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -282,10 +283,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int srow = 16 * warp + (lane >> 1);
   const int half = lane & 1;
   const int grow = q0 + srow;
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
+  const int gid = mk.id(grow, sq);
 
   const int n_kt = (sk + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (!tile_live<BK>(qt, kt, causal, window)) continue;
+    if (!mk.tile_live(q0, BQ, kt * BK, BK)) continue;
     const int k0 = kt * BK;
     __syncthreads();  // previous tile's K/V fully consumed
     load_tile<D, BK, L::LD>(sK, kb, k0, sk);
@@ -301,12 +304,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < HALF; ++j) {
       const int col = k0 + HALF * half + j;
       float s = srow_p[j] * scale;
-      bool keep = col < sk;
-      if (causal) {
-        keep = keep && grow >= col;
-        if (window > 0) keep = keep && (grow - col < window);
-      }
-      s = keep ? s : kNegInf;
+      s = col < sk && mk.keep<ROWS>(grow, col, gid) ? s : kNegInf;
       srow_p[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -346,30 +344,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int sq, int sk, float scale, int causal, int window,
-           void* stream) {
+           const int* kvm, const int* seg, int bh, int sq, int sk, float scale,
+           int causal, int window, int sinks, int h, void* stream) {
   constexpr size_t bytes = Tiles<T, D, BK>::smem_bytes();
+  auto kernel = kvm || seg ? flash_fwd_kernel<T, D, BK, true> : flash_fwd_kernel<T, D, BK, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<T, D, BK><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale, causal,
-      window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kvm, seg, sq, sk, scale,
+      causal, window, sinks, h);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation for head dim d: 64-row key tiles at 128, 32 at 256.
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* o,
-             float* lse, int bh, int sq, int sk, float scale, int causal,
-             int window, void* stream) {
+             float* lse, const int* kvm, const int* seg, int bh, int sq, int sk,
+             float scale, int causal, int window, int sinks, int h, void* stream) {
   if (d == 128)
-    return launch<T, 128, 64>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, stream);
+    return launch<T, 128, 64>(q, k, v, o, lse, kvm, seg, bh, sq, sk, scale, causal, window,
+                              sinks, h, stream);
   if (d == 256)
-    return launch<T, 256, 32>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, stream);
+    return launch<T, 256, 32>(q, k, v, o, lse, kvm, seg, bh, sq, sk, scale, causal, window,
+                              sinks, h, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -404,21 +404,41 @@ struct Cfg {
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int BK, bool MASK, int I = 0>
+// The masks an instantiation of the wgmma kernel takes (MASKS): 0 causal
+// and the window, as the kernel was before sinks; 1 with sinks; 2 with a
+// key row or ids (and sinks).  A call takes the least that serves it, so
+// that what it does not use costs it nothing.
+//
+// A masked tile's rules for this thread's scores (rows ra + Elem::row,
+// columns c0 + Elem::col): columns < cmax are in bounds; col - row = dbase +
+// Elem::col - Elem::row; columns < smax are sinks (MASKS >= 1); and with
+// MASKS 2 the key row and ids from column c0 on (kvm, seg, or null) against
+// the ids id0, id8 of the thread's two rows.  All by value: a struct taken
+// by reference here went to the stack.
+template <int BK, bool MASK, int MASKS, int I = 0>
 __device__ __forceinline__ void scale_mask(float (&s)[BK / 2], float (&mx)[2][2], float sl2,
-                                           int cmax, int dbase, int causal, int window) {
+                                           int cmax, int dbase, int causal, int window,
+                                           int smax, const int* kvm, const int* seg, int id0,
+                                           int id8) {
   if constexpr (I < BK / 2) {
     float x = s[I] * sl2;
     if constexpr (MASK) {
-      // col - row = dbase + Elem<I>::col - Elem<I>::row; col < sk
-      const int d = dbase + (Elem<I>::col - Elem<I>::row);
-      const bool keep = Elem<I>::col < cmax &&
-                        (!causal || (d <= 0 && (window <= 0 || d > -window)));
+      constexpr int c = Elem<I>::col;
+      const int d = dbase + (c - Elem<I>::row);
+      bool keep;
+      if constexpr (MASKS >= 1)
+        keep = c < cmax && (!causal || (d <= 0 && (window <= 0 || d > -window || c < smax)));
+      else
+        keep = c < cmax && (!causal || (d <= 0 && (window <= 0 || d > -window)));
+      if constexpr (MASKS == 2)
+        keep = keep && (kvm == nullptr || kvm[c] != 0) &&
+               (seg == nullptr || seg[c] == (Elem<I>::row ? id8 : id0));
       x = keep ? x : kNegInf;
     }
     s[I] = x;
     mx[(I / 2) % 2][I % 2] = fmaxf(mx[(I / 2) % 2][I % 2], x);
-    scale_mask<BK, MASK, I + 1>(s, mx, sl2, cmax, dbase, causal, window);
+    scale_mask<BK, MASK, MASKS, I + 1>(s, mx, sl2, cmax, dbase, causal, window, smax, kvm, seg,
+                                      id0, id8);
   }
 }
 
@@ -428,12 +448,13 @@ __device__ __forceinline__ void scale_mask(float (&s)[BK / 2], float (&mx)[2][2]
 // output rescales by, and P rounded to bf16 against the new max, in the
 // accumulator's own layout (registers 4kk.. hold keys 16kk..): PV's A
 // operand.  A row's BK / 4 values lie on a quad of lanes.
-template <int BK, bool MASK>
+template <int BK, bool MASK, int MASKS>
 __device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                         float (&alpha)[2], unsigned (&p)[BK / 4], float sl2,
-                                        int cmax, int dbase, int causal, int window) {
+                                        int cmax, int dbase, int causal, int window, int smax,
+                                        const int* kvm, const int* seg, int id0, int id8) {
   float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
-  scale_mask<BK, MASK>(s, mx, sl2, cmax, dbase, causal, window);
+  scale_mask<BK, MASK, MASKS>(s, mx, sl2, cmax, dbase, causal, window, smax, kvm, seg, id0, id8);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float x = fmaxf(mx[r][0], mx[r][1]);
@@ -455,18 +476,21 @@ __device__ __forceinline__ void softmax(float (&s)[BK / 2], float (&m)[2], float
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + (sum[r][0] + sum[r][1]);
 }
 
-template <int D, int WGS, int BK, int STAGES>
+template <int D, int WGS, int BK, int STAGES, int MASKS>
 __global__ void __launch_bounds__(128 * WGS + 128, 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int sq, int sk, float scale, int causal,
-                       int window) {
+                       float* __restrict__ lse, const int* __restrict__ kvm,
+                       const int* __restrict__ seg, int sq, int sk, float scale, int causal,
+                       int window, int sinks, int h) {
   using C = Cfg<D, WGS, BK, STAGES>;
+  constexpr bool ROWS = MASKS == 2;
   // Whether a tile's softmax overlaps the PV product of the tile before:
   // at head dim 128 ptxas serialises every MMA of the kernel when
   // registers are defined while a group is partly retired (C7513), so
-  // there S(n) and PV(n - 1) are only issued together
-  constexpr bool kOverlap = D == 256;
+  // there S(n) and PV(n - 1) are only issued together; under a key row or
+  // ids the overlap's registers would spill at head dim 256
+  constexpr bool kOverlap = D == 256 && !ROWS;
   extern __shared__ unsigned char smem[];
   const unsigned sQ = (smem_addr(smem) + 1023) & ~1023u, sKV = sQ + C::kQ;
   const unsigned qbar = sQ + C::kBars;  // then full[STAGES], empty[STAGES]
@@ -478,16 +502,22 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the last query tiles (the longest causal rows) first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
 
-  // the live key tiles [kt0, kt0 + ntiles): causal tiles wholly above the
-  // diagonal of the CTA's last row, and with a window those wholly below
-  // the band of its first, are skipped
+  // the live key tiles: causal tiles wholly above the diagonal of the
+  // CTA's last row, and with a window those wholly below the band of its
+  // first, are skipped, except the ns tiles that hold sink columns below
+  // the band.  Tile n of the CTA is key tile n (n < ns), then kt0 + n - ns
+  const FlashMask mk(causal, window, sinks, kvm, seg, bh, h, sq, sk);
   const int last = min(q0 + C::BQ, sq) - 1;
-  int kt0 = 0, kt1 = (sk + BK - 1) / BK;
+  int kt0 = 0, kt1 = (sk + BK - 1) / BK, ns = 0;
   if (causal) {
     kt1 = min(kt1, last / BK + 1);
-    if (window > 0) kt0 = max(0, q0 - window + 1) / BK;
+    if (window > 0) {
+      kt0 = max(0, q0 - window + 1) / BK;
+      if constexpr (MASKS >= 1) ns = min(kt0, (mk.sinks + BK - 1) / BK);
+    }
   }
-  const int ntiles = kt1 - kt0;
+  const int ntiles = ns + kt1 - kt0;
+  auto key0 = [&](int n) { return (n < ns ? n : kt0 + n - ns) * BK; };
 
   if (tid == 0) {
     mbar_init(qbar, 128);
@@ -512,8 +542,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
     for (int n = 0; n < ntiles; ++n) {
       mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
-      load_tile<D, BK, 128>(stage(n), kb, (kt0 + n) * BK, sk, t);
-      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, (kt0 + n) * BK, sk, t);
+      load_tile<D, BK, 128>(stage(n), kb, key0(n), sk, t);
+      load_tile<D, BK, 128>(stage(n) + C::kKV, vb, key0(n), sk, t);
       mbar_arrive_cp_async(full(n));
     }
     cp_async_wait_all();
@@ -525,12 +555,17 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int ra = w0 + 16 * warp + lane / 4, c2 = 2 * (lane % 4);
     const unsigned wq = sQ + wgi * 64 * 128;  // its rows in each Q atom
     const float sl2 = scale * kLog2e;  // base 2: exp2(s sl2) = exp(s scale)
+    const int id0 = ROWS ? mk.id(ra, sq) : 0, id8 = ROWS ? mk.id(ra + 8, sq) : 0;
 
-    // the tiles [na, nb) with a visible pair for this warpgroup's rows
+    // the tiles [na, nb) with a visible pair for this warpgroup's rows.
+    // With sinks every tile from 0 on: a tile the CTA takes for the other
+    // warpgroup's band is then wholly masked here, which leaves m, l and
+    // the output as they were
     int na = 0, nb = w0 < sq ? ntiles : 0;
     if (w0 < sq && causal) {
-      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0);
-      if (window > 0) na = max(0, max(0, w0 - window + 1) / BK - kt0);
+      nb = min(ntiles, min(w0 + 63, sq - 1) / BK + 1 - kt0 + ns);
+      if (window > 0 && (MASKS == 0 || mk.sinks == 0))
+        na = max(0, max(0, w0 - window + 1) / BK - kt0);
     }
     auto acquire = [&](int n) {
       mbar_wait(full(n), (n / STAGES) & 1);
@@ -540,15 +575,20 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (lane == 0) mbar_arrive(empty(n));
     };
     // masks only where a tile reaches past Sk, the diagonal or the
-    // window's lower edge for some row of this warpgroup
+    // window's lower edge for some row of this warpgroup, and on every tile
+    // under a key row or ids
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
     auto scores = [&](float (&s)[BK / 2], unsigned (&p)[BK / 4], int n) {
-      const int k0 = (kt0 + n) * BK;
-      if (k0 + BK > sk || (causal && (k0 + BK - 1 > w0 ||
-                                      (window > 0 && w0 + 63 - k0 >= window))))
-        softmax<BK, true>(s, m, l, alpha, p, sl2, sk - k0 - c2, k0 + c2 - ra, causal, window);
+      const int k0 = key0(n);
+      const int* kvc = ROWS && mk.kvm ? mk.kvm + k0 + c2 : nullptr;
+      const int* segc = ROWS && mk.seg ? mk.seg + k0 + c2 : nullptr;
+      if (k0 + BK > sk || ROWS ||
+          (causal && (k0 + BK - 1 > w0 || (window > 0 && w0 + 63 - k0 >= window))))
+        softmax<BK, true, MASKS>(s, m, l, alpha, p, sl2, sk - k0 - c2, k0 + c2 - ra, causal,
+                                window, mk.sinks - k0 - c2, kvc, segc, id0, id8);
       else
-        softmax<BK, false>(s, m, l, alpha, p, sl2, 0, 0, causal, window);
+        softmax<BK, false, MASKS>(s, m, l, alpha, p, sl2, 0, 0, causal, window, 0, kvc, segc,
+                                 id0, id8);
     };
 
     float oacc[D / 128][64];
@@ -643,7 +683,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     turns_to(turns);
 
-    // o = acc / l; lse = m + log(l) in natural log; rows past sq not stored
+    // o = acc / l; lse = m + log(l) in natural log, -1e30 on a row with no
+    // visible key (m still -1e30 there, as the JAX kernel's m + log(l)
+    // rounds to); rows past sq not stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -658,24 +700,29 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int j = 0; j < 16; ++j)
             *reinterpret_cast<unsigned*>(orow + 128 * h + 8 * j) =
                 pack_bf16(oacc[h][4 * j + 2 * r] * inv, oacc[h][4 * j + 2 * r + 1] * inv);
-        if (c2 == 0) lse[static_cast<size_t>(bh) * sq + row] = m[r] * kLn2 + logf(l[r]);
+        if (c2 == 0)
+          lse[static_cast<size_t>(bh) * sq + row] =
+              ROWS && m[r] == kNegInf ? kNegInf : m[r] * kLn2 + logf(l[r]);
       }
     }
   }
 }
 
 template <int D, int WGS, int BK, int STAGES>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-           int sq, int sk, float scale, int causal, int window, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const int* kvm,
+           const int* seg, int bh, int sq, int sk, float scale, int causal, int window,
+           int sinks, int h, cudaStream_t st) {
   using C = Cfg<D, WGS, BK, STAGES>;
-  auto kernel = flash_fwd_wgmma_kernel<D, WGS, BK, STAGES>;
+  auto kernel = kvm || seg ? flash_fwd_wgmma_kernel<D, WGS, BK, STAGES, 2>
+                : sinks > 0 && window > 0 ? flash_fwd_wgmma_kernel<D, WGS, BK, STAGES, 1>
+                                          : flash_fwd_wgmma_kernel<D, WGS, BK, STAGES, 0>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (sq + C::BQ - 1) / C::BQ);
   kernel<<<grid, C::kThreads, C::kSmem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, sq, sk, scale, causal, window);
+      static_cast<bf16*>(o), lse, kvm, seg, sq, sk, scale, causal, window, sinks, h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,14 +731,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // of 128 rows at 128 query rows, in a ring of three stages; else 64 rows,
 // two stages.
 int dispatch(int d, int rows, const void* q, const void* k, const void* v, void* o,
-             float* lse, int bh, int sq, int sk, float scale, int causal, int window,
-             cudaStream_t st) {
+             float* lse, const int* kvm, const int* seg, int bh, int sq, int sk, float scale,
+             int causal, int window, int sinks, int h, cudaStream_t st) {
   if (d == 128 && rows == 128)
-    return launch<128, 2, 128, 3>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+    return launch<128, 2, 128, 3>(q, k, v, o, lse, kvm, seg, bh, sq, sk, scale, causal, window,
+                                  sinks, h, st);
   if (d == 128 && rows == 64)
-    return launch<128, 1, 64, 2>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+    return launch<128, 1, 64, 2>(q, k, v, o, lse, kvm, seg, bh, sq, sk, scale, causal, window,
+                                 sinks, h, st);
   if (d == 256 && rows == 64)
-    return launch<256, 1, 64, 2>(q, k, v, o, lse, bh, sq, sk, scale, causal, window, st);
+    return launch<256, 1, 64, 2>(q, k, v, o, lse, kvm, seg, bh, sq, sk, scale, causal, window,
+                                 sinks, h, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -701,22 +751,29 @@ int dispatch(int d, int rows, const void* q, const void* k, const void* v, void*
 
 // q (bh, sq, d), k and v (bh, sk, d), o like q, lse (bh, sq) f32; d 128 or
 // 256; all contiguous and 16-byte aligned.  window <= 0 means no sliding
-// window.  rows: the query rows per CTA of the bf16 kernel (64, or 128 at
+// window; sinks: the first keys every row keeps under a window.  kvm (b,
+// sk) and seg (b, sq) int32 with b = bh / h, or null: the key-padding rows
+// and the segment ids (sq == sk) of flash_mask.cuh.  rows: the query rows per CTA of the bf16 kernel (64, or 128 at
 // head dim 128; kernels/attention.py flash_plan; f32 ignores it).  dtype:
 // 0 = float32, 1 = bfloat16.  Built with -DFLASH_WMMA_BF16, bf16 runs the
 // f32 kernel's WMMA tile (chip_smoke.py's A/B of the two).  Returns
 // cudaGetLastError().
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int sq, int sk, int d, float scale,
-                         int causal, int window, int rows, int dtype, void* stream) {
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kvm,
+                         const void* seg, void* o, void* lse, int bh, int sq, int sk, int d,
+                         float scale, int causal, int window, int sinks, int h, int rows,
+                         int dtype, void* stream) {
   float* l = static_cast<float*>(lse);
+  const int* km = static_cast<const int*>(kvm);
+  const int* sg = static_cast<const int*>(seg);
   if (dtype == 1) {
 #ifdef FLASH_WMMA_BF16
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, l, bh, sq, sk, scale, causal, window, stream);
+    return dispatch<__nv_bfloat16>(d, q, k, v, o, l, km, sg, bh, sq, sk, scale, causal, window,
+                                   sinks, h, stream);
 #else
-    return wg::dispatch(d, rows, q, k, v, o, l, bh, sq, sk, scale, causal, window,
-                        static_cast<cudaStream_t>(stream));
+    return wg::dispatch(d, rows, q, k, v, o, l, km, sg, bh, sq, sk, scale, causal, window,
+                        sinks, h, static_cast<cudaStream_t>(stream));
 #endif
   }
-  return dispatch<float>(d, q, k, v, o, l, bh, sq, sk, scale, causal, window, stream);
+  return dispatch<float>(d, q, k, v, o, l, km, sg, bh, sq, sk, scale, causal, window, sinks,
+                         h, stream);
 }

@@ -28,8 +28,9 @@ XLA), or ``dequant_matmul_bmm`` over an int8 bank (``models/quant.py``),
 the ``dq_bmm`` kernel on the card.  The blocks keep the dense block's
 serving contract (``ln1``, ``attn``, ``ln2``, ``parallel``,
 ``apply_mlp_normed``), so ``generate_compiled``, the decode servers and the
-int8 KV cache run them with no MoE-specific code.  Sliding windows and
-sinks and packed sequences raise ``NotImplementedError``, as does a train
+int8 KV cache run them with no MoE-specific code.  Sliding windows with
+sinks are ported; packed sequences (which the JAX MoE model does not take)
+raise ``NotImplementedError``, as does a train
 step's ``rng`` (dropout).
 """
 
@@ -46,6 +47,7 @@ from minidiff_tpu_torch.models.layers import Linear, resolve_device, uniform
 from minidiff_tpu_torch.models.transformer import (
     _LATER,
     MultiHeadAttention,
+    _check_window,
     _make_norm,
     lm_loss,
 )
@@ -285,13 +287,14 @@ class MoETransformerBlock(nn.Module):
                  norm_eps=None, num_kv_heads=None, rope: bool = False,
                  rope_base: float = 10000.0, attn_bias: bool = False,
                  mlp: str = "gelu", mlp_hidden=None, mlp_bias: bool = True,
-                 renorm_gates: bool = False):
+                 renorm_gates: bool = False, window=None, sinks: int = 0):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.ln1 = _make_norm(norm, dim, norm_eps, **kw)
         self.attn = MultiHeadAttention(
             dim, num_heads, generator=generator, num_kv_heads=num_kv_heads,
-            rope=rope, rope_base=rope_base, bias=attn_bias, **kw)
+            rope=rope, rope_base=rope_base, bias=attn_bias, window=window,
+            sinks=sinks, **kw)
         self.ln2 = _make_norm(norm, dim, norm_eps, **kw)
         self.parallel = False
         self.moe = MoEFeedForward(
@@ -336,9 +339,6 @@ class MoETransformerLM(nn.Module):
                  attn_bias: bool = False, mlp: str = "gelu", mlp_hidden=None,
                  mlp_bias: bool = True, renorm_gates: bool = False):
         super().__init__()
-        for option, bad in (("window", window is not None), ("sinks", sinks)):
-            if bad:
-                raise _later(option)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(int(seed))
         self.vocab_size = vocab_size
@@ -348,7 +348,7 @@ class MoETransformerLM(nn.Module):
         self.dtype = dtype
         # the serving paths read these off the model, as for TransformerLM
         self.rope = rope
-        self.window = None
+        self.window, self.sinks = _check_window(window, sinks)
         self.tie_embeddings = False
         scale = 1.0 / math.sqrt(dim)
 
@@ -364,7 +364,7 @@ class MoETransformerLM(nn.Module):
                 norm=norm, norm_eps=norm_eps, num_kv_heads=num_kv_heads,
                 rope=rope, rope_base=rope_base, attn_bias=attn_bias, mlp=mlp,
                 mlp_hidden=mlp_hidden, mlp_bias=mlp_bias,
-                renorm_gates=renorm_gates)
+                renorm_gates=renorm_gates, window=window, sinks=sinks)
             for _ in range(num_layers))
         self.ln_f = _make_norm(norm, dim, norm_eps, dtype=dtype, device=dev)
         self.head = Linear(dim, vocab_size, bias=False, dtype=dtype, device=dev,
@@ -383,7 +383,8 @@ class MoETransformerLM(nn.Module):
     def forward_with_aux(self, tokens, segment_ids=None, positions=None):
         """tokens (B, S) int -> (logits (B, S, V), aux summed over blocks)."""
         if segment_ids is not None or positions is not None:
-            raise _later("segment_ids / positions (packed sequences)")
+            raise _later("segment_ids / positions (packed sequences; the JAX "
+                         "MoE model takes neither)")
         _, s = tokens.shape
         x = self.tok_emb[tokens]
         if not self.rope:

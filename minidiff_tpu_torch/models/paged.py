@@ -184,6 +184,7 @@ class PagedDecodeServer(DecodeServer):
             append_kv(pool["v"], vv.reshape(b, kv, hd), page_ids, offsets)
             # each KV head's query group: (B, kv, g, hd)
             q4 = q.reshape(b, kv, h // kv, hd).to(pool["k"].dtype)
-            o = paged_attention(q4, pool["k"], pool["v"], table, pos32)
+            o = paged_attention(q4, pool["k"], pool["v"], table, pos32,
+                                window=model.window, sinks=model.sinks)
             x = F.block_finish(blk, x, o.reshape(b, h, 1, hd).to(q.dtype))
         return model.lm_head(model.ln_f(x))

@@ -10,7 +10,9 @@ is ``{"k8", "ks", "v8", "vs"}``: int8 lines (B, kv, L, hd), quantized per
 (batch, head, position) over hd, with their f32 scales (B, kv, L), read
 through the ``sdpa_int8`` kernel, which takes the query groups itself.
 RoPE models rotate q and k at the global positions and add no learned
-positions.
+positions.  A sliding-window model (``model.window``) keeps the last
+``window`` positions of each query plus the first ``model.sinks``, in the
+prefill's flash kernels and in the cached step's mask alike.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ def _chunk_step(model, caches, chunk, pos, L: int):
 
     chunk (B, c) int, pos (B,) int; returns logits (B, c, V).  Attention
     covers the full cache window under the per-row mask ``l <= pos + i``
-    (earlier positions plus in-chunk causality in one predicate).
+    (earlier positions plus in-chunk causality in one predicate); a
+    sliding-window model tightens it to the band ``l > pos + i - window``
+    plus the ``sinks`` head rows (``minidiff_tpu/models/speculative.py:145-149``).
     """
     b, c = chunk.shape
     dev = chunk.device
@@ -38,7 +42,13 @@ def _chunk_step(model, caches, chunk, pos, L: int):
     if not model.rope:
         x = x + model.pos_emb[pos2d]
     lid = torch.arange(L, device=dev).reshape(1, 1, 1, L)
-    mask = lid <= pos2d.reshape(b, 1, c, 1)  # (B, 1, c, L)
+    qpos = pos2d.reshape(b, 1, c, 1)
+    mask = lid <= qpos  # (B, 1, c, L)
+    if getattr(model, "window", None) is not None:
+        band = lid > qpos - model.window
+        if model.sinks:
+            band = band | (lid < model.sinks)
+        mask = mask & band
     rows = torch.arange(b, device=dev).reshape(b, 1)
     for blk, cache in zip(model.blocks, caches):
         q, kk, vv = F.block_qkv(blk, x, pos2d)
@@ -119,7 +129,8 @@ def _prefill(model, toks, L: int, last=None, kv_quant: bool = False, caches=None
         else:
             cache["k"][:, :, :s] = kk
             cache["v"][:, :, :s] = vv
-        o = sdpa(q, attn.expand_kv(kk), attn.expand_kv(vv), causal=True)
+        o = sdpa(q, attn.expand_kv(kk), attn.expand_kv(vv), causal=True,
+                 window=model.window, sinks=model.sinks)
         x = F.block_finish(blk, x, o)
     x = model.ln_f(x)
     return caches, model.lm_head(x[:, last:last + 1])[:, 0]

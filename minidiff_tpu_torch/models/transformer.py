@@ -7,7 +7,10 @@ options of the JAX model that are ported: LayerNorm or RMSNorm
 ``rope_base``, ``rope_dim``), multi-head or grouped-query attention
 (``num_kv_heads``), the MLP kinds ``gelu`` / ``gelu_erf`` / ``swiglu`` /
 ``geglu`` / ``geglu_erf`` (``mlp_hidden``, ``mlp_bias``), ``attn_bias``,
-``parallel_block``, ``tie_embeddings`` and ``head_bias``.  Module attribute
+``parallel_block``, ``tie_embeddings``, ``head_bias``, sliding-window
+attention with attention sinks (``window``, ``sinks``) and packed
+sequences (``forward(tokens, segment_ids=, positions=)``, built by
+``models/pack.py``).  Module attribute
 names follow the JAX parameter tree, so ``params_from_jax(model.init())``
 loads into the port for any of them.  The norms go through the LayerNorm /
 RMSNorm kernels and their fused add+norm forms, the attention core through
@@ -31,6 +34,16 @@ from minidiff_tpu_torch.models.layers import Linear, resolve_device
 _LATER = "a later slice of the port"
 MLP_KINDS = ("gelu", "gelu_erf", "swiglu", "geglu", "geglu_erf")
 _GATE_ACT = {"swiglu": F.silu, "geglu": F.gelu, "geglu_erf": F.gelu_erf}
+
+
+def _check_window(window, sinks):
+    """(window, sinks) of a causal attention layer: a window of at least 1
+    position (None: none) and sinks >= 0, as the JAX layer asserts."""
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if int(sinks) < 0:
+        raise ValueError(f"sinks must be >= 0, got {sinks}")
+    return (None if window is None else int(window)), int(sinks)
 
 
 def _later(option: str):
@@ -85,13 +98,15 @@ class MultiHeadAttention(nn.Module):
     (grouped-query attention) q comes from ``wq`` and k, v from ``wkv``,
     whose columns are (kv, 2, hd), and each KV head serves its group of
     query heads (``expand_kv``).  ``rope`` rotates q and k at their global
-    positions.
+    positions (or at ``positions``, per document under packing).  With a
+    ``window`` each query sees the last ``window`` positions plus the first
+    ``sinks`` (Mistral-style sliding windows, StreamingLLM sinks).
     """
 
     def __init__(self, dim: int, num_heads: int, *, dtype, device, generator,
                  num_kv_heads=None, rope: bool = False,
                  rope_base: float = 10000.0, rope_dim=None,
-                 bias: bool = False):
+                 bias: bool = False, window=None, sinks: int = 0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
@@ -104,6 +119,7 @@ class MultiHeadAttention(nn.Module):
         self.rope = rope
         self.rope_base = rope_base
         self.rope_dim = rope_dim
+        self.window, self.sinks = _check_window(window, sinks)
         kw = dict(dtype=dtype, device=device, generator=generator)
         if self.num_kv_heads == num_heads:
             self.qkv = Linear(dim, 3 * dim, bias=bias, **kw)
@@ -135,14 +151,18 @@ class MultiHeadAttention(nn.Module):
         g = self.num_heads // kv
         return t[:, :, None].expand(b, kv, g, s, hd).reshape(b, kv * g, s, hd)
 
-    def forward(self, x):
+    def forward(self, x, positions=None, segment_ids=None):
+        """``segment_ids`` ((B, S) int, -1 = padding) keep attention within
+        each packed document; ``positions`` ((B, S)) are where RoPE rotates
+        (``arange(S)`` by default)."""
         b, s, d = x.shape
         q, k, v = self.project_qkv(x)
         if self.rope:
-            pos = torch.arange(s, device=x.device)
+            pos = positions if positions is not None else torch.arange(s, device=x.device)
             q = F.apply_rope(q, pos, self.rope_base, rot_dim=self.rope_dim)
             k = F.apply_rope(k, pos, self.rope_base, rot_dim=self.rope_dim)
-        o = sdpa(q, self.expand_kv(k), self.expand_kv(v), causal=True)
+        o = sdpa(q, self.expand_kv(k), self.expand_kv(v), causal=True,
+                 window=self.window, sinks=self.sinks, segment_ids=segment_ids)
         return self.out(o.transpose(1, 2).reshape(b, s, d))
 
 
@@ -155,7 +175,8 @@ class TransformerBlock(nn.Module):
                  rope: bool = False, rope_base: float = 10000.0,
                  rope_dim=None, norm: str = "layer", norm_eps=None,
                  mlp: str = "gelu", mlp_hidden=None, mlp_bias: bool = True,
-                 attn_bias: bool = False, parallel_block: bool = False):
+                 attn_bias: bool = False, parallel_block: bool = False,
+                 window=None, sinks: int = 0):
         super().__init__()
         if mlp not in MLP_KINDS:
             raise ValueError(f"unknown mlp kind {mlp!r} (expected one of {MLP_KINDS})")
@@ -164,7 +185,7 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(
             dim, num_heads, generator=generator, num_kv_heads=num_kv_heads,
             rope=rope, rope_base=rope_base, rope_dim=rope_dim, bias=attn_bias,
-            **kw)
+            window=window, sinks=sinks, **kw)
         self.parallel = bool(parallel_block)
         self.ln2 = None if self.parallel else _make_norm(norm, dim, norm_eps, **kw)
         self.mlp = mlp
@@ -191,9 +212,9 @@ class TransformerBlock(nn.Module):
             h = F.gelu(h)
         return self.fc2(h)
 
-    def forward(self, x):
+    def forward(self, x, positions=None, segment_ids=None):
         xa = self.ln1(x)
-        a = self.attn(xa)
+        a = self.attn(xa, positions, segment_ids)
         if self.parallel:
             return x + a + self.apply_mlp_normed(xa)
         # fused residual-add + ln2: t = x + a and norm(t) in one pass
@@ -209,9 +230,9 @@ class TransformerLM(nn.Module):
     Weights are drawn one tensor at a time from a CPU ``torch.Generator``
     seeded with ``seed`` (the same weights on every device), then placed on
     ``device``.  Load a JAX checkpoint with
-    ``model.load_state_dict(params_from_jax(tree))``.  Sliding windows and
-    sinks, dropout, ``remat_blocks`` and packed sequences raise
-    ``NotImplementedError``.
+    ``model.load_state_dict(params_from_jax(tree))``.  Every block shares
+    one ``window`` (None: full causal attention) and ``sinks``.  Dropout
+    and ``remat_blocks`` raise ``NotImplementedError``.
     """
 
     def __init__(self, vocab_size: int = 256, dim: int = 128,
@@ -227,8 +248,7 @@ class TransformerLM(nn.Module):
                  head_bias: bool = False, dropout: float = 0.0,
                  remat_blocks: bool = False):
         super().__init__()
-        for option, bad in (("window", window is not None), ("sinks", sinks),
-                            ("dropout", dropout), ("remat_blocks", remat_blocks)):
+        for option, bad in (("dropout", dropout), ("remat_blocks", remat_blocks)):
             if bad:
                 raise _later(option)
         if tie_embeddings and head_bias:
@@ -242,6 +262,7 @@ class TransformerLM(nn.Module):
         self.dtype = dtype
         self.rope = rope
         self.tie_embeddings = tie_embeddings
+        self.window, self.sinks = _check_window(window, sinks)
         scale = 1.0 / math.sqrt(dim)
 
         def normal(shape):
@@ -256,7 +277,7 @@ class TransformerLM(nn.Module):
                              norm=norm, norm_eps=norm_eps, mlp=mlp,
                              mlp_hidden=mlp_hidden, mlp_bias=mlp_bias,
                              attn_bias=attn_bias, parallel_block=parallel_block,
-                             **kw)
+                             window=window, sinks=sinks, **kw)
             for _ in range(num_layers))
         self.ln_f = _make_norm(norm, dim, norm_eps, dtype=dtype, device=dev)
         if not tie_embeddings:
@@ -275,15 +296,17 @@ class TransformerLM(nn.Module):
         return self.head(x)
 
     def forward(self, tokens, segment_ids=None, positions=None):
-        """tokens (B, S) int -> logits (B, S, V)."""
-        if segment_ids is not None or positions is not None:
-            raise _later("segment_ids / positions (packed sequences)")
+        """tokens (B, S) int -> logits (B, S, V).
+
+        ``segment_ids`` / ``positions`` ((B, S) int, ``pack_documents``):
+        packed sequences, attention confined to each document and the
+        positions (learned, or RoPE's) restarting per document."""
         _, s = tokens.shape
         x = self.tok_emb[tokens]
         if not self.rope:
-            x = x + self.pos_emb[:s]
+            x = x + (self.pos_emb[positions] if positions is not None else self.pos_emb[:s])
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, positions, segment_ids)
         return self.lm_head(self.ln_f(x))
 
 

@@ -22,15 +22,20 @@ resolves its backend function at call time (``backend/torch_backend.py``).
   kernels for f32 and bf16; their gradient flows to x only.
 * linear_scan's two VJPs share one reversed scan (the ``scan`` kernel for
   f32 and bf16) through a single-entry memo.
+* sdpa's forward is the flash forward where it is eligible (the composed
+  attention elsewhere), with the JAX op's causal, window / sinks, mask and
+  segment-id arguments; its three first-order VJPs share one run of the
+  flash backward kernels through a single-entry memo, and under grad mode
+  take the composed form, so second order works.
 
 Not ported yet (each waits for the slice that needs it): the collectives,
-``sdpa``, ``layernorm`` and ``add_layernorm`` as tape ops, and the conv2d
-family.
+``layernorm`` and ``add_layernorm`` as tape ops, and the conv2d family.
 """
 
 from __future__ import annotations
 
 from builtins import any as py_any
+from builtins import bool as py_bool
 from builtins import max as py_max
 from math import prod as py_prod
 from typing import TYPE_CHECKING
@@ -1279,6 +1284,133 @@ sdpa_int8_cache = wrapping.create_op_func(
     tensor_only=True,
 )
 
+# ---------------------------------------------------------------------------
+# sdpa: scaled dot-product attention (the JAX ops/definitions.py:1202-1366).
+# The forward is the flash forward where it is eligible
+# (kernels/attention.py); the VJPs below are the composed formulation in
+# framework ops, so higher-order gradients re-tape like every other op.
+# ---------------------------------------------------------------------------
+
+
+def _sdpa_scale(q: "md.Tensor", scale) -> float:
+    return float(scale) if scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
+
+
+def _sdpa_probs(q, k, causal, scale, mask=None, window=None, sinks=0,
+                segment_ids=None):
+    s = matmul(q, swapaxes(k, -1, -2)) * _sdpa_scale(q, scale)
+    if causal:
+        sq, sk = int(s.shape[-2]), int(s.shape[-1])
+        rows = reshape(md.arange(sq), (sq, 1))
+        cols = reshape(md.arange(sk), (1, sk))
+        cm = greater_equal(rows, cols)
+        if window is not None:
+            # only the last `window` positions are visible, except the
+            # first `sinks` keys (attention sinks), as the flash kernels
+            live = less(rows - cols, int(window))
+            if sinks:
+                live = logical_or(live, less(cols, int(sinks)))
+            cm = logical_and(cm, live)
+        s = where(cm, s, -1e30)
+    if mask is not None:
+        if not isinstance(mask, md.Tensor):
+            mask = md.Tensor(mask)
+        s = where(mask, s, -1e30)
+    if segment_ids is not None:
+        # same-document visibility (sequence packing): ids compare (Sq, 1)
+        # against (1, Sk) per batch row
+        sg = (segment_ids if isinstance(segment_ids, md.Tensor)
+              else md.Tensor(segment_ids))
+        if len(sg.shape) == 1:
+            sg = reshape(sg, (1,) + tuple(sg.shape))
+        b, ss = int(sg.shape[0]), int(sg.shape[1])
+        if len(s.shape) == 4:
+            sm = equal(reshape(sg, (b, 1, ss, 1)), reshape(sg, (b, 1, 1, ss)))
+        else:
+            sm = equal(reshape(sg, (b, ss, 1)), reshape(sg, (b, 1, ss)))
+        s = where(sm, s, -1e30)
+    m = max(s, axis=-1, keepdims=True)
+    e = exp(s - m)
+    return e / sum(e, axis=-1, keepdims=True)
+
+
+def _sdpa_ds(q, k, v, grad, causal, scale, mask=None, window=None, sinks=0,
+             segment_ids=None):
+    p = _sdpa_probs(q, k, causal, scale, mask, window=window, sinks=sinks,
+                    segment_ids=segment_ids)
+    dp = matmul_nt(grad, v)
+    return p, p * (dp - sum(dp * p, axis=-1, keepdims=True))
+
+
+# The first-order backward runs the flash backward kernels
+# (kernels/attention.py flash_grads): the engine calls the three grad
+# functions back to back with the same operands, so a single-entry memo
+# computes (dq, dk, dv) once; it holds the operands, so their ids stay
+# unique while it does.
+_sdpa_fused_memo: dict = {}
+
+
+def _sdpa_fused(q, k, v, grad, causal, scale, mask, window=None, sinks=0,
+                segment_ids=None):
+    if md.grad_allowed_():
+        return None  # higher order re-tapes the composed form
+    mraw = mask._data if isinstance(mask, md.Tensor) else mask
+    sraw = segment_ids._data if isinstance(segment_ids, md.Tensor) else segment_ids
+    key = (id(q), id(k), id(v), id(grad), py_bool(causal), scale,
+           0 if mraw is None else id(mraw), window, sinks,
+           0 if sraw is None else id(sraw))
+    if _sdpa_fused_memo.get("key") != key:
+        from minidiff_tpu_torch.kernels import attention as _att
+
+        qr, kr, vr = q._data, k._data, v._data
+        if not _att.flash_grads_decision(qr, kr, vr, causal, mask=mraw, window=window,
+                                         sinks=sinks, segment_ids=sraw):
+            return None
+        _sdpa_fused_memo["key"] = key
+        _sdpa_fused_memo["refs"] = (q, k, v, grad, mraw, sraw)
+        _sdpa_fused_memo["val"] = _att.flash_grads(
+            qr, kr, vr, grad._data, _sdpa_scale(q, scale), py_bool(causal),
+            mask=mraw, window=window, sinks=sinks, segment_ids=sraw)
+    return _sdpa_fused_memo["val"]
+
+
+def sdpa_grad_q(q, k, v, grad, causal=False, scale=None, mask=None,
+                window=None, sinks=0, segment_ids=None):
+    fused = _sdpa_fused(q, k, v, grad, causal, scale, mask, window, sinks, segment_ids)
+    if fused is not None:
+        return md.Tensor(fused[0])
+    _, ds = _sdpa_ds(q, k, v, grad, causal, scale, mask, window, sinks,
+                     segment_ids=segment_ids)
+    return matmul(ds, k) * _sdpa_scale(q, scale)
+
+
+def sdpa_grad_k(q, k, v, grad, causal=False, scale=None, mask=None,
+                window=None, sinks=0, segment_ids=None):
+    fused = _sdpa_fused(q, k, v, grad, causal, scale, mask, window, sinks, segment_ids)
+    if fused is not None:
+        return md.Tensor(fused[1])
+    _, ds = _sdpa_ds(q, k, v, grad, causal, scale, mask, window, sinks,
+                     segment_ids=segment_ids)
+    return matmul_tn(ds, q) * _sdpa_scale(q, scale)
+
+
+def sdpa_grad_v(q, k, v, grad, causal=False, scale=None, mask=None,
+                window=None, sinks=0, segment_ids=None):
+    fused = _sdpa_fused(q, k, v, grad, causal, scale, mask, window, sinks, segment_ids)
+    if fused is not None:
+        return md.Tensor(fused[2])
+    p = _sdpa_probs(q, k, causal, scale, mask, window, sinks, segment_ids=segment_ids)
+    return matmul_tn(p, grad)
+
+
+sdpa = wrapping.create_ternary_op_func(
+    forward_func=as_tensor_func(backend_fn("sdpa")),
+    grad_x=sdpa_grad_q,
+    grad_y=sdpa_grad_k,
+    grad_z=sdpa_grad_v,
+    kwargs_to_grads=True,
+)
+
 __all__ = [
     "absolute",
     "abs",
@@ -1366,5 +1498,6 @@ __all__ = [
     "dequant_matmul",
     "dequant_matmul4",
     "dequant_matmul_bmm",
+    "sdpa",
     "sdpa_int8_cache",
 ]

@@ -12,7 +12,9 @@ tiles of each, -1e30 masks as P = 0 only on the tiles the kernel masks,
 P^T / dS^T and dS rounded to bf16, f32 accumulation tile by tile) against
 the JAX ``_flash_bwd`` run in interpret mode at the same ``bq`` / ``bk``
 (where S is a multiple of them: its grid is S // bq) and against the port's
-``_plain_flash_bwd`` on ragged shapes; and a step-by-step run of each CTA's
+``_plain_flash_bwd`` on ragged shapes, under every mask the kernels take
+(sinks, key-padding rows, segment ids; P = 1 on a fully masked row, as the
+JAX kernels' exp(-1e30 - lse)); and a step-by-step run of each CTA's
 producer ring, mbarriers and named-barrier turns (restated from the kernels)
 at every length to 1,100.  On the card, ``chip_smoke.py`` holds the kernels
 themselves against the plain version.
@@ -138,49 +140,51 @@ def test_plan_raises_exactly_where_sdpa_composes(hd, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _dkv_tiles(k0, keys, bq, sq, sk, causal, window):
+def _dkv_tiles(k0, keys, bq, sq, sk, causal, window, sinks=0):
     """(qt0, ntiles): the live query tiles [qt0, qt0 + ntiles) of the dK/dV
     CTA at key k0 (flash_bwd_dkv_wgmma_kernel): causal tiles wholly above
     the diagonal of its first key, and with a window those wholly past the
-    band of its last, are skipped."""
+    band of its last, are skipped, unless it holds a sink key."""
     qt0, qt1 = 0, -(-sq // bq)
     if causal:
         qt0 = min(qt1, k0 // bq)
-        if window:
+        if window and k0 >= sinks:
             qt1 = min(qt1, (min(k0 + keys, sk) - 1 + window - 1) // bq + 1)
     return qt0, qt1 - qt0
 
 
-def _dkv_live(w0, qt0, ntiles, bq, sk, causal, window):
+def _dkv_live(w0, qt0, ntiles, bq, sk, causal, window, sinks=0):
     """[na, nb): the CTA's tiles with a visible pair for the keys [w0, w0 +
     64) of one warpgroup."""
     na, nb = 0, ntiles if w0 < sk else 0
     if w0 < sk and causal:
-        if window:
+        if window and w0 >= sinks:
             nb = min(nb, (min(w0 + 63, sk - 1) + window - 1) // bq + 1 - qt0)
         na = min(nb, max(0, w0 // bq - qt0))
     return na, nb
 
 
-def _dq_tiles(q0, rows, bk, sq, sk, causal, window):
-    """(kt0, ntiles): the live key tiles of the dQ CTA at query row q0
-    (flash_bwd_dq_wgmma_kernel, as the forward's)."""
+def _dq_tiles(q0, rows, bk, sq, sk, causal, window, sinks=0):
+    """(kt0, ns, tiles): the key tiles of the dQ CTA at query row q0
+    (flash_bwd_dq_wgmma_kernel, as the forward's): tile n of the CTA is key
+    tile tiles[n], the ns sink tiles below the band first."""
     last = min(q0 + rows, sq) - 1
-    kt0, kt1 = 0, -(-sk // bk)
+    kt0, kt1, ns = 0, -(-sk // bk), 0
     if causal:
         kt1 = min(kt1, last // bk + 1)
         if window:
             kt0 = max(0, q0 - window + 1) // bk
-    return kt0, kt1 - kt0
+            ns = min(kt0, -(-sinks // bk))
+    return kt0, ns, list(range(ns)) + list(range(kt0, kt1))
 
 
-def _dq_live(w0, kt0, ntiles, bk, sq, causal, window):
-    """[na, nb): the CTA's tiles with a visible pair for the query rows
-    [w0, w0 + 64) of one warpgroup."""
+def _dq_live(w0, kt0, ns, ntiles, bk, sq, causal, window, sinks=0):
+    """[na, nb): the CTA's tiles the warpgroup at query row w0 computes
+    (with sinks every tile from 0 on)."""
     na, nb = 0, ntiles if w0 < sq else 0
     if w0 < sq and causal:
-        nb = min(ntiles, min(w0 + 63, sq - 1) // bk + 1 - kt0)
-        if window:
+        nb = min(ntiles, min(w0 + 63, sq - 1) // bk + 1 - kt0 + ns)
+        if window and not sinks:
             na = max(0, max(0, w0 - window + 1) // bk - kt0)
     return na, nb
 
@@ -194,39 +198,59 @@ def _rows(t, r0: int, n: int):
     return out
 
 
-def _visible(rows, cols, causal, window):
-    """Which (query, key) pairs of the index grids rows x cols are visible
-    (bounds apart)."""
+def _ids(t, idx, n, h, fill):
+    """t[:, idx] (t (B, n) int) for a run of indices, ``fill`` past n,
+    repeated over the h heads of each batch row."""
+    i0, m = int(idx.reshape(-1)[0]), idx.numel()
+    out = torch.full((t.shape[0], m), fill, dtype=t.dtype)
+    k = max(0, min(m, n - i0))
+    out[:, :k] = t[:, i0:i0 + k]
+    return out.repeat_interleave(h, 0)
+
+
+def _visible(rows, cols, causal, window, sinks=0, kvm=None, seg=None, h=1, sq=None,
+             sk=None):
+    """(BH or 1, rows, cols): which (query, key) pairs of the index grids
+    rows (R, 1) x cols (1, C) are visible, bounds apart."""
     keep = torch.ones(rows.shape[0], cols.shape[1], dtype=torch.bool)
     if causal:
         keep = rows >= cols
         if window:
-            keep = keep & (rows - cols < window)
+            keep = keep & ((rows - cols < window) | (cols < sinks))
+    keep = keep[None]
+    if kvm is not None:
+        keep = keep & (_ids(kvm, cols, sk, h, 0) != 0)[:, None, :]
+    if seg is not None:
+        keep = keep & (_ids(seg, rows, sq, h, -2)[:, :, None]
+                       == _ids(seg, cols, sk, h, -3)[:, None, :])
     return keep
 
 
-def _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan):
+def _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan, sinks=0, kvm=None,
+                 seg=None, h=1):
     """(dk, dv) of the dK/dV kernel's tile loop, in plain torch f32: for each
     CTA of ``plan.dkv_keys`` keys its live query tiles, for each warpgroup
     (64 keys, or at head dim 256 the CTA's 64 keys and 128 columns) the
     tiles live for its keys, asserting that every other tile holds no
     visible pair; S^T and dP^T over the whole head dim, P^T = exp2(S^T
-    scale log2 e - lse log2 e) with P = 0 only on the tiles the kernel
-    masks (asserting that no other tile holds a masked pair), dS^T, both
-    rounded to bf16, then dV += P^T dO and dK += dS^T Q in f32."""
+    scale log2 e - lse log2 e) with P = 0 (1 on a row whose lse is -1e30)
+    only on the tiles the kernel masks (asserting that no other tile holds
+    a masked pair), dS^T, both rounded to bf16, then dV += P^T dO and dK +=
+    dS^T Q in f32."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    sinks = sinks if window else 0
     keys, bq = plan.dkv_keys, plan.dkv_bq
     split = d == 256
     sl2 = float(np.float32(scale) * np.float32(_LOG2E))
     dk = torch.zeros(bh, sk, d, dtype=k.dtype)
     dv = torch.zeros(bh, sk, d, dtype=v.dtype)
     for k0 in range(0, sk, keys):
-        qt0, ntiles = _dkv_tiles(k0, keys, bq, sq, sk, causal, window)
+        qt0, ntiles = _dkv_tiles(k0, keys, bq, sq, sk, causal, window, sinks)
         for w in range(plan.dkv_wgs):
             w0 = k0 + (0 if split else 64 * w)
             cols = slice(128 * w, 128 * w + 128) if split else slice(0, d)
-            na, nb = _dkv_live(w0, qt0, ntiles, bq, sk, causal, window)
+            na, nb = _dkv_live(w0, qt0, ntiles, bq, sk, causal, window, sinks)
             kr = torch.arange(w0, w0 + 64)[:, None]
             kw, vw = _rows(k, w0, 64), _rows(v, w0, 64)
             acck = torch.zeros(bh, 64, d // (2 if split else 1))
@@ -234,23 +258,26 @@ def _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan):
             for qt in range(-(-sq // bq)):
                 q0, n = qt * bq, qt - qt0
                 qc = torch.arange(q0, q0 + bq)[None, :]
-                keep = _visible(qc.T, kr.T, causal, window).T & (qc < sq)  # (keys, queries)
+                keep = (_visible(qc.T, kr.T, causal, window, sinks, kvm, seg, h, sq, sk)
+                        .transpose(1, 2) & (qc < sq))  # (keys, queries)
                 if not (0 <= n < ntiles and na <= n < nb):
                     assert not (keep & (kr < sk)).any(), (
                         f"keys {w0}: query tile {qt} is skipped but holds a visible pair")
                     continue
-                edge = q0 + bq > sq or (causal and (q0 < w0 + 63 or (
-                    window and q0 + bq - 1 - w0 >= window)))
+                edge = q0 + bq > sq or kvm is not None or seg is not None or (
+                    causal and (q0 < w0 + 63 or (window and q0 + bq - 1 - w0 >= window)))
                 if not edge:
                     assert bool(keep.all()), "a tile the kernel does not mask holds a masked pair"
                 qt_, dot = _rows(q, q0, bq), _rows(do, q0, bq)
-                l2 = _rows(lse[..., None], q0, bq)[..., 0] * _LOG2E
+                lq = _rows(lse[..., None], q0, bq)[..., 0]
+                l2 = lq * _LOG2E
                 dl = _rows(delta[..., None], q0, bq)[..., 0]
                 st = kw @ qt_.transpose(1, 2)
                 dpt = vw @ dot.transpose(1, 2)
                 p = torch.exp2(st * sl2 - l2[:, None, :])
                 if edge:
-                    p = torch.where(keep, p, torch.zeros_like(p))
+                    dead = (lq == -1e30)[:, None, :].expand_as(p)
+                    p = torch.where(keep, p, dead.float())
                 ds = p * (dpt - dl[:, None, :]) * scale
                 accv += p.to(BF16).float() @ dot[..., cols]
                 acck += ds.to(BF16).float() @ qt_[..., cols]
@@ -261,37 +288,42 @@ def _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan):
     return dk, dv
 
 
-def _emulate_dq(q, k, v, do, lse, delta, scale, causal, window, plan):
+def _emulate_dq(q, k, v, do, lse, delta, scale, causal, window, plan, sinks=0, kvm=None,
+                seg=None, h=1):
     """dq of the dQ kernel's tile loop, in plain torch f32: for each CTA of
-    ``plan.dq_rows`` query rows its live key tiles, for each 64-row
-    warpgroup the tiles live for its rows (asserting that every other tile
-    holds no visible pair); S and dP, P = exp2(S scale log2 e - lse log2 e)
-    with P = 0 only on the tiles the kernel masks, dS rounded to bf16, then
-    dQ += dS K in f32."""
+    ``plan.dq_rows`` query rows its key tiles (the sink tiles below its band
+    first), for each 64-row warpgroup the tiles it computes (asserting that
+    every other tile holds no visible pair); S and dP, P = exp2(S scale
+    log2 e - lse log2 e) with P = 0 (1 on a row whose lse is -1e30) only on
+    the tiles the kernel masks, dS rounded to bf16, then dQ += dS K in
+    f32."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    sinks = sinks if window else 0
     rows, bk = plan.dq_rows, plan.dq_bk
     sl2 = float(np.float32(scale) * np.float32(_LOG2E))
     dq = torch.zeros(bh, sq, d, dtype=q.dtype)
     for q0 in range(0, sq, rows):
-        kt0, ntiles = _dq_tiles(q0, rows, bk, sq, sk, causal, window)
+        kt0, ns, tiles = _dq_tiles(q0, rows, bk, sq, sk, causal, window, sinks)
         for w0 in range(q0, q0 + rows, 64):
-            na, nb = _dq_live(w0, kt0, ntiles, bk, sq, causal, window)
+            na, nb = _dq_live(w0, kt0, ns, len(tiles), bk, sq, causal, window, sinks)
+            computed = {tiles[n] for n in range(na, nb)}
             qr = torch.arange(w0, w0 + 64)[:, None]
             qw, dow = _rows(q, w0, 64), _rows(do, w0, 64)
-            l2 = _rows(lse[..., None], w0, 64)[..., 0] * _LOG2E
+            lq = _rows(lse[..., None], w0, 64)[..., 0]
+            l2 = lq * _LOG2E
             dl = _rows(delta[..., None], w0, 64)[..., 0]
             acc = torch.zeros(bh, 64, d)
             for kt in range(-(-sk // bk)):
-                k0, n = kt * bk, kt - kt0
+                k0 = kt * bk
                 kc = torch.arange(k0, k0 + bk)[None, :]
-                keep = _visible(qr, kc, causal, window) & (kc < sk)
-                if not (0 <= n < ntiles and na <= n < nb):
+                keep = _visible(qr, kc, causal, window, sinks, kvm, seg, h, sq, sk) & (kc < sk)
+                if kt not in computed:
                     assert not (keep & (qr < sq)).any(), (
                         f"rows {w0}: key tile {kt} is skipped but holds a visible pair")
                     continue
-                edge = k0 + bk > sk or (causal and (k0 + bk - 1 > w0 or (
-                    window and w0 + 63 - k0 >= window)))
+                edge = k0 + bk > sk or kvm is not None or seg is not None or (
+                    causal and (k0 + bk - 1 > w0 or (window and w0 + 63 - k0 >= window)))
                 if not edge:
                     assert bool(keep.all()), "a tile the kernel does not mask holds a masked pair"
                 kt_, vt = _rows(k, k0, bk), _rows(v, k0, bk)
@@ -299,7 +331,8 @@ def _emulate_dq(q, k, v, do, lse, delta, scale, causal, window, plan):
                 dp = dow @ vt.transpose(1, 2)
                 p = torch.exp2(s * sl2 - l2[..., None])
                 if edge:
-                    p = torch.where(keep, p, torch.zeros_like(p))
+                    dead = (lq == -1e30)[..., None].expand_as(p)
+                    p = torch.where(keep, p, dead.float())
                 ds = p * (dp - dl[..., None]) * scale
                 acc += ds.to(BF16).float() @ kt_
             n = min(64, sq - w0)
@@ -465,22 +498,25 @@ def _stages(d: int) -> int:
     return 3 if d == 128 else 2
 
 
-def _run_dkv(sq, sk, d, wgs, causal, window):
+def _run_dkv(sq, sk, d, wgs, causal, window, sinks=0):
     plan = _plan(d, wgs, 1)
     for k0 in range(0, sk, plan.dkv_keys):
-        qt0, ntiles = _dkv_tiles(k0, plan.dkv_keys, plan.dkv_bq, sq, sk, causal, window)
+        qt0, ntiles = _dkv_tiles(k0, plan.dkv_keys, plan.dkv_bq, sq, sk, causal, window,
+                                 sinks)
         w0s = [k0] * wgs if d == 256 else [k0 + 64 * w for w in range(wgs)]
-        live = [_dkv_live(w0, qt0, ntiles, plan.dkv_bq, sk, causal, window) for w0 in w0s]
+        live = [_dkv_live(w0, qt0, ntiles, plan.dkv_bq, sk, causal, window, sinks)
+                for w0 in w0s]
         _run_cta(ntiles, live, _stages(d))
 
 
-def _run_dq(sq, sk, d, wgs, causal, window):
+def _run_dq(sq, sk, d, wgs, causal, window, sinks=0):
     plan = _plan(d, 2 if d == 256 else wgs, wgs)
     for q0 in range(0, sq, plan.dq_rows):
-        kt0, ntiles = _dq_tiles(q0, plan.dq_rows, plan.dq_bk, sq, sk, causal, window)
-        live = [_dq_live(q0 + 64 * w, kt0, ntiles, plan.dq_bk, sq, causal, window)
-                for w in range(wgs)]
-        _run_cta(ntiles, live, _stages(d))
+        kt0, ns, tiles = _dq_tiles(q0, plan.dq_rows, plan.dq_bk, sq, sk, causal, window,
+                                   sinks)
+        live = [_dq_live(q0 + 64 * w, kt0, ns, len(tiles), plan.dq_bk, sq, causal, window,
+                         sinks) for w in range(wgs)]
+        _run_cta(len(tiles), live, _stages(d))
 
 
 def test_synchronisation_detects_a_skipped_turn(monkeypatch):
@@ -526,3 +562,108 @@ def test_cta_synchronisation_at_every_length(causal, window, d, dkv_wgs, dq_wgs)
     for s in range(1, 1101):
         _run_dkv(s, s, d, dkv_wgs, causal, window)
         _run_dq(s, s, d, dq_wgs, causal, window)
+
+
+# ---------------------------------------------------------------------------
+# the masks: sinks, key-padding rows, segment ids
+# ---------------------------------------------------------------------------
+
+
+def _masks(b, s, kind, seed):
+    """(sinks, kvm, seg) of one case over b batch rows: key rows keeping a
+    random prefix (the first row wholly masked in "dead"), ids of four
+    documents and a padding tail (-1)."""
+    rng = np.random.RandomState(seed)
+    kvm = seg = None
+    if "kvm" in kind:
+        lens = rng.randint(1, s + 1, size=b)
+        kvm = torch.from_numpy((np.arange(s)[None] < lens[:, None]).astype(np.int32))
+        if "dead" in kind:
+            kvm[0] = 0
+    if "seg" in kind:
+        cuts = np.sort(rng.randint(1, s, size=(b, 3)), axis=1)
+        ids = (np.arange(s)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        ids[:, s - 5:] = -1
+        seg = torch.from_numpy(ids.astype(np.int32))
+    return (4 if "sinks" in kind else 0), kvm, seg
+
+
+def _masked_operands(b, h, s, d, causal, window, sinks, kvm, seg, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b * h, s, d)).astype(np.float32))
+                   .to(BF16) for _ in range(4))
+    o, lse = TA._plain_flash_fwd(q, k, v, d ** -0.5, causal, window, sinks, kvm, seg, h)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, delta
+
+
+# (b, h, s, head dim, dK/dV warpgroups, dQ warpgroups, causal, window,
+# kind) where S is a multiple of every tile: against the JAX kernels at the
+# same bq / bk and the plain version.  Sinks below the band of later tiles;
+# a key row with a fully masked batch row (P = 1 there, as on the TPU); ids
+# under causality; sinks and ids together
+MASKED_ALIGNED = [(1, 1, 384, 128, 2, 2, True, 160, "sinks"),
+                  (1, 1, 384, 256, 2, 1, True, 150, "sinks"),
+                  (2, 1, 256, 128, 2, 2, False, None, "kvm-dead"),
+                  (2, 1, 256, 128, 2, 2, True, 96, "sinks-seg")]
+
+
+@pytest.mark.parametrize("b,h,s,d,dkv_wgs,dq_wgs,causal,window,kind", MASKED_ALIGNED)
+def test_masked_tile_loops_match_jax_kernels_and_plain(_interpret, b, h, s, d, dkv_wgs,
+                                                       dq_wgs, causal, window, kind):
+    plan = _plan(d, dkv_wgs, dq_wgs)
+    scale = d ** -0.5
+    sinks, kvm, seg = _masks(b, s, kind, seed=len(kind))
+    q, k, v, do, o, lse, delta = _masked_operands(b, h, s, d, causal, window, sinks, kvm,
+                                                  seg, seed=s + d + dkv_wgs)
+    mk = dict(sinks=sinks, kvm=kvm, seg=seg, h=h)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan, **mk)
+    dq = _emulate_dq(q, k, v, do, lse, delta, scale, causal, window, plan, **mk)
+    jq, jk, jv, jdo, jo = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v, do, o))
+    jl = jnp.asarray(lse.numpy())
+    jm = dict(mask=None if kvm is None else jnp.asarray(kvm.numpy()), h=h,
+              seg=None if seg is None else jnp.asarray(seg.numpy()), window=window,
+              sinks=sinks)
+    for bq, bk in {(plan.dkv_bq, plan.dkv_keys), (plan.dq_rows, plan.dq_bk)}:
+        rq, rk, rv = A._flash_bwd(jq, jk, jv, jo, jl, jdo, scale, causal, bq=bq, bk=bk, **jm)
+        if (bq, bk) == (plan.dkv_bq, plan.dkv_keys):
+            np.testing.assert_allclose(_np32(dk), _np32(rk), err_msg="dk vs JAX", **TOL)
+            np.testing.assert_allclose(_np32(dv), _np32(rv), err_msg="dv vs JAX", **TOL)
+        if (bq, bk) == (plan.dq_rows, plan.dq_bk):
+            np.testing.assert_allclose(_np32(dq), _np32(rq), err_msg="dq vs JAX", **TOL)
+    pq, pk, pv = TA._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window, **mk)
+    for name, got, ref in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv)):
+        np.testing.assert_allclose(_np32(got), _np32(ref), err_msg=f"{name} vs plain", **TOL)
+
+
+# ragged S under the masks, windows that are not tile multiples, and the
+# one-warpgroup tiles under sinks and ids
+MASKED_RAGGED = [(2, 1, 200, 128, 2, 2, True, 70, "sinks"),
+                 (1, 1, 256, 128, 1, 1, True, 100, "sinks"),
+                 (2, 1, 256, 128, 1, 1, True, None, "seg"),
+                 (1, 2, 333, 256, 2, 1, True, 130, "sinks"),
+                 (2, 1, 77, 128, 1, 1, False, None, "kvm"),
+                 (2, 2, 300, 128, 2, 2, True, 90, "sinks-seg")]
+
+
+@pytest.mark.parametrize("b,h,s,d,dkv_wgs,dq_wgs,causal,window,kind", MASKED_RAGGED)
+def test_masked_tile_loops_match_plain_on_ragged_shapes(b, h, s, d, dkv_wgs, dq_wgs, causal,
+                                                       window, kind):
+    plan = _plan(d, dkv_wgs, dq_wgs)
+    scale = d ** -0.5
+    sinks, kvm, seg = _masks(b, s, kind, seed=s)
+    q, k, v, do, o, lse, delta = _masked_operands(b, h, s, d, causal, window, sinks, kvm,
+                                                  seg, seed=s + d)
+    mk = dict(sinks=sinks, kvm=kvm, seg=seg, h=h)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, scale, causal, window, plan, **mk)
+    dq = _emulate_dq(q, k, v, do, lse, delta, scale, causal, window, plan, **mk)
+    pq, pk, pv = TA._plain_flash_bwd(q, k, v, o, lse, do, scale, causal, window, **mk)
+    for name, got, ref in (("dq", dq, pq), ("dk", dk, pk), ("dv", dv, pv)):
+        np.testing.assert_allclose(_np32(got), _np32(ref), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("d,dkv_wgs,dq_wgs", TILES)
+@pytest.mark.parametrize("s,window,sinks", [(576, 100, 4), (1088, 300, 70), (1000, 129, 1)])
+def test_cta_synchronisation_with_sinks(s, window, sinks, d, dkv_wgs, dq_wgs):
+    _run_dkv(s, s, d, dkv_wgs, True, window, sinks)
+    _run_dq(s, s, d, dq_wgs, True, window, sinks)

@@ -10,7 +10,11 @@ the causal and window skips per CTA and per warpgroup, -1e30 masks applied
 only on the tiles the kernel masks, the running max in base 2, P rounded to
 bf16 against it, lse = m ln 2 + log l) against the JAX ``_flash_fwd`` run in
 interpret mode at the same ``bq`` / ``bk`` (where S is a multiple of them:
-its grid is S // bq) and against the port's ``_plain_flash_fwd`` everywhere.
+its grid is S // bq) and against the port's ``_plain_flash_fwd`` everywhere,
+under every mask the kernel takes: a window with attention sinks (the sink
+tiles below a CTA's band streamed first, every tile of a warpgroup from 0
+on), key-padding rows and segment ids (every tile masked), alone and
+together, and a fully masked key row (lse -1e30).
 On the card, ``chip_smoke.py`` holds the kernel itself against the plain
 version at the main path's shapes.
 
@@ -130,19 +134,34 @@ def _key_tile(rows: int, d: int) -> int:
     return 128 if d == 128 and rows == 128 else 64
 
 
-def _cta_tiles(q0: int, rows: int, d: int, sq: int, sk: int, causal: bool, window):
-    """(key tile, kt0, ntiles): the live key tiles [kt0, kt0 + ntiles) of the
-    CTA at query row q0: causal tiles wholly above the diagonal of its last
-    row, and with a window those wholly below the band of its first, are
-    skipped."""
+def _cta_tiles(q0: int, rows: int, d: int, sq: int, sk: int, causal: bool, window,
+               sinks: int = 0):
+    """(key tile, kt0, ns, tiles): the CTA at query row q0 streams key
+    tiles ``tiles`` (tile n of the CTA is key tile ``tiles[n]``): causal
+    tiles wholly above the diagonal of its last row, and with a window those
+    wholly below the band of its first, are skipped, except the ns tiles
+    that hold sink columns below the band, which come first."""
     bk = _key_tile(rows, d)
     last = min(q0 + rows, sq) - 1
-    kt0, kt1 = 0, -(-sk // bk)
+    kt0, kt1, ns = 0, -(-sk // bk), 0
     if causal:
         kt1 = min(kt1, last // bk + 1)
         if window:
             kt0 = max(0, q0 - window + 1) // bk
-    return bk, kt0, kt1 - kt0
+            ns = min(kt0, -(-sinks // bk))
+    return bk, kt0, ns, list(range(ns)) + list(range(kt0, kt1))
+
+
+def _wg_tiles(w0: int, bk: int, kt0: int, ns: int, ntiles: int, sq: int, causal: bool,
+              window, sinks: int = 0):
+    """[na, nb): the CTA's tiles the warpgroup at row w0 computes (with
+    sinks every tile from 0 on)."""
+    na, nb = 0, ntiles if w0 < sq else 0
+    if w0 < sq and causal:
+        nb = min(ntiles, min(w0 + 63, sq - 1) // bk + 1 - kt0 + ns)
+        if window and not sinks:
+            na = max(0, max(0, w0 - window + 1) // bk - kt0)
+    return na, nb
 
 
 def _pad(t, r0: int, n: int):
@@ -154,50 +173,79 @@ def _pad(t, r0: int, n: int):
     return out
 
 
-def _emulate(q, k, v, scale, causal, window, rows):
+def _keep(r, c, sq: int, sk: int, causal: bool, window, sinks: int, kvm, seg, h: int):
+    """(BH, rows, cols) visibility of the index grids r (rows, 1) x c (1,
+    cols): bounds, causal, window and sinks, the key rows and the ids (batch
+    bh // h)."""
+    keep = c < sk
+    if causal:
+        live = r >= c
+        if window:
+            live = live & ((r - c < window) | (c < sinks))
+        keep = keep & live
+    keep = keep[None]
+    if kvm is not None:
+        kv = torch.zeros(kvm.shape[0], c.shape[1], dtype=torch.bool)
+        n = max(0, min(c.shape[1], sk - int(c[0, 0])))
+        kv[:, :n] = kvm[:, int(c[0, 0]):int(c[0, 0]) + n] != 0
+        keep = keep & kv.repeat_interleave(h, 0)[:, None, :]
+    if seg is not None:
+        def ids(idx, n):
+            out = torch.full((seg.shape[0], idx.numel()), -2, dtype=seg.dtype)
+            i0, m = int(idx.reshape(-1)[0]), max(0, min(idx.numel(), n - int(idx.reshape(-1)[0])))
+            out[:, :m] = seg[:, i0:i0 + m]
+            return out.repeat_interleave(h, 0)
+        keep = keep & (ids(r, sq)[:, :, None] == ids(c, sk)[:, None, :])
+    return keep
+
+
+def _emulate(q, k, v, scale, causal, window, rows, sinks=0, kvm=None, seg=None, h=1):
     """(o, lse, first_masked) of the bf16 kernel's tile loop, in plain torch
-    f32.  For each CTA of ``rows`` query rows (q0), its live key tiles [kt0,
-    kt1); for each 64-row warpgroup (w0) the tiles live for its rows; the
-    -1e30 masks only on the tiles the kernel's ``edge`` names (asserting that
-    no other tile holds a masked pair); the online softmax in base 2 with P
-    rounded to bf16 against the running max; o = acc * (1 / l) rounded to
-    bf16, lse = m ln 2 + log l.  first_masked counts the rows whose first
-    tile was wholly masked (a uniform P the next tile's zero alpha wipes)."""
+    f32.  For each CTA of ``rows`` query rows (q0), its key tiles; for each
+    64-row warpgroup (w0) the tiles [na, nb) it computes (asserting that the
+    others hold no visible pair); the -1e30 masks only on the tiles the
+    kernel's ``edge`` names (asserting that no other tile holds a masked
+    pair); the online softmax in base 2 with P rounded to bf16 against the
+    running max; o = acc * (1 / l) rounded to bf16, lse = m ln 2 + log l
+    (-1e30 where m is still -1e30).  first_masked counts the rows whose
+    first tile was wholly masked (a uniform P the next tile's zero alpha
+    wipes)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    sinks = sinks if window else 0
     sl2 = float(np.float32(scale) * np.float32(_LOG2E))
     o = torch.zeros(bh, sq, d, dtype=q.dtype)
     lse = torch.zeros(bh, sq)
     first_masked = 0
     for q0 in range(0, sq, rows):
-        bk, kt0, ntiles = _cta_tiles(q0, rows, d, sq, sk, causal, window)
+        bk, kt0, ns, tiles = _cta_tiles(q0, rows, d, sq, sk, causal, window, sinks)
         for w0 in range(q0, min(q0 + rows, sq), 64):
-            wlast = min(w0 + 63, sq - 1)
+            na, nb = _wg_tiles(w0, bk, kt0, ns, len(tiles), sq, causal, window, sinks)
             r = torch.arange(w0, w0 + 64)[:, None]
             qw = _pad(q, w0, 64)
             m = torch.full((bh, 64), _NEG)
             l = torch.zeros(bh, 64)
             acc = torch.zeros(bh, 64, d)
-            seen = torch.zeros(64, dtype=torch.bool)
-            for kt in range(kt0, kt0 + ntiles):
+            seen = torch.zeros(bh, 64, dtype=torch.bool)
+            computed = {tiles[n] for n in range(na, nb)}
+            for kt in range(-(-sk // bk)):
                 k0 = kt * bk
-                if causal and not (k0 <= wlast and (not window or k0 + bk - 1 >= w0 - window + 1)):
-                    continue
                 c = torch.arange(k0, k0 + bk)[None, :]
+                keep = _keep(r, c, sq, sk, causal, window, sinks, kvm, seg, h)
+                if kt not in computed:
+                    assert not (keep & (r < sq)).any(), (
+                        f"rows {w0}: key tile {kt} is skipped but holds a visible pair")
+                    continue
                 s = (qw @ _pad(k, k0, bk).transpose(1, 2)) * sl2
-                keep = c < sk
-                if causal:
-                    keep = keep & (r >= c)
-                    if window:
-                        keep = keep & (r - c < window)
-                edge = k0 + bk > sk or (causal and (k0 + bk - 1 > w0
-                                                    or (window and w0 + 63 - k0 >= window)))
+                edge = (k0 + bk > sk or kvm is not None or seg is not None
+                        or (causal and (k0 + bk - 1 > w0
+                                        or (window and w0 + 63 - k0 >= window))))
                 if edge:
                     s = torch.where(keep, s, torch.full_like(s, _NEG))
                 else:
                     assert bool(keep.all()), "a tile the kernel does not mask holds a masked pair"
-                rows_valid = (r[:, 0] < sq)
-                first_masked += int((~seen & ~keep.any(dim=1) & rows_valid).sum())
+                rows_valid = (r[:, 0] < sq)[None]
+                first_masked += int((~seen & ~keep.any(dim=2) & rows_valid).sum())
                 seen |= True
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 alpha = torch.exp2(m - m_new)
@@ -207,7 +255,8 @@ def _emulate(q, k, v, scale, causal, window, rows):
                 m = m_new
             n = min(64, sq - w0)
             o[:, w0:w0 + n] = (acc * (1.0 / l)[..., None])[:, :n].to(q.dtype)
-            lse[:, w0:w0 + n] = (m * _LN2 + torch.log(l))[:, :n]
+            lse[:, w0:w0 + n] = torch.where(m == _NEG, torch.full_like(m, _NEG),
+                                            m * _LN2 + torch.log(l))[:, :n]
     return o, lse, first_masked
 
 
@@ -261,7 +310,8 @@ def test_tile_loop_matches_plain_on_ragged_shapes(bh, s, d, rows, causal, window
 # ---------------------------------------------------------------------------
 
 
-def _consumer_steps(q0: int, wg: int, rows: int, sq: int, sk: int, causal: bool, window):
+def _consumer_steps(q0: int, wg: int, rows: int, sq: int, sk: int, causal: bool, window,
+                    sinks: int = 0):
     """The synchronisation steps of consumer warpgroup ``wg`` of the CTA at
     q0, in the order of ``flash_fwd.cu``'s ``flash_fwd_wgmma_kernel``
     (restated here): ("acquire", n) waits until key tile n has landed in its
@@ -269,13 +319,10 @@ def _consumer_steps(q0: int, wg: int, rows: int, sq: int, sk: int, causal: bool,
     issuing MMAs (await the other warpgroup's hand-over, then hand over).
     Turn n is taken for each key tile n >= 1 of the CTA, live for the
     warpgroup's rows or not."""
-    bk, kt0, ntiles = _cta_tiles(q0, rows, 128, sq, sk, causal, window)
+    bk, kt0, ns, tiles = _cta_tiles(q0, rows, 128, sq, sk, causal, window, sinks)
+    ntiles = len(tiles)
     w0 = q0 + 64 * wg
-    na, nb = 0, ntiles if w0 < sq else 0
-    if w0 < sq and causal:
-        nb = min(ntiles, min(w0 + 63, sq - 1) // bk + 1 - kt0)
-        if window:
-            na = max(0, max(0, w0 - window + 1) // bk - kt0)
+    na, nb = _wg_tiles(w0, bk, kt0, ns, ntiles, sq, causal, window, sinks)
     steps = []
 
     def turns_to(n):
@@ -299,7 +346,7 @@ def _consumer_steps(q0: int, wg: int, rows: int, sq: int, sk: int, causal: bool,
     return steps, ntiles
 
 
-def _run_cta(q0: int, rows: int, sq: int, sk: int, causal: bool, window):
+def _run_cta(q0: int, rows: int, sq: int, sk: int, causal: bool, window, sinks: int = 0):
     """Run the CTA's producer and consumers, step by step, until none can
     move, and assert that all finished.  The producer fills tile n into
     stage n % stages once every consumer has released tile n - stages.  With
@@ -309,7 +356,7 @@ def _run_cta(q0: int, rows: int, sq: int, sk: int, causal: bool, window):
     so one made while the last is still unawaited would complete the barrier
     on its own, and one never awaited is left pending at exit."""
     wgs, stages = rows // 64, (3 if rows == 128 else 2)
-    progs = [_consumer_steps(q0, w, rows, sq, sk, causal, window) for w in range(wgs)]
+    progs = [_consumer_steps(q0, w, rows, sq, sk, causal, window, sinks) for w in range(wgs)]
     steps, ntiles = [p[0] for p in progs], progs[0][1]
     turns = ntiles - 1
     pos, filled, released = [0] * wgs, 0, [0] * ntiles
@@ -375,3 +422,108 @@ def test_cta_synchronisation_at_every_length(causal, window):
     for sq in range(1, 1100, 3):
         for q0 in range(0, sq, 128):
             _run_cta(q0, 128, sq, sq, causal, window)
+
+
+# ---------------------------------------------------------------------------
+# the masks: sinks, key-padding rows, segment ids
+# ---------------------------------------------------------------------------
+
+
+def _mask_operands(b, h, s, kind, seed):
+    """(sinks, kvm, seg) of one mask case over b batch rows of s keys: the
+    key rows keep a random prefix of each row (at least 1), the ids split
+    each row into four documents with a padding tail (-1)."""
+    rng = np.random.RandomState(seed)
+    kvm = seg = None
+    if "kvm" in kind:
+        lens = rng.randint(1, s + 1, size=b)
+        kvm = torch.from_numpy((np.arange(s)[None] < lens[:, None]).astype(np.int32))
+        if "dead" in kind:
+            kvm[0] = 0
+    if "seg" in kind:
+        cuts = np.sort(rng.randint(1, s, size=(b, 3)), axis=1)
+        ids = (np.arange(s)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        ids[:, s - 5:] = -1
+        seg = torch.from_numpy(ids.astype(np.int32))
+    return (4 if "sinks" in kind else 0), kvm, seg
+
+
+def _jax_masks(kvm, seg):
+    return dict(mask=None if kvm is None else jnp.asarray(kvm.numpy()),
+                seg=None if seg is None else jnp.asarray(seg.numpy()))
+
+
+# (b, h, s, head dim, rows, causal, window, kind) where S is a multiple of
+# both tiles: the emulation against the JAX kernel at the same bq / bk and
+# the plain version.  Sinks with a window that leaves sink tiles below the
+# band; a key row, non-causal, with and without a fully masked batch row;
+# ids under causality; everything at once (no row left without a key: the
+# ids' documents start at or after each row's key)
+MASKED_ALIGNED = [(1, 2, 512, 128, 128, True, 192, "sinks"),
+                  (1, 2, 512, 128, 64, True, 100, "sinks"),
+                  (1, 1, 512, 256, 64, True, 150, "sinks"),
+                  (2, 1, 256, 128, 128, False, None, "kvm"),
+                  (2, 1, 256, 128, 64, False, None, "kvm-dead"),
+                  (2, 1, 256, 256, 64, False, None, "kvm-dead"),
+                  (2, 1, 256, 128, 128, True, None, "seg"),
+                  (2, 1, 256, 128, 128, True, 96, "sinks-seg")]
+
+
+@pytest.mark.parametrize("b,h,s,d,rows,causal,window,kind", MASKED_ALIGNED)
+def test_masked_tile_loop_matches_jax_kernel_and_plain(_interpret, b, h, s, d, rows, causal,
+                                                       window, kind):
+    q, k, v = _qkv(b * h, s, d, seed=s + d + rows + len(kind))
+    sinks, kvm, seg = _mask_operands(b, h, s, kind, seed=len(kind))
+    scale = d ** -0.5
+    tq, tk, tv = (torch.from_numpy(t).to(BF16) for t in (q, k, v))
+    o, lse, _ = _emulate(tq, tk, tv, scale, causal, window, rows, sinks, kvm, seg, h)
+    jq, jk, jv = (jnp.asarray(t, jnp.bfloat16) for t in (q, k, v))
+    o_ref, lse_ref = A._flash_fwd(jq, jk, jv, scale, causal, bq=rows, bk=_key_tile(rows, d),
+                                  h=h, window=window, sinks=sinks, **_jax_masks(kvm, seg))
+    _close(o, lse, np.asarray(o_ref.astype(jnp.float32)), np.asarray(lse_ref).reshape(b * h, s))
+    op, lp = TA._plain_flash_fwd(tq, tk, tv, scale, causal, window, sinks, kvm, seg, h)
+    _close(o, lse, op, lp)
+    if "dead" in kind:
+        # the fully masked row: lse -1e30, o the mean of v, as on the TPU
+        assert bool((lse[:h] == _NEG).all())
+        np.testing.assert_allclose(o[:h].float().numpy(),
+                                   tv[:h].float().mean(1, keepdim=True).expand(h, s, d).numpy(),
+                                   rtol=2 ** -6, atol=2 ** -7)
+
+
+# ragged S under the masks, a window that is not a tile multiple with sinks
+# past the first tile, and a key row with ids and sinks together
+MASKED_RAGGED = [(2, 1, 200, 128, 128, True, 70, "sinks"),
+                 (1, 2, 333, 128, 64, True, 130, "sinks"),
+                 (2, 1, 77, 128, 64, False, None, "kvm"),
+                 (2, 1, 200, 256, 64, True, None, "seg"),
+                 (2, 2, 300, 128, 128, True, 90, "sinks-seg")]
+
+
+@pytest.mark.parametrize("b,h,s,d,rows,causal,window,kind", MASKED_RAGGED)
+def test_masked_tile_loop_matches_plain_on_ragged_shapes(b, h, s, d, rows, causal, window,
+                                                        kind):
+    q, k, v = (torch.from_numpy(t).to(BF16) for t in _qkv(b * h, s, d, seed=s + d))
+    sinks, kvm, seg = _mask_operands(b, h, s, kind, seed=s)
+    o, lse, _ = _emulate(q, k, v, d ** -0.5, causal, window, rows, sinks, kvm, seg, h)
+    op, lp = TA._plain_flash_fwd(q, k, v, d ** -0.5, causal, window, sinks, kvm, seg, h)
+    _close(o, lse, op, lp)
+
+
+def test_sink_tiles_come_first_and_stay_live():
+    # S 4,608 at window 4,096 and 4 sinks (the path's prefill): the last
+    # CTAs stream key tile 0 before their band, and a CTA whose band starts
+    # at tile 0 streams it once
+    bk, kt0, ns, tiles = _cta_tiles(4480, 128, 128, 4608, 4608, True, 4096, 4)
+    assert (bk, ns, tiles[0], tiles[1]) == (128, 1, 0, kt0) and kt0 > 1
+    assert _cta_tiles(0, 128, 128, 4608, 4608, True, 4096, 4)[3] == [0]
+    # without sinks the band alone
+    assert _cta_tiles(4480, 128, 128, 4608, 4608, True, 4096, 0)[3][0] == kt0
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("sq,window,sinks", [(576, 100, 4), (1088, 300, 70), (1000, 129, 1),
+                                             (4608, 4096, 4)])
+def test_cta_synchronisation_with_sinks(sq, window, sinks, rows):
+    for q0 in range(0, sq, rows):
+        _run_cta(q0, rows, sq, sq, True, window, sinks)

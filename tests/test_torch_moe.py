@@ -340,9 +340,11 @@ def test_f32_server_matches_solo_decode(server):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [dict(window=64), dict(sinks=4)])
+# window and sinks are ported (tests/test_torch_window.py); out of range
+# they raise, as the JAX layer's asserts do
+@pytest.mark.parametrize("kw", [dict(window=0), dict(window=64, sinks=-1)])
 def test_later_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="must be >= "):
         MoETransformerLM(device="cpu", **GELU, **kw)
 
 

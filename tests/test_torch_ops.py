@@ -25,7 +25,7 @@ TOL = dict(rtol=1e-10, atol=1e-10)
 # the JAX package's ops that wait for later slices of the port
 LATER = {
     "psum", "ppermute", "pmean", "all_gather", "psum_scatter", "all_to_all",
-    "sdpa", "layernorm", "add_layernorm",  # models
+    "layernorm", "add_layernorm",  # models
     "conv2d", "conv2d_input_grad", "conv2d_kernel_grad",  # CNN
 }
 

@@ -282,16 +282,22 @@ def test_optimizer_step_matches_jax(opt):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [dict(window=64), dict(sinks=4),
-                                dict(dropout=0.1), dict(remat_blocks=True)])
-def test_later_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
+# window and sinks are ported (tests/test_torch_window.py); a window or
+# sinks out of range raise as the JAX layer's asserts do
+@pytest.mark.parametrize("kw,err", [(dict(window=0), ValueError),
+                                    (dict(window=64, sinks=-1), ValueError),
+                                    (dict(dropout=0.1), NotImplementedError),
+                                    (dict(remat_blocks=True), NotImplementedError)])
+def test_later_options_raise(kw, err):
+    with pytest.raises(err, match="later slice|must be >= "):
         TransformerLM(device="cpu", **SMALL, **kw)
 
 
 def test_packing_raises():
+    # packing is ported for TransformerLM (tests/test_torch_pack.py); its
+    # tables must match the tokens' shape, and packed ids need S_q == S_k
     tm = TransformerLM(device="cpu", **dict(SMALL, rope=True, norm="rms"))
     toks = torch.zeros((1, 8), dtype=torch.long)
-    for kw in (dict(segment_ids=toks), dict(positions=toks)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tm(toks, **kw)
+    assert tm(toks, segment_ids=toks, positions=toks).shape == (1, 8, 64)
+    with pytest.raises((RuntimeError, ValueError, IndexError)):
+        tm(toks, segment_ids=torch.zeros((1, 7), dtype=torch.long))

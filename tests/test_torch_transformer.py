@@ -99,9 +99,9 @@ def test_params_from_jax_bfloat16_leaves():
 
 
 def test_unported_options_raise():
-    # the LLaMA-style options are ported (tests/test_torch_options.py)
-    for kw in (dict(window=64), dict(sinks=4), dict(dropout=0.1),
-               dict(remat_blocks=True)):
+    # the LLaMA-style options are ported (tests/test_torch_options.py), and
+    # so are window and sinks (tests/test_torch_window.py)
+    for kw in (dict(dropout=0.1), dict(remat_blocks=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             TransformerLM(device="cpu", **CFG, **kw)
 
